@@ -24,7 +24,7 @@ from ..ops.kernels.resblock_chain import C as CHAIN_C
 from ..ops.kernels.resblock_chain import pack_weights, resblock_chain
 from .base import Denoiser, handle_sigma
 from .layers import Conv2d, ConvTranspose2d, Sequential
-from .utils import test_pad
+from .utils import stacked_weights, test_pad
 
 __all__ = ["DRUNet", "ResBlock"]
 
@@ -91,7 +91,6 @@ class DRUNet(Denoiser):
         self.m_up2 = up_stage(nc[2], nc[1])
         self.m_up1 = up_stage(nc[1], nc[0])
         self.m_tail = Conv2d(nc[0], out_channels, 3, 1, 1, bias=False, generator=g)
-        self._packed = None  # (weight versions, stacked and packed chain weights)
         # channels_last is cuDNN's native layout for bf16 tensor-core convs on
         # the H100 and the resblock-chain kernel's: on NCHW activations cuDNN
         # transposes around every conv, on NCHW weights with NHWC activations
@@ -100,20 +99,10 @@ class DRUNet(Denoiser):
 
     def _chain_weights(self, blocks):
         """Stacked OIHW weights of the scale-0 chain and their kernel
-        packing. Packed once and kept until a weight changes; under autograd
-        the stacks are rebuilt so gradients reach each block's weights."""
-        ws = [w for b in blocks for w in (b.conv1.weight, b.conv2.weight)]
-        if torch.is_grad_enabled() and any(w.requires_grad for w in ws):
-            w1s = torch.stack([b.conv1.weight for b in blocks])
-            w2s = torch.stack([b.conv2.weight for b in blocks])
-            return w1s, w2s, None
-        key = tuple((w.data_ptr(), w._version, w.dtype, w.device) for w in ws)
-        if self._packed is None or self._packed[0] != key:
-            w1s = torch.stack([b.conv1.weight for b in blocks]).detach()
-            w2s = torch.stack([b.conv2.weight for b in blocks]).detach()
-            packed = (pack_weights(w1s), pack_weights(w2s)) if w1s.is_cuda else None
-            self._packed = (key, (w1s, w2s, packed))
-        return self._packed[1]
+        packing, packed once per weight version (:func:`stacked_weights`)."""
+        return stacked_weights(
+            self, ([b.conv1.weight for b in blocks], [b.conv2.weight for b in blocks]),
+            lambda w1s, w2s: (pack_weights(w1s), pack_weights(w2s)))
 
     def _down_chain0(self, x):
         """Scale-0 down chain ``m_down1[:-1]``: the kernel op where it

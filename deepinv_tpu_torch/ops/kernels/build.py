@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources are ``deepinv_tpu_torch/csrc/*.cu`` and ``*.cuh``. On first use
-they are compiled by ``nvcc`` for ``sm_90a`` into one shared library with a
-plain C interface, named by a hash of the sources and the flags, under
+each ``.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (all at once), and the
+objects are linked into one shared library with a plain C interface, named by
+a hash of the sources and the flags, under
 ``deepinv_tpu_torch/_build/``, and loaded with ``ctypes``. A later process with
 the same sources loads the library it finds there. Nothing is built when a
 module is imported: :func:`load_library` runs inside the first launch.
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _sources():
@@ -56,30 +57,48 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.deepinv_resblock_chain_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.deepinv_resblock_chain_bf16.restype = i
+    lib.deepinv_conv_chain_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.deepinv_conv_chain_bf16.restype = i
     lib.deepinv_cuda_error_string.argtypes = [i]
     lib.deepinv_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _run_all(cmds, log):
+    """Run the commands side by side; log each one's output; raise on the
+    first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        log.append(" ".join(cmd) + "\n" + out)
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (rc={p.returncode}):\n{out[-4000:]}")
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile the kernels if this set of sources has not been built yet,
-    then load the library (once per process)."""
+    then load the library (once per process). Each ``.cu`` file is compiled
+    by its own ``nvcc``, all started together, and the objects are linked
+    into one library."""
     so = BUILD_DIR / f"libdeepinv_kernels-{_digest()}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
-        os.replace(tmp, so)  # atomic: a concurrent builder sees all or nothing
+        log = []
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            cu = [s for s in _sources() if s.suffix == ".cu"]
+            objs = [str(Path(tmpdir) / f"{s.stem}.o") for s in cu]
+            compiles = [[_nvcc(), *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", o, str(s)]
+                        for s, o in zip(cu, objs)]
+            tmp = str(Path(tmpdir) / "lib.so")
+            try:
+                _run_all(compiles, log)
+                _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]], log)
+            finally:
+                (BUILD_DIR / "build.log").write_text("\n".join(log))
+            os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
     return _declare(ctypes.CDLL(str(so)))
 
 

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["resblock_chain", "resblock_chain_plain", "resblocks_f32",
-           "pack_weights", "C"]
+           "pack_weights", "check_activations", "C"]
 
 C = 64  # channel width the kernel is built for
 
@@ -65,13 +65,19 @@ def resblock_chain_plain(h, w1s, w2s):
     return h
 
 
-def _check_cuda(h, w1p, w2p):
+def check_activations(h, op: str):
+    """Raise unless ``h`` is what the port's 64-channel chain kernels take:
+    ``(B, 64, H, W)`` bf16, contiguous NCHW or channels_last."""
     if h.dtype != torch.bfloat16:
-        raise TypeError(f"resblock_chain kernel takes bf16 activations, got {h.dtype}")
+        raise TypeError(f"{op} kernel takes bf16 activations, got {h.dtype}")
     if h.dim() != 4 or h.shape[1] != C or min(h.shape) < 1:
-        raise ValueError(f"resblock_chain kernel takes (B, {C}, H, W), got {tuple(h.shape)}")
+        raise ValueError(f"{op} kernel takes (B, {C}, H, W), got {tuple(h.shape)}")
     if not (h.is_contiguous() or h.is_contiguous(memory_format=torch.channels_last)):
-        raise ValueError("resblock_chain kernel takes a contiguous NCHW or channels_last tensor")
+        raise ValueError(f"{op} kernel takes a contiguous NCHW or channels_last tensor")
+
+
+def _check_cuda(h, w1p, w2p):
+    check_activations(h, "resblock_chain")
     R = w1p.shape[0]
     for w in (w1p, w2p):
         if (w.shape != (R, 9, C, C) or w.dtype != torch.bfloat16

@@ -5,6 +5,8 @@ written into each subclass as ``d_fn``/``d_grad``; the JAX package's separate
 
 from __future__ import annotations
 
+import contextlib
+
 from .potential import Potential
 
 __all__ = ["DataFidelity", "L2"]
@@ -19,6 +21,31 @@ class DataFidelity(Potential):
 
     def d_grad(self, u, y):
         raise NotImplementedError
+
+    _measurement = None  # (y, physics, A^T y or None) inside fixed_measurement
+
+    @contextlib.contextmanager
+    def fixed_measurement(self, y, physics):
+        """Scope of one reconstruction of ``y`` through ``physics``: inside
+        it, :meth:`adjoint_measurement` computes ``A^T y`` once. XLA hoists
+        this loop invariant out of the JAX package's ``lax.scan``
+        (data_fidelity.py:153-160); an eager Python loop would compute it in
+        every iteration."""
+        self._measurement = (y, physics, None)
+        try:
+            yield
+        finally:
+            self._measurement = None
+
+    def adjoint_measurement(self, y, physics):
+        """``physics.A_adjoint(y)``, computed once per :meth:`fixed_measurement`
+        scope of this ``y`` and ``physics``."""
+        m = self._measurement
+        if m is None or m[0] is not y or m[1] is not physics:
+            return physics.A_adjoint(y)
+        if m[2] is None:
+            self._measurement = m = (y, physics, physics.A_adjoint(y))
+        return m[2]
 
     def fn(self, x, y, physics, *args, **kwargs):
         return self.d_fn(physics.A(x), y)
@@ -52,3 +79,10 @@ class L2(DataFidelity):
 
     def prox(self, x, y, physics, *args, gamma=1.0, **kwargs):
         return physics.prox_l2(x, y, self.norm * gamma, **kwargs)
+
+    def grad(self, x, y, physics, *args, **kwargs):
+        """``A^T(Ax - y) / sigma^2``; split into ``A_adjoint_A(x) - A^T y``
+        when the physics has a fast normal operator (data_fidelity.py:151-160)."""
+        if getattr(physics, "fast_normal", False):
+            return (physics.A_adjoint_A(x) - self.adjoint_measurement(y, physics)) * self.norm
+        return super().grad(x, y, physics, *args, **kwargs)

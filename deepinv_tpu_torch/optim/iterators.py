@@ -3,14 +3,14 @@
 An iterator maps the state ``X = {"est": (x, z), "it": k}`` to the next one,
 given the data fidelity, the prior, this iteration's parameters
 (``stepsize``, ``g_param``, ``lambda``, ``beta``), ``y`` and the physics.
-Only HQS is ported; the other iterators wait for their slices.
+HQS and PGD are ported; the other iterators wait for their slices.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-__all__ = ["OptimIterator", "HQSIteration"]
+__all__ = ["OptimIterator", "HQSIteration", "PGDIteration"]
 
 
 class OptimIterator(nn.Module):
@@ -46,6 +46,25 @@ class HQSIteration(OptimIterator):
             x_new = prior.prox(z, params.get("g_param"), gamma=gamma)
         else:
             z = prior.prox(x, params.get("g_param"), gamma=gamma)
+            x_new = data_fidelity.prox(z, y, physics, gamma=params["stepsize"])
+        x_new = self.relaxation(x_new, x, params.get("beta", 1.0))
+        return {"est": (x_new, z), "it": X["it"] + 1}
+
+
+class PGDIteration(OptimIterator):
+    r"""Proximal gradient (iterators.py:97): a gradient step on f at
+    ``stepsize``, then the prox of g at denoiser level ``g_param``. With
+    ``g_first``, a gradient step on g and then the prox of f. Then
+    relaxation by ``beta``."""
+
+    def forward(self, X, data_fidelity, prior, params, y, physics):
+        x = X["est"][0]
+        if not self.g_first:
+            z = x - params["stepsize"] * data_fidelity.grad(x, y, physics)
+            x_new = prior.prox(z, params.get("g_param"),
+                               gamma=params["lambda"] * params["stepsize"])
+        else:
+            z = x - params["lambda"] * params["stepsize"] * prior.grad(x, params.get("g_param"))
             x_new = data_fidelity.prox(z, y, physics, gamma=params["stepsize"])
         x_new = self.relaxation(x_new, x, params.get("beta", 1.0))
         return {"est": (x_new, z), "it": X["it"] + 1}

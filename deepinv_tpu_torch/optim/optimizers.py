@@ -1,6 +1,6 @@
 """Reconstruction algorithms (port of deepinv_tpu/optim/optimizers.py).
 
-``optim_builder("HQS", data_fidelity, prior, params_algo, max_iter)`` returns a
+``optim_builder("PGD", data_fidelity, prior, params_algo, max_iter)`` returns a
 :class:`BaseOptim`, a reconstructor ``model(y, physics) -> x``. Each entry of
 ``params_algo`` is a scalar (the same every iteration) or a list/tensor with
 one value per iteration; it is stored as a ``(max_iter, ...)`` buffer, so
@@ -16,19 +16,16 @@ import torch
 from ..models.base import Reconstructor
 from .data_fidelity import L2
 from .fixed_point import FixedPoint
-from .iterators import HQSIteration, OptimIterator
+from .iterators import HQSIteration, OptimIterator, PGDIteration
 from .prior import Zero
 
 __all__ = ["BaseOptim", "optim_builder", "create_iterator"]
 
-_ITERATORS = {"HQS": HQSIteration}
+_ITERATORS = {"HQS": HQSIteration, "PGD": PGDIteration}
 
 # The JAX package's other iterators (iterators.py) and the ROADMAP item that ports each.
-_WAITING = {
-    "PGD": "ROADMAP queue 1 item 4 (slice 2)",
-    **{name: "ROADMAP queue 1 item 8 (slice 6)"
-       for name in ("GD", "FISTA", "ADMM", "DRS", "CP", "MD", "PMD", "SM", "SIRT", "MLEM")},
-}
+_WAITING = {name: "ROADMAP queue 1 item 8 (slice 6)"
+            for name in ("GD", "FISTA", "ADMM", "DRS", "CP", "MD", "PMD", "SM", "SIRT", "MLEM")}
 
 _DEFAULT_PARAMS = {
     "stepsize": 1.0,
@@ -114,12 +111,16 @@ class BaseOptim(Reconstructor):
         if self.custom_init is not None:
             return self.custom_init(y, physics)
         if hasattr(physics, "A_adjoint"):
-            return physics.A_adjoint(y)
+            return self.data_fidelity.adjoint_measurement(y, physics)
         return y
 
     def forward(self, y, physics, x_init=None, **kwargs):
-        x0 = self.init_iterate(y, physics, x_init)
-        X = self.fixed_point(x0, self.data_fidelity, self.prior, self.params_algo, y, physics)
+        # A^T y is computed once for the whole reconstruction (the initial
+        # iterate and every gradient step share it)
+        with self.data_fidelity.fixed_measurement(y, physics):
+            x0 = self.init_iterate(y, physics, x_init)
+            X = self.fixed_point(x0, self.data_fidelity, self.prior, self.params_algo, y,
+                                 physics)
         return self.iterator.get_output(X)
 
 

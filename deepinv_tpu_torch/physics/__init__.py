@@ -2,7 +2,9 @@
 
 from .base import DecomposablePhysics, LinearPhysics, Physics
 from .blur import BlurFFT
+from .mri import MRI, MRIMixin
 from .noise import GaussianNoise, NoiseModel
+from .tomography import Tomography
 
-__all__ = ["Physics", "LinearPhysics", "DecomposablePhysics", "BlurFFT",
-           "NoiseModel", "GaussianNoise"]
+__all__ = ["Physics", "LinearPhysics", "DecomposablePhysics", "BlurFFT", "MRI", "MRIMixin",
+           "Tomography", "NoiseModel", "GaussianNoise"]

@@ -108,6 +108,18 @@ class LinearPhysics(Physics):
         """``v^T (dA/dx)``: ``A_adjoint(v)`` for linear A (base.py:303)."""
         return self.A_adjoint(v)
 
+    def A_adjoint_A(self, x, **params):
+        """``A^T A x`` (base.py:310). A physics with a faster normal operator
+        overrides it and sets :attr:`fast_normal`."""
+        return self.A_adjoint(self.A(x, **params), **params)
+
+    @property
+    def fast_normal(self) -> bool:
+        """Whether :meth:`A_adjoint_A` is faster than ``A_adjoint(A(x))``; the
+        L2 gradient then splits into ``A_adjoint_A(x) - A_adjoint(y)``
+        (deepinv_tpu/optim/data_fidelity.py:151-160)."""
+        return False
+
     def adjointness_test(self, u, generator=None):
         """``<A u, v> - <u, A^T v>`` for a random v (base.py:321)."""
         if generator is None:

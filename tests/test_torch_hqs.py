@@ -140,7 +140,7 @@ def test_builder_schedule_and_unported_options():
     assert model.params_algo["g_param"].shape == (5,)
     assert "param_stepsize" in model.state_dict()  # a buffer: .to(device) moves it
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_iterator("PGD")
+        create_iterator("FISTA")
     with pytest.raises(ValueError):
         create_iterator("nope")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -9,8 +9,10 @@ Phases (each one raises, and the script exits non-zero, if it fails):
 2. build the CUDA kernels from ``deepinv_tpu_torch/csrc`` (nvcc, sm_90a, one
    nvcc per source, all started together);
 3. each kernel against its plain PyTorch version, TF32 off, at its main-path
-   shapes: the DRUNet resblock chain (K1) and the DnCNN conv+bias+ReLU chain
-   (K5);
+   shapes: the DRUNet resblock chain (K1), the DnCNN conv+bias+ReLU chain
+   (K5) and the Chambolle TV prox (K7; 1x3x256², 1x2x256², B=2 with two
+   gammas, a ragged 1x1x37x53 plane and a 1x1x1024² plane that no SM holds,
+   100 iterations each);
 4. the HQS bench problem through the port's entry points: PnP-HQS deblurring
    of a 1x3x256x256 image (BlurFFT, Gaussian blur sigma 1.5, Gaussian noise
    0.01) with a bf16 full-width DRUNet (nc=(64,128,256,512), nb=4, seeded
@@ -27,10 +29,24 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    must agree with the same call on the plain chain, and the output with the
    same reconstruction run on the plain chain on the card (PGD: and on the
    chain in f32 without rounding);
-6. times, with CUDA events after warm-up, in turns: each kernel against its
-   plain version and against the same chain as cuDNN bf16 layers, and each
-   reconstruction's iterations per second on the kernel path and on the plain
-   chain.
+6. the TV problems, f32, through the entry points with the default device
+   and ``TVPrior()`` (100 Chambolle steps per prox), on piecewise-constant
+   phantoms of random discs: TV deblurring of 1x3x256² (BlurFFT, Gaussian blur
+   sigma 2, noise 0.02) by PGD, FISTA, ADMM and Chambolle-Pock, 30 iterations
+   each, and by PGD at B=8; TV-PGD on MRI (1x2x256², the 30% mask, 20
+   iterations) and on CT (256², 90 angles, normalized, 30 iterations from the
+   FBP); PnP-HQS with ``TVDenoiser(50)`` on the deblurring problem, 10
+   iterations. Each must be finite, launch K7 once per iteration, agree with
+   the same run on the plain prox (``use_pallas=False``) and be no worse than
+   the naive estimate (``y``, the zero-filled ``A^T y``, the FBP) by more than
+   0.5 dB of PSNR;
+7. times, with CUDA events after warm-up, in turns: each kernel against its
+   plain version (K1, K5: and against the same chain as cuDNN bf16 layers),
+   and each reconstruction's iterations per second on the kernel path and on
+   the plain version;
+8. where the TV time goes: ``torch.profiler`` over K7 alone and over TV-PGD
+   deblurring at B=1 and B=8 (device time by kernel, kernels per call, and
+   the device's idle share against the unprofiled wall time).
 
 It prints the card line and a JSON line ``{"kernels": [...]}`` before the last
 line, and ends with ``{"ok": true, "device": {...}}``. It exits non-zero with
@@ -82,6 +98,25 @@ DNCNN_RESIDUAL_SCALE = 0.1
 # CT: the Toeplitz A_adjoint_A against A_adjoint(A(x)), relative L2; they
 # differ by the Kaiser-Bessel gridding (the JAX package: 3.5e-4 on the CPU).
 CT_NORMAL_RTOL = 1e-3
+# K7 against its plain version: (shape, gamma per sample), 100 iterations.
+# Both are f32 and differ only in FMA contraction and the order of a few
+# sums: max error <= 1e-4 of the output's range at the gammas the TV problems
+# use (<= 0.1). At gamma 0.3 on uniform noise the iteration (tau = 1/4, above
+# the 1/8 of Chambolle's convergence proof) amplifies rounding: the plain
+# version alone is ~1e-3 from the same loop in float64 (PERF.md, PR 3).
+TV_SHAPES = [((1, 3, 256, 256), (0.05,)), ((1, 2, 256, 256), (0.02,)),
+             ((2, 3, 256, 256), (0.05, 0.1)), ((1, 1, 37, 53), (0.1,)),
+             ((1, 1, 1024, 1024), (0.05,))]
+TV_ITERS = 100
+TV_RTOL = 1e-4
+# A TV reconstruction against the same run on the plain prox, relative L2.
+TV_RECON_RTOL = 1e-4
+# ... and its PSNR against the naive estimate's (demo_tv_minimisation.py:44).
+TV_PSNR_SLACK_DB = 0.5
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for the bounds.
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -127,9 +162,17 @@ def swapped(module, name: str, fn):
         setattr(module, name, old)
 
 
-def kernel_vs_plain(label: str, run, plain, x, bound: float) -> float:
+def bound_ms(ops: float, peak_ops: float, nbytes: float):
+    """The least time in ms the card could take for work of ``ops``
+    operations at ``peak_ops`` per second that moves ``nbytes`` (each input
+    read once, each output written once), and which of the two bounds it."""
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_vs_plain(label: str, run, plain, x, bound: float, by_range: bool = False) -> float:
     """Max abs error of ``run(x)`` against ``plain(x)``, checked against
-    ``bound`` times the plain output's max."""
+    ``bound`` times the plain output's max (or its range, max - min)."""
     import torch
 
     with torch.no_grad():
@@ -137,7 +180,8 @@ def kernel_vs_plain(label: str, run, plain, x, bound: float) -> float:
         torch.cuda.synchronize()
         want = plain(x)
     err = float((got.float() - want.float()).abs().max())
-    scale = float(want.float().abs().max())
+    w = want.float()
+    scale = float(w.max() - w.min()) if by_range else float(w.abs().max())
     print(f"{label}: max_abs_err {err} (scale {scale}, rel {err / scale}, bound {bound})",
           flush=True)
     check(bool(torch.isfinite(got.float()).all()), f"non-finite kernel output: {label}")
@@ -214,21 +258,24 @@ def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain
     return out, out_plain, launches
 
 
-def recon_rates(name: str, recon, recon_plain, reps: int = 20):
-    """Iterations/s of the kernel path and the plain chain, 4 rounds each in
-    turns (a B=1 recon is host-bound and varies run to run)."""
+def recon_rates(name: str, recon, recon_plain, iters: int = MAX_ITER, reps: int = 20,
+                plain_reps: int = 20):
+    """Iterations/s of the kernel path and the plain version, 4 rounds each
+    in turns (a B=1 recon is host-bound and varies run to run)."""
     r_k, r_p = [], []
     for _ in range(2):
-        for fn, times in ((recon, r_k), (recon_plain, r_p), (recon_plain, r_p), (recon, r_k)):
-            times.append(cuda_ms(fn, reps, warmup=3))
+        for fn, times, n in ((recon, r_k, reps), (recon_plain, r_p, plain_reps),
+                             (recon_plain, r_p, plain_reps), (recon, r_k, reps)):
+            times.append(cuda_ms(fn, n, warmup=min(3, n)))
     rec_ms, rec_plain_ms = sorted(r_k)[len(r_k) // 2], sorted(r_p)[len(r_p) // 2]
-    print(f"{name}, ms per recon: kernel path {r_k}, median {MAX_ITER * 1e3 / rec_ms:.2f} it/s; "
-          f"plain chain {r_p}, median {MAX_ITER * 1e3 / rec_plain_ms:.2f} it/s", flush=True)
+    print(f"{name}, ms per recon: kernel path {r_k}, median {iters * 1e3 / rec_ms:.2f} it/s; "
+          f"plain {r_p}, median {iters * 1e3 / rec_plain_ms:.2f} it/s", flush=True)
 
 
 def time_chain(label: str, run_k, run_p, run_cudnn, flop: float):
     """Kernel, plain and cuDNN bf16 times in ms (plain, kernel, kernel, plain,
-    then cuDNN). Returns the kernel's and the plain version's mean."""
+    then cuDNN). Returns the kernel's and the plain version's mean and the
+    cuDNN time."""
     import torch
 
     with torch.no_grad():
@@ -239,7 +286,157 @@ def time_chain(label: str, run_k, run_p, run_cudnn, flop: float):
     k_ms, p_ms = sum(t_k) / 2, sum(t_p) / 2
     print(f"time {label}: kernel {t_k} ms, plain f32 {t_p} ms, cuDNN bf16 layers {t_bf16} ms; "
           f"kernel {flop / k_ms / 1e9:.1f} TFLOP/s", flush=True)
-    return k_ms, p_ms
+    return k_ms, p_ms, t_bf16
+
+
+def device_profile(label: str, run, calls: int) -> None:
+    """Device time by kernel over ``calls`` runs of ``run`` (torch.profiler),
+    per call, beside the unprofiled wall time per call; the idle share is
+    1 - device busy / wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    kernels = []  # (device ms per call, launches per call, name)
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA"):
+            us = getattr(evt, "self_device_time_total", None)
+            us = getattr(evt, "self_cuda_time_total", 0) if us is None else us
+            kernels.append((us / 1e3 / calls, evt.count / calls, evt.key))
+    busy = sum(k[0] for k in kernels)
+    if busy <= 0:
+        print(f"profile {label}: the profiler saw no device time; not measured", flush=True)
+        return
+    top = "; ".join(f"{name[:48]} {ms:.4f} ms x{n:g}"
+                    for ms, n, name in sorted(kernels, reverse=True)[:6])
+    print(f"profile {label}: wall {wall_ms:.3f} ms per call, device busy {busy:.3f} ms "
+          f"({sum(k[1] for k in kernels):g} kernels), idle share {1 - busy / wall_ms:.3f}; "
+          f"top: {top}", flush=True)
+
+
+def discs(rng, channels: int, size: int, n: int = 12):
+    """Piecewise-constant phantom ``(channels, size, size)`` float32: random
+    discs of random levels in each channel (like ``random_circles``,
+    deepinv_tpu/datasets/phantoms.py:39)."""
+    import numpy as np
+
+    img = np.zeros((channels, size, size), np.float32)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for _ in range(n):
+        cy, cx = rng.integers(0, size, 2)
+        r = rng.integers(size // 16, size // 4)
+        img[:, (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = rng.random(channels)[:, None]
+    return img
+
+
+@contextlib.contextmanager
+def plain_tv(priors):
+    """Every ``TVPrior`` in ``priors`` on the plain prox inside the block."""
+    old = [p.use_pallas for p in priors]
+    for p in priors:
+        p.use_pallas = False
+    try:
+        yield
+    finally:
+        for p, u in zip(priors, old):
+            p.use_pallas = u
+
+
+def tv_drive(name: str, model, y, physics, priors, x, naive, iters: int, op) -> int:
+    """One TV reconstruction on the kernel path (``op.launches`` set to 0 just
+    before it and read just after), checked: finite output shaped like ``x``,
+    one prox launch per iteration, within TV_RECON_RTOL of the same run on the
+    plain prox, and no worse than ``naive`` by more than TV_PSNR_SLACK_DB.
+    Returns the launches."""
+    import torch
+
+    op.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = model(y, physics)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = op.launches
+    print(f"{name} {iters} it: first run {first_s:.3f} s, prox launches {launches}", flush=True)
+    check(launches == iters, f"{name}: expected {iters} prox launches, got {launches}")
+    check(tuple(out.shape) == tuple(x.shape) and out.dtype == torch.float32,
+          f"{name}: bad output shape/dtype")
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite reconstruction")
+    with plain_tv(priors), torch.no_grad():
+        out_plain = model(y, physics)
+    torch.cuda.synchronize()
+    check(op.launches == launches, f"{name}: the plain run launched the kernel")
+    rerr = float((out - out_plain).norm() / out_plain.norm())
+    p_k, p_p, p_n = psnr(out, x), psnr(out_plain, x), psnr(naive, x)
+    print(f"{name}: kernel vs plain prox relative L2 error {rerr} (bound {TV_RECON_RTOL}); "
+          f"PSNR vs x: kernel {p_k:.4f} dB, plain {p_p:.4f} dB, naive {p_n:.4f} dB "
+          f"(slack {TV_PSNR_SLACK_DB} dB)", flush=True)
+    check(rerr <= TV_RECON_RTOL, f"{name}: reconstruction disagrees with the plain prox")
+    check(p_k >= p_n - TV_PSNR_SLACK_DB, f"{name}: worse than the naive estimate")
+    return launches
+
+
+def build_tv_problems(dev, mask, size: int = 256, batch: int = 8):
+    """The TV problems of phase 6, as the examples run them
+    (examples/demo_tv_minimisation.py, demo_mri_tour.py, demo_ct_projectors.py,
+    demo_basics.py), through the entry points with their default device.
+    Returns ``[(name, model, y, physics, priors, x, naive, iterations)]``;
+    ``priors`` are the ``TVPrior`` objects whose ``use_pallas`` selects the
+    plain prox."""
+    import numpy as np
+    import torch
+
+    from deepinv_tpu_torch.models import TVDenoiser
+    from deepinv_tpu_torch.ops import gaussian_blur
+    from deepinv_tpu_torch.optim import L2, PnP, TVPrior, optim_builder
+    from deepinv_tpu_torch.physics import MRI, BlurFFT, GaussianNoise, Tomography
+
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    blur = BlurFFT((3, size, size), filter=gaussian_blur(sigma=2.0),
+                   noise_model=GaussianNoise(0.02))
+    x_blur = torch.from_numpy(discs(rng, 3, size)[None]).to(dev)
+    x_batch = torch.from_numpy(np.stack([discs(rng, 3, size) for _ in range(batch)])).to(dev)
+    mri = MRI(mask=mask, img_size=(size, size), noise_model=GaussianNoise(0.01))
+    x_mri = torch.from_numpy(np.concatenate(
+        [discs(rng, 1, size), np.zeros((1, size, size), np.float32)])[None]).to(dev)
+    ct = Tomography(img_width=size, angles=90, method="slice", normalize=True,
+                    noise_model=GaussianNoise(0.002))
+    x_ct = torch.from_numpy(discs(rng, 1, size)[None]).to(dev)
+    problems = []
+
+    def add(name, algo, params, iters, phys, xt, naive_of, prior=None, **kw):
+        tv = prior if prior is not None else TVPrior()
+        model = optim_builder(algo, data_fidelity=L2(), prior=tv, params_algo=params,
+                              max_iter=iters, **kw)
+        yt = phys(xt, generator=gen)
+        priors = [tv.denoiser.prior] if prior is not None else [tv]
+        problems.append((name, model, yt, phys, priors, xt, naive_of(yt), iters))
+
+    for algo, params in [("PGD", {"stepsize": 1.0, "lambda": 0.05}),
+                         ("FISTA", {"stepsize": 1.0, "lambda": 0.05}),
+                         ("ADMM", {"stepsize": 0.5, "lambda": 0.05}),
+                         ("CP", {"stepsize": 0.5, "lambda": 0.05})]:
+        add(f"TV-{algo} deblur 1x3x{size}²", algo, params, 30, blur, x_blur, lambda v: v)
+    add(f"TV-PGD deblur {batch}x3x{size}²", "PGD", {"stepsize": 1.0, "lambda": 0.05}, 30, blur,
+        x_batch, lambda v: v)
+    add(f"TV-PGD MRI 1x2x{size}²", "PGD", {"stepsize": 1.0, "lambda": 0.002}, 20, mri, x_mri,
+        mri.A_adjoint)
+    add(f"TV-PGD CT {size}² from FBP", "PGD", {"stepsize": 1.0, "lambda": 5e-4}, 30, ct, x_ct,
+        ct.A_dagger, custom_init=lambda v, p: p.A_dagger(v))
+    add(f"PnP-HQS TVDenoiser(50) deblur 1x3x{size}²", "HQS", {"stepsize": 1.0, "g_param": 0.03},
+        10, blur, x_blur, lambda v: v, prior=PnP(TVDenoiser(50)))
+    return problems
 
 
 def main() -> int:
@@ -260,6 +457,7 @@ def main() -> int:
         chain_f32, conv_chain, conv_chain_plain, pack_bias)
     from deepinv_tpu_torch.ops.kernels.resblock_chain import (
         pack_weights, resblock_chain, resblock_chain_plain)
+    from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox, chambolle_prox_plain
     from deepinv_tpu_torch.optim import L2, PnP, optim_builder
     from deepinv_tpu_torch.physics import MRI, BlurFFT, GaussianNoise, Tomography
 
@@ -305,17 +503,29 @@ def main() -> int:
                               lambda v: conv_chain_plain(v, ws, bs), h, KERNEL_RTOL)
         if chain_err is None:
             chain_err = err
+    tv_err = None
+    # its own generator: the later phases draw from g what they drew before K7
+    g_tv = torch.Generator().manual_seed(SEED + 4)
+    for shape, gammas in TV_SHAPES:
+        xt = torch.rand(shape, generator=g_tv).to(dev)
+        gam = torch.tensor(gammas).reshape(-1, 1, 1, 1).to(dev)
+        err = kernel_vs_plain(f"tv_prox vs plain {shape} gamma={gammas} n_iter={TV_ITERS}",
+                              lambda v: chambolle_prox(v, gam, TV_ITERS),
+                              lambda v: chambolle_prox_plain(v, gam, TV_ITERS), xt, TV_RTOL,
+                              by_range=True)
+        if tv_err is None:
+            tv_err = err
 
-    # 4. the HQS bench problem, kernel path, then the plain chain on the card
+    # 4. the HQS bench problem, kernel path, then the plain chain on the card;
+    # physics, models and reconstructors are on the GPU by default
     shape = (1, 3, 256, 256)
     physics = BlurFFT(shape[1:], filter=gaussian_blur(sigma=1.5),
-                      noise_model=GaussianNoise(0.01), device=dev)
+                      noise_model=GaussianNoise(0.01))
     x = torch.rand(shape, generator=g).to(dev)
     y = physics(x, generator=torch.Generator(device=dev).manual_seed(SEED + 1))
     denoiser = autocast(DRUNet(nc=(64, 128, 256, 512), nb=R_MAIN, generator=g))
     model = optim_builder("HQS", data_fidelity=L2(), prior=PnP(denoiser),
-                          params_algo={"stepsize": 2.0, "g_param": 0.02},
-                          max_iter=MAX_ITER).to(dev)
+                          params_algo={"stepsize": 2.0, "g_param": 0.02}, max_iter=MAX_ITER)
 
     def plain_resblocks():
         """DRUNet's scale-0 chain on the plain version instead of the kernel."""
@@ -357,10 +567,9 @@ def main() -> int:
 
     mask = (np.random.default_rng(0).random((256, 256)) < 0.3).astype(np.float32)
     problems = {
-        "MRI": (MRI(mask=mask, img_size=(256, 256), device=dev),
+        "MRI": (MRI(mask=mask, img_size=(256, 256)),
                 torch.randn((1, 2, 256, 256), generator=g).to(dev)),
-        "CT": (Tomography(img_width=256, angles=90, method="slice", normalize=True,
-                          device=dev),
+        "CT": (Tomography(img_width=256, angles=90, method="slice", normalize=True),
                torch.rand((1, 1, 256, 256), generator=g).to(dev)),
     }
     pgd, chain_launches = {}, 0
@@ -371,7 +580,7 @@ def main() -> int:
             net.out_conv.weight.mul_(DNCNN_RESIDUAL_SCALE)
         den = autocast(net)
         m = optim_builder("PGD", data_fidelity=L2(), prior=PnP(den), params_algo=PGD_PARAMS,
-                          max_iter=MAX_ITER).to(dev)
+                          max_iter=MAX_ITER)
         yt = phys.A(xt)
         out, out_plain, n = drive(f"PGD {name}", m, yt, phys, den.denoiser, conv_chain,
                                   plain_conv_chain, tuple(xt.shape), exact_conv_chain)
@@ -390,7 +599,14 @@ def main() -> int:
     check(bool(torch.isfinite(fast).all()) and nerr <= CT_NORMAL_RTOL,
           "CT Toeplitz normal operator disagrees with A_adjoint(A(x))")
 
-    # 6. times, in turns; channels_last inputs, as DRUNet and DnCNN hand the chains
+    # 6. the TV problems at the bench sizes, f32
+    tv_problems = build_tv_problems(dev, mask)
+    tv_launches = 0
+    for name, tv_model, yt, phys, priors, xt, naive, iters in tv_problems:
+        tv_launches += tv_drive(name, tv_model, yt, phys, priors, xt, naive, iters,
+                                chambolle_prox)
+
+    # 7. times, in turns; channels_last inputs, as DRUNet and DnCNN hand the chains
     h = torch.randn(KERNEL_SHAPES[0][0], generator=g).to(dev, torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     w1 = (torch.randn((R_MAIN, 64, 64, 3, 3), generator=g) * std).to(dev)
@@ -407,7 +623,7 @@ def main() -> int:
         return v
 
     flop_conv = 2 * 256 * 256 * 64 * 64 * 9
-    k_ms, p_ms = time_chain(
+    k_ms, p_ms, k_lib_ms = time_chain(
         f"(1,64,256,256) R={R_MAIN}", lambda: resblock_chain(h, w1, w2, packed),
         lambda: resblock_chain_plain(h, w1, w2), cudnn_bf16_resblocks, R_MAIN * 2 * flop_conv)
 
@@ -423,15 +639,51 @@ def main() -> int:
             v = torch.relu(F.conv2d(v, wsb[l], bsb[l], padding=1))
         return v
 
-    ck_ms, cp_ms = time_chain(
+    ck_ms, cp_ms, ck_lib_ms = time_chain(
         f"(1,64,256,256) L={L_MAIN}", lambda: conv_chain(h, ws, bs, chain_packed),
         lambda: conv_chain_plain(h, ws, bs), cudnn_bf16_chain, L_MAIN * flop_conv)
+
+    # K7 at 1x3x256², 100 iterations: plain, kernel, kernel, plain
+    tv_shape, tv_gamma = TV_SHAPES[0][0], TV_SHAPES[0][1][0]
+    xt = torch.rand(tv_shape, generator=g_tv).to(dev)
+    gam = torch.tensor(tv_gamma).to(dev)
+    with torch.no_grad():
+        t_p = [cuda_ms(lambda: chambolle_prox_plain(xt, gam, TV_ITERS), 3, warmup=1)]
+        t_k = [cuda_ms(lambda: chambolle_prox(xt, gam, TV_ITERS), 50) for _ in range(2)]
+        t_p.append(cuda_ms(lambda: chambolle_prox_plain(xt, gam, TV_ITERS), 3, warmup=1))
+    tk_ms, tp_ms = sum(t_k) / 2, sum(t_p) / 2
+    pixels = math.prod(tv_shape)
+    # per pixel per iteration ~17 float32 operations and a sqrt (tv.py:58-63),
+    # plus x / gamma and the output x - gamma div p once
+    tv_ops = pixels * (18 * TV_ITERS + 5)
+    print(f"time tv_prox {tv_shape} n_iter={TV_ITERS}: kernel {t_k} ms, plain {t_p} ms; "
+          f"{tv_ops / tk_ms / 1e9:.3f} TFLOP/s; {(TV_ITERS + 1) / tk_ms * 1e3:.0f} "
+          f"launches per second", flush=True)
 
     recon_rates(f"HQS {MAX_ITER} it (1x3x256x256, DRUNet full width, bf16)", hqs,
                 on_plain(hqs, plain_resblocks))
     for name, run in pgd.items():
         recon_rates(f"PGD {name} {MAX_ITER} it (B=1, 256x256, DnCNN depth 20 nf 64, bf16)",
                     run, on_plain(run, plain_conv_chain))
+    for name, tv_model, yt, phys, priors, _, _, iters in tv_problems:
+        run = recon(tv_model, yt, phys)
+        recon_rates(f"{name} {iters} it (f32, TVPrior 100 steps)", run,
+                    on_plain(run, lambda priors=priors: plain_tv(priors)), iters=iters, reps=5,
+                    plain_reps=1)
+
+    # 8. where the TV time goes
+    device_profile(f"tv_prox {tv_shape} n_iter={TV_ITERS}",
+                   lambda: chambolle_prox(xt, gam, TV_ITERS), 10)
+    for name, tv_model, yt, phys, _, _, _, iters in tv_problems:
+        if name.startswith("TV-PGD deblur"):
+            device_profile(f"{name} {iters} it", recon(tv_model, yt, phys), 3)
+
+    # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
+    act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
+    w_bytes = 9 * 64 * 64 * 2
+    k1_bound = bound_ms(R_MAIN * 2 * flop_conv, PEAK_BF16, act_bytes + 2 * R_MAIN * w_bytes)
+    k5_bound = bound_ms(L_MAIN * flop_conv, PEAK_BF16, act_bytes + L_MAIN * (w_bytes + 64 * 4))
+    k7_bound = bound_ms(tv_ops, PEAK_F32, 2 * pixels * 4 + tv_shape[0] * 4)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -443,6 +695,9 @@ def main() -> int:
         "max_abs_err": main_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": k_lib_ms,
     }, {
         "name": "conv_chain",
         "route": "cuda",
@@ -452,6 +707,21 @@ def main() -> int:
         "max_abs_err": chain_err,
         "ms": ck_ms,
         "plain_ms": cp_ms,
+        "bound_ms": k5_bound[0],
+        "bound_by": k5_bound[1],
+        "library_ms": ck_lib_ms,
+    }, {
+        "name": "tv_prox",
+        "route": "cuda",
+        "source": "deepinv_tpu_torch/csrc/tv_prox.cu",
+        "replaces": "deepinv_tpu/ops/pallas/tv.py:53",
+        "launches": tv_launches,
+        "max_abs_err": tv_err,
+        "ms": tk_ms,
+        "plain_ms": tp_ms,
+        "bound_ms": k7_bound[0],
+        "bound_by": k7_bound[1],
+        "library_ms": None,  # no single PyTorch call computes a TV prox
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import resolve_device
 from ..ops.kernels.conv_chain import C as CHAIN_C
 from ..ops.kernels.conv_chain import conv_chain, pack_bias, pack_weights
 from .base import Denoiser
@@ -39,17 +40,20 @@ class DnCNN(Denoiser):
     :param depth: number of conv layers.
     :param bias: convs with a bias.
     :param nf: hidden width.
-    :param generator: ``torch.Generator`` for the He-normal initialization
-        (biases start at zero, as in the JAX package).
+    :param generator: CPU ``torch.Generator`` for the He-normal
+        initialization (biases start at zero, as in the JAX package).
+    :param device: where the weights are moved after they are drawn on the
+        CPU; the CUDA device by default.
     """
 
     def __init__(self, in_channels: int = 3, out_channels: int = 3, depth: int = 20,
                  bias: bool = True, nf: int = 64, pretrained=None, dim: int = 2,
-                 generator=None):
+                 generator=None, device=None):
+        device = resolve_device(device)
         super().__init__()
         if pretrained is not None or dim != 2:
             raise NotImplementedError(
-                "pretrained DnCNN weights and 3D DnCNN wait for ROADMAP queue 1 item 8 (slice 6)")
+                "pretrained DnCNN weights and 3D DnCNN wait for ROADMAP queue 1 item 8")
         g = generator
         self.depth = depth
         self.in_conv = Conv2d(in_channels, nf, 3, 1, 1, bias=bias, generator=g)
@@ -58,7 +62,7 @@ class DnCNN(Denoiser):
         self.out_conv = Conv2d(nf, out_channels, 3, 1, 1, bias=bias, generator=g)
         # channels_last is cuDNN's layout for bf16 convs on the H100 and the
         # kernel's (see drunet.py): weights and activations stay in it
-        self.to(memory_format=torch.channels_last)
+        self.to(device=device, memory_format=torch.channels_last)
 
     def forward(self, x, sigma=None, **kwargs):
         # channels_last strides even at one channel, where

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..ops.kernels.resblock_chain import C as CHAIN_C
 from ..ops.kernels.resblock_chain import pack_weights, resblock_chain
 from .base import Denoiser, handle_sigma
@@ -62,11 +63,14 @@ class DRUNet(Denoiser):
     :param nc: widths of the four scales.
     :param nb: residual blocks per stage.
     :param act_mode: R (ReLU), L, E or S.
-    :param generator: ``torch.Generator`` for the random initialization.
+    :param generator: CPU ``torch.Generator`` for the random initialization.
+    :param device: where the weights are moved after they are drawn on the
+        CPU; the CUDA device by default.
     """
 
     def __init__(self, in_channels: int = 3, out_channels: int = 3, nc=(64, 128, 256, 512),
-                 nb: int = 4, act_mode: str = "R", generator=None):
+                 nb: int = 4, act_mode: str = "R", generator=None, device=None):
+        device = resolve_device(device)
         super().__init__()
         nc = tuple(nc)
         self.nb = nb
@@ -95,7 +99,7 @@ class DRUNet(Denoiser):
         # the H100 and the resblock-chain kernel's: on NCHW activations cuDNN
         # transposes around every conv, on NCHW weights with NHWC activations
         # it converts the weight each call (measured on an H100: PERF.md).
-        self.to(memory_format=torch.channels_last)
+        self.to(device=device, memory_format=torch.channels_last)
 
     def _chain_weights(self, blocks):
         """Stacked OIHW weights of the scale-0 chain and their kernel

@@ -52,7 +52,7 @@ def gaussian_blur(sigma=(1.0, 1.0), angle: float = 0.0, psf_size=None) -> torch.
     if len(sigma) != 2:
         raise NotImplementedError(
             "gaussian_blur ports the 2D PSF only; 1D/3D and batched PSFs wait "
-            "for ROADMAP queue 1 item 8 (slice 6)")
+            "for ROADMAP queue 1 item 8")
     if psf_size is None:
         c = int(max(sigma) / 0.3 + 1)
         psf_size = (2 * c + 1,) * 2

@@ -59,6 +59,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.deepinv_resblock_chain_bf16.restype = i
     lib.deepinv_conv_chain_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.deepinv_conv_chain_bf16.restype = i
+    lib.deepinv_tv_prox_f32.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.deepinv_tv_prox_f32.restype = i
     lib.deepinv_cuda_error_string.argtypes = [i]
     lib.deepinv_cuda_error_string.restype = ctypes.c_char_p
     return lib

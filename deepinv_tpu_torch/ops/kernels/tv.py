@@ -1,0 +1,198 @@
+"""Chambolle total-variation prox (port of deepinv_tpu/ops/pallas/tv.py).
+
+``chambolle_prox(x, gamma, n_iter)`` is the isotropic-TV prox
+``argmin_u 0.5 ||u - x||^2 + gamma TV(u)`` by Chambolle's dual projection, per
+``(H, W)`` plane, with ``tau = 0.25``::
+
+    p <- (p + tau grad u) / (1 + tau |grad u|),   u = div p - x / gamma
+    out = x - gamma div p
+
+the contract of the Pallas kernel ``_kernel`` (tv.py:53, launched by
+``_pallas_impl`` :70) and of its XLA twin ``_xla_impl`` (:88).
+
+- On a CUDA tensor it launches the hand-written kernel
+  ``deepinv_tpu_torch/csrc/tv_prox.cu`` (the source says what bounds it and
+  how it is laid out), or raises: there is no fallback. The kernel takes
+  float32 only.
+- On a CPU tensor it runs :func:`chambolle_prox_plain`, the plain PyTorch
+  version of ``_xla_impl`` with its safe norm.
+- ``gamma`` is a scalar or a tensor that broadcasts against ``x`` and is
+  constant over each plane, such as a per-sample ``(B, 1, 1, 1)``. The kernel
+  reads one value per plane from device memory, so a per-sample gamma runs in
+  the kernel too; the JAX package sends it to the XLA loop (tv.py:104-113).
+  A gamma on the device stays there: nothing is read back to the host.
+- The gradient (in ``x`` and in a tensor ``gamma``) is autograd of the plain
+  version, as the JAX ``custom_vjp`` backward re-runs ``_xla_impl``
+  (tv.py:124-132).
+
+``chambolle_prox.launches`` counts the calls that reach the kernel (one C
+call of ``n_iter + 1`` launches each), so a run can show that its main path
+went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["chambolle_prox", "chambolle_prox_plain", "grad_op", "div_op", "fwd_diff_nd",
+           "fwd_diff_nd_adjoint", "TAU"]
+
+TAU = 0.25  # 1 / (2 * dim), Chambolle's stability bound (tv.py:30)
+
+# the kernel's grid (csrc/tv_prox.cu): tiles of 16 x 32 pixels, planes on z
+_TILE_H, _MAX_GRID_Y = 16, 65535
+
+
+def fwd_diff_nd(x: torch.Tensor, first_axis: int) -> torch.Tensor:
+    """Forward differences along each axis from ``first_axis`` on, stacked on
+    a new last axis, zero at the trailing edge (``_fwd_diff_nd``,
+    deepinv_tpu/models/classic.py:29)."""
+    comps = [torch.diff(x, dim=d, append=x.narrow(d, x.shape[d] - 1, 1))
+             for d in range(first_axis, x.dim())]
+    return torch.stack(comps, dim=-1)
+
+
+def fwd_diff_nd_adjoint(u: torch.Tensor, first_axis: int) -> torch.Tensor:
+    """Adjoint of :func:`fwd_diff_nd`: ``u[i-1] (i > 0) - u[i] (i < n-1)``
+    along each axis, summed over the components (the JAX package takes it
+    with ``jax.linear_transpose``, classic.py:52-59)."""
+    out = None
+    for k, d in enumerate(range(first_axis, u.dim() - 1)):
+        c = u[..., k]
+        head = c.narrow(d, 0, c.shape[d] - 1)
+        z = torch.zeros_like(c.narrow(d, 0, 1))
+        term = torch.cat([z, head], dim=d) - torch.cat([head, z], dim=d)
+        out = term if out is None else out + term
+    return out
+
+
+def grad_op(x: torch.Tensor) -> torch.Tensor:
+    """Forward-difference gradient over the last two axes,
+    ``(..., H, W) -> (..., H, W, 2)`` (``_grad_op``, optim/prior.py:171)."""
+    return fwd_diff_nd(x, x.dim() - 2)
+
+
+def div_op(p: torch.Tensor) -> torch.Tensor:
+    """Divergence, the negative adjoint of :func:`grad_op`
+    (``_div_op``, optim/prior.py:178)."""
+    return -fwd_diff_nd_adjoint(p, p.dim() - 3)
+
+
+def _gamma_tensor(gamma, x: torch.Tensor) -> torch.Tensor:
+    """``gamma`` as a tensor on ``x``'s device, without a host round trip:
+    a Python number is filled on the device, a tensor is moved if needed."""
+    if isinstance(gamma, torch.Tensor):
+        return gamma.to(device=x.device, dtype=x.dtype)
+    return torch.full((), float(gamma), dtype=x.dtype, device=x.device)
+
+
+def chambolle_prox_plain(x: torch.Tensor, gamma, n_iter: int = 100) -> torch.Tensor:
+    """Plain PyTorch version (``_xla_impl``, tv.py:88-101), differentiable by
+    autograd. The norm is gated at 0, where ``sqrt`` has no derivative (the
+    structural zeros at the image border), as the JAX package does."""
+    g = _gamma_tensor(gamma, x)
+    xg = x / g
+    p = x.new_zeros(x.shape + (2,))
+    for _ in range(n_iter):
+        e = grad_op(div_op(p) - xg)
+        s = (e * e).sum(-1, keepdim=True)
+        pos = s > 0
+        norm = torch.where(pos, torch.sqrt(torch.where(pos, s, torch.ones_like(s))),
+                           torch.zeros_like(s))
+        p = (p + TAU * e) / (1 + TAU * norm)
+    return x - g * div_op(p)
+
+
+def _plane_gamma(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One float32 gamma per ``(H, W)`` plane of ``x``, contiguous on the
+    device; raises unless ``g`` broadcasts to ``x`` and is constant over each
+    plane."""
+    if g.dim() > x.dim() or (g.dim() >= 1 and g.shape[-1] != 1) or (
+            g.dim() >= 2 and g.shape[-2] != 1):
+        raise ValueError(f"chambolle_prox: gamma of shape {tuple(g.shape)} must be a scalar or "
+                         f"constant over each plane of x {tuple(x.shape)}, e.g. (B, 1, 1, 1)")
+    try:
+        planes = torch.broadcast_to(g, x.shape[:-2] + (1, 1))
+    except RuntimeError as err:
+        raise ValueError(f"chambolle_prox: gamma of shape {tuple(g.shape)} does not broadcast "
+                         f"to x {tuple(x.shape)}") from err
+    return planes.reshape(-1).to(torch.float32).contiguous()
+
+
+def _check_cuda(x: torch.Tensor, g: torch.Tensor, n_iter: int) -> torch.Tensor:
+    """Raise on what the kernel does not take; return the per-plane gamma."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"chambolle_prox kernel takes float32, got {x.dtype}")
+    if x.dim() < 2 or x.numel() == 0:
+        raise ValueError(f"chambolle_prox kernel takes (..., H, W) with H, W >= 1, "
+                         f"got {tuple(x.shape)}")
+    if -(-x.shape[-2] // _TILE_H) > _MAX_GRID_Y:
+        raise ValueError(f"chambolle_prox kernel takes H <= {_TILE_H * _MAX_GRID_Y}, "
+                         f"got {x.shape[-2]}")
+    if n_iter < 0:
+        raise ValueError(f"n_iter must be >= 0, got {n_iter}")
+    return _plane_gamma(g, x)
+
+
+def _launch(x: torch.Tensor, g: torch.Tensor, n_iter: int) -> torch.Tensor:
+    """Run the CUDA kernel: ``n_iter`` Chambolle steps over a ping-pong pair
+    of dual fields, then the output, in one C call."""
+    from .build import load_library
+
+    gp = _check_cuda(x, g, n_iter)
+    H, W = x.shape[-2:]
+    xc = x.contiguous()
+    N = xc.numel() // (H * W)
+    # [buffer][component][plane, H, W]; buffer 0 holds the initial p = 0
+    state = torch.empty((2, 2) + (N, H, W), dtype=torch.float32, device=x.device)
+    state[0].zero_()
+    out = torch.empty_like(xc)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.deepinv_tv_prox_f32(
+            ctypes.c_void_p(xc.data_ptr()), ctypes.c_void_p(gp.data_ptr()),
+            ctypes.c_void_p(state.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            N, H, W, int(n_iter), ctypes.c_void_p(stream))
+    if rc != 0:
+        msg = lib.deepinv_cuda_error_string(rc).decode()
+        raise RuntimeError(f"chambolle_prox kernel launch failed: CUDA error {rc} ({msg})")
+    chambolle_prox.launches += 1
+    return out
+
+
+class _ChambolleProx(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, n_iter):
+        ctx.save_for_backward(x, g)
+        ctx.n_iter = n_iter
+        if x.is_cuda:
+            return _launch(x, g, n_iter)
+        return chambolle_prox_plain(x, g, n_iter)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, g = ctx.saved_tensors
+        with torch.enable_grad():
+            xv, gv = x.detach().requires_grad_(), g.detach().requires_grad_()
+            out = chambolle_prox_plain(xv, gv, ctx.n_iter)
+            gx, gg = torch.autograd.grad(out, (xv, gv), ct)
+        return gx, gg, None
+
+
+def chambolle_prox(x: torch.Tensor, gamma, n_iter: int = 100) -> torch.Tensor:
+    """Isotropic-TV prox of ``gamma * TV`` at ``x`` by ``n_iter`` Chambolle
+    steps.
+
+    :param x: ``(..., H, W)`` images; float32 on the GPU.
+    :param gamma: a number, or a tensor that broadcasts to ``x`` and is
+        constant over each ``(H, W)`` plane (a scalar, ``(B, 1, 1, 1)``).
+    :param n_iter: dual iterations.
+    :return: a tensor shaped like ``x``.
+    """
+    return _ChambolleProx.apply(x, _gamma_tensor(gamma, x), int(n_iter))
+
+
+chambolle_prox.launches = 0

@@ -11,12 +11,11 @@ the diagonal, sinograms are ``(B, C, n_det, n_angles)``.
 in float64 numpy (the sampling plan ``_slice_plan`` :45, the NUFFT taps of
 ``_adjoint_plan`` :119, and optionally the Toeplitz spectrum of ``A^T A``,
 ``_normal_spec_impl`` :181) as buffers; the functions :func:`radon_slice`
-(:68), :func:`radon_slice_adjoint` (:230), :func:`radon_slice_normal_spec`
-(:198) and :func:`radon_slice_normal` (:209) are the JAX package's
-signatures. The adjoint spreads the taps with ``index_add_``; the JAX
-package's sorted cumulative sum (:110-114, :250-262) is a workaround for how
-XLA scatters on the TPU and is not ported. ``iradon_slice`` (FBP) waits for
-ROADMAP queue 1 item 8.
+(:68), :func:`radon_slice_adjoint` (:230), :func:`iradon_slice` (:84),
+:func:`radon_slice_normal_spec` (:198) and :func:`radon_slice_normal` (:209)
+are the JAX package's signatures. The adjoint spreads the taps with
+``index_add_``; the JAX package's sorted cumulative sum (:110-114, :250-262)
+is a workaround for how XLA scatters on the TPU and is not ported.
 """
 
 from __future__ import annotations
@@ -26,10 +25,10 @@ import torch
 from torch import nn
 
 from .nufft import NufftPlan, _grid_setup, nufft2_normal, nufft2_toeplitz_spec
-from .radon import _circle_mask, _pad_image, radon_output_size
+from .radon import _circle_mask, _pad_image, radon_output_size, ramp_filter
 
-__all__ = ["RadonSlicePlan", "radon_slice", "radon_slice_adjoint", "radon_slice_normal_spec",
-           "radon_slice_normal"]
+__all__ = ["RadonSlicePlan", "radon_slice", "radon_slice_adjoint", "iradon_slice",
+           "radon_slice_normal_spec", "radon_slice_normal"]
 
 
 def _slice_plan(W: int, theta_deg, J: int, osf: float):
@@ -115,6 +114,13 @@ class RadonSlicePlan(nn.Module):
             out_size = W if self.circle else int(np.floor(np.sqrt(W ** 2 / 2.0)))
         return _unpad(xt, out_size, self.circle, self.mask)
 
+    def filtered_backproject(self, sino, out_size: int | None = None, filtered: bool = True):
+        """(Filtered) backprojection: the ramp filter, :meth:`backproject`,
+        and FBP's ``pi / (2 n_angles)`` scaling (radon_slice.py:84-106)."""
+        if filtered:
+            sino = ramp_filter(sino)
+        return self.backproject(sino, out_size) * (np.pi / (2 * self.n_angles))
+
     def normal(self, x):
         """``A^T A x`` through the Toeplitz spectrum (radon_slice.py:209)."""
         return _normal(x, self.spec, self.circle, self.mask)
@@ -140,6 +146,14 @@ def radon_slice_adjoint(sino, theta, circle: bool = False, J: int = 4, osf: floa
     """Exact transpose of :func:`radon_slice` (radon_slice.py:230)."""
     plan = RadonSlicePlan(sino.shape[-2], theta, circle, J, osf).to(sino.device)
     return plan.backproject(sino, out_size)
+
+
+def iradon_slice(sino, theta, circle: bool = False, filtered: bool = True,
+                 out_size: int | None = None, J: int = 4, osf: float = 2.0):
+    """(Filtered) backprojection matching :func:`radon_slice`
+    (radon_slice.py:84): ramp filter, exact adjoint, ``pi / (2 n_angles)``."""
+    plan = RadonSlicePlan(sino.shape[-2], theta, circle, J, osf).to(sino.device)
+    return plan.filtered_backproject(sino, out_size, filtered)
 
 
 def radon_slice_normal_spec(img_width: int, theta, circle: bool = False, J: int = 4,

@@ -22,6 +22,11 @@ class DataFidelity(Potential):
     def d_grad(self, u, y):
         raise NotImplementedError
 
+    def d_prox(self, u, y, gamma=1.0):
+        """``prox_{gamma d(., y)}(u)``, the distance's prox (the JAX package's
+        ``Distance.prox``, optim/distance.py)."""
+        raise NotImplementedError
+
     _measurement = None  # (y, physics, A^T y or None) inside fixed_measurement
 
     @contextlib.contextmanager
@@ -61,6 +66,20 @@ class DataFidelity(Potential):
             u = u - stepsize_inter * (gamma * self.grad(u, y, physics) + (u - x))
         return u
 
+    def prox_d(self, u, y, *args, gamma=1.0, **kwargs):
+        """Prox of the measurement-space distance alone (data_fidelity.py:66)."""
+        return self.d_prox(u, y, gamma=gamma)
+
+    def prox_conjugate(self, x, y, physics, *args, gamma=1.0, lamb=1.0, **kwargs):
+        """Prox of the conjugate of the whole fidelity ``f = d(A., y)`` by the
+        Moreau identity on :meth:`prox` (data_fidelity.py:83); the
+        Chambolle-Pock iterator's dual step."""
+        return x - gamma * self.prox(x / gamma, y, physics, *args, gamma=lamb / gamma, **kwargs)
+
+    def prox_d_conjugate(self, x, y, *args, gamma=1.0, lamb=1.0, **kwargs):
+        """The Moreau identity on the distance ``d`` alone (data_fidelity.py:92)."""
+        return x - gamma * self.prox_d(x / gamma, y, *args, gamma=lamb / gamma, **kwargs)
+
 
 class L2(DataFidelity):
     r"""``f(x) = 1/(2 sigma^2) ||Ax - y||^2`` (data_fidelity.py:122); its prox
@@ -76,6 +95,10 @@ class L2(DataFidelity):
 
     def d_grad(self, u, y):
         return (u - y) * self.norm
+
+    def d_prox(self, u, y, gamma=1.0):
+        """``(u + norm gamma y) / (1 + gamma norm)`` (optim/distance.py:60)."""
+        return (u + self.norm * gamma * y) / (1 + gamma * self.norm)
 
     def prox(self, x, y, physics, *args, gamma=1.0, **kwargs):
         return physics.prox_l2(x, y, self.norm * gamma, **kwargs)

@@ -2,7 +2,7 @@
 fixed-iteration mode: a Python loop over the per-iteration parameters, in
 place of the JAX package's ``lax.scan`` (fixed_point.py:160-200). Early
 stopping, Anderson acceleration and backtracking wait for ROADMAP queue 1
-item 8 (slice 6)."""
+item 8."""
 
 from __future__ import annotations
 

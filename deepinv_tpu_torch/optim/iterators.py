@@ -3,14 +3,16 @@
 An iterator maps the state ``X = {"est": (x, z), "it": k}`` to the next one,
 given the data fidelity, the prior, this iteration's parameters
 (``stepsize``, ``g_param``, ``lambda``, ``beta``), ``y`` and the physics.
-HQS and PGD are ported; the other iterators wait for their slices.
+GD, PGD, FISTA, HQS, ADMM, DRS and Chambolle-Pock are ported; MD, PMD, SM,
+SIRT and MLEM wait for ROADMAP queue 1 item 8.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-__all__ = ["OptimIterator", "HQSIteration", "PGDIteration"]
+__all__ = ["OptimIterator", "GDIteration", "HQSIteration", "PGDIteration", "FISTAIteration",
+           "ADMMIteration", "DRSIteration", "CPIteration"]
 
 
 class OptimIterator(nn.Module):
@@ -31,6 +33,18 @@ class OptimIterator(nn.Module):
 
     def forward(self, X, data_fidelity, prior, params, y, physics):
         raise NotImplementedError
+
+
+class GDIteration(OptimIterator):
+    r"""Gradient descent (iterators.py:82):
+    ``x = x - stepsize (grad f(x) + lambda grad g(x))``."""
+
+    def forward(self, X, data_fidelity, prior, params, y, physics):
+        x = X["est"][0]
+        grad = data_fidelity.grad(x, y, physics) + params["lambda"] * prior.grad(
+            x, params.get("g_param"))
+        x_new = x - params["stepsize"] * grad
+        return {"est": (x_new, x_new), "it": X["it"] + 1}
 
 
 class HQSIteration(OptimIterator):
@@ -68,3 +82,110 @@ class PGDIteration(OptimIterator):
             x_new = data_fidelity.prox(z, y, physics, gamma=params["stepsize"])
         x_new = self.relaxation(x_new, x, params.get("beta", 1.0))
         return {"est": (x_new, z), "it": X["it"] + 1}
+
+
+class FISTAIteration(OptimIterator):
+    r"""FISTA with the Chambolle-Dossal momentum ``(k + a - 1) / (k + a)``
+    (iterators.py:121): a PGD step from the extrapolated point ``z``
+    (with ``g_first``, a gradient step on g and then the prox of f), then
+    ``z = x + alpha (x - x_prev)``."""
+
+    def forward(self, X, data_fidelity, prior, params, y, physics):
+        x_prev, z_prev = X["est"]
+        k = X["it"]
+        a = params.get("a", 3.0)
+        alpha = (k + a - 1) / (k + a)
+        if not self.g_first:
+            u = z_prev - params["stepsize"] * data_fidelity.grad(z_prev, y, physics)
+            x = prior.prox(u, params.get("g_param"), gamma=params["lambda"] * params["stepsize"])
+        else:
+            u = z_prev - params["lambda"] * params["stepsize"] * prior.grad(
+                z_prev, params.get("g_param"))
+            x = data_fidelity.prox(u, y, physics, gamma=params["stepsize"])
+        z = x + alpha * (x - x_prev)
+        return {"est": (x, z), "it": k + 1}
+
+
+class ADMMIteration(OptimIterator):
+    r"""ADMM (iterators.py:169): ``u = prox_f(x - z)``, ``x = prox_g(u + z)``,
+    ``z = z + beta (u - x)``. The state starts at ``(x0, x0)``, as the JAX
+    package seeds it (:175-182). With ``g_first`` both steps flip the dual's
+    sign, ``u = prox_g(x - z)``, ``x = prox_f(u + z)`` (:186-190)."""
+
+    def forward(self, X, data_fidelity, prior, params, y, physics):
+        x, z = X["est"]
+        gamma_g = params["lambda"] * params["stepsize"]
+        if self.g_first:
+            u = prior.prox(x - z, params.get("g_param"), gamma=gamma_g)
+            x_new = data_fidelity.prox(u + z, y, physics, gamma=params["stepsize"])
+        else:
+            u = data_fidelity.prox(x - z, y, physics, gamma=params["stepsize"])
+            x_new = prior.prox(u + z, params.get("g_param"), gamma=gamma_g)
+        z = z + params.get("beta", 1.0) * (u - x_new)
+        return {"est": (x_new, z), "it": X["it"] + 1}
+
+
+class DRSIteration(OptimIterator):
+    r"""Douglas-Rachford splitting (iterators.py:204): ``u = prox_f(z)``,
+    ``x = prox_g(2u - z)``, ``z = z + beta (x - u)`` (f and g swap with
+    ``g_first``)."""
+
+    def forward(self, X, data_fidelity, prior, params, y, physics):
+        x, z = X["est"]
+        gamma_g = params["lambda"] * params["stepsize"]
+        if self.g_first:
+            u = prior.prox(z, params.get("g_param"), gamma=gamma_g)
+            x_new = data_fidelity.prox(2 * u - z, y, physics, gamma=params["stepsize"])
+        else:
+            u = data_fidelity.prox(z, y, physics, gamma=params["stepsize"])
+            x_new = prior.prox(2 * u - z, params.get("g_param"), gamma=gamma_g)
+        z = z + params.get("beta", 1.0) * (x_new - u)
+        return {"est": (x_new, z), "it": X["it"] + 1}
+
+
+class CPIteration(OptimIterator):
+    r"""Chambolle-Pock primal-dual (iterators.py:229). The state is
+    ``(x, xbar, u)``: primal, extrapolated primal, dual.
+
+    ``K``/``K_adjoint`` are an explicit splitting operator (identity by
+    default, as in the JAX package: the physics then enters through the whole
+    fidelity's :meth:`~deepinv_tpu_torch.optim.DataFidelity.prox_conjugate`).
+    Without ``g_first``: dual ascent ``u = prox_{sigma f^*}(u + sigma K xbar)``,
+    then ``x = prox_{tau lambda g}(x - tau K^T u)``. With ``g_first`` the roles
+    swap, with the JAX package's documented deviation from upstream
+    (:269-280): the dual prox of ``(lambda g)^*`` at ``gamma = sigma``, so both
+    orders solve the same objective.
+    """
+
+    def __init__(self, g_first: bool = False, K=None, K_adjoint=None):
+        super().__init__(g_first=g_first)
+        self.K = K
+        self.K_adjoint = K_adjoint
+
+    def _ops(self):
+        if self.K is not None:
+            return self.K, self.K_adjoint
+        return (lambda v: v), (lambda v: v)
+
+    def init_state(self, x_init, y, physics):
+        """The dual starts at the measurement when ``K x`` has its shape, as
+        the JAX package seeds it (:250-261); at zeros otherwise."""
+        Kx = self._ops()[0](x_init)
+        u0 = y if tuple(Kx.shape) == tuple(y.shape) else Kx.new_zeros(Kx.shape)
+        return {"est": (x_init, x_init, u0), "it": 0}
+
+    def forward(self, X, data_fidelity, prior, params, y, physics):
+        x, xbar, u = X["est"]
+        Kf, Kt = self._ops()
+        sigma = params.get("stepsize_dual", 1.0)
+        tau = params["stepsize"]
+        lam = params.get("lambda", 1.0)
+        if self.g_first:
+            u = prior.prox_conjugate(u + sigma * Kf(xbar), params.get("g_param"), gamma=sigma,
+                                     lamb=lam)
+            x_new = data_fidelity.prox(x - tau * Kt(u), y, physics, gamma=tau)
+        else:
+            u = data_fidelity.prox_conjugate(u + sigma * Kf(xbar), y, physics, gamma=sigma)
+            x_new = prior.prox(x - tau * Kt(u), params.get("g_param"), gamma=tau * lam)
+        xbar = x_new + params.get("beta", 1.0) * (x_new - x)
+        return {"est": (x_new, xbar, u), "it": X["it"] + 1}

@@ -3,8 +3,11 @@
 ``optim_builder("PGD", data_fidelity, prior, params_algo, max_iter)`` returns a
 :class:`BaseOptim`, a reconstructor ``model(y, physics) -> x``. Each entry of
 ``params_algo`` is a scalar (the same every iteration) or a list/tensor with
-one value per iteration; it is stored as a ``(max_iter, ...)`` buffer, so
-``model.to(device)`` moves the schedule with the denoiser.
+one value per iteration; it is stored as a ``(max_iter, ...)`` buffer. The
+reconstructor, with its prior and denoiser, is put on ``device``: the CUDA
+device unless the caller passes another. The named builders (``PGD``,
+``FISTA``, ``ADMM``, ``DRS``, ``CP``, ``GD``, ``HQS``) and ``PDCP`` are
+``optim_builder`` with the iteration fixed.
 """
 
 from __future__ import annotations
@@ -13,19 +16,23 @@ from typing import Callable, Optional
 
 import torch
 
+from ..device import resolve_device
 from ..models.base import Reconstructor
 from .data_fidelity import L2
 from .fixed_point import FixedPoint
-from .iterators import HQSIteration, OptimIterator, PGDIteration
+from .iterators import (ADMMIteration, CPIteration, DRSIteration, FISTAIteration, GDIteration,
+                        HQSIteration, OptimIterator, PGDIteration)
 from .prior import Zero
 
-__all__ = ["BaseOptim", "optim_builder", "create_iterator"]
+__all__ = ["BaseOptim", "optim_builder", "create_iterator", "PGD", "FISTA", "ADMM", "DRS", "CP",
+           "GD", "HQS", "PDCP"]
 
-_ITERATORS = {"HQS": HQSIteration, "PGD": PGDIteration}
+_ITERATORS = {"GD": GDIteration, "PGD": PGDIteration, "FISTA": FISTAIteration,
+              "HQS": HQSIteration, "ADMM": ADMMIteration, "DRS": DRSIteration, "CP": CPIteration}
 
 # The JAX package's other iterators (iterators.py) and the ROADMAP item that ports each.
-_WAITING = {name: "ROADMAP queue 1 item 8 (slice 6)"
-            for name in ("GD", "FISTA", "ADMM", "DRS", "CP", "MD", "PMD", "SM", "SIRT", "MLEM")}
+_WAITING = {name: "ROADMAP queue 1 item 8"
+            for name in ("MD", "PMD", "SM", "SIRT", "MLEM")}
 
 _DEFAULT_PARAMS = {
     "stepsize": 1.0,
@@ -37,8 +44,10 @@ _DEFAULT_PARAMS = {
 }
 
 
-def create_iterator(iteration, g_first: bool = False) -> OptimIterator:
-    """Map an iteration name to an iterator (optimizers.py:89)."""
+def create_iterator(iteration, g_first: bool = False, K=None, K_adjoint=None) -> OptimIterator:
+    """Map an iteration name to an iterator (optimizers.py:89). ``K`` and
+    ``K_adjoint`` are Chambolle-Pock's explicit splitting operator
+    (optimizers.py:107-114)."""
     if isinstance(iteration, OptimIterator):
         return iteration
     name = str(iteration).upper()
@@ -47,6 +56,10 @@ def create_iterator(iteration, g_first: bool = False) -> OptimIterator:
     if name not in _ITERATORS:
         raise ValueError(f"unknown iteration {iteration!r}; choose from "
                          f"{sorted(set(_ITERATORS) | set(_WAITING))}")
+    if name == "CP":
+        return CPIteration(g_first=g_first, K=K, K_adjoint=K_adjoint)
+    if K is not None or K_adjoint is not None:
+        raise ValueError(f"K and K_adjoint belong to the CP iteration, not {name}")
     return _ITERATORS[name](g_first=g_first)
 
 
@@ -60,18 +73,23 @@ class BaseOptim(Reconstructor):
     :param max_iter: number of iterations.
     :param custom_init: ``f(y, physics) -> x0`` (default ``A_adjoint(y)``).
     :param g_first: prior step first.
+    :param device: where the schedule, the prior and the data fidelity (and
+        a denoiser in them) live; the CUDA device by default.
+    :param kwargs: ``K``, ``K_adjoint`` for the CP iteration.
     """
 
     def __init__(self, iterator, data_fidelity=None, prior=None, params_algo: dict = None,
                  max_iter: int = 100, custom_init: Optional[Callable] = None,
                  g_first: bool = False, early_stop: bool = False,
-                 anderson_acceleration: bool = False, backtracking: bool = False):
+                 anderson_acceleration: bool = False, backtracking: bool = False,
+                 device=None, **kwargs):
+        device = resolve_device(device)
         super().__init__()
         if early_stop or anderson_acceleration or backtracking:
             raise NotImplementedError(
                 "early stopping, Anderson acceleration and backtracking wait for "
-                "ROADMAP queue 1 item 8 (slice 6)")
-        self.iterator = create_iterator(iterator, g_first=g_first)
+                "ROADMAP queue 1 item 8")
+        self.iterator = create_iterator(iterator, g_first=g_first, **kwargs)
         self.data_fidelity = data_fidelity if data_fidelity is not None else L2()
         self.prior = prior if prior is not None else Zero()
         self.max_iter = max_iter
@@ -82,6 +100,7 @@ class BaseOptim(Reconstructor):
         for k, v in pa.items():
             self.register_buffer(f"param_{k}", self._stack_param(v, max_iter))
         self.fixed_point = FixedPoint(self.iterator, max_iter=max_iter)
+        self.to(device)
 
     @property
     def params_algo(self) -> dict:
@@ -129,3 +148,30 @@ def optim_builder(iteration, data_fidelity=None, prior=None, params_algo=None,
     """Build a reconstruction algorithm (optimizers.py:325)."""
     return BaseOptim(iteration, data_fidelity=data_fidelity, prior=prior,
                      params_algo=params_algo, max_iter=max_iter, **kwargs)
+
+
+def _named(iteration: str):
+    def build(data_fidelity=None, prior=None, params_algo=None, max_iter: int = 100, **kwargs):
+        return BaseOptim(iteration, data_fidelity=data_fidelity, prior=prior,
+                         params_algo=params_algo, max_iter=max_iter, **kwargs)
+
+    build.__name__ = build.__qualname__ = iteration
+    build.__doc__ = f"{iteration} reconstructor (optimizers.py:367-393)."
+    return build
+
+
+PGD = _named("PGD")
+FISTA = _named("FISTA")
+ADMM = _named("ADMM")
+DRS = _named("DRS")
+CP = _named("CP")
+GD = _named("GD")
+HQS = _named("HQS")
+
+
+def PDCP(data_fidelity=None, prior=None, K=None, K_adjoint=None, params_algo=None,
+         max_iter: int = 100, **kwargs) -> BaseOptim:
+    """Chambolle-Pock with an explicit linear operator ``K`` (optimizers.py:396);
+    with the default identity ``K`` it is ``CP``."""
+    return BaseOptim("CP", data_fidelity=data_fidelity, prior=prior, params_algo=params_algo,
+                     max_iter=max_iter, K=K, K_adjoint=K_adjoint, **kwargs)

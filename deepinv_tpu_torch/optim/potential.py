@@ -37,3 +37,8 @@ class Potential(nn.Module):
         for _ in range(max_iter_inter):
             u = u - stepsize_inter * (gamma * self.grad(u, *args, **kwargs) + (u - x))
         return u
+
+    def prox_conjugate(self, x, *args, gamma=1.0, lamb=1.0, **kwargs):
+        r"""``prox_{gamma (lamb f)^*}(x) = x - gamma prox_{lamb f / gamma}(x / gamma)``,
+        the Moreau identity (potential.py:66)."""
+        return x - gamma * self.prox(x / gamma, *args, gamma=lamb / gamma, **kwargs)

@@ -1,14 +1,21 @@
-"""Priors ``g(x)`` (port of deepinv_tpu/optim/prior.py): the base, ``Zero``
-and the Plug-and-Play prior. RED, score, TV and the sparsity priors wait for
-their slices (ROADMAP queue 1)."""
+"""Priors ``g(x)`` (port of deepinv_tpu/optim/prior.py): the base, ``Zero``,
+the Plug-and-Play prior and isotropic total variation. RED, score,
+``TVL1Prior`` and the sparsity priors wait for ROADMAP queue 1 item 8."""
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.kernels.tv import chambolle_prox, chambolle_prox_plain
+from ..ops.kernels.tv import div_op as _div_op
+from ..ops.kernels.tv import grad_op as _grad_op
 from .potential import Potential
 
-__all__ = ["Prior", "Zero", "PnP"]
+__all__ = ["Prior", "Zero", "PnP", "TVPrior"]
+
+
+def _batch_sum(v):
+    return v.reshape(v.shape[0], -1).sum(1)
 
 
 class Prior(Potential):
@@ -45,3 +52,47 @@ class PnP(Prior):
 
     def prox(self, x, sigma_denoiser, *args, gamma=None, **kwargs):
         return self.denoiser(x, sigma_denoiser)
+
+
+class TVPrior(Prior):
+    r"""Isotropic total variation (deepinv_tpu/optim/prior.py:187), with the
+    prox by Chambolle's dual projection.
+
+    :param n_it_max: Chambolle iterations of :meth:`prox`.
+    :param use_pallas: the JAX package's switch, kept under its name.
+        ``None`` (default) or ``True``: :meth:`prox` runs
+        :func:`~deepinv_tpu_torch.ops.kernels.tv.chambolle_prox`, the CUDA
+        kernel on a GPU tensor and the plain version on a CPU tensor.
+        ``False``: the plain version on any device.
+    """
+
+    def __init__(self, n_it_max: int = 100, use_pallas: bool | None = None):
+        super().__init__()
+        self.n_it_max = n_it_max
+        self.use_pallas = use_pallas
+
+    @staticmethod
+    def nabla(x):
+        """Finite-difference gradient (prior.py:205)."""
+        from ..models.classic import _TVOpsMixin
+
+        return _TVOpsMixin.nabla(x)
+
+    @staticmethod
+    def nabla_adjoint(u):
+        """Adjoint of :meth:`nabla` (prior.py:212)."""
+        from ..models.classic import _TVOpsMixin
+
+        return _TVOpsMixin.nabla_adjoint(u)
+
+    def fn(self, x, *args, **kwargs):
+        """``sum sqrt(|grad x|^2 + 1e-12)`` per sample (prior.py:218)."""
+        g = _grad_op(x)
+        return _batch_sum(torch.sqrt((g * g).sum(-1) + 1e-12))
+
+    def prox(self, x, *args, gamma=1.0, **kwargs):
+        """Prox of ``gamma * TV`` by ``n_it_max`` Chambolle steps
+        (prior.py:223)."""
+        if self.use_pallas is False:
+            return chambolle_prox_plain(x, gamma, self.n_it_max)
+        return chambolle_prox(x, gamma, self.n_it_max)

@@ -132,7 +132,7 @@ class LinearPhysics(Physics):
     def prox_l2(self, z, y, gamma, **kwargs):
         raise NotImplementedError(
             "the Krylov prox_l2 of a general LinearPhysics (optim/linear.py) waits "
-            "for ROADMAP queue 1 item 8 (slice 6)")
+            "for ROADMAP queue 1 item 8")
 
 
 def _inv_gamma_mul(gamma, x):

@@ -6,13 +6,14 @@ Real inputs always take the half-spectrum (rfft) closed forms
 transforms. The JAX package gated them per backend (``_RFFT_BACKENDS``,
 blur.py:42) because the TPU lowers rfft to full complex FFTs. Complex inputs
 take the generic SVD path of :class:`DecomposablePhysics`.
-``Blur``/``Downsampling`` wait for ROADMAP queue 1 item 5 (slice 3).
+``Blur``/``Downsampling`` wait for ROADMAP queue 1 item 5.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from ..ops.conv import filter_fft_2d, gaussian_blur
 from .base import DecomposablePhysics, _add_inv_gamma, _inv_gamma_mul, replace
 
@@ -26,7 +27,7 @@ def _resolve_filter(filter, factor: int = 2):
             return gaussian_blur(sigma=(factor, factor))
         if filter in ("bilinear", "bicubic", "sinc"):
             raise NotImplementedError(
-                f"the {filter!r} filter waits for ROADMAP queue 1 item 5 (slice 3)")
+                f"the {filter!r} filter waits for ROADMAP queue 1 item 5")
         raise ValueError(f"unknown filter {filter!r}")
     if filter is None:
         return None
@@ -40,7 +41,8 @@ class BlurFFT(DecomposablePhysics):
     :param filter: PSF ``(b, c, h, w)``; its full-spectrum transfer function
         is kept as the complex buffer ``mask`` (blur.py:117-123).
     :param noise_model: e.g. :class:`~deepinv_tpu_torch.physics.GaussianNoise`.
-    :param device: where the buffers (filter, mask, noise level) live.
+    :param device: where the buffers (filter, mask, noise level) live; the
+        CUDA device by default (:func:`~deepinv_tpu_torch.device.resolve_device`).
     """
 
     def __init__(self, img_size, filter=None, noise_model=None, device=None):
@@ -48,7 +50,7 @@ class BlurFFT(DecomposablePhysics):
         filt = _resolve_filter(filter)
         super().__init__(mask=self._compute_mask(filt), noise_model=noise_model)
         self.register_buffer("filter", filt)
-        self.to(device)
+        self.to(resolve_device(device))
 
     def _compute_mask(self, filt):
         return 1.0 if filt is None else filter_fft_2d(filt, self.img_size, real_fft=False)

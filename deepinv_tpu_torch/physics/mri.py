@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from .base import DecomposablePhysics
 
 __all__ = ["MRI", "MRIMixin"]
@@ -87,14 +88,15 @@ class MRI(MRIMixin, DecomposablePhysics):
         ``(B, C, D, H, W)``; kept as a buffer.
     :param img_size: size of the all-ones mask when ``mask`` is None.
     :param three_d: FFT over three dims for ``(B, C, D, H, W)`` data.
-    :param device: where the mask (and the noise level) live.
+    :param device: where the mask (and the noise level) live; the CUDA
+        device by default.
     """
 
     def __init__(self, mask=None, img_size=(320, 320), three_d: bool = False, device=None,
                  **kwargs):
         super().__init__(mask=_check_mask(mask, img_size, three_d), **kwargs)
         self.three_d = three_d
-        self.to(device)
+        self.to(resolve_device(device))
 
     def update(self, **params):
         """A new physics; a new ``mask`` is normalized as at construction."""

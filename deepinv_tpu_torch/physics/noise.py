@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from .base import update
 
 __all__ = ["NoiseModel", "GaussianNoise"]
@@ -50,12 +51,14 @@ class GaussianNoise(NoiseModel):
     r"""``y = x + sigma * eps``, eps ~ N(0, I) (noise.py:112).
 
     ``sigma`` is a scalar or a ``(B,)`` tensor of per-sample levels, kept as a
-    buffer. Complex measurements get circular complex noise.
+    buffer on ``device`` (the CUDA device by default). Complex measurements
+    get circular complex noise.
     """
 
-    def __init__(self, sigma=0.1, seed: int = 0):
+    def __init__(self, sigma=0.1, seed: int = 0, device=None):
         super().__init__(seed=seed)
-        self.register_buffer("sigma", torch.as_tensor(sigma, dtype=torch.float32))
+        self.register_buffer("sigma", torch.as_tensor(sigma, dtype=torch.float32).to(
+            resolve_device(device)))
 
     def sample(self, y, generator):
         s = _bcast(self.sigma, y)

@@ -1,11 +1,12 @@
 """Computed tomography (port of deepinv_tpu/physics/tomography.py).
 
 :class:`Tomography` (tomography.py:38) with a parallel beam and the
-Fourier-slice projector (``method="slice"``), both ``circle`` settings. The
-sampling plan and the Toeplitz spectrum of ``A^T A`` are built once, at
-construction, and are buffers: ``physics.to(device)`` moves them. The other
-projector methods, the fan beam, FBP (``A_dagger``) and
-``TomographyWithAstra`` wait for ROADMAP queue 1 item 8.
+Fourier-slice projector (``method="slice"``), both ``circle`` settings, and
+its filtered backprojection (``A_dagger``). The sampling plan and the
+Toeplitz spectrum of ``A^T A`` are built once, at construction, and are
+buffers: ``physics.to(device)`` moves them. The other projector methods, the
+fan beam (and its FBP) and ``TomographyWithAstra`` wait for ROADMAP queue 1
+item 8.
 """
 
 from __future__ import annotations
@@ -15,13 +16,14 @@ from typing import Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.radon import radon_output_size
 from ..ops.radon_slice import RadonSlicePlan
 from .base import LinearPhysics
 
 __all__ = ["Tomography"]
 
-_WAITS = "ROADMAP queue 1 item 8 (slice 6)"
+_WAITS = "ROADMAP queue 1 item 8"
 
 
 class Tomography(LinearPhysics):
@@ -35,13 +37,15 @@ class Tomography(LinearPhysics):
     :param method: ``"slice"`` (the only one ported).
     :param fast_normal: precompute the Toeplitz spectrum of ``A^T A`` (750 x
         750 complex64 for 256-pixel images) so ``A_adjoint_A`` is two FFTs.
-    :param device: where the plan and the spectrum live.
+    :param device: where the plan and the spectrum live; the CUDA device by
+        default.
     """
 
     def __init__(self, angles: Union[int, np.ndarray], img_width: int, circle: bool = False,
                  normalize: bool = False, fbp_interpolate_boundary: bool = False,
                  method: str = "interp", fan_beam: bool = False, fan_parameters: dict = None,
                  fast_normal: bool = True, device=None, **kwargs):
+        device = resolve_device(device)
         super().__init__(**kwargs)
         if fan_beam:
             raise NotImplementedError(f"the fan-beam projector waits for {_WAITS}")
@@ -89,4 +93,13 @@ class Tomography(LinearPhysics):
         return out / self.img_width ** 2 if self.normalize else out
 
     def A_dagger(self, y, **params):
-        raise NotImplementedError(f"filtered backprojection (iradon_slice) waits for {_WAITS}")
+        """Filtered backprojection (tomography.py:191, the parallel-beam
+        branch): the sinogram unnormalized, then ``iradon_slice`` onto
+        ``img_width`` images through this physics' plan."""
+        if self.normalize:
+            y = y * self.img_width
+        return self.plan.filtered_backproject(y, out_size=self.img_width)
+
+    def fbp(self, y, **params):
+        """Alias of :meth:`A_dagger` (tomography.py:212)."""
+        return self.A_dagger(y, **params)

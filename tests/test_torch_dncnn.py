@@ -16,7 +16,7 @@ import deepinv_tpu_torch.models.dncnn as dncnn_mod
 from deepinv_tpu.models import DnCNN as JaxDnCNN
 from deepinv_tpu.models import autocast as jax_autocast
 from deepinv_tpu_torch.models import DnCNN, autocast, load_jax_params
-from test_torch_drunet import jax_params
+from test_torch_drunet import DEV, jax_params
 
 
 def _pair(channels=1, depth=20, seed=0, nf=64):
@@ -25,7 +25,8 @@ def _pair(channels=1, depth=20, seed=0, nf=64):
     rng = np.random.default_rng(seed)
     for conv in [ref.in_conv, *ref.conv_list, ref.out_conv]:
         conv.bias = jnp.asarray(rng.standard_normal(conv.bias.shape) * 0.02, jnp.float32)
-    port = load_jax_params(DnCNN(channels, channels, depth=depth, nf=nf), jax_params(ref))
+    port = load_jax_params(DnCNN(channels, channels, depth=depth, nf=nf, device=DEV),
+                           jax_params(ref))
     return ref, port
 
 
@@ -100,7 +101,8 @@ def test_hidden_chain_gate(monkeypatch, case):
     at least two hidden layers; otherwise the layers run one by one."""
     monkeypatch.setattr(dncnn_mod, "conv_chain", lambda *a, **k: pytest.fail("op called"))
     kw = {"nf32": dict(nf=32), "no_bias": dict(bias=False), "one_hidden": dict(depth=3)}[case]
-    den = autocast(DnCNN(1, 1, **{"depth": 5, **kw}, generator=torch.Generator().manual_seed(0)))
+    den = autocast(DnCNN(1, 1, **{"depth": 5, **kw}, generator=torch.Generator().manual_seed(0),
+                         device=DEV))
     with torch.no_grad():
         out = den(torch.rand((1, 1, 16, 16), generator=torch.Generator().manual_seed(1)))
     assert bool(torch.isfinite(out).all())
@@ -109,7 +111,7 @@ def test_hidden_chain_gate(monkeypatch, case):
 def test_chain_weights_are_packed_once_per_weight_version(monkeypatch):
     """Inference reuses the stacked chain weights until a weight changes;
     under autograd the stacks are rebuilt so gradients reach each layer."""
-    port = DnCNN(1, 1, depth=6, generator=torch.Generator().manual_seed(0))
+    port = DnCNN(1, 1, depth=6, generator=torch.Generator().manual_seed(0), device=DEV)
     h = torch.rand((1, 64, 8, 8)).to(torch.bfloat16)
     stacks = []
     chain = dncnn_mod.conv_chain
@@ -134,10 +136,10 @@ def test_chain_weights_are_packed_once_per_weight_version(monkeypatch):
 
 def test_random_init_follows_the_jax_scheme():
     """He-normal weights (fan-in), zero biases, channels_last weights."""
-    port = DnCNN(2, 2, generator=torch.Generator().manual_seed(0))
+    port = DnCNN(2, 2, generator=torch.Generator().manual_seed(0), device=DEV)
     w = port.conv_list[5].weight
     assert abs(float(w.detach().std()) / (2 / (64 * 9)) ** 0.5 - 1) < 0.02
     assert float(port.out_conv.bias.detach().abs().max()) == 0.0
     assert w.is_contiguous(memory_format=torch.channels_last)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DnCNN(pretrained="download")
+        DnCNN(pretrained="download", device=DEV)

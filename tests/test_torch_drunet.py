@@ -16,6 +16,8 @@ from deepinv_tpu.models import DRUNet as JaxDRUNet
 from deepinv_tpu.models import autocast as jax_autocast
 from deepinv_tpu_torch.models import DRUNet, autocast, load_jax_params
 
+# the port runs on the CUDA device by default; these tests run on the CPU
+DEV = "cpu"
 NC = (64, 32, 32, 32)
 
 
@@ -33,7 +35,7 @@ def jax_params(module) -> dict:
 
 def _pair(nc=NC, nb=1, seed=0, act_mode="R"):
     ref = JaxDRUNet(nc=nc, nb=nb, act_mode=act_mode, key=jax.random.key(seed))
-    port = load_jax_params(DRUNet(nc=nc, nb=nb, act_mode=act_mode), jax_params(ref))
+    port = load_jax_params(DRUNet(nc=nc, nb=nb, act_mode=act_mode, device=DEV), jax_params(ref))
     return ref, port
 
 
@@ -106,7 +108,7 @@ def test_bf16_autocast_forward_matches_jax(monkeypatch):
 def test_chain_weights_are_packed_once_per_weight_version():
     """Inference reuses the stacked chain weights until a weight changes;
     under autograd the stacks are rebuilt so gradients reach each block."""
-    port = DRUNet(nc=NC, nb=2, generator=torch.Generator().manual_seed(0))
+    port = DRUNet(nc=NC, nb=2, generator=torch.Generator().manual_seed(0), device=DEV)
     blocks = list(port.m_down1[:-1])
     with torch.no_grad():
         first = port._chain_weights(blocks)
@@ -124,7 +126,7 @@ def test_chain_weights_are_packed_once_per_weight_version():
 
 def test_random_init_follows_the_jax_scheme():
     """He-normal init, with the reference's 0.2 gain on ResBlock convs."""
-    port = DRUNet(generator=torch.Generator().manual_seed(0))
+    port = DRUNet(generator=torch.Generator().manual_seed(0), device=DEV)
     w = port.m_down1[0].conv1.weight
     assert abs(float(w.detach().std()) / (0.2 * (2 / (64 * 9)) ** 0.5) - 1) < 0.02
     w = port.m_down2[-1].weight

@@ -27,7 +27,7 @@ from deepinv_tpu_torch.ops import gaussian_blur
 from deepinv_tpu_torch.optim import (L2, DataFidelity, PnP, Potential, Zero, create_iterator,
                                      optim_builder)
 from deepinv_tpu_torch.physics import BlurFFT, GaussianNoise
-from test_torch_drunet import jax_params
+from test_torch_drunet import DEV, jax_params
 
 SHAPE = (1, 3, 64, 64)
 PARAMS = {"stepsize": 2.0, "g_param": 0.02}
@@ -37,12 +37,13 @@ def _setup(nc=(16, 32, 64, 64), nb=2, shape=SHAPE, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.random(shape).astype(np.float32)
     psf = gaussian_blur(1.5)
-    port_phys = BlurFFT(shape[1:], filter=psf, noise_model=GaussianNoise(0.01))
+    port_phys = BlurFFT(shape[1:], filter=psf, noise_model=GaussianNoise(0.01, device=DEV),
+                        device=DEV)
     ref_phys = JaxBlurFFT(shape[1:], filter=jnp.asarray(psf.numpy()))
     y = np.asarray(ref_phys.A(jnp.asarray(x))) + 0.01 * rng.standard_normal(shape).astype(
         np.float32)
     ref_den = JaxDRUNet(nc=nc, nb=nb, key=jax.random.key(seed))
-    port_den = load_jax_params(DRUNet(nc=nc, nb=nb), jax_params(ref_den))
+    port_den = load_jax_params(DRUNet(nc=nc, nb=nb, device=DEV), jax_params(ref_den))
     return x, y, port_phys, ref_phys, port_den, ref_den
 
 
@@ -51,7 +52,7 @@ def _run_both(port_den, ref_den, y, port_phys, ref_phys, params=PARAMS, max_iter
                             params_algo=params, max_iter=max_iter, **kw)
     want = np.asarray(jax.jit(lambda m, v, p: m(v, p))(ref, jnp.asarray(y), ref_phys))
     port = optim_builder("HQS", data_fidelity=L2(), prior=PnP(port_den),
-                         params_algo=params, max_iter=max_iter, **kw)
+                         params_algo=params, max_iter=max_iter, device=DEV, **kw)
     with torch.no_grad():
         got = port(torch.from_numpy(y), port_phys).numpy()
     return got, want
@@ -80,7 +81,7 @@ def test_entry_problem_bf16_psnr_matches_jax():
     x, y, port_phys, ref_phys, port_den, ref_den = _setup(seed=1)
     got, want = _run_both(autocast(port_den), jax_autocast(ref_den), y, port_phys, ref_phys)
     f32 = optim_builder("HQS", data_fidelity=L2(), prior=PnP(port_den), params_algo=PARAMS,
-                        max_iter=4)
+                        max_iter=4, device=DEV)
     with torch.no_grad():
         got32 = f32(torch.from_numpy(y), port_phys).numpy()
     assert got.dtype == np.float32 and np.isfinite(got).all()
@@ -135,16 +136,16 @@ def test_potential_defaults():
 
 
 def test_builder_schedule_and_unported_options():
-    model = optim_builder("hqs", params_algo={"stepsize": [1.0, 2.0]}, max_iter=5)
+    model = optim_builder("hqs", params_algo={"stepsize": [1.0, 2.0]}, max_iter=5, device=DEV)
     assert torch.equal(model.params_algo["stepsize"], torch.tensor([1.0, 2.0, 1.0, 2.0, 1.0]))
     assert model.params_algo["g_param"].shape == (5,)
     assert "param_stepsize" in model.state_dict()  # a buffer: .to(device) moves it
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_iterator("FISTA")
+        create_iterator("MD")
     with pytest.raises(ValueError):
         create_iterator("nope")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim_builder("HQS", early_stop=True)
+        optim_builder("HQS", early_stop=True, device=DEV)
 
 
 def test_import_loads_no_jax():

@@ -22,6 +22,7 @@ from deepinv_tpu_torch.ops.radon_fourier import _next_smooth
 from deepinv_tpu_torch.ops.radon_slice import _slice_plan
 from deepinv_tpu_torch.optim import L2
 from deepinv_tpu_torch.physics import MRI, GaussianNoise, Tomography
+from test_torch_drunet import DEV
 
 
 def _rel_l2(a, b):
@@ -33,7 +34,8 @@ def _mri_pair(size=32, seed=0):
     rng = np.random.default_rng(seed)
     mask = (rng.random((size, size)) < 0.3).astype(np.float32)
     return JaxMRI(mask=jnp.asarray(mask), img_size=(size, size)), MRI(mask=mask,
-                                                                      img_size=(size, size))
+                                                                      img_size=(size, size),
+                                                                      device=DEV)
 
 
 def test_mri_matches_jax():
@@ -70,7 +72,8 @@ def test_mri_mask_update_and_masked_noise():
     full = port.update(mask=torch.ones(16, 16))
     assert full.mask.shape == (1, 2, 16, 16) and float(port.mask.mean()) < 0.5
     np.testing.assert_allclose(full.A_adjoint(full.A(x)).numpy(), x.numpy(), atol=1e-5)
-    noisy = MRI(mask=port.mask[0, 0], img_size=(16, 16), noise_model=GaussianNoise(0.1))
+    noisy = MRI(mask=port.mask[0, 0], img_size=(16, 16),
+                noise_model=GaussianNoise(0.1, device=DEV), device=DEV)
     y = noisy(x, generator=torch.Generator().manual_seed(0))
     assert bool((y[port.mask.expand_as(y) == 0] == 0).all())
     assert float((y - noisy.A(x)).abs().max()) > 0
@@ -86,7 +89,7 @@ def test_tomography_matches_jax(width, circle, normalize):
     from a float64 one (test_toeplitz_spectrum_is_float64_accurate) and its
     ``A_adjoint_A`` 2.6e-4 from the port's: bound 5e-4 there."""
     kw = dict(angles=30, img_width=width, circle=circle, normalize=normalize, method="slice")
-    ref, port = JaxTomography(**kw), Tomography(**kw)
+    ref, port = JaxTomography(**kw), Tomography(**kw, device=DEV)
     rng = np.random.default_rng(width)
     x = rng.random((2, 1, width, width)).astype(np.float32)
     n_det = radon_output_size(width, circle)
@@ -137,7 +140,7 @@ def test_toeplitz_spectrum_is_float64_accurate(W):
 def test_tomography_adjointness(width, circle):
     """``<A u, v> = <u, A^T v>`` to 1e-5 relative (the adjoint is the exact
     transpose of the forward, up to float32 rounding)."""
-    physics = Tomography(angles=20, img_width=width, circle=circle, method="slice")
+    physics = Tomography(angles=20, img_width=width, circle=circle, method="slice", device=DEV)
     g = torch.Generator().manual_seed(width)
     u = torch.rand((2, 1, width, width), generator=g)
     Au = physics.A(u)
@@ -152,21 +155,21 @@ def test_toeplitz_normal_is_close_to_adjoint_of_forward():
     """The Toeplitz ``A_adjoint_A`` is exact up to the Kaiser-Bessel
     gridding: within 1e-2 relative max error of ``A_adjoint(A(x))`` at 32 px
     (the JAX package gives 4.2e-3 there); both are held to JAX above."""
-    physics = Tomography(angles=90, img_width=32, normalize=True, method="slice")
+    physics = Tomography(angles=90, img_width=32, normalize=True, method="slice", device=DEV)
     x = torch.rand((1, 1, 32, 32), generator=torch.Generator().manual_seed(0))
     fast, slow = physics.A_adjoint_A(x), physics.A_adjoint(physics.A(x))
     assert float((fast - slow).abs().max() / slow.abs().max()) <= 1e-2
     plain = Tomography(angles=90, img_width=32, normalize=True, method="slice",
-                       fast_normal=False)
+                       fast_normal=False, device=DEV)
     assert not plain.fast_normal and plain.plan.spec is None
     assert torch.equal(plain.A_adjoint_A(x), slow)
 
 
 def test_tomography_state_and_unported_options():
     """The plan and the spectrum are buffers (``physics.to(device)`` moves
-    them); the other projectors, the fan beam and FBP raise, naming the
-    ROADMAP item that ports them."""
-    physics = Tomography(angles=12, img_width=16, method="slice")
+    them); the other projectors and the fan beam raise, naming the ROADMAP
+    item that ports them."""
+    physics = Tomography(angles=12, img_width=16, method="slice", device=DEV)
     buffers = dict(physics.named_buffers())
     for name in ("angles", "plan.phase", "plan.spec", "plan.nufft.idx", "plan.nufft.wts",
                  "plan.nufft.scale"):
@@ -175,16 +178,14 @@ def test_tomography_state_and_unported_options():
     assert buffers["plan.nufft.idx"].dtype == torch.int64
     for kw in (dict(), dict(method="fourier"), dict(method="slice", fan_beam=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Tomography(angles=12, img_width=16, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        physics.A_dagger(physics.A(torch.zeros(1, 1, 16, 16)))
+            Tomography(angles=12, img_width=16, device=DEV, **kw)
 
 
 def test_l2_grad_splits_with_fast_normal():
     """With a fast normal operator ``L2.grad`` is ``A_adjoint_A(x) - A^T y``
     (data_fidelity.py:151-160); without one, ``A^T (A x - y)``. Both agree
     to the Toeplitz accuracy."""
-    physics = Tomography(angles=30, img_width=32, normalize=True, method="slice")
+    physics = Tomography(angles=30, img_width=32, normalize=True, method="slice", device=DEV)
     g = torch.Generator().manual_seed(3)
     x, y = torch.rand((1, 1, 32, 32), generator=g), physics.A(torch.rand((1, 1, 32, 32),
                                                                          generator=g))
@@ -192,7 +193,7 @@ def test_l2_grad_splits_with_fast_normal():
     want = (physics.A_adjoint_A(x) - physics.A_adjoint(y)) / 0.25
     assert torch.allclose(fast, want)
     plain = Tomography(angles=30, img_width=32, normalize=True, method="slice",
-                       fast_normal=False)
+                       fast_normal=False, device=DEV)
     slow = L2(sigma=0.5).grad(x, y, plain)
     assert float((fast - slow).abs().max() / slow.abs().max()) <= 5e-2
 

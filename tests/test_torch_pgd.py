@@ -26,6 +26,7 @@ from deepinv_tpu_torch.models import DnCNN, autocast
 from deepinv_tpu_torch.optim import L2, PnP, Prior, create_iterator, optim_builder
 from deepinv_tpu_torch.physics import MRI, Tomography
 from test_torch_dncnn import _pair
+from test_torch_drunet import DEV
 
 SIZE = 64
 PARAMS = {"stepsize": 1.0, "g_param": 0.05}
@@ -38,11 +39,11 @@ def _problem(kind, seed=0):
         x = rng.standard_normal((1, 2, SIZE, SIZE)).astype(np.float32)
         mask = (rng.random((SIZE, SIZE)) < 0.3).astype(np.float32)
         ref = JaxMRI(mask=jnp.asarray(mask), img_size=(SIZE, SIZE))
-        port = MRI(mask=mask, img_size=(SIZE, SIZE))
+        port = MRI(mask=mask, img_size=(SIZE, SIZE), device=DEV)
     else:
         x = rng.random((1, 1, SIZE, SIZE)).astype(np.float32)
         kw = dict(img_width=SIZE, angles=90, method="slice", normalize=True)
-        ref, port = JaxTomography(**kw), Tomography(**kw)
+        ref, port = JaxTomography(**kw), Tomography(**kw, device=DEV)
     y = np.array(ref.A(jnp.asarray(x)))
     return x, y, ref, port
 
@@ -61,7 +62,7 @@ def _run_both(kind, bf16=False, seed=0, iterator="PGD", prior=None, params=PARAM
                             max_iter=max_iter)
     want = np.asarray(jax.jit(lambda m, v, p: m(v, p))(ref, jnp.asarray(y), ref_phys))
     port = optim_builder(it[1], data_fidelity=L2(), prior=prior[1], params_algo=params,
-                         max_iter=max_iter)
+                         max_iter=max_iter, device=DEV)
     with torch.no_grad():
         got = port(torch.from_numpy(y), port_phys).numpy()
     return x, got, want, port, port_phys, y
@@ -125,9 +126,9 @@ def test_adjoint_of_measurement_is_computed_once_per_reconstruction():
     gradient step share it), with the same result as a loop that computes it
     at every step."""
     x, y, _, physics = _problem("ct", seed=3)
-    den = DnCNN(1, 1, depth=4, generator=torch.Generator().manual_seed(0))
+    den = DnCNN(1, 1, depth=4, generator=torch.Generator().manual_seed(0), device=DEV)
     model = optim_builder("PGD", data_fidelity=L2(), prior=PnP(den), params_algo=PARAMS,
-                          max_iter=4)
+                          max_iter=4, device=DEV)
     calls = []
     adjoint = physics.A_adjoint
     physics.A_adjoint = lambda v, **kw: calls.append(1) or adjoint(v, **kw)

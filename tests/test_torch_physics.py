@@ -16,6 +16,7 @@ from deepinv_tpu.ops import gaussian_blur as jax_gaussian_blur
 from deepinv_tpu.physics import BlurFFT as JaxBlurFFT
 from deepinv_tpu_torch.ops import filter_fft_2d, gaussian_blur
 from deepinv_tpu_torch.physics import BlurFFT, GaussianNoise
+from test_torch_drunet import DEV
 
 ATOL = 1e-5
 
@@ -52,7 +53,7 @@ def _problem(B=2, shape=(3, 32, 24), sigma=1.5, seed=0):
     eps = rng.standard_normal((B,) + shape).astype(np.float32)
     z = rng.random((B,) + shape).astype(np.float32)
     psf = gaussian_blur(sigma)
-    port = BlurFFT(shape, filter=psf, noise_model=GaussianNoise(0.01))
+    port = BlurFFT(shape, filter=psf, noise_model=GaussianNoise(0.01, device=DEV), device=DEV)
     ref = JaxBlurFFT(shape, filter=jnp.asarray(psf.numpy()))
     return x, eps, z, port, ref
 
@@ -136,6 +137,6 @@ def test_measurement_noise_and_update():
 
     psf = gaussian_blur(2.5)
     other = port.update(filter=psf)
-    fresh = BlurFFT((1, 64, 64), filter=psf)
+    fresh = BlurFFT((1, 64, 64), filter=psf, device=DEV)
     assert torch.equal(other.mask, fresh.mask) and not torch.equal(other.mask, port.mask)
     assert torch.equal(other.A(xt), fresh.A(xt))

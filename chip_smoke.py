@@ -10,25 +10,30 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    nvcc per source, all started together);
 3. each kernel against its plain PyTorch version, TF32 off, at its main-path
    shapes: the DRUNet resblock chain (K1), the DnCNN conv+bias+ReLU chain
-   (K5) and the Chambolle TV prox (K7; 1x3x256², 1x2x256², B=2 with two
+   (K5), the Chambolle TV prox (K7; 1x3x256², 1x2x256², B=2 with two
    gammas, a ragged 1x1x37x53 plane and a 1x1x1024² plane that no SM holds,
-   100 iterations each);
+   100 iterations each), DRUNet's up-projection chain (K2/K3; v 1x128x128²
+   and 2x128x128² with R=4, a ragged 1x128x20x28 with R=1) and its up tail
+   (K4; s2 1x256x64² and d0 1x64x256², the same at B=2, and a ragged scale 0
+   of 40x56, R1=R0=4);
 4. the HQS bench problem through the port's entry points: PnP-HQS deblurring
    of a 1x3x256x256 image (BlurFFT, Gaussian blur sigma 1.5, Gaussian noise
    0.01) with a bf16 full-width DRUNet (nc=(64,128,256,512), nb=4, seeded
-   random weights), 8 iterations;
+   random weights), 8 iterations, three times with the same weights: in the
+   default ``fused="down"`` (K1), in ``"both"`` (K1 and K2/K3) and in
+   ``"sandwich"`` (K1 and K4);
 5. the PGD bench problems: PnP-PGD with a bf16 full-depth, full-width DnCNN
    (depth 20, nf 64, seeded random weights, the residual layer scaled to a
    denoiser's size), 8 iterations at stepsize 1.0 and denoiser level 0.05, on
    MRI (1x2x256x256, 30% random k-space mask) and on CT (1x1x256x256,
    Fourier-slice Tomography, 90 angles, normalized), and the CT Toeplitz
    normal operator against ``A_adjoint(A(x))``.
-   For each of the three reconstructions (4 and 5) the output must be finite,
-   the path's kernel must have been launched once per iteration (its counter
-   is set to 0 just before the run and read just after), each denoiser call
-   must agree with the same call on the plain chain, and the output with the
-   same reconstruction run on the plain chain on the card (PGD: and on the
-   chain in f32 without rounding);
+   For each of the five reconstructions (4 and 5) the output must be finite,
+   each of the path's kernels must have been launched once per iteration
+   (its counter is set to 0 just before the run and read just after), each
+   denoiser call must agree with the same call on the plain versions, and
+   the output with the same reconstruction run on the plain versions on the
+   card (PGD: and on the chain in f32 without rounding);
 6. the TV problems, f32, through the entry points with the default device
    and ``TVPrior()`` (100 Chambolle steps per prox), on piecewise-constant
    phantoms of random discs: TV deblurring of 1x3x256² (BlurFFT, Gaussian blur
@@ -41,12 +46,15 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    the naive estimate (``y``, the zero-filled ``A^T y``, the FBP) by more than
    0.5 dB of PSNR;
 7. times, with CUDA events after warm-up, in turns: each kernel against its
-   plain version (K1, K5: and against the same chain as cuDNN bf16 layers),
-   and each reconstruction's iterations per second on the kernel path and on
-   the plain version;
-8. where the TV time goes: ``torch.profiler`` over K7 alone and over TV-PGD
-   deblurring at B=1 and B=8 (device time by kernel, kernels per call, and
-   the device's idle share against the unprofiled wall time).
+   plain version (K1, K5, K2/K3, K4: and against the same stage as cuDNN
+   bf16 layers; K2/K3 and K4 also at B=8), each reconstruction's iterations
+   per second on the kernel path and on the plain version, and the DRUNet
+   forward and the HQS iterations per second in ``down``, ``both``,
+   ``sandwich`` and ``"0"`` (no kernel) at B=1 and B=8;
+8. where the time goes: ``torch.profiler`` over HQS in each DRUNet
+   configuration at B=1 and B=8, over K7 alone and over TV-PGD deblurring at
+   B=1 and B=8 (device time by kernel, kernels per call, and the device's
+   idle share against the unprofiled wall time).
 
 It prints the card line and a JSON line ``{"kernels": [...]}`` before the last
 line, and ends with ``{"ok": true, "device": {...}}``. It exits non-zero with
@@ -56,6 +64,7 @@ no result when there is no CUDA device. It imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import subprocess
@@ -66,6 +75,15 @@ SEED = 0
 R_MAIN = 4                      # DRUNet nb: blocks in the scale-0 chain
 KERNEL_SHAPES = [((1, 64, 256, 256), R_MAIN), ((2, 64, 256, 256), R_MAIN),
                  ((1, 64, 40, 56), 1)]
+# K2/K3: (v shape, R); v is DRUNet's m_up1 input at 256² (Ci = nc[1] = 128)
+UP_SHAPES = [((1, 128, 128, 128), R_MAIN), ((2, 128, 128, 128), R_MAIN),
+             ((1, 128, 20, 28), 1)]
+# K4: (B, H2, W2) of s2 (B, 256, H2, W2); d0 is (B, 64, 4 H2, 4 W2), R1 = R0 = 4
+SANDWICH_SHAPES = [(1, 64, 64), (2, 64, 64), (1, 10, 14)]
+# DRUNet configurations run on the HQS bench problem; "0" (every stage on
+# cuDNN layers) is timed beside them
+HQS_CONFIGS = ("0", "down", "both", "sandwich")
+HQS_BATCH = 8
 L_MAIN = 18                     # DnCNN depth 20: hidden layers in the chain
 CHAIN_SHAPES = [((1, 64, 256, 256), L_MAIN), ((2, 64, 256, 256), L_MAIN),
                 ((1, 64, 40, 56), 3)]
@@ -190,11 +208,12 @@ def kernel_vs_plain(label: str, run, plain, x, bound: float, by_range: bool = Fa
 
 
 def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain=None):
-    """One reconstruction on the kernel path (``op.launches`` set to 0 just
-    before it and read just after), checked: finite output of ``shape``, one
-    launch and one denoiser call per iteration, each call of ``net`` against
-    the same call on the plain chain, and the whole run against the plain
-    chain's run. Returns ``(out, out_plain, launches)``.
+    """One reconstruction on the kernel path (the ``launches`` of ``op``, one
+    kernel op or a tuple of them, set to 0 just before it and read just
+    after), checked: finite output of ``shape``, one launch of each op and one
+    denoiser call per iteration, each call of ``net`` against the same call
+    on the plain chain, and the whole run against the plain chain's run.
+    Returns ``(out, out_plain, launches)``, the launches of the first op.
 
     With ``exact_chain`` (a context that runs the chain in f32 with no
     rounding inside it; DnCNN), each call's residual is held too, and the
@@ -204,19 +223,24 @@ def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain
     calls = []  # every denoiser input of the run, to replay on the plain chain
     hook = net.register_forward_pre_hook(
         lambda mod, args: calls.append((args[0].detach().clone(), args[1])))
+    ops = op if isinstance(op, tuple) else (op,)
     torch.cuda.reset_peak_memory_stats()
-    op.launches = 0
+    for o in ops:
+        o.launches = 0
     t0 = time.perf_counter()
     with torch.no_grad():
         out = model(y, physics)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = op.launches
+    counts = [o.launches for o in ops]
+    launches = counts[0]
     hook.remove()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"{name} {MAX_ITER} it: first run {first_s:.3f} s, kernel launches {launches}, "
-          f"peak memory {peak_gib:.3f} GiB", flush=True)
-    check(launches == MAX_ITER, f"{name}: expected {MAX_ITER} kernel launches, got {launches}")
+    print(f"{name} {MAX_ITER} it: first run {first_s:.3f} s, kernel launches "
+          f"{dict(zip((o.__name__ for o in ops), counts))}, peak memory {peak_gib:.3f} GiB",
+          flush=True)
+    for o, n in zip(ops, counts):
+        check(n == MAX_ITER, f"{name}: expected {MAX_ITER} launches of {o.__name__}, got {n}")
     check(tuple(out.shape) == shape and out.dtype == torch.float32,
           f"{name}: bad output shape/dtype")
     check(bool(torch.isfinite(out).all()), f"{name}: non-finite reconstruction")
@@ -237,11 +261,11 @@ def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain
             ok = ok and rl2 <= DENOISER_RTOL
         print(line, flush=True)
         check(ok, f"{name}: denoiser call {i} disagrees with the plain chain")
-    launches_after = op.launches
+    launches_after = [o.launches for o in ops]
     with plain_chain(), torch.no_grad():
         out_plain = model(y, physics)
     torch.cuda.synchronize()
-    check(op.launches == launches_after, f"{name}: the plain run launched the kernel")
+    check([o.launches for o in ops] == launches_after, f"{name}: the plain run launched a kernel")
     rerr = float((out - out_plain).norm() / out_plain.norm())
     print(f"{name} kernel vs plain chain: relative L2 error {rerr} (bound {RECON_RTOL}), "
           f"max_abs_err {float((out - out_plain).abs().max())}, output max "
@@ -289,7 +313,7 @@ def time_chain(label: str, run_k, run_p, run_cudnn, flop: float):
     return k_ms, p_ms, t_bf16
 
 
-def device_profile(label: str, run, calls: int) -> None:
+def device_profile(label: str, run, calls: int, top: int = 6) -> None:
     """Device time by kernel over ``calls`` runs of ``run`` (torch.profiler),
     per call, beside the unprofiled wall time per call; the idle share is
     1 - device busy / wall."""
@@ -318,10 +342,62 @@ def device_profile(label: str, run, calls: int) -> None:
         print(f"profile {label}: the profiler saw no device time; not measured", flush=True)
         return
     top = "; ".join(f"{name[:48]} {ms:.4f} ms x{n:g}"
-                    for ms, n, name in sorted(kernels, reverse=True)[:6])
+                    for ms, n, name in sorted(kernels, reverse=True)[:top])
     print(f"profile {label}: wall {wall_ms:.3f} ms per call, device busy {busy:.3f} ms "
           f"({sum(k[1] for k in kernels):g} kernels), idle share {1 - busy / wall_ms:.3f}; "
           f"top: {top}", flush=True)
+
+
+def drunet_std(fan_in: int, gain: float = 1.0) -> float:
+    """DRUNet's init scale: He-normal, with the 0.2 gain of its ResBlock convs."""
+    return gain * (2.0 / fan_in) ** 0.5
+
+
+def randn_on_card(gen, shape, std: float):
+    """Normal draws from the CPU generator ``gen``, scaled, moved to the card."""
+    import torch
+
+    return (torch.randn(shape, generator=gen) * std).to("cuda")
+
+
+def up_weights(gen, ci: int, R: int):
+    """Random weights of DRUNet's m_up1 (Ci -> 64 transposed conv, R blocks)
+    at its init scales, on the card."""
+    def rn(shape, std):
+        return randn_on_card(gen, shape, std)
+
+    return (rn((ci, 64, 2, 2), drunet_std(4 * ci)), rn((R, 64, 64, 3, 3), drunet_std(576, 0.2)),
+            rn((R, 64, 64, 3, 3), drunet_std(576, 0.2)))
+
+
+def sandwich_weights(gen, R: int):
+    """Random weights of DRUNet's up tail at full width (m_up2 256 -> 128 and
+    R blocks at 128, m_down1's 64 -> 128 down conv, m_up1 128 -> 64 and R
+    blocks at 64) at its init scales, on the card, in up_sandwich's order."""
+    def rn(shape, std):
+        return randn_on_card(gen, shape, std)
+
+    s1, s0 = drunet_std(128 * 9, 0.2), drunet_std(576, 0.2)
+    return (rn((256, 128, 2, 2), drunet_std(1024)), rn((R, 128, 128, 3, 3), s1),
+            rn((R, 128, 128, 3, 3), s1), rn((128, 64, 2, 2), drunet_std(256)),
+            rn((128, 64, 2, 2), drunet_std(512)), rn((R, 64, 64, 3, 3), s0),
+            rn((R, 64, 64, 3, 3), s0))
+
+
+def up_ops(H2: int, W2: int, Ci: int, R: int, B: int = 1) -> float:
+    """Operations of K2/K3: the projection GEMM and 2R 3x3 convs at 64."""
+    H, W = 2 * H2, 2 * W2
+    return B * (2 * H2 * W2 * Ci * 4 * 64 + R * 2 * (2 * H * W * 64 * 64 * 9))
+
+
+def sandwich_ops(H2: int, W2: int, Ci2: int, R1: int, R0: int, B: int = 1) -> float:
+    """Operations of K4 (``sandwich_cost``, deepinv_tpu/ops/pallas/
+    resblock_chain.py:564): up2, the scale-1 chain at 128, the skip's down
+    projection, up1, the scale-0 chain at 64."""
+    p1 = 4 * H2 * W2   # scale-1 pixels
+    return B * (2 * H2 * W2 * Ci2 * 4 * 128 + R1 * 2 * (2 * p1 * 128 * 128 * 9)
+                + 2 * p1 * 256 * 128 + 2 * p1 * 128 * 256
+                + R0 * 2 * (2 * 4 * p1 * 64 * 64 * 9))
 
 
 def discs(rng, channels: int, size: int, n: int = 12):
@@ -458,6 +534,10 @@ def main() -> int:
     from deepinv_tpu_torch.ops.kernels.resblock_chain import (
         pack_weights, resblock_chain, resblock_chain_plain)
     from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox, chambolle_prox_plain
+    from deepinv_tpu_torch.ops.kernels.up_resblock_chain import (
+        pack_up_chain, up_resblock_chain, up_resblock_chain_plain)
+    from deepinv_tpu_torch.ops.kernels.up_sandwich import (
+        pack_sandwich, up_sandwich, up_sandwich_plain)
     from deepinv_tpu_torch.optim import L2, PnP, optim_builder
     from deepinv_tpu_torch.physics import MRI, BlurFFT, GaussianNoise, Tomography
 
@@ -515,6 +595,29 @@ def main() -> int:
                               by_range=True)
         if tv_err is None:
             tv_err = err
+    # K2/K3 and K4 on their own generators, so that the later phases draw
+    # from g and g_tv what they drew before
+    g_up = torch.Generator().manual_seed(SEED + 5)
+    up_err = None
+    for shape, R in UP_SHAPES:
+        v = torch.randn(shape, generator=g_up).to(dev, torch.bfloat16)
+        wu, w1, w2 = up_weights(g_up, shape[1], R)
+        err = kernel_vs_plain(f"up_resblock_chain vs plain {shape} R={R}",
+                              lambda t: up_resblock_chain(t, wu, w1, w2),
+                              lambda t: up_resblock_chain_plain(t, wu, w1, w2), v, KERNEL_RTOL)
+        if up_err is None:
+            up_err = err
+    g_sw = torch.Generator().manual_seed(SEED + 6)
+    sw_err = None
+    for B, H2, W2 in SANDWICH_SHAPES:
+        s2 = torch.randn((B, 256, H2, W2), generator=g_sw).to(dev, torch.bfloat16)
+        d0 = torch.randn((B, 64, 4 * H2, 4 * W2), generator=g_sw).to(dev, torch.bfloat16)
+        wts = sandwich_weights(g_sw, R_MAIN)
+        err = kernel_vs_plain(f"up_sandwich vs plain s2 {tuple(s2.shape)} d0 {tuple(d0.shape)} "
+                              f"R1=R0={R_MAIN}", lambda t: up_sandwich(t, d0, *wts),
+                              lambda t: up_sandwich_plain(t, d0, *wts), s2, KERNEL_RTOL)
+        if sw_err is None:
+            sw_err = err
 
     # 4. the HQS bench problem, kernel path, then the plain chain on the card;
     # physics, models and reconstructors are on the GPU by default
@@ -538,6 +641,37 @@ def main() -> int:
     print(f"HQS PSNR vs x: kernel {p_k:.4f} dB, plain {p_p:.4f} dB, y {p_y:.4f} dB "
           f"(gap bound {RECON_PSNR_DB} dB)", flush=True)
     check(abs(p_k - p_p) <= RECON_PSNR_DB, "HQS: PSNR gap to the plain chain too large")
+
+    def plain_drunet():
+        """Every DRUNet kernel op on its plain version instead of the kernel."""
+        stack = contextlib.ExitStack()
+        for name, fn in (("resblock_chain", resblock_chain_plain),
+                         ("up_resblock_chain", up_resblock_chain_plain),
+                         ("up_sandwich", up_sandwich_plain)):
+            stack.enter_context(swapped(drunet_mod, name, lambda *a, fn=fn, packed=None: fn(*a)))
+        return stack
+
+    def hqs_in(mode: str):
+        """The HQS model and denoiser with the same weights in configuration ``mode``."""
+        den = copy.deepcopy(denoiser)
+        den.denoiser.fused = mode
+        return optim_builder("HQS", data_fidelity=L2(), prior=PnP(den),
+                             params_algo={"stepsize": 2.0, "g_param": 0.02},
+                             max_iter=MAX_ITER), den
+
+    # the same problem and weights in the other configurations
+    hqs_models = {"down": (model, denoiser), "0": hqs_in("0")}
+    config_launches = {}
+    for mode, op in (("both", up_resblock_chain), ("sandwich", up_sandwich)):
+        m, den = hqs_in(mode)
+        out_m, out_mp, config_launches[mode] = drive(
+            f"HQS {mode}", m, y, physics, den.denoiser, (op, resblock_chain), plain_drunet,
+            shape)
+        pm_k, pm_p = psnr(out_m, x), psnr(out_mp, x)
+        print(f"HQS {mode} PSNR vs x: kernel {pm_k:.4f} dB, plain {pm_p:.4f} dB; vs the down "
+              f"run: relative L2 {float((out_m - out).norm() / out.norm())}", flush=True)
+        check(abs(pm_k - pm_p) <= RECON_PSNR_DB, f"HQS {mode}: PSNR gap to the plain run too large")
+        hqs_models[mode] = (m, den)
 
     def recon(m, v, p):
         def run():
@@ -660,6 +794,83 @@ def main() -> int:
           f"{tv_ops / tk_ms / 1e9:.3f} TFLOP/s; {(TV_ITERS + 1) / tk_ms * 1e3:.0f} "
           f"launches per second", flush=True)
 
+    # K2/K3 and K4 at the bench shapes, channels_last as DRUNet hands them
+    g_t = torch.Generator().manual_seed(SEED + 7)
+
+    def bf16_cl(t):
+        return t.to(dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    up_shape = UP_SHAPES[0][0]
+    v = bf16_cl(torch.randn(up_shape, generator=g_t))
+    wu, uw1, uw2 = up_weights(g_t, up_shape[1], R_MAIN)
+    up_pk = pack_up_chain(wu, uw1, uw2)
+    wub = wu.to(torch.bfloat16)
+    uw1b, uw2b = ([w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last) for w in ws_]
+                  for ws_ in (uw1, uw2))
+
+    def cudnn_bf16_up(v):  # F.conv_transpose2d and 8 convs, two roundings per block
+        t = F.conv_transpose2d(v, wub, stride=2)
+        for r in range(R_MAIN):
+            t = t + F.conv2d(torch.relu(F.conv2d(t, uw1b[r], padding=1)), uw2b[r], padding=1)
+        return t
+
+    def time_up(v):
+        b, ci, h2, w2 = v.shape
+        return time_chain(f"up_resblock_chain {tuple(v.shape)} R={R_MAIN}",
+                          lambda: up_resblock_chain(v, wu, uw1, uw2, up_pk),
+                          lambda: up_resblock_chain_plain(v, wu, uw1, uw2),
+                          lambda: cudnn_bf16_up(v), up_ops(h2, w2, ci, R_MAIN, b))
+
+    up_flop = up_ops(*up_shape[2:], up_shape[1], R_MAIN)
+    uk_ms, up_ms, uk_lib_ms = time_up(v)
+
+    b_s, h2s, w2s = SANDWICH_SHAPES[0]
+    s2 = bf16_cl(torch.randn((b_s, 256, h2s, w2s), generator=g_t))
+    d0 = bf16_cl(torch.randn((b_s, 64, 4 * h2s, 4 * w2s), generator=g_t))
+    sw = sandwich_weights(g_t, R_MAIN)
+    sw_pk = pack_sandwich(*sw)
+    # bf16 channels_last weights for cuDNN; a stack of convs becomes a list of layers
+    swb = [[bf16_cl(l) for l in w] if w.dim() == 5 else bf16_cl(w) for w in sw]
+
+    def cudnn_bf16_sandwich(s2, d0):  # the up tail as cuDNN bf16 layers
+        t = F.conv_transpose2d(s2, swb[0], stride=2)
+        for r in range(R_MAIN):
+            t = t + F.conv2d(torch.relu(F.conv2d(t, swb[1][r], padding=1)), swb[2][r], padding=1)
+        t = F.conv_transpose2d(t + F.conv2d(d0, swb[3], stride=2), swb[4], stride=2)
+        for r in range(R_MAIN):
+            t = t + F.conv2d(torch.relu(F.conv2d(t, swb[5][r], padding=1)), swb[6][r], padding=1)
+        return t
+
+    def time_sandwich(s2, d0):
+        label = f"up_sandwich s2 {tuple(s2.shape)} d0 {tuple(d0.shape)} R1=R0={R_MAIN}"
+        return time_chain(label, lambda: up_sandwich(s2, d0, *sw, sw_pk),
+                          lambda: up_sandwich_plain(s2, d0, *sw),
+                          lambda: cudnn_bf16_sandwich(s2, d0),
+                          sandwich_ops(*s2.shape[2:], 256, R_MAIN, R_MAIN, s2.shape[0]))
+
+    sw_flop = sandwich_ops(h2s, w2s, 256, R_MAIN, R_MAIN)
+    sk_ms, sp_ms, sk_lib_ms = time_sandwich(s2, d0)
+    # the same stages at the HQS batch (the JAX gates fuse at B = 1 only)
+    time_up(bf16_cl(torch.randn((HQS_BATCH,) + up_shape[1:], generator=g_t)))
+    time_sandwich(bf16_cl(torch.randn((HQS_BATCH,) + s2.shape[1:], generator=g_t)),
+                  bf16_cl(torch.randn((HQS_BATCH,) + d0.shape[1:], generator=g_t)))
+
+    # the DRUNet forward and HQS in each configuration, B=1 and B=8, in turns
+    x8 = torch.rand((HQS_BATCH,) + shape[1:], generator=g_t).to(dev)
+    y8 = physics(x8, generator=torch.Generator(device=dev).manual_seed(SEED + 8))
+    turns = HQS_CONFIGS + HQS_CONFIGS[::-1]
+    for b, xb, yb in ((1, x, y), (HQS_BATCH, x8, y8)):
+        fwd, rec = {c: [] for c in HQS_CONFIGS}, {c: [] for c in HQS_CONFIGS}
+        for c in turns:
+            m, den = hqs_models[c]
+            with torch.no_grad():
+                fwd[c].append(cuda_ms(lambda: den(xb, 0.02), 20 if b == 1 else 5))
+            rec[c].append(cuda_ms(recon(m, yb, physics), 10 if b == 1 else 3, warmup=2))
+        for c in HQS_CONFIGS:
+            print(f"DRUNet {c} B={b}: forward {fwd[c]} ms (mean {sum(fwd[c]) / 2:.4f}); HQS "
+                  f"{MAX_ITER} it {rec[c]} ms per recon, "
+                  f"{b * MAX_ITER * 2e3 / sum(rec[c]):.2f} image-it/s", flush=True)
+
     recon_rates(f"HQS {MAX_ITER} it (1x3x256x256, DRUNet full width, bf16)", hqs,
                 on_plain(hqs, plain_resblocks))
     for name, run in pgd.items():
@@ -671,7 +882,11 @@ def main() -> int:
                     on_plain(run, lambda priors=priors: plain_tv(priors)), iters=iters, reps=5,
                     plain_reps=1)
 
-    # 8. where the TV time goes
+    # 8. where the time goes: HQS in each DRUNet configuration, then TV
+    for b, yb in ((1, y), (HQS_BATCH, y8)):
+        for c in HQS_CONFIGS:
+            device_profile(f"HQS {c} B={b} {MAX_ITER} it",
+                           recon(hqs_models[c][0], yb, physics), 3, top=10)
     device_profile(f"tv_prox {tv_shape} n_iter={TV_ITERS}",
                    lambda: chambolle_prox(xt, gam, TV_ITERS), 10)
     for name, tv_model, yt, phys, _, _, _, iters in tv_problems:
@@ -684,6 +899,12 @@ def main() -> int:
     k1_bound = bound_ms(R_MAIN * 2 * flop_conv, PEAK_BF16, act_bytes + 2 * R_MAIN * w_bytes)
     k5_bound = bound_ms(L_MAIN * flop_conv, PEAK_BF16, act_bytes + L_MAIN * (w_bytes + 64 * 4))
     k7_bound = bound_ms(tv_ops, PEAK_F32, 2 * pixels * 4 + tv_shape[0] * 4)
+    # K2/K3: v in, the scale-0 output out, the projection and chain weights
+    k23_bound = bound_ms(up_flop, PEAK_BF16, 2 * (v.numel() + math.prod(KERNEL_SHAPES[0][0]))
+                         + 2 * wu.numel() + 2 * R_MAIN * w_bytes)
+    # K4: s2 and d0 in, the scale-0 output out, the seven weights
+    k4_bound = bound_ms(sw_flop, PEAK_BF16, 2 * (s2.numel() + 2 * d0.numel())
+                        + 2 * sum(w.numel() for w in sw))
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -722,6 +943,32 @@ def main() -> int:
         "bound_ms": k7_bound[0],
         "bound_by": k7_bound[1],
         "library_ms": None,  # no single PyTorch call computes a TV prox
+    }, {
+        "name": "up_resblock_chain",
+        "route": "cuda",
+        "source": "deepinv_tpu_torch/csrc/up_resblock_chain.cu",
+        "replaces": "deepinv_tpu/ops/pallas/resblock_chain.py:62",
+        # K3, the TPU variant with the projection in XLA, computes the same function
+        "also_replaces": "deepinv_tpu/ops/pallas/resblock_chain.py:97",
+        "launches": config_launches["both"],
+        "max_abs_err": up_err,
+        "ms": uk_ms,
+        "plain_ms": up_ms,
+        "bound_ms": k23_bound[0],
+        "bound_by": k23_bound[1],
+        "library_ms": uk_lib_ms,
+    }, {
+        "name": "up_sandwich",
+        "route": "cuda",
+        "source": "deepinv_tpu_torch/csrc/up_sandwich.cu",
+        "replaces": "deepinv_tpu/ops/pallas/resblock_chain.py:442",
+        "launches": config_launches["sandwich"],
+        "max_abs_err": sw_err,
+        "ms": sk_ms,
+        "plain_ms": sp_ms,
+        "bound_ms": k4_bound[0],
+        "bound_by": k4_bound[1],
+        "library_ms": sk_lib_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -19,7 +19,7 @@
 //
 // Design. The TPU kernel keeps two whole images in VMEM for the chain; an SM
 // has 227 KB of shared memory, so one C entry point runs L launches of the
-// tiled direct conv of conv3x3_c64.cuh (8 x 16 pixels x 64 channels per block,
+// tiled direct conv of conv3x3.cuh (8 x 16 pixels x 64 channels per block,
 // mma.sync m16n8k16) with a bias+ReLU epilogue. Layer 0 reads the caller's
 // input; the layers then alternate between two NHWC buffers `a` and `t`, which
 // at 1 x 64 x 256 x 256 (8 MB each) stay in the 50 MB L2.
@@ -30,7 +30,7 @@
 // from shared memory, weights re-staged per tile, L launches); wgmma, TMA and
 // a persistent launch for the whole chain are later work.
 
-#include "conv3x3_c64.cuh"
+#include "conv3x3.cuh"
 
 extern "C" {
 
@@ -41,10 +41,9 @@ extern "C" {
 // Returns the first CUDA error of the launches (0 on success).
 int deepinv_conv_chain_bf16(const void* src, void* a, void* t, const void* wp,
                             const void* bias, int B, int H, int W, int L, void* stream) {
-  cudaError_t err = allow_smem<kBiasRelu>();
+  cudaError_t err = allow_smem<C, kBiasRelu>();
   if (err != cudaSuccess) return (int)err;
 
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const __nv_bfloat16* in = static_cast<const __nv_bfloat16*>(src);
   __nv_bfloat16* bufs[2] = {static_cast<__nv_bfloat16*>(a), static_cast<__nv_bfloat16*>(t)};
@@ -52,9 +51,8 @@ int deepinv_conv_chain_bf16(const void* src, void* a, void* t, const void* wp,
   const float* pb = static_cast<const float*>(bias);
   for (int l = 0; l < L; ++l) {
     __nv_bfloat16* out = bufs[l & 1];
-    conv3x3_c64<kBiasRelu><<<grid, NTHREADS, SMEM_BYTES, s>>>(
-        in, pw + (size_t)l * TAP_ELEMS, pb + (size_t)l * C, out, H, W);
-    err = cudaGetLastError();
+    err = launch_conv3x3<C, kBiasRelu>(in, pw + (size_t)l * TAP_ELEMS, pb + (size_t)l * C, out,
+                                       B, H, W, s);
     if (err != cudaSuccess) return (int)err;
     in = out;
   }

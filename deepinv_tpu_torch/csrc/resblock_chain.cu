@@ -15,7 +15,7 @@
 // pre-packed tap-major, [r][tap = ky*3 + kx][co][ci] in bf16.
 //
 // Design. One C entry point runs 2R launches of one direct-conv kernel
-// (conv3x3_c64.cuh, which says how a tile is computed) over two ping-pong
+// (conv3x3.cuh, which says how a tile is computed) over two ping-pong
 // buffers: `a` holds h (and receives each block's output in place), `t` holds
 // relu(conv1(h)). Writing conv2's output into `a` in place is safe: within one
 // launch `a` is read only at the pixel each thread writes (the residual); the
@@ -30,7 +30,7 @@
 // below the tensor-core peak; wgmma, TMA, clusters and one persistent launch
 // for the whole chain are later work.
 
-#include "conv3x3_c64.cuh"
+#include "conv3x3.cuh"
 
 extern "C" {
 
@@ -39,28 +39,11 @@ extern "C" {
 // Returns the first CUDA error of the launches (0 on success).
 int deepinv_resblock_chain_bf16(void* a, void* t, const void* w1p, const void* w2p,
                                 int B, int H, int W, int R, void* stream) {
-  cudaError_t err = allow_smem<kRelu>();
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem<kResidual>();
-  if (err != cudaSuccess) return (int)err;
-
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  __nv_bfloat16* pa = static_cast<__nv_bfloat16*>(a);
-  __nv_bfloat16* pt = static_cast<__nv_bfloat16*>(t);
-  const __nv_bfloat16* p1 = static_cast<const __nv_bfloat16*>(w1p);
-  const __nv_bfloat16* p2 = static_cast<const __nv_bfloat16*>(w2p);
-  for (int r = 0; r < R; ++r) {
-    conv3x3_c64<kRelu><<<grid, NTHREADS, SMEM_BYTES, s>>>(
-        pa, p1 + (size_t)r * TAP_ELEMS, nullptr, pt, H, W);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    conv3x3_c64<kResidual><<<grid, NTHREADS, SMEM_BYTES, s>>>(
-        pt, p2 + (size_t)r * TAP_ELEMS, nullptr, pa, H, W);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+  cudaError_t err = resblocks<C>(
+      static_cast<__nv_bfloat16*>(a), static_cast<__nv_bfloat16*>(t),
+      static_cast<const __nv_bfloat16*>(w1p), static_cast<const __nv_bfloat16*>(w2p), B, H, W,
+      R, reinterpret_cast<cudaStream_t>(stream));
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 const char* deepinv_cuda_error_string(int err) {

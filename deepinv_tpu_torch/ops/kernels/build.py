@@ -59,6 +59,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.deepinv_resblock_chain_bf16.restype = i
     lib.deepinv_conv_chain_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.deepinv_conv_chain_bf16.restype = i
+    lib.deepinv_up_resblock_chain_bf16.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.deepinv_up_resblock_chain_bf16.restype = i
+    lib.deepinv_up_sandwich_bf16.argtypes = [p] * 13 + [i] * 6 + [p]
+    lib.deepinv_up_sandwich_bf16.restype = i
     lib.deepinv_tv_prox_f32.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.deepinv_tv_prox_f32.restype = i
     lib.deepinv_cuda_error_string.argtypes = [i]

@@ -29,17 +29,19 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["resblock_chain", "resblock_chain_plain", "resblocks_f32",
-           "pack_weights", "check_activations", "C"]
+           "pack_weights", "check_activations", "check_packed", "C"]
 
 C = 64  # channel width the kernel is built for
 
 
 def pack_weights(ws: torch.Tensor) -> torch.Tensor:
-    """(R, 64, 64, 3, 3) OIHW -> (R, 9, 64, 64) bf16, ``[r][ky*3+kx][co][ci]``:
-    the kernel's weight layout. Callers that reuse weights pack them once."""
-    R = ws.shape[0]
-    return ws.detach().permute(0, 3, 4, 1, 2).reshape(R, 9, C, C).to(
-        torch.bfloat16).contiguous()
+    """(R, Co, Ci, 3, 3) OIHW, Co a multiple of 64 -> (R, 9 * Co/64, 64, Ci)
+    bf16, ``[r][(co // 64) * 9 + ky*3+kx][co % 64][ci]``: the conv tile's
+    weight layout, one block's 64 output channels contiguous (at Co = 64,
+    ``[r][ky*3+kx][co][ci]``). Callers that reuse weights pack them once."""
+    R, Co, Ci = ws.shape[:3]
+    return ws.detach().reshape(R, Co // C, C, Ci, 3, 3).permute(0, 1, 4, 5, 2, 3).reshape(
+        R, 9 * (Co // C), C, Ci).to(torch.bfloat16).contiguous()
 
 
 def resblocks_f32(h, w1s, w2s):
@@ -65,25 +67,30 @@ def resblock_chain_plain(h, w1s, w2s):
     return h
 
 
-def check_activations(h, op: str):
-    """Raise unless ``h`` is what the port's 64-channel chain kernels take:
-    ``(B, 64, H, W)`` bf16, contiguous NCHW or channels_last."""
+def check_activations(h, op: str, channels: int = C):
+    """Raise unless ``h`` is what the port's chain kernels take:
+    ``(B, channels, H, W)`` bf16, contiguous NCHW or channels_last."""
     if h.dtype != torch.bfloat16:
         raise TypeError(f"{op} kernel takes bf16 activations, got {h.dtype}")
-    if h.dim() != 4 or h.shape[1] != C or min(h.shape) < 1:
-        raise ValueError(f"{op} kernel takes (B, {C}, H, W), got {tuple(h.shape)}")
+    if h.dim() != 4 or h.shape[1] != channels or min(h.shape) < 1:
+        raise ValueError(f"{op} kernel takes (B, {channels}, H, W), got {tuple(h.shape)}")
     if not (h.is_contiguous() or h.is_contiguous(memory_format=torch.channels_last)):
         raise ValueError(f"{op} kernel takes a contiguous NCHW or channels_last tensor")
 
 
+def check_packed(h, ws, shape, what: str):
+    """Raise unless every packed weight in ``ws`` is a contiguous bf16 tensor
+    of ``shape`` on ``h``'s device."""
+    for w in ws:
+        if (tuple(w.shape) != tuple(shape) or w.dtype != torch.bfloat16
+                or not w.is_contiguous() or w.device != h.device):
+            raise ValueError(f"packed {what} must be contiguous {tuple(shape)} bf16 on the "
+                             "activations' device")
+
+
 def _check_cuda(h, w1p, w2p):
     check_activations(h, "resblock_chain")
-    R = w1p.shape[0]
-    for w in (w1p, w2p):
-        if (w.shape != (R, 9, C, C) or w.dtype != torch.bfloat16
-                or not w.is_contiguous() or w.device != h.device):
-            raise ValueError("packed weights must be contiguous (R, 9, 64, 64) bf16 "
-                             "on the activations' device (see pack_weights)")
+    check_packed(h, (w1p, w2p), (w1p.shape[0], 9, C, C), "weights (see pack_weights)")
 
 
 def _launch(h, w1p, w2p):

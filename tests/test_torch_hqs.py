@@ -155,6 +155,8 @@ def test_import_loads_no_jax():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import deepinv_tpu_torch, deepinv_tpu_torch.ops.kernels.build\n"
+        "import deepinv_tpu_torch.ops.kernels.up_resblock_chain\n"
+        "import deepinv_tpu_torch.ops.kernels.up_sandwich, deepinv_tpu_torch.models.drunet\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'deepinv_tpu'))\n"
         "print(bad)\n"

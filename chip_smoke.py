@@ -54,10 +54,33 @@ Phases (each one raises, and the script exits non-zero, if it fails):
 8. where the time goes: ``torch.profiler`` over HQS in each DRUNet
    configuration at B=1 and B=8, over K7 alone and over TV-PGD deblurring at
    B=1 and B=8 (device time by kernel, kernels per call, and the device's
-   idle share against the unprofiled wall time).
+   idle share against the unprofiled wall time);
+9. DnCNN training through ``Trainer.train()`` (the bench's train rows): a
+   bf16 full-width DnCNN(1, 1) (depth 20, nf 64, seeded random weights) as
+   ``ArtifactRemoval(autocast(...))`` denoising 256² images at sigma 0.1,
+   ``SupLoss``, Adam(1e-4), one epoch of TRAIN_STEPS steps on a fixed set of
+   random images, at B=1 and B=16, with ``fused_chains=False`` (the
+   reference's configuration: the hidden layers as cuDNN convs under
+   autograd) and ``True`` (the hidden chain on the stash kernel K6 and its
+   stash backward), from the same weights. Checked: one K6 launch per step
+   in ``True`` and none in ``False`` (no K5 in either), each step's loss
+   within TRAIN_LOSS_RTOL of the other configuration's, the first step's
+   gradients within GRAD_RTOL, and the last step's loss below the first's.
+   Timed: K6 against K5, its plain version and the same stage as cuDNN
+   layers under autograd, the stash backward against autodiff through those
+   layers, and train steps per second in each configuration (a second epoch,
+   in turns); profiled: one step at B=1 and B=16 in each configuration;
+10. self-supervised training (the bench's train_ssl rows): the same model on
+   256² ``Inpainting`` (mask 0.7, sigma 0.1) with ``SureGaussianLoss(0.1)``
+   + ``EILoss(Rotate())``, Adam(1e-4), at B=1 and B=16, in the reference
+   configuration (SURE's forward-mode JVP needs the kernel gates closed):
+   finite losses, SURE's JVP divergence within JVP_RTOL of a finite
+   difference of the f32 model, and steps per second.
 
-It prints the card line and a JSON line ``{"kernels": [...]}`` before the last
-line, and ends with ``{"ok": true, "device": {...}}``. It exits non-zero with
+Phase 3 also holds K6 (the stash forward) to its plain version at the chain
+shapes, every stash slot, and the stash backward from the card's stash to
+its plain version (STASH_BWD_RTOL). It prints the card line and a JSON line
+``{"kernels": [...]}`` before the last line, and ends with ``{"ok": true, "device": {...}}``. It exits non-zero with
 no result when there is no CUDA device. It imports no JAX.
 """
 
@@ -131,6 +154,25 @@ TV_RTOL = 1e-4
 TV_RECON_RTOL = 1e-4
 # ... and its PSNR against the naive estimate's (demo_tv_minimisation.py:44).
 TV_PSNR_SLACK_DB = 0.5
+# K6's stash backward on the card (cuDNN bf16 dX, dW in f32 of bf16 values)
+# against its plain version (f32 convs of the same values): the same masks
+# and rounding points, f32 sums in another order; dh is rounded to bf16 after
+# each of the L layers. Relative max error of dh, dW and db.
+STASH_BWD_RTOL = 3e-2
+# Training (phases 9-10): steps per epoch, the batch sizes, and the bounds
+# between the two train-step configurations, which round at other points
+# (cuDNN's bf16 layers add the bias before one rounding, as the kernel does,
+# but sum in another order): each step's loss (relative), the first step's
+# whole parameter gradient (relative max error; the bf16 gradients of both
+# lie 2-5% from the f32 one, tests/test_torch_training.py).
+TRAIN_STEPS = 8
+SSL_STEPS = 4
+TRAIN_BATCHES = (1, 16)
+TRAIN_LOSS_RTOL = 2e-2
+GRAD_RTOL = 3e-2
+# SURE's JVP divergence against (f(y + tau b) - f(y)) / tau of the f32 model.
+JVP_TAU = 1e-3
+JVP_RTOL = 5e-2
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for the bounds.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
@@ -348,6 +390,120 @@ def device_profile(label: str, run, calls: int, top: int = 6) -> None:
           f"top: {top}", flush=True)
 
 
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def rel_max(a, b) -> float:
+    """Max abs error of ``a`` over ``b``'s max magnitude."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def stash_vs_plain(label: str, h, ws, bs, cot) -> float:
+    """K6 against its plain version: one K6 launch and no K5 launch per call,
+    every stash slot within KERNEL_RTOL of its max, and the stash backward
+    from the card's stash (cotangent ``cot``) within STASH_BWD_RTOL of the
+    plain backward. Returns the max abs error over the stash."""
+    import torch
+
+    from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain, conv_chain_stash,
+                                                          conv_chain_stash_plain, stash_backward)
+
+    conv_chain.launches = conv_chain_stash.launches = 0
+    with torch.no_grad():
+        got = conv_chain_stash(h, ws, bs)
+        torch.cuda.synchronize()
+        launches = (conv_chain_stash.launches, conv_chain.launches)
+        want = conv_chain_stash_plain(h, ws, bs)
+    check(launches == (1, 0), f"{label}: expected one K6 launch and no K5 launch, got {launches}")
+    check(bool(torch.isfinite(got.float()).all()), f"non-finite stash: {label}")
+    diff = (got.float() - want.float()).abs()
+    slot_err = diff.amax(dim=(1, 2, 3, 4)) / want.float().abs().amax(dim=(1, 2, 3, 4))
+    err = float(diff.max())
+    print(f"{label}: max_abs_err {err}, per-slot relative max error max {float(slot_err.max())} "
+          f"(bound {KERNEL_RTOL}), last slot {float(slot_err[-1])}", flush=True)
+    check(float(slot_err.max()) <= KERNEL_RTOL, f"stash disagrees with plain: {label}")
+    # f32 weights (dW in f32, TF32) and bf16 weights (training under
+    # autocast: dW as a bf16 cuDNN wgrad)
+    for wdt in (torch.float32, torch.bfloat16):
+        w = ws.to(wdt)
+        k = stash_backward(h, w, got, cot)
+        p = stash_backward(h, w, got, cot, plain=True)
+        for name, a, b in zip(("dh", "dW", "db"), k, p):
+            e, e2 = rel_max(a, b), rel_l2(a, b)
+            print(f"{label} stash backward, {wdt} weights, {name}: relative max error {e} "
+                  f"(bound {STASH_BWD_RTOL}), relative L2 {e2}", flush=True)
+            check(bool(torch.isfinite(a.float()).all()) and e <= STASH_BWD_RTOL,
+                  f"{label}: stash backward {name} disagrees with plain")
+    return err
+
+
+def make_trainer(net, physics, xs, batch: int, fused: bool, losses=None):
+    """``Trainer`` of ``ArtifactRemoval(autocast(copy of net))`` with Adam(1e-4)
+    over ``xs`` in batches of ``batch``, online measurements, one epoch."""
+    import torch
+
+    from deepinv_tpu_torch.datasets import ArrayDataset, DataLoader
+    from deepinv_tpu_torch.models import ArtifactRemoval, autocast
+    from deepinv_tpu_torch.training import Trainer
+
+    model = ArtifactRemoval(autocast(copy.deepcopy(net)))
+    return Trainer(model, physics, optimizer=torch.optim.Adam(model.parameters(), lr=1e-4),
+                   train_dataloader=DataLoader(ArrayDataset(xs), batch_size=batch),
+                   losses=losses, epochs=1, online_measurements=True, verbose=False,
+                   fused_chains=fused, seed=SEED)
+
+
+def first_batch(trainer):
+    """The trainer's first batch and its first step's measurement draw."""
+    trainer.setup_train()
+    batch = next(trainer.current_train_iterators[0])
+    return trainer.get_samples(batch, trainer.physics[0], trainer.generator(0, 0, 0, 0))
+
+
+def step_fn(trainer, x, y, physics):
+    """One train step of ``trainer`` on a fixed batch, in its configuration."""
+    def run():
+        trainer.optimizer.zero_grad(set_to_none=True)
+        with trainer._chains():
+            loss, _ = trainer.compute_loss(trainer.model, x, y, physics)
+            loss.backward()
+        trainer.optimizer.step()
+    return run
+
+
+def first_step_grads(trainer):
+    """The whole parameter gradient of the trainer's loss on its first batch."""
+    import torch
+
+    x, y, phys = first_batch(trainer)
+    trainer.optimizer.zero_grad(set_to_none=True)
+    with trainer._chains():
+        trainer.compute_loss(trainer.model, x, y, phys)[0].backward()
+    g = torch.cat([p.grad.reshape(-1).float() for p in trainer.model.parameters()])
+    trainer.optimizer.zero_grad(set_to_none=True)
+    return g
+
+
+def train_epoch(trainer, epoch: int, dev) -> float:
+    """Run epoch ``epoch`` of ``trainer`` through ``Trainer.train()``; wall s."""
+    trainer.epoch_start, trainer.epochs = epoch, epoch + 1
+    sync(dev)
+    t0 = time.perf_counter()
+    trainer.train()
+    sync(dev)
+    return time.perf_counter() - t0
+
+
 def drunet_std(fan_in: int, gain: float = 1.0) -> float:
     """DRUNet's init scale: He-normal, with the 0.2 gain of its ResBlock convs."""
     return gain * (2.0 / fan_in) ** 0.5
@@ -515,6 +671,125 @@ def build_tv_problems(dev, mask, size: int = 256, batch: int = 8):
     return problems
 
 
+def train_phase(dev, net, gen, size: int = 256, batches=TRAIN_BATCHES, steps: int = TRAIN_STEPS,
+                profile: bool = True) -> int:
+    """Phase 9: ``Trainer.train()`` of ``ArtifactRemoval(autocast(net))`` on
+    ``Denoising(GaussianNoise(0.1))`` with ``SupLoss``, in both train-step
+    configurations from the same weights, at each batch size: the launch
+    counts (set to 0 just before each run, read just after), the losses and
+    the first step's gradients checked; steps per second timed over a second
+    and third epoch in turns; one step profiled. Returns the K6 launches of
+    the ``fused_chains=True`` runs."""
+    import torch
+
+    from deepinv_tpu_torch.ops.kernels.conv_chain import conv_chain, conv_chain_stash
+    from deepinv_tpu_torch.physics import Denoising, GaussianNoise
+
+    physics = Denoising(GaussianNoise(0.1, device=dev))
+    k6_launches = 0
+    for B in batches:
+        xs = torch.rand((B, 1, size, size), generator=gen).to(dev).repeat(steps, 1, 1, 1)
+        trainers = {f: make_trainer(net, physics, xs, B, f) for f in (False, True)}
+        g_ref, g_k6 = first_step_grads(trainers[False]), first_step_grads(trainers[True])
+        gerr = rel_max(g_k6, g_ref)
+        print(f"train B={B}: first step's gradient, fused_chains=True vs False: relative max "
+              f"error {gerr} (bound {GRAD_RTOL}), relative L2 {rel_l2(g_k6, g_ref)}", flush=True)
+        check(gerr <= GRAD_RTOL, f"train B={B}: first-step gradients disagree")
+        losses = {}
+        for f, t in trainers.items():
+            conv_chain.launches = conv_chain_stash.launches = 0
+            secs = train_epoch(t, 0, dev)
+            n6, n5 = conv_chain_stash.launches, conv_chain.launches
+            losses[f] = t.logs_total_loss_train.vals
+            print(f"train B={B} fused_chains={f}: {steps} steps in {secs:.3f} s (first epoch), "
+                  f"K6 launches {n6}, K5 launches {n5}, losses {losses[f]}", flush=True)
+            check((n6, n5) == ((steps if f else 0), 0),
+                  f"train B={B} fused_chains={f}: launches K6 {n6}, K5 {n5}")
+            check(len(losses[f]) == steps and all(math.isfinite(v) for v in losses[f]),
+                  f"train B={B} fused_chains={f}: non-finite loss")
+            check(losses[f][-1] < losses[f][0], f"train B={B} fused_chains={f}: loss did not fall")
+            k6_launches += n6
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False]))
+        print(f"train B={B}: per-step loss, fused_chains=True vs False: max relative error "
+              f"{lerr} (bound {TRAIN_LOSS_RTOL})", flush=True)
+        check(lerr <= TRAIN_LOSS_RTOL, f"train B={B}: losses of the two configurations disagree")
+        times, epoch = {False: [], True: []}, {False: 1, True: 1}
+        for f in (False, True, True, False):
+            times[f].append(train_epoch(trainers[f], epoch[f], dev))
+            epoch[f] += 1
+        for f in (False, True):
+            print(f"train B={B} fused_chains={f}: epochs of {steps} steps {times[f]} s; "
+                  f"{steps * len(times[f]) / sum(times[f]):.2f} steps/s, "
+                  f"{B * steps * len(times[f]) / sum(times[f]):.2f} images/s", flush=True)
+        if profile:
+            x, y, phys = first_batch(trainers[False])
+            for f, t in trainers.items():
+                device_profile(f"train step B={B} fused_chains={f}", step_fn(t, x, y, phys), 3,
+                               top=8)
+    return k6_launches
+
+
+def ssl_phase(dev, net, gen, size: int = 256, batches=TRAIN_BATCHES, steps: int = SSL_STEPS):
+    """Phase 10: ``Trainer.train()`` with ``SureGaussianLoss(0.1)`` +
+    ``EILoss(Rotate())`` on 256² inpainting (mask 0.7, sigma 0.1) in the
+    reference configuration: finite losses, no kernel launch (the gates are
+    closed), steps per second over two more epochs; and SURE's JVP divergence
+    against a finite difference of the f32 model."""
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    from deepinv_tpu_torch.loss import EILoss, SureGaussianLoss
+    from deepinv_tpu_torch.models import ArtifactRemoval
+    from deepinv_tpu_torch.ops.kernels.conv_chain import conv_chain, conv_chain_stash
+    from deepinv_tpu_torch.physics import GaussianNoise, Inpainting
+    from deepinv_tpu_torch.transform import Rotate
+
+    physics = Inpainting((1, size, size), mask=0.7,
+                         generator=torch.Generator().manual_seed(SEED + 10),
+                         noise_model=GaussianNoise(0.1, device=dev), device=dev)
+    for B in batches:
+        xs = torch.rand((B * steps, 1, size, size), generator=gen).to(dev)
+        t = make_trainer(net, physics, xs, B, False,
+                         losses=[SureGaussianLoss(0.1), EILoss(Rotate())])
+        conv_chain.launches = conv_chain_stash.launches = 0
+        secs = train_epoch(t, 0, dev)
+        vals = t.logs_total_loss_train.vals
+        terms = [m.vals for m in t.logs_losses_train]
+        print(f"EI+SURE B={B}: {steps} steps in {secs:.3f} s (first epoch), losses {vals}, "
+              f"SURE {terms[0]}, EI {terms[1]}, launches K6 {conv_chain_stash.launches} "
+              f"K5 {conv_chain.launches}", flush=True)
+        check(len(vals) == steps and all(math.isfinite(v) for v in vals + terms[0] + terms[1]),
+              f"EI+SURE B={B}: non-finite loss")
+        check(conv_chain.launches == conv_chain_stash.launches == 0,
+              f"EI+SURE B={B}: a kernel ran with the gates closed")
+        times = [train_epoch(t, e, dev) for e in (1, 2)]
+        print(f"EI+SURE B={B}: epochs of {steps} steps {times} s; "
+              f"{steps * len(times) / sum(times):.2f} steps/s, "
+              f"{B * steps * len(times) / sum(times):.2f} images/s", flush=True)
+
+    # the divergence: forward-mode JVP (the loss's) vs a finite difference, f32
+    model = ArtifactRemoval(copy.deepcopy(net))
+    x = torch.rand((1, 1, size, size), generator=gen).to(dev)
+    b = torch.randn((1, 1, size, size), generator=gen).to(dev)
+    sure = SureGaussianLoss(0.1)
+    with torch.no_grad():
+        y = physics(x, generator=torch.Generator(device=dev).manual_seed(SEED + 11))
+        f = lambda u: physics.A(model(u, physics))
+        fy = f(y)
+        mse = ((fy - y) ** 2).mean()
+        div_jvp = float((sure(y=y, physics=physics, model=model, probe=b)[0] - mse + sure.sigma2)
+                        / (2 * sure.sigma2))
+        fd = (f(y + JVP_TAU * b) - fy) / JVP_TAU
+        div_fd = float((b * fd).mean())
+        with fwAD.dual_level():
+            jvp = fwAD.unpack_dual(f(fwAD.make_dual(y, b))).tangent
+    err = abs(div_jvp - div_fd) / abs(div_fd)
+    print(f"SURE divergence (f32 model, 1x1x{size}²): JVP {div_jvp}, finite difference "
+          f"(tau {JVP_TAU}) {div_fd}, relative error {err} (bound {JVP_RTOL}); JVP vs finite "
+          f"difference relative L2 {rel_l2(jvp, fd)}", flush=True)
+    check(err <= JVP_RTOL, "SURE's JVP divergence disagrees with the finite difference")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -530,7 +805,8 @@ def main() -> int:
     from deepinv_tpu_torch.ops import gaussian_blur
     from deepinv_tpu_torch.ops.kernels import build
     from deepinv_tpu_torch.ops.kernels.conv_chain import (
-        chain_f32, conv_chain, conv_chain_plain, pack_bias)
+        chain_f32, conv_chain, conv_chain_plain, conv_chain_stash, conv_chain_stash_plain,
+        pack_bias, stash_backward)
     from deepinv_tpu_torch.ops.kernels.resblock_chain import (
         pack_weights, resblock_chain, resblock_chain_plain)
     from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox, chambolle_prox_plain
@@ -618,6 +894,17 @@ def main() -> int:
                               lambda t: up_sandwich_plain(t, d0, *wts), s2, KERNEL_RTOL)
         if sw_err is None:
             sw_err = err
+    # K6 (the stash forward) and its stash backward, on its own generator
+    g_k6 = torch.Generator().manual_seed(SEED + 9)
+    stash_err = None
+    for shape, L in CHAIN_SHAPES:
+        h = torch.randn(shape, generator=g_k6).to(dev, torch.bfloat16)
+        ws = (torch.randn((L, 64, 64, 3, 3), generator=g_k6) * he_std).to(dev)
+        bs = (torch.randn((L, 64), generator=g_k6) * 0.02).to(dev)
+        cot = torch.randn(shape, generator=g_k6).to(dev)
+        err = stash_vs_plain(f"conv_chain_stash vs plain {shape} L={L}", h, ws, bs, cot)
+        if stash_err is None:
+            stash_err = err
 
     # 4. the HQS bench problem, kernel path, then the plain chain on the card;
     # physics, models and reconstructors are on the GPU by default
@@ -893,6 +1180,59 @@ def main() -> int:
         if name.startswith("TV-PGD deblur"):
             device_profile(f"{name} {iters} it", recon(tv_model, yt, phys), 3)
 
+    # 9. DnCNN training, both train-step configurations (weights and data on
+    # their own generator); the bench's DnCNN(1, 1): depth 20, nf 64
+    g_tr = torch.Generator().manual_seed(SEED + 12)
+    train_net = DnCNN(1, 1, depth=20, nf=64, generator=g_tr)
+    k6_launches = train_phase(dev, train_net, g_tr)
+    # K6 against K5, its plain version and the stage as cuDNN layers under
+    # autograd (what the reference configuration runs); the stash backward
+    # against autodiff through those layers; 1x64x256², L=18, channels_last
+    g9 = torch.Generator().manual_seed(SEED + 13)
+    h9 = torch.randn(CHAIN_SHAPES[0][0], generator=g9).to(dev, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    ws9 = (torch.randn((L_MAIN, 64, 64, 3, 3), generator=g9) * he_std).to(dev)
+    bs9 = (torch.randn((L_MAIN, 64), generator=g9) * 0.02).to(dev)
+    cot9 = torch.randn(CHAIN_SHAPES[0][0], generator=g9).to(dev).contiguous(
+        memory_format=torch.channels_last)
+    pk9 = (pack_weights(ws9), pack_bias(bs9))
+    acts9 = conv_chain_stash(h9, ws9, bs9, pk9)
+    wl9 = [w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last).requires_grad_()
+           for w in ws9]
+    bl9 = [b.to(torch.bfloat16).requires_grad_() for b in bs9]
+    h9g = h9.detach().requires_grad_()
+
+    def cudnn_train_chain():  # the chain as cuDNN bf16 layers, autograd keeping its inputs
+        with torch.enable_grad():
+            v = h9g
+            for l in range(L_MAIN):
+                v = torch.relu(F.conv2d(v, wl9[l], bl9[l], padding=1))
+        return v
+
+    with torch.no_grad():
+        s_p = [cuda_ms(lambda: conv_chain_stash_plain(h9, ws9, bs9), 5, warmup=1)]
+        s_k = [cuda_ms(lambda: conv_chain_stash(h9, ws9, bs9, pk9), 50) for _ in range(2)]
+        s_p.append(cuda_ms(lambda: conv_chain_stash_plain(h9, ws9, bs9), 5, warmup=1))
+        s_k5 = cuda_ms(lambda: conv_chain(h9, ws9, bs9, pk9), 50)
+    s_lib = cuda_ms(cudnn_train_chain, 50)
+    out9 = cudnn_train_chain()
+    cot9b = cot9.to(torch.bfloat16)
+    b_auto = [cuda_ms(lambda: torch.autograd.grad(out9, [h9g] + wl9 + bl9, cot9b,
+                                                  retain_graph=True), 20) for _ in range(2)]
+    # bf16 weights, as the training path under autocast hands them
+    wb9 = ws9.to(torch.bfloat16)
+    b_k = [cuda_ms(lambda: stash_backward(h9, wb9, acts9, cot9), 20) for _ in range(2)]
+    b_plain = cuda_ms(lambda: stash_backward(h9, wb9, acts9, cot9, plain=True), 5, warmup=1)
+    k6_ms, k6_plain_ms = sum(s_k) / 2, sum(s_p) / 2
+    print(f"time conv_chain_stash (1,64,256,256) L={L_MAIN}: K6 {s_k} ms, K5 {s_k5} ms, plain "
+          f"{s_p} ms, cuDNN bf16 layers under autograd {s_lib} ms; K6 "
+          f"{L_MAIN * flop_conv / k6_ms / 1e9:.1f} TFLOP/s", flush=True)
+    print(f"time stash backward (1,64,256,256) L={L_MAIN}: {b_k} ms (plain, TF32 off, "
+          f"{b_plain} ms); autodiff through the cuDNN layers {b_auto} ms", flush=True)
+
+    # 10. EI + SURE training in the reference configuration, same weights
+    ssl_phase(dev, train_net, g_tr)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -905,6 +1245,9 @@ def main() -> int:
     # K4: s2 and d0 in, the scale-0 output out, the seven weights
     k4_bound = bound_ms(sw_flop, PEAK_BF16, 2 * (s2.numel() + 2 * d0.numel())
                         + 2 * sum(w.numel() for w in sw))
+    # K6: the input in, the L stash slots out, the weights and biases
+    k6_bound = bound_ms(L_MAIN * flop_conv, PEAK_BF16, act_bytes // 2 * (1 + L_MAIN)
+                        + L_MAIN * (w_bytes + 64 * 4))
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -969,6 +1312,21 @@ def main() -> int:
         "bound_ms": k4_bound[0],
         "bound_by": k4_bound[1],
         "library_ms": sk_lib_ms,
+    }, {
+        "name": "conv_chain_stash",
+        "route": "cuda",
+        "source": "deepinv_tpu_torch/csrc/conv_chain.cu",
+        "replaces": "deepinv_tpu/ops/pallas/conv_chain.py:129",
+        "launched_by": "deepinv_tpu/ops/pallas/conv_chain.py:328",
+        "launches": k6_launches,
+        "max_abs_err": stash_err,
+        "ms": k6_ms,
+        "plain_ms": k6_plain_ms,
+        "bound_ms": k6_bound[0],
+        "bound_by": k6_bound[1],
+        # the same stage as 18 cuDNN bf16 layers under autograd (no single
+        # library call computes the chain)
+        "library_ms": s_lib,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

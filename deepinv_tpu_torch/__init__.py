@@ -1,14 +1,17 @@
 """PyTorch/CUDA port of deepinv_tpu: PnP-HQS deblurring with DRUNet, PnP-PGD
-with DnCNN on MRI and CT, and TV reconstruction (TVPrior, TVDenoiser; GD,
-PGD, FISTA, ADMM, DRS and Chambolle-Pock).
+with DnCNN on MRI and CT, TV reconstruction (TVPrior, TVDenoiser; GD, PGD,
+FISTA, ADMM, DRS and Chambolle-Pock), and training (the Trainer with
+supervised, EI and SURE losses).
 
 The JAX package ``deepinv_tpu`` is the reference the port is held to
 (tests/test_torch_*.py). Subpackages mirror its names: ``ops``, ``physics``,
-``models``, ``optim``. This package imports torch and never jax. Its entry
+``models``, ``optim``, ``loss``, ``datasets``, ``transform``, ``training``,
+``utils``. This package imports torch and never jax. Its entry
 points run on the CUDA device unless the caller passes ``device="cpu"``
 (:mod:`deepinv_tpu_torch.device`).
 """
 
-from . import models, ops, optim, physics
+from . import datasets, loss, models, ops, optim, physics, training, transform, utils
 
-__all__ = ["models", "ops", "optim", "physics"]
+__all__ = ["datasets", "loss", "models", "ops", "optim", "physics", "training", "transform",
+           "utils"]

@@ -1,5 +1,6 @@
 """Models of the port (deepinv_tpu/models/)."""
 
+from .artifactremoval import ArtifactRemoval
 from .base import Denoiser, Reconstructor, handle_sigma
 from .classic import TVDenoiser
 from .convert import load_jax_params
@@ -8,5 +9,5 @@ from .drunet import DRUNet, ResBlock
 from .precision import AutocastDenoiser, autocast
 from .utils import test_pad
 
-__all__ = ["Denoiser", "Reconstructor", "handle_sigma", "load_jax_params", "DnCNN", "DRUNet",
-           "ResBlock", "AutocastDenoiser", "autocast", "test_pad", "TVDenoiser"]
+__all__ = ["ArtifactRemoval", "Denoiser", "Reconstructor", "handle_sigma", "load_jax_params",
+           "DnCNN", "DRUNet", "ResBlock", "AutocastDenoiser", "autocast", "test_pad", "TVDenoiser"]

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops.kernels.conv_chain import fused_disabled
 from ..ops.kernels.resblock_chain import C as CHAIN_C
 from ..ops.kernels.resblock_chain import pack_weights, resblock_chain
 from ..ops.kernels.up_resblock_chain import pack_up_chain, up_resblock_chain
@@ -143,12 +144,14 @@ class DRUNet(Denoiser):
     def _fusible(self, tag: str, v, blocks) -> bool:
         """Whether stage ``tag`` ("down", "up" or "sandwich") runs through its
         kernel op: the mode selects it (``"sandwich"`` implies the down
-        chain), the activations are bf16 and the blocks ReLU and bias-free
-        (drunet_fold.py:160-178)."""
+        chain), no ``fused_chains_disabled()`` context is active
+        (resblock_chain.py:159, 286, 546), the activations are bf16 and the
+        blocks ReLU and bias-free (drunet_fold.py:160-178)."""
         mode = self.fused
         ok_mode = (mode in ("1", "both", tag)
                    or (mode == "sandwich" and tag in ("down", "sandwich")))
-        return (ok_mode and v.dtype == torch.bfloat16 and len(blocks) > 0
+        return (ok_mode and not fused_disabled() and v.dtype == torch.bfloat16
+                and len(blocks) > 0
                 and all(b.act_mode == "R" and b.conv1.bias is None and b.conv2.bias is None
                         for b in blocks))
 

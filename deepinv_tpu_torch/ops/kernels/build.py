@@ -59,6 +59,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.deepinv_resblock_chain_bf16.restype = i
     lib.deepinv_conv_chain_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.deepinv_conv_chain_bf16.restype = i
+    lib.deepinv_conv_chain_stash_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.deepinv_conv_chain_stash_bf16.restype = i
     lib.deepinv_up_resblock_chain_bf16.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.deepinv_up_resblock_chain_bf16.restype = i
     lib.deepinv_up_sandwich_bf16.argtypes = [p] * 13 + [i] * 6 + [p]

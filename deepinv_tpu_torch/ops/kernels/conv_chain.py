@@ -16,17 +16,26 @@ rounding per layer — the contract of ``fused_conv3x3_relu_chain``
   with the kernel's rounding (``_lax_chain``'s arithmetic).
 - The batch is native (a grid dimension of the kernel); the JAX package maps
   the per-image kernel with ``lax.map`` (conv_chain.py:262-272).
-- The gradient is autodiff of the chain in f32 with the forward's bf16
-  rounding points. The JAX package's custom backward over stashed activations
-  (``_fwd``/``_bwd`` :386-460, TPU kernel K6) is training, and waits for
-  ROADMAP queue 1 item 7.
+- When autograd needs the gradient of ``h``, ``ws`` or ``bs``, the forward
+  is the training forward of the JAX ``custom_vjp`` (``_fwd`` :386): the
+  stash op :func:`conv_chain_stash` (the hand-written kernel K6 on a CUDA
+  tensor, :func:`conv_chain_stash_plain` on a CPU tensor) keeps every layer's
+  output, and the backward :func:`stash_backward` mirrors ``_bwd`` (:405-457)
+  over that stash with no recompute. The chain has no forward-mode
+  derivative, as the JAX ``custom_vjp`` has none: ``jvp`` through it raises.
 
-``conv_chain.launches`` counts kernel launches (one per call that reaches the
-kernel), so a run can show that its main path went through the kernel.
+``fused_chains_disabled()`` is the counterpart of the JAX trace-time switch
+(conv_chain.py:208-224): inside it every kernel gate of the port (DnCNN's
+hidden chain, DRUNet's K1, K2/K3 and K4 stages) takes the layers instead.
+
+``conv_chain.launches`` counts K5 launches and ``conv_chain_stash.launches``
+K6 launches (one per call that reaches the kernel), so a run can show that
+its main path went through the kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -34,7 +43,29 @@ import torch.nn.functional as F
 
 from .resblock_chain import C, check_activations, pack_weights
 
-__all__ = ["conv_chain", "conv_chain_plain", "chain_f32", "pack_weights", "pack_bias", "C"]
+__all__ = ["conv_chain", "conv_chain_plain", "conv_chain_stash", "conv_chain_stash_plain",
+           "stash_backward", "chain_f32", "pack_weights", "pack_bias", "C",
+           "fused_chains_disabled", "fused_disabled"]
+
+_FUSED_DISABLED = False
+
+
+@contextlib.contextmanager
+def fused_chains_disabled():
+    """Inside this context every kernel gate of the port returns False
+    (conv_chain.py:211): DnCNN's hidden chain and DRUNet's stages run as
+    layers. Nests, and restores the previous state on exit."""
+    global _FUSED_DISABLED
+    prev, _FUSED_DISABLED = _FUSED_DISABLED, True
+    try:
+        yield
+    finally:
+        _FUSED_DISABLED = prev
+
+
+def fused_disabled() -> bool:
+    """Whether :func:`fused_chains_disabled` is active (conv_chain.py:223)."""
+    return _FUSED_DISABLED
 
 
 def pack_bias(bs: torch.Tensor) -> torch.Tensor:
@@ -51,21 +82,30 @@ def chain_f32(h, ws, bs):
     return h
 
 
-def _chain_rounded(h, ws, bs):
-    """The chain in f32 with the kernel's bf16 rounding points, in a form
-    autograd differentiates: bf16 weights, the bias in f32, one bf16 rounding
-    per layer (``_chain_bf16_rounded`` of tests/test_models.py:633-645)."""
-    a = h.float()
+def _plain_layers(h, ws, bs):
+    """The chain's layers with the kernel's rounding, yielding each layer's
+    bf16 output: f32 convs of bf16 values and bf16 weights, bias and ReLU in
+    f32, one bf16 rounding per layer (``_lax_chain``'s arithmetic)."""
+    a = h.to(torch.bfloat16)
     for l in range(ws.shape[0]):
-        z = F.conv2d(a, ws[l].to(torch.bfloat16).float(), bs[l].float(), padding=1)
-        a = F.relu(z).to(torch.bfloat16).float()
-    return a
+        z = F.conv2d(a.float(), ws[l].to(torch.bfloat16).float(), bs[l].float(), padding=1)
+        a = F.relu(z).to(torch.bfloat16)
+        yield a
 
 
 def conv_chain_plain(h, ws, bs):
-    """Plain PyTorch version with the kernel's rounding: f32 convs of bf16
-    values, bias and ReLU in f32, one bf16 rounding per layer."""
-    return _chain_rounded(h.to(torch.bfloat16), ws, bs).to(torch.bfloat16)
+    """Plain PyTorch version with the kernel's rounding (K5)."""
+    for a in _plain_layers(h, ws, bs):
+        pass
+    return a
+
+
+def conv_chain_stash_plain(h, ws, bs):
+    """Plain PyTorch version of the stash (K6): :func:`conv_chain_plain`'s
+    layers, each layer's bf16 output kept. Returns ``(L, B, H, W, 64)`` bf16
+    NHWC, the slots of ``_fused_fwd_stash_impl``'s stash through
+    ``_acts_to_nhwc`` (conv_chain.py:377)."""
+    return torch.stack([a.permute(0, 2, 3, 1) for a in _plain_layers(h, ws, bs)])
 
 
 def _check_cuda(h, wp, bp):
@@ -81,49 +121,157 @@ def _check_cuda(h, wp, bp):
                          "activations' device (see pack_bias)")
 
 
-def _launch(h, wp, bp):
-    """Run the CUDA kernel: layer 0 reads ``h`` in channels_last memory (a
-    copy only if it is NCHW-contiguous), the layers alternate between two
-    NHWC buffers, and the last one is handed back as an NCHW view
-    (channels_last memory)."""
+def _run(entry: str, h, wp, bp, outs):
+    """Call the C entry point ``entry`` on ``h`` (channels_last memory: a copy
+    only if it is NCHW-contiguous), the output buffers ``outs`` and the packed
+    weights, on the current stream; raise on a CUDA error."""
     from .build import load_library
 
-    _check_cuda(h, wp, bp)
     lib = load_library()
     B, _, H, W = h.shape
-    L = int(wp.shape[0])
     src = h.contiguous(memory_format=torch.channels_last)
-    a = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=h.device)
-    t = torch.empty_like(a)
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (src, *outs, wp, bp)]
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = lib.deepinv_conv_chain_bf16(
-            ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(a.data_ptr()),
-            ctypes.c_void_p(t.data_ptr()), ctypes.c_void_p(wp.data_ptr()),
-            ctypes.c_void_p(bp.data_ptr()), B, H, W, L, ctypes.c_void_p(stream))
+        rc = getattr(lib, entry)(*ptrs, B, H, W, int(wp.shape[0]), ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.deepinv_cuda_error_string(rc).decode()
-        raise RuntimeError(f"conv_chain kernel launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def _launch(h, wp, bp):
+    """Run the K5 CUDA kernel: the layers alternate between two NHWC buffers,
+    and the last one is handed back as an NCHW view (channels_last memory)."""
+    _check_cuda(h, wp, bp)
+    B, _, H, W = h.shape
+    a = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=h.device)
+    t = torch.empty_like(a)
+    _run("deepinv_conv_chain_bf16", h, wp, bp, (a, t))
     conv_chain.launches += 1
-    return (a if L % 2 else t).permute(0, 3, 1, 2)
+    return (a if wp.shape[0] % 2 else t).permute(0, 3, 1, 2)
+
+
+def _launch_stash(h, wp, bp):
+    """Run the K6 CUDA kernel: layer l writes slot l of a fresh
+    ``(L, B, H, W, 64)`` bf16 stash."""
+    _check_cuda(h, wp, bp)
+    B, _, H, W = h.shape
+    acts = torch.empty((wp.shape[0], B, H, W, C), dtype=torch.bfloat16, device=h.device)
+    _run("deepinv_conv_chain_stash_bf16", h, wp, bp, (acts,))
+    conv_chain_stash.launches += 1
+    return acts
+
+
+def conv_chain_stash(h, ws, bs, packed=None):
+    """The chain's training forward (``_fused_fwd_stash_impl``,
+    conv_chain.py:328): every layer's bf16 output, as ``(L, B, H, W, 64)``
+    NHWC; the chain's output is the last slot. On a CUDA tensor it launches
+    the hand-written kernel K6 (``csrc/conv_chain.cu``) or raises; on a CPU
+    tensor it runs :func:`conv_chain_stash_plain`. Not differentiable itself:
+    :func:`conv_chain` calls it under autograd.
+
+    :param packed: ``(pack_weights(ws), pack_bias(bs))`` if the caller keeps
+        them; packed here otherwise (CUDA only).
+    """
+    if not h.is_cuda:
+        return conv_chain_stash_plain(h, ws, bs)
+    wp, bp = packed if packed is not None else (pack_weights(ws), pack_bias(bs))
+    return _launch_stash(h, wp, bp)
+
+
+@contextlib.contextmanager
+def _tf32_convs():
+    """cuDNN convs may use TF32 inside the block (the backward's dW: TF32
+    holds bf16 values exactly, so nothing is rounded)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def stash_backward(h, ws, acts, g, plain=None):
+    """Backward of the chain from its stash, with no forward recompute
+    (``_bwd``, conv_chain.py:405-457). For l from L-1 down to 0:
+
+    - ``d <- d * (acts[l] > 0)``, the mask of the stashed, rounded output;
+    - ``db[l] = sum d`` in f32;
+    - ``dW[l] = conv(x_in, d)`` with the batch as the contraction, f32
+      accumulation and an f32 result, ``x_in`` being ``h`` for l = 0 and
+      ``acts[l-1]`` otherwise; ``_bwd`` returns it in the weights' dtype
+      (:457), so bf16 weights (as under autocast) get it rounded once to bf16;
+    - ``d <- bf16(conv(d, flip(W[l]) with I/O swapped))``: the transposed
+      conv of ``d`` by the bf16 weights, f32 accumulation, one rounding.
+
+    ``d`` starts as ``bf16(g)``. On the card dX is a cuDNN bf16 conv; dW is a
+    cuDNN bf16 wgrad (f32 accumulation, one rounding) for bf16 weights, and
+    for f32 weights a cuDNN conv of the bf16 values in f32 with TF32 allowed
+    (exact for bf16 values, f32 sums). The plain version (the CPU's, or
+    ``plain=True``) does both as f32 convs of the bf16 values under the
+    caller's precision settings, dW in f32. The two differ only in the order
+    of the f32 sums and, for bf16 weights, dW's final rounding, which the
+    caller's cast to the weights' dtype makes anyway.
+
+    :param h: ``(B, 64, H, W)`` chain input; ``ws``: ``(L, 64, 64, 3, 3)``;
+        ``acts``: ``(L, B, H, W, 64)`` bf16 stash; ``g``: ``(B, 64, H, W)``
+        cotangent of the output.
+    :param plain: run the plain version; by default, on CPU tensors only.
+    :return: ``(dh, dW, db)``: ``(B, 64, H, W)`` bf16 (channels_last memory),
+        ``(L, 64, 64, 3, 3)`` (float32, or bf16 on the card for bf16 weights)
+        and ``(L, 64)`` float32.
+    """
+    L = ws.shape[0]
+    plain = not g.is_cuda if plain is None else plain
+    bf16_dw = not plain and ws.dtype == torch.bfloat16
+    wb = ws.detach().to(torch.bfloat16)
+    d = g.to(torch.bfloat16)
+
+    def nchw(a):  # an NHWC slot as an NCHW view (channels_last memory)
+        return a.permute(0, 3, 1, 2)
+
+    dws, dbs = [None] * L, [None] * L
+    for l in range(L - 1, -1, -1):
+        # ReLU's backward from its (stashed) output: d where acts[l] > 0
+        d = torch.ops.aten.threshold_backward(d, nchw(acts[l]), 0)
+        dbs[l] = d.sum((0, 2, 3), dtype=torch.float32)
+        x_in = h.to(torch.bfloat16) if l == 0 else nchw(acts[l - 1])
+        if bf16_dw:
+            dws[l] = torch.nn.grad.conv2d_weight(x_in, wb[l].shape, d, padding=1)
+        else:
+            with contextlib.nullcontext() if plain else _tf32_convs():
+                dws[l] = torch.nn.grad.conv2d_weight(x_in.float(), wb[l].shape, d.float(),
+                                                     padding=1)
+        if plain:
+            d = F.conv_transpose2d(d.float(), wb[l].float(), padding=1).to(torch.bfloat16)
+        else:
+            d = F.conv_transpose2d(d, wb[l], padding=1)
+    return d, torch.stack(dws), torch.stack(dbs)
 
 
 class _ConvChain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, ws, bs, wp, bp):
-        ctx.save_for_backward(h, ws, bs)
-        if h.is_cuda:
-            return _launch(h, wp, bp)
-        return conv_chain_plain(h, ws, bs)
+    def forward(ctx, h, ws, bs, wp, bp, stash):
+        if not stash:
+            return _launch(h, wp, bp) if h.is_cuda else conv_chain_plain(h, ws, bs)
+        acts = conv_chain_stash(h, ws, bs, (wp, bp) if h.is_cuda else None)
+        ctx.save_for_backward(h, ws, bs, acts)
+        # a fresh tensor: a view of the saved stash would trip autograd's
+        # version check after an in-place op of the caller
+        return acts[-1].permute(0, 3, 1, 2).clone()
 
     @staticmethod
     def backward(ctx, g):
-        h, ws, bs = ctx.saved_tensors
-        with torch.enable_grad():
-            args = [v.detach().float().requires_grad_() for v in (h, ws, bs)]
-            out = _chain_rounded(*args)
-            dh, dw, db = torch.autograd.grad(out, args, g.float())
-        return dh.to(h.dtype), dw.to(ws.dtype), db.to(bs.dtype), None, None
+        h, ws, bs, acts = ctx.saved_tensors
+        dh, dw, db = stash_backward(h, ws, acts, g)
+        return dh.to(h.dtype), dw.to(ws.dtype), db.to(bs.dtype), None, None, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise RuntimeError(
+            "the DnCNN conv-chain kernel op has no forward-mode derivative (like the JAX "
+            "custom_vjp it ports): run forward-mode AD, e.g. SureGaussianLoss, inside "
+            "fused_chains_disabled(), as Trainer(fused_chains=False) does")
 
 
 def conv_chain(h, ws, bs, packed=None):
@@ -135,11 +283,15 @@ def conv_chain(h, ws, bs, packed=None):
     :param packed: ``(pack_weights(ws), pack_bias(bs))`` if the caller keeps
         them; packed here otherwise (CUDA only).
     :return: ``(B, 64, H, W)`` bf16. From the kernel it is an NCHW view of
-        channels_last memory.
+        channels_last memory. Under autograd (a gradient of ``h``, ``ws`` or
+        ``bs`` is needed) the forward runs the stash op (K6 on the card) and
+        the backward :func:`stash_backward`; otherwise K5 runs.
     """
+    stash = torch.is_grad_enabled() and any(t.requires_grad for t in (h, ws, bs))
     if packed is None:
         packed = (pack_weights(ws), pack_bias(bs)) if h.is_cuda else (None, None)
-    return _ConvChain.apply(h, ws, bs, *packed)
+    return _ConvChain.apply(h, ws, bs, *packed, stash)
 
 
 conv_chain.launches = 0
+conv_chain_stash.launches = 0

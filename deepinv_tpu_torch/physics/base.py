@@ -15,7 +15,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-__all__ = ["Physics", "LinearPhysics", "DecomposablePhysics", "replace", "update"]
+__all__ = ["Physics", "LinearPhysics", "DecomposablePhysics", "Denoising", "replace", "update"]
 
 
 def replace(module: nn.Module, **changes) -> nn.Module:
@@ -211,3 +211,10 @@ class DecomposablePhysics(LinearPhysics):
         minv = torch.where(big, 1.0 / torch.where(big, m, torch.ones_like(m)),
                            torch.zeros_like(m))
         return self.V(self.U_adjoint(y) * minv)
+
+
+class Denoising(DecomposablePhysics):
+    """Identity forward operator with a noise model (base.py:501)."""
+
+    def __init__(self, noise_model=None, **kwargs):
+        super().__init__(mask=1.0, noise_model=noise_model, **kwargs)

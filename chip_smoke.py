@@ -11,8 +11,12 @@ Phases (each one raises, and the script exits non-zero, if it fails):
 3. each kernel against its plain PyTorch version, TF32 off, at its main-path
    shapes: the DRUNet resblock chain (K1), the DnCNN conv+bias+ReLU chain
    (K5), the Chambolle TV prox (K7; 1x3x256², 1x2x256², B=2 with two
-   gammas, a ragged 1x1x37x53 plane and a 1x1x1024² plane that no SM holds,
-   100 iterations each), DRUNet's up-projection chain (K2/K3; v 1x128x128²
+   gammas, a ragged 1x1x37x53 plane, 8x3x256² with eight gammas, the
+   largest and a ragged plane a cluster holds, each on the variant its plan
+   picks, the resident one, and a 1x1x1024² plane that no cluster holds, on
+   the global variant; 1x3x256² also in a cluster of 16 and on the global
+   variant, the layouts phase 7 times; 100 iterations each, and 0 and 1 at
+   1x3x256²), DRUNet's up-projection chain (K2/K3; v 1x128x128²
    and 2x128x128² with R=4, a ragged 1x128x20x28 with R=1) and its up tail
    (K4; s2 1x256x64² and d0 1x64x256², the same at B=2, and a ragged scale 0
    of 40x56, R1=R0=4);
@@ -41,20 +45,26 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    each, and by PGD at B=8; TV-PGD on MRI (1x2x256², the 30% mask, 20
    iterations) and on CT (256², 90 angles, normalized, 30 iterations from the
    FBP); PnP-HQS with ``TVDenoiser(50)`` on the deblurring problem, 10
-   iterations. Each must be finite, launch K7 once per iteration, agree with
+   iterations. Each must be finite, launch K7 once per iteration on its
+   resident variant (``chambolle_prox.launches_by_variant``), agree with
    the same run on the plain prox (``use_pallas=False``) and be no worse than
    the naive estimate (``y``, the zero-filled ``A^T y``, the FBP) by more than
    0.5 dB of PSNR;
 7. times, with CUDA events after warm-up, in turns: each kernel against its
    plain version (K1, K5, K2/K3, K4: and against the same stage as cuDNN
-   bf16 layers; K2/K3 and K4 also at B=8), each reconstruction's iterations
+   bf16 layers; K2/K3 and K4 also at B=8; K7's resident variant in
+   clusters of 8 and 16 and its global variant, in turns, at 1x3x256² and
+   8x3x256², and the resident kernel's barrier floor on planes of one and
+   two rows a CTA), each reconstruction's iterations
    per second on the kernel path and on the plain version, and the DRUNet
    forward and the HQS iterations per second in ``down``, ``both``,
    ``sandwich`` and ``"0"`` (no kernel) at B=1 and B=8;
 8. where the time goes: ``torch.profiler`` over HQS in each DRUNet
-   configuration at B=1 and B=8, over K7 alone and over TV-PGD deblurring at
-   B=1 and B=8 (device time by kernel, kernels per call, and the device's
-   idle share against the unprofiled wall time);
+   configuration at B=1 and B=8, over K7 alone (each variant and cluster
+   size at 1x3x256² and 8x3x256²; the resident prox must be one kernel a
+   call) and over TV-PGD deblurring at B=1 and B=8 (device time by kernel,
+   kernels per call, and the device's idle share against the unprofiled
+   wall time);
 9. DnCNN training through ``Trainer.train()`` (the bench's train rows): a
    bf16 full-width DnCNN(1, 1) (depth 20, nf 64, seeded random weights) as
    ``ArtifactRemoval(autocast(...))`` denoising 256² images at sigma 0.1,
@@ -147,9 +157,19 @@ CT_NORMAL_RTOL = 1e-3
 # version alone is ~1e-3 from the same loop in float64 (PERF.md, PR 3).
 TV_SHAPES = [((1, 3, 256, 256), (0.05,)), ((1, 2, 256, 256), (0.02,)),
              ((2, 3, 256, 256), (0.05, 0.1)), ((1, 1, 37, 53), (0.1,)),
-             ((1, 1, 1024, 1024), (0.05,))]
+             ((1, 1, 1024, 1024), (0.05,)),
+             ((8, 3, 256, 256), (0.02, 0.03, 0.04, 0.05, 0.06, 0.07, 0.08, 0.1)),
+             ((1, 1, 512, 512), (0.05,)), ((1, 1, 500, 300), (0.1,))]
 TV_ITERS = 100
 TV_RTOL = 1e-4
+# K7's layouts timed in turns (phase 7) and profiled (phase 8): (label,
+# variant, cluster size) as tv._launch takes them
+TV_LAYOUTS = (("global", "global", None), ("resident, cluster 8", "resident", 8),
+              ("resident, cluster 16", "resident", 16))
+TV_TIME_SHAPES = ((1, 3, 256, 256), (8, 3, 256, 256))
+# the resident kernel's barrier floor: a 16x32 plane, one (cluster 16) or two
+# (cluster 8) rows a CTA, timed at two step counts
+TV_FLOOR_STEPS = (500, 1500)
 # A TV reconstruction against the same run on the plain prox, relative L2.
 TV_RECON_RTOL = 1e-4
 # ... and its PSNR against the naive estimate's (demo_tv_minimisation.py:44).
@@ -355,10 +375,12 @@ def time_chain(label: str, run_k, run_p, run_cudnn, flop: float):
     return k_ms, p_ms, t_bf16
 
 
-def device_profile(label: str, run, calls: int, top: int = 6) -> None:
+def device_profile(label: str, run, calls: int, top: int = 6):
     """Device time by kernel over ``calls`` runs of ``run`` (torch.profiler),
     per call, beside the unprofiled wall time per call; the idle share is
-    1 - device busy / wall."""
+    1 - device busy / wall. Returns ``(wall ms, device busy ms, kernels, [(ms,
+    launches, name)])`` per call, or None where the profiler saw no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -369,25 +391,31 @@ def device_profile(label: str, run, calls: int, top: int = 6) -> None:
         run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    # a short spin kernel first and last: the profiler drops one launch of
+    # the window, and it should be one of these, which are left out
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
         for _ in range(calls):
             run()
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
     kernels = []  # (device ms per call, launches per call, name)
     for evt in prof.key_averages():
-        if str(evt.device_type).endswith("CUDA"):
+        if str(evt.device_type).endswith("CUDA") and "spin_kernel" not in evt.key:
             us = getattr(evt, "self_device_time_total", None)
             us = getattr(evt, "self_cuda_time_total", 0) if us is None else us
             kernels.append((us / 1e3 / calls, evt.count / calls, evt.key))
     busy = sum(k[0] for k in kernels)
     if busy <= 0:
         print(f"profile {label}: the profiler saw no device time; not measured", flush=True)
-        return
+        return None
+    n_kernels = sum(k[1] for k in kernels)
     top = "; ".join(f"{name[:48]} {ms:.4f} ms x{n:g}"
                     for ms, n, name in sorted(kernels, reverse=True)[:top])
     print(f"profile {label}: wall {wall_ms:.3f} ms per call, device busy {busy:.3f} ms "
-          f"({sum(k[1] for k in kernels):g} kernels), idle share {1 - busy / wall_ms:.3f}; "
+          f"({n_kernels:g} kernels), idle share {1 - busy / wall_ms:.3f}; "
           f"top: {top}", flush=True)
+    return wall_ms, busy, n_kernels, kernels
 
 
 def sync(dev) -> None:
@@ -585,22 +613,28 @@ def plain_tv(priors):
 
 
 def tv_drive(name: str, model, y, physics, priors, x, naive, iters: int, op) -> int:
-    """One TV reconstruction on the kernel path (``op.launches`` set to 0 just
-    before it and read just after), checked: finite output shaped like ``x``,
-    one prox launch per iteration, within TV_RECON_RTOL of the same run on the
+    """One TV reconstruction on the kernel path (``op.launches`` and
+    ``op.launches_by_variant`` set to 0 just before it and read just after),
+    checked: finite output shaped like ``x``, one prox launch per iteration,
+    each on the resident variant, within TV_RECON_RTOL of the same run on the
     plain prox, and no worse than ``naive`` by more than TV_PSNR_SLACK_DB.
     Returns the launches."""
     import torch
 
     op.launches = 0
+    for v in op.launches_by_variant:
+        op.launches_by_variant[v] = 0
     t0 = time.perf_counter()
     with torch.no_grad():
         out = model(y, physics)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = op.launches
-    print(f"{name} {iters} it: first run {first_s:.3f} s, prox launches {launches}", flush=True)
+    launches, by_variant = op.launches, dict(op.launches_by_variant)
+    print(f"{name} {iters} it: first run {first_s:.3f} s, prox launches {launches} "
+          f"{by_variant}", flush=True)
     check(launches == iters, f"{name}: expected {iters} prox launches, got {launches}")
+    check(by_variant == {"resident": iters, "global": 0},
+          f"{name}: expected {iters} resident prox launches, got {by_variant}")
     check(tuple(out.shape) == tuple(x.shape) and out.dtype == torch.float32,
           f"{name}: bad output shape/dtype")
     check(bool(torch.isfinite(out).all()), f"{name}: non-finite reconstruction")
@@ -809,7 +843,9 @@ def main() -> int:
         pack_bias, stash_backward)
     from deepinv_tpu_torch.ops.kernels.resblock_chain import (
         pack_weights, resblock_chain, resblock_chain_plain)
-    from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox, chambolle_prox_plain
+    from deepinv_tpu_torch.ops.kernels.tv import _launch as tv_launch
+    from deepinv_tpu_torch.ops.kernels.tv import _resident_clusters as tv_clusters
+    from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox, chambolle_prox_plain, tv_plan
     from deepinv_tpu_torch.ops.kernels.up_resblock_chain import (
         pack_up_chain, up_resblock_chain, up_resblock_chain_plain)
     from deepinv_tpu_torch.ops.kernels.up_sandwich import (
@@ -865,12 +901,33 @@ def main() -> int:
     for shape, gammas in TV_SHAPES:
         xt = torch.rand(shape, generator=g_tv).to(dev)
         gam = torch.tensor(gammas).reshape(-1, 1, 1, 1).to(dev)
-        err = kernel_vs_plain(f"tv_prox vs plain {shape} gamma={gammas} n_iter={TV_ITERS}",
-                              lambda v: chambolle_prox(v, gam, TV_ITERS),
-                              lambda v: chambolle_prox_plain(v, gam, TV_ITERS), xt, TV_RTOL,
-                              by_range=True)
-        if tv_err is None:
-            tv_err = err
+        plan = tv_plan(*shape[-2:], planes=math.prod(shape[:-2]))
+        want = "global" if shape[-2:] == (1024, 1024) else "resident"
+        check(plan.variant == want, f"tv_prox {shape}: the plan picks {plan}, not {want}")
+        # the plan's layout through the op; at the main shape also phase 7's
+        # other layouts, and 0 and 1 steps
+        runs = [(plan, None, None, TV_ITERS)]
+        if shape == TV_SHAPES[0][0]:
+            runs += [(tv_plan(*shape[-2:], var, cl), var, cl, TV_ITERS)
+                     for _, var, cl in TV_LAYOUTS]
+            runs += [(plan, None, None, 0), (plan, None, None, 1)]
+        for lay, var, cl, n in runs:
+            before = dict(chambolle_prox.launches_by_variant)
+            err = kernel_vs_plain(
+                f"tv_prox vs plain {shape} gamma={gammas} n_iter={n}, {lay.variant} variant"
+                + (f", cluster {lay.cluster}" if lay.variant == "resident" else ""),
+                (lambda t: chambolle_prox(t, gam, n)) if var is None and cl is None else
+                (lambda t: tv_launch(t, gam, n, var, cl)),
+                lambda t: chambolle_prox_plain(t, gam, n),
+                xt, TV_RTOL, by_range=True)
+            ran = {k: chambolle_prox.launches_by_variant[k] - before[k] for k in before}
+            check(ran[lay.variant] == 1 and sum(ran.values()) == 1,
+                  f"tv_prox {shape}: expected one {lay.variant} launch, got {ran}")
+            if lay.variant == "resident" and n == TV_ITERS:
+                print(f"  {lay}: {tv_clusters(lay)} such clusters fit the card at once",
+                      flush=True)
+            if tv_err is None:
+                tv_err = err
     # K2/K3 and K4 on their own generators, so that the later phases draw
     # from g and g_tv what they drew before
     g_up = torch.Generator().manual_seed(SEED + 5)
@@ -1077,9 +1134,33 @@ def main() -> int:
     # per pixel per iteration ~17 float32 operations and a sqrt (tv.py:58-63),
     # plus x / gamma and the output x - gamma div p once
     tv_ops = pixels * (18 * TV_ITERS + 5)
-    print(f"time tv_prox {tv_shape} n_iter={TV_ITERS}: kernel {t_k} ms, plain {t_p} ms; "
-          f"{tv_ops / tk_ms / 1e9:.3f} TFLOP/s; {(TV_ITERS + 1) / tk_ms * 1e3:.0f} "
-          f"launches per second", flush=True)
+    tv_main = tv_plan(*tv_shape[-2:], planes=math.prod(tv_shape[:-2]))
+    print(f"time tv_prox {tv_shape} n_iter={TV_ITERS} ({tv_main.variant} variant, cluster "
+          f"{tv_main.cluster}): kernel {t_k} ms, plain {t_p} ms; "
+          f"{tv_ops / tk_ms / 1e9:.3f} TFLOP/s", flush=True)
+    # the layouts in turns on the same inputs: global, resident in clusters of
+    # 8 and 16, then back; CUDA events over back-to-back proxes
+    tv_layout_ms = {}
+    for shp in TV_TIME_SHAPES:
+        xs = torch.rand(shp, generator=g_tv).to(dev)
+        times = {label: [] for label, _, _ in TV_LAYOUTS}
+        with torch.no_grad():
+            for label, var, cl in TV_LAYOUTS + TV_LAYOUTS[::-1]:
+                times[label].append(cuda_ms(lambda: tv_launch(xs, gam, TV_ITERS, var, cl), 20))
+        tv_layout_ms[shp] = {k: sum(t) / len(t) for k, t in times.items()}
+        print(f"time tv_prox {shp} n_iter={TV_ITERS} by layout, in turns (ms): {times}; the "
+              f"plan's: {tv_plan(*shp[-2:], planes=math.prod(shp[:-2]))}", flush=True)
+    # the resident kernel's floor: a step on a plane of one (cluster 16) or two
+    # (cluster 8) rows a CTA is little more than its two barriers
+    x_floor = torch.rand((1, 1, 16, 32), generator=g_tv).to(dev)
+    tv_floor_us = {}
+    for cl in (8, 16):
+        with torch.no_grad():
+            t_lo, t_hi = (cuda_ms(lambda: tv_launch(x_floor, gam, n, "resident", cl), 20)
+                          for n in TV_FLOOR_STEPS)
+        tv_floor_us[cl] = (t_hi - t_lo) * 1e3 / (TV_FLOOR_STEPS[1] - TV_FLOOR_STEPS[0])
+    print(f"tv_prox resident barrier floor (16x32 plane, per step): {tv_floor_us} µs; for "
+          f"{TV_ITERS} steps {tv_floor_us[16] * TV_ITERS / 1e3:.4f} ms (cluster 16)", flush=True)
 
     # K2/K3 and K4 at the bench shapes, channels_last as DRUNet hands them
     g_t = torch.Generator().manual_seed(SEED + 7)
@@ -1174,8 +1255,33 @@ def main() -> int:
         for c in HQS_CONFIGS:
             device_profile(f"HQS {c} B={b} {MAX_ITER} it",
                            recon(hqs_models[c][0], yb, physics), 3, top=10)
-    device_profile(f"tv_prox {tv_shape} n_iter={TV_ITERS}",
-                   lambda: chambolle_prox(xt, gam, TV_ITERS), 10)
+
+    def one_kernel(prof, label):
+        """The resident prox is one kernel a call: the profiler saw device
+        time, every kernel it saw is tv_resident, and exactly one a call (the
+        spin kernels around the window take the launch it drops). Returns the
+        kernels a call."""
+        check(prof is not None, f"{label}: the profiler saw no device time, so the kernels a "
+              f"call were not measured")
+        names = {name for _, _, name in prof[3]}
+        print(f"profile {label}: {prof[2]:g} kernels a call, device time a launch "
+              f"{prof[1] / prof[2]:.4f} ms", flush=True)
+        check(prof[2] == 1 and all("tv_resident" in n for n in names),
+              f"{label}: the resident prox is not one kernel a call ({prof[2]:g}, {names})")
+        return prof[2]
+
+    label = f"tv_prox {tv_shape} n_iter={TV_ITERS} (the plan's layout)"
+    check(tv_main.variant == "resident", f"{label}: the plan's variant is {tv_main.variant}")
+    # the main shape's CUDA launches a prox, as the profiler counted them
+    tv_per_prox = one_kernel(device_profile(label, lambda: chambolle_prox(xt, gam, TV_ITERS),
+                                            10), label)
+    for shp in TV_TIME_SHAPES:
+        xs = torch.rand(shp, generator=g_tv).to(dev)
+        for name, var, cl in TV_LAYOUTS:
+            label = f"tv_prox {shp} n_iter={TV_ITERS} {name}"
+            prof = device_profile(label, lambda: tv_launch(xs, gam, TV_ITERS, var, cl), 5)
+            if var == "resident":
+                one_kernel(prof, label)
     for name, tv_model, yt, phys, _, _, _, iters in tv_problems:
         if name.startswith("TV-PGD deblur"):
             device_profile(f"{name} {iters} it", recon(tv_model, yt, phys), 3)
@@ -1286,6 +1392,13 @@ def main() -> int:
         "bound_ms": k7_bound[0],
         "bound_by": k7_bound[1],
         "library_ms": None,  # no single PyTorch call computes a TV prox
+        # the main shape's variant and its CUDA launches a prox (profiled); the other
+        # layouts' times (phase 7, in turns) and the barrier floor of its steps
+        "variant": tv_main.variant,
+        "cluster": tv_main.cluster,
+        "launches_per_prox": tv_per_prox,
+        "layout_ms": {f"{'x'.join(map(str, k))}": v for k, v in tv_layout_ms.items()},
+        "barrier_floor_ms": tv_floor_us.get(tv_main.cluster, tv_floor_us[16]) * TV_ITERS / 1e3,
     }, {
         "name": "up_resblock_chain",
         "route": "cuda",

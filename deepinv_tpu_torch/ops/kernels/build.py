@@ -65,8 +65,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.deepinv_up_resblock_chain_bf16.restype = i
     lib.deepinv_up_sandwich_bf16.argtypes = [p] * 13 + [i] * 6 + [p]
     lib.deepinv_up_sandwich_bf16.restype = i
-    lib.deepinv_tv_prox_f32.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.deepinv_tv_prox_f32.argtypes = [p, p, i, p, p, i, i, i, i, p]
     lib.deepinv_tv_prox_f32.restype = i
+    lib.deepinv_tv_prox_resident_f32.argtypes = [p, p, i, p] + [i] * 9 + [p]
+    lib.deepinv_tv_prox_resident_f32.restype = i
+    lib.deepinv_tv_resident_max_clusters.argtypes = [i, i, i, i]
+    lib.deepinv_tv_resident_max_clusters.restype = i
     lib.deepinv_cuda_error_string.argtypes = [i]
     lib.deepinv_cuda_error_string.restype = ctypes.c_char_p
     return lib

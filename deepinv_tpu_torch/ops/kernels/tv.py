@@ -10,10 +10,14 @@
 the contract of the Pallas kernel ``_kernel`` (tv.py:53, launched by
 ``_pallas_impl`` :70) and of its XLA twin ``_xla_impl`` (:88).
 
-- On a CUDA tensor it launches the hand-written kernel
+- On a CUDA tensor it launches a hand-written kernel of
   ``deepinv_tpu_torch/csrc/tv_prox.cu`` (the source says what bounds it and
   how it is laid out), or raises: there is no fallback. The kernel takes
-  float32 only.
+  float32 only. :func:`tv_plan` picks its variant from the plane's shape:
+  the resident one (the whole prox in one launch, each plane held in the
+  shared memory of one thread-block cluster) wherever a cluster holds the
+  plane, else the global one (``n_iter + 1`` launches over dual fields in
+  device memory).
 - On a CPU tensor it runs :func:`chambolle_prox_plain`, the plain PyTorch
   version of ``_xla_impl`` with its safe norm.
 - ``gamma`` is a scalar or a tensor that broadcasts against ``x`` and is
@@ -26,23 +30,36 @@ the contract of the Pallas kernel ``_kernel`` (tv.py:53, launched by
   (tv.py:124-132).
 
 ``chambolle_prox.launches`` counts the calls that reach the kernel (one C
-call of ``n_iter + 1`` launches each), so a run can show that its main path
-went through the kernel.
+call each), and ``chambolle_prox.launches_by_variant`` the same calls by
+variant, so a run can show that its main path went through the kernel, and
+through which.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 __all__ = ["chambolle_prox", "chambolle_prox_plain", "grad_op", "div_op", "fwd_diff_nd",
-           "fwd_diff_nd_adjoint", "TAU"]
+           "fwd_diff_nd_adjoint", "TAU", "TVPlan", "tv_plan"]
 
 TAU = 0.25  # 1 / (2 * dim), Chambolle's stability bound (tv.py:30)
 
-# the kernel's grid (csrc/tv_prox.cu): tiles of 16 x 32 pixels, planes on z
+# the global variant's grid (csrc/tv_prox.cu): tiles of 16 x 32 pixels, planes on z
 _TILE_H, _MAX_GRID_Y = 16, 65535
+# the resident variant (tv_resident in csrc/tv_prox.cu): the cluster sizes it
+# may take (16 is non-portable), the H100's SMs, the shared memory one block
+# may use there (227 KB), the pixels a CTA should hold by default, and the rows a warp
+# may walk with the most threads a CTA may then have (a longer walk holds more
+# registers; max_threads in csrc/tv_prox.cu states the same limits)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+SMS = 132
+SMEM_MAX = 232_448
+TARGET_PIXELS = 8192
+_SEG_THREADS = {2: 1024, 4: 1024, 8: 1024, 16: 640, 32: 576}
 
 
 def fwd_diff_nd(x: torch.Tensor, first_axis: int) -> torch.Tensor:
@@ -106,9 +123,10 @@ def chambolle_prox_plain(x: torch.Tensor, gamma, n_iter: int = 100) -> torch.Ten
 
 
 def _plane_gamma(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """One float32 gamma per ``(H, W)`` plane of ``x``, contiguous on the
-    device; raises unless ``g`` broadcasts to ``x`` and is constant over each
-    plane."""
+    """One float32 gamma per ``(H, W)`` plane of ``x``, as a 1-D tensor on
+    the device that is contiguous, or a stride-0 view of one value (no copy
+    for a scalar gamma); raises unless ``g`` broadcasts to ``x`` and is
+    constant over each plane."""
     if g.dim() > x.dim() or (g.dim() >= 1 and g.shape[-1] != 1) or (
             g.dim() >= 2 and g.shape[-2] != 1):
         raise ValueError(f"chambolle_prox: gamma of shape {tuple(g.shape)} must be a scalar or "
@@ -118,48 +136,161 @@ def _plane_gamma(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     except RuntimeError as err:
         raise ValueError(f"chambolle_prox: gamma of shape {tuple(g.shape)} does not broadcast "
                          f"to x {tuple(x.shape)}") from err
+    if g.numel() == 1:
+        return g.reshape(1).to(torch.float32).expand(planes.numel())
     return planes.reshape(-1).to(torch.float32).contiguous()
 
 
-def _check_cuda(x: torch.Tensor, g: torch.Tensor, n_iter: int) -> torch.Tensor:
-    """Raise on what the kernel does not take; return the per-plane gamma."""
+@dataclass(frozen=True)
+class TVPlan:
+    """How the kernel runs a plane of one shape. ``variant`` is
+    ``"resident"`` (one launch a prox: a cluster of ``cluster`` CTAs a plane,
+    CTA k owning rows ``[k band, (k+1) band)``, a warp ``seg`` rows of them,
+    ``threads`` threads and ``smem`` bytes of dynamic shared memory a CTA) or
+    ``"global"`` (``n_iter + 1`` launches over dual fields in device memory;
+    the other fields are 0)."""
+
+    variant: str
+    cluster: int = 0
+    band: int = 0
+    seg: int = 0
+    threads: int = 0
+    smem: int = 0
+
+
+def _resident_plan(H: int, W: int, cluster: int) -> TVPlan | None:
+    """The resident variant's layout for an ``(H, W)`` plane in a cluster of
+    ``cluster`` CTAs, or None where it cannot hold the plane. A warp owns 31
+    columns and ``seg`` rows (2, 4, 8, 16 or 32; the smallest whose warps fit
+    the CTA: ``_SEG_THREADS``); the band must not be empty, and xg, ph, pw of
+    the band with 7 halo rows (4 bytes each) must fit the shared memory a
+    block may use (``tv_resident`` in csrc/tv_prox.cu)."""
+    band = -(-H // cluster)
+    chunks = -(-W // 31)
+    smem = 4 * (3 * band + 7) * W
+    if (cluster - 1) * band >= H or smem > SMEM_MAX:
+        return None
+    for seg, limit in _SEG_THREADS.items():
+        threads = 32 * chunks * -(-band // seg)
+        if threads <= limit:
+            return TVPlan("resident", cluster, band, seg, threads, smem)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def tv_plan(H: int, W: int, variant: str | None = None, cluster: int | None = None,
+            planes: int = 1) -> TVPlan:
+    """The variant and layout the kernel uses for ``planes`` planes of
+    ``(H, W)``.
+
+    The variant follows from the plane's shape: the resident one where a
+    cluster of up to 16 CTAs holds the plane, else the global one (1024^2).
+    The cluster size, by default: the smallest of ``CLUSTER_SIZES`` whose
+    CTAs hold at most ``TARGET_PIXELS`` pixels each (or the largest that
+    holds the plane), then doubled while the planes, at one CTA an SM, still
+    fit the card's ``SMS`` SMs at once: a 37x53 plane takes 1 CTA, a 256^2
+    plane 8 and, up to 8 planes, 16; 512^2 takes 16. ``variant`` and
+    ``cluster`` force a choice, and raise ``ValueError`` where it cannot hold
+    the plane.
+    """
+    if variant not in (None, "resident", "global"):
+        raise ValueError(f"chambolle_prox: unknown variant {variant!r}")
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"chambolle_prox: cluster size {cluster} not in {CLUSTER_SIZES}")
+    if variant == "global":
+        if cluster is not None:
+            raise ValueError("chambolle_prox: the global variant takes no cluster size")
+        return TVPlan("global")
+    if cluster is not None:
+        plan = _resident_plan(H, W, cluster)
+        if plan is None:
+            raise ValueError(f"chambolle_prox: a cluster of {cluster} cannot hold a {H}x{W} "
+                             f"plane")
+        return plan
+    fits = [p for p in (_resident_plan(H, W, c) for c in CLUSTER_SIZES) if p is not None]
+    if not fits:
+        if variant == "resident":
+            raise ValueError(f"chambolle_prox: no cluster holds a {H}x{W} plane")
+        return TVPlan("global")
+    k = next((k for k, p in enumerate(fits) if p.band * W <= TARGET_PIXELS), len(fits) - 1)
+    while k + 1 < len(fits) and planes * fits[k + 1].cluster <= SMS:
+        k += 1
+    return fits[k]
+
+
+def _check_cuda(x: torch.Tensor, g: torch.Tensor, n_iter: int, variant: str | None = None,
+                cluster: int | None = None) -> torch.Tensor:
+    """Raise on what the kernel does not take (and on a forced ``variant`` or
+    ``cluster`` that cannot hold the plane); return the per-plane gamma."""
     if x.dtype != torch.float32:
         raise TypeError(f"chambolle_prox kernel takes float32, got {x.dtype}")
     if x.dim() < 2 or x.numel() == 0:
         raise ValueError(f"chambolle_prox kernel takes (..., H, W) with H, W >= 1, "
                          f"got {tuple(x.shape)}")
-    if -(-x.shape[-2] // _TILE_H) > _MAX_GRID_Y:
-        raise ValueError(f"chambolle_prox kernel takes H <= {_TILE_H * _MAX_GRID_Y}, "
-                         f"got {x.shape[-2]}")
     if n_iter < 0:
         raise ValueError(f"n_iter must be >= 0, got {n_iter}")
+    H, W = x.shape[-2:]
+    if tv_plan(H, W, variant, cluster).variant == "global" and -(-H // _TILE_H) > _MAX_GRID_Y:
+        raise ValueError(f"chambolle_prox kernel takes H <= {_TILE_H * _MAX_GRID_Y}, "
+                         f"got {H}")
     return _plane_gamma(g, x)
 
 
-def _launch(x: torch.Tensor, g: torch.Tensor, n_iter: int) -> torch.Tensor:
-    """Run the CUDA kernel: ``n_iter`` Chambolle steps over a ping-pong pair
-    of dual fields, then the output, in one C call."""
+@functools.lru_cache(maxsize=None)
+def _resident_clusters(plan: TVPlan) -> int:
+    """How many clusters of the resident layout ``plan`` the card can hold at
+    once; raises if none (a resident launch would fail: nothing falls back)."""
     from .build import load_library
 
-    gp = _check_cuda(x, g, n_iter)
+    lib = load_library()
+    cluster, threads, smem = plan.cluster, plan.threads, plan.smem
+    count = lib.deepinv_tv_resident_max_clusters(cluster, plan.seg, threads, smem)
+    if count <= 0:
+        why = (f"CUDA error {-count} ({lib.deepinv_cuda_error_string(-count).decode()})"
+               if count < 0 else "0 clusters fit")
+        raise RuntimeError(f"chambolle_prox: the device cannot hold a cluster of {cluster} "
+                           f"CTAs of {threads} threads and {smem} bytes of shared memory: "
+                           f"{why}")
+    return count
+
+
+def _launch(x: torch.Tensor, g: torch.Tensor, n_iter: int, variant: str | None = None,
+            cluster: int | None = None) -> torch.Tensor:
+    """Run the CUDA kernel in the plan's variant (``variant`` and ``cluster``
+    force one: the smoke times both on the same inputs): one resident launch,
+    or ``n_iter`` global steps over a ping-pong pair of dual fields and the
+    output, in one C call."""
+    from .build import load_library
+
+    gp = _check_cuda(x, g, n_iter, variant, cluster)
     H, W = x.shape[-2:]
     xc = x.contiguous()
     N = xc.numel() // (H * W)
-    # [buffer][component][plane, H, W]; buffer 0 holds the initial p = 0
-    state = torch.empty((2, 2) + (N, H, W), dtype=torch.float32, device=x.device)
-    state[0].zero_()
+    plan = tv_plan(H, W, variant, cluster, N)
     out = torch.empty_like(xc)
     lib = load_library()
+    p = ctypes.c_void_p
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.deepinv_tv_prox_f32(
-            ctypes.c_void_p(xc.data_ptr()), ctypes.c_void_p(gp.data_ptr()),
-            ctypes.c_void_p(state.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            N, H, W, int(n_iter), ctypes.c_void_p(stream))
+        if plan.variant == "resident":
+            _resident_clusters(plan)
+            rc = lib.deepinv_tv_prox_resident_f32(
+                p(xc.data_ptr()), p(gp.data_ptr()), gp.stride(0), p(out.data_ptr()), N, H, W,
+                int(n_iter), plan.cluster, plan.band, plan.seg, plan.threads, plan.smem,
+                p(stream))
+        else:
+            # [buffer][component][plane, H, W]; buffer 0 holds the initial p = 0
+            state = torch.empty((2, 2) + (N, H, W), dtype=torch.float32, device=x.device)
+            state[0].zero_()
+            rc = lib.deepinv_tv_prox_f32(
+                p(xc.data_ptr()), p(gp.data_ptr()), gp.stride(0), p(state.data_ptr()),
+                p(out.data_ptr()), N, H, W, int(n_iter), p(stream))
     if rc != 0:
         msg = lib.deepinv_cuda_error_string(rc).decode()
-        raise RuntimeError(f"chambolle_prox kernel launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"chambolle_prox kernel launch failed ({plan.variant} variant): "
+                           f"CUDA error {rc} ({msg})")
     chambolle_prox.launches += 1
+    chambolle_prox.launches_by_variant[plan.variant] += 1
     return out
 
 
@@ -196,3 +327,4 @@ def chambolle_prox(x: torch.Tensor, gamma, n_iter: int = 100) -> torch.Tensor:
 
 
 chambolle_prox.launches = 0
+chambolle_prox.launches_by_variant = {"resident": 0, "global": 0}

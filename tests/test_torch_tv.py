@@ -24,8 +24,9 @@ from deepinv_tpu.ops.pallas import tv as jax_tv
 from deepinv_tpu.optim import TVPrior as JaxTVPrior
 from deepinv_tpu_torch.models import TVDenoiser
 from deepinv_tpu_torch.ops.kernels import build
-from deepinv_tpu_torch.ops.kernels.tv import (_check_cuda, chambolle_prox, chambolle_prox_plain,
-                                              div_op, grad_op)
+from deepinv_tpu_torch.ops.kernels.tv import (_SEG_THREADS, CLUSTER_SIZES, SMEM_MAX, TAU,
+                                              _check_cuda, chambolle_prox, chambolle_prox_plain,
+                                              div_op, grad_op, tv_plan)
 from deepinv_tpu_torch.optim import TVPrior
 
 SHAPES = [(1, 2, 16, 24), (1, 1, 13, 17)]
@@ -177,13 +178,20 @@ def test_cpu_tensor_takes_the_plain_version():
 
 
 @pytest.mark.parametrize("case", ["f64", "one_dim", "empty", "n_iter", "spatial_gamma",
-                                  "batch_vector_gamma", "mismatched_gamma"])
+                                  "batch_vector_gamma", "mismatched_gamma", "cluster_too_small",
+                                  "cluster_size", "resident_too_large", "global_with_cluster",
+                                  "variant"])
 def test_kernel_input_checks_raise(case):
     """What the CUDA kernel does not take raises before any launch: float64,
     fewer than two dims, an empty tensor, a negative n_iter, a gamma that
-    varies inside a plane or does not broadcast to x. The accepted gammas
-    map to one value per plane."""
+    varies inside a plane or does not broadcast to x; and a forced layout
+    that cannot hold the plane (a cluster too small for a 256^2 plane, a
+    cluster size not in CLUSTER_SIZES, the resident variant for a 1024^2
+    plane, a cluster size for the global variant, an unknown variant). The
+    accepted gammas map to one value per plane."""
     x = torch.zeros((2, 3, 8, 8))
+    big = torch.zeros(1).expand(1, 1, 1024, 1024)
+    mid = torch.zeros(1).expand(1, 1, 256, 256)
     bad = {
         "f64": (x.double(), torch.tensor(0.1), 5),
         "one_dim": (torch.zeros(8), torch.tensor(0.1), 5),
@@ -192,10 +200,16 @@ def test_kernel_input_checks_raise(case):
         "spatial_gamma": (x, torch.full((2, 1, 8, 8), 0.1), 5),
         "batch_vector_gamma": (x, torch.tensor([0.1, 0.2]), 5),
         "mismatched_gamma": (x, torch.full((3, 1, 1, 1), 0.1), 5),
+        "cluster_too_small": (mid, torch.tensor(0.1), 5, "resident", 1),
+        "cluster_size": (mid, torch.tensor(0.1), 5, None, 3),
+        "resident_too_large": (big, torch.tensor(0.1), 5, "resident"),
+        "global_with_cluster": (mid, torch.tensor(0.1), 5, "global", 8),
+        "variant": (mid, torch.tensor(0.1), 5, "shared"),
     }[case]
     with pytest.raises(TypeError if case == "f64" else ValueError):
         _check_cuda(*bad)
     assert torch.equal(_check_cuda(x, torch.tensor(0.5), 5), torch.full((6,), 0.5))
+    assert _check_cuda(x, torch.tensor(0.5), 5).stride() == (0,)  # a view: no copy kernel
     g = torch.tensor([0.1, 0.2]).reshape(2, 1, 1, 1)
     assert torch.equal(_check_cuda(x, g, 5), g.reshape(2, 1).expand(2, 3).reshape(-1))
     g = torch.arange(6.0).reshape(2, 3, 1, 1)
@@ -243,3 +257,186 @@ def test_entry_points_without_device_need_cuda():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             make()
     assert BlurFFT((1, 8, 8), filter=gaussian_blur(1.0), device="cpu").mask.device.type == "cpu"
+
+
+# The plan (pure Python): the shapes chip_smoke.py's K7 checks and TV problems
+# use, (H, W, planes) -> (variant, cluster size)
+PLAN_SHAPES = {(37, 53, 1): ("resident", 8), (256, 256, 3): ("resident", 16),
+               (256, 256, 2): ("resident", 16), (256, 256, 24): ("resident", 8),
+               (512, 512, 1): ("resident", 16), (1024, 1024, 1): ("global", 0),
+               (500, 300, 1): ("resident", 16), (250, 250, 1): ("resident", 16),
+               (37, 53, 40): ("resident", 2)}
+
+
+@pytest.mark.parametrize("hwn", sorted(PLAN_SHAPES))
+def test_plan_picks_variant_and_cluster(hwn):
+    """The plan's variant and cluster size for each plane shape and count the
+    smoke holds to the plain version: 256^2 in a cluster of 8 (8192 pixels a
+    CTA), doubled to 16 while the planes fit the 132 SMs (1x3x256^2, not
+    8x3x256^2), a small plane likewise, 512^2 in 16, 1024^2 on the global
+    variant; and the clusters of all the planes never exceed the SMs once
+    doubled."""
+    H, W, n = hwn
+    plan = tv_plan(H, W, planes=n)
+    assert (plan.variant, plan.cluster) == PLAN_SHAPES[hwn]
+    base = tv_plan(H, W, planes=10 ** 6)
+    assert plan.cluster == base.cluster or n * plan.cluster <= 132
+
+
+def _bands(plan, H):
+    """The rows ``[r0, r1)`` of each CTA of a resident cluster
+    (``tv_resident`` in csrc/tv_prox.cu: CTA k owns ``[k band, (k+1) band)``)."""
+    return [(k * plan.band, min(H, (k + 1) * plan.band)) for k in range(plan.cluster)]
+
+
+def _all_resident_plans():
+    for H, W in [(37, 53), (61, 17), (256, 256), (250, 250), (500, 300), (512, 512),
+                 (1024, 256), (256, 1024), (3, 700), (700, 3)]:
+        for cs in CLUSTER_SIZES:
+            try:
+                yield (H, W), tv_plan(H, W, "resident", cs)
+            except ValueError:
+                pass
+
+
+def test_plan_bands_cover_rows_and_fit_shared_memory():
+    """For every cluster size that holds a plane: the bands cover every row
+    exactly once and none is empty, the warps cover every band row and
+    column (31 columns x seg rows each, within the threads ``_SEG_THREADS``
+    allows a CTA for that seg), and a CTA's shared memory (xg, ph, pw of its
+    band and 7 halo rows) stays within the 227 KB a block may use."""
+    seen = 0
+    for (H, W), plan in _all_resident_plans():
+        bands = _bands(plan, H)
+        rows = [r for r0, r1 in bands for r in range(r0, r1)]
+        assert rows == list(range(H)), (H, W, plan)
+        assert all(r1 > r0 for r0, r1 in bands)
+        chunks = -(-W // 31)
+        assert plan.threads == chunks * -(-plan.band // plan.seg) * 32 <= _SEG_THREADS[plan.seg]
+        assert chunks * 31 >= W
+        assert plan.smem == 4 * (3 * plan.band + 7) * W <= SMEM_MAX == 227 * 1024
+        seen += 1
+    assert seen >= 20
+
+
+@pytest.mark.parametrize("hw", [(1024, 1024), (3000, 128), (600, 600), (64, 1100)])
+def test_plan_too_large_for_16_ctas_takes_global(hw):
+    """A plane that no cluster of up to 16 CTAs holds takes the global
+    variant by default, and forcing the resident variant raises."""
+    assert tv_plan(*hw).variant == "global"
+    with pytest.raises(ValueError):
+        tv_plan(*hw, variant="resident")
+    for cs in CLUSTER_SIZES:
+        with pytest.raises(ValueError):
+            tv_plan(*hw, cluster=cs)
+
+
+def _resident_walk(x, gamma, n_iter, plan):
+    """``tv_resident`` (csrc/tv_prox.cu) emulated in numpy float32, read for
+    read: each CTA of the plan's cluster holds the kernel's flat shared memory
+    (xg, ph and pw of its band with their halo rows, the top slots), each warp
+    of 32 lanes (31 columns and the next) walks its ``seg`` rows as ``walk``
+    does, without masks past its first row (column -1 is the previous row's
+    last element; u one column right comes by a shuffle down), then the owner
+    lanes write their rows and push the band's edge rows into the neighbours'
+    slots of the next parity. Asserts after every step that ph of row H - 1
+    and pw of column W - 1, halo rows included, are exactly 0: the unmasked
+    reads rely on it. Returns out = x - gamma div p."""
+    f32 = np.float32
+    tau, tiny = f32(TAU), f32(1e-30)
+    H, W = x.shape
+    band, seg = plan.band, plan.seg
+    oh = (band + 1) * W
+    ow = oh + (band + 2) * W
+    otop = ow + (band + 2) * W
+    xf = x.reshape(-1)
+    chunks = -(-W // 31)
+    j = np.arange(chunks)[:, None] * 31 + np.arange(32)[None, :]   # (chunks, 32) lanes
+    jj = np.minimum(j, W - 1)
+    owner = (np.arange(32)[None, :] < 31) & (j < W)
+    ctas = []
+    for k in range(plan.cluster):
+        r0, r1 = k * band, min(H, (k + 1) * band)
+        sm = np.zeros(otop + 2 * W, f32)
+        q = r0 * W + np.arange((r1 - r0 + 1) * W)
+        sm[:q.size] = np.where(q < H * W, xf[np.minimum(q, H * W - 1)] / f32(gamma), f32(0))
+        groups = [(s0, min(r1, s0 + seg)) for s0 in range(r0, r0 + band, seg) if s0 < r1]
+        ctas.append((r0, r1, sm, groups))
+    for t in range(n_iter):
+        slot, nxt = t & 1, (t + 1) & 1
+        new = []
+        for r0, r1, sm, groups in ctas:
+            for s0, s1 in groups:
+                base = (s0 - r0) * W + jj
+                ph_u = (f32(0) if s0 == 0 else
+                        sm[oh + base - W] if s0 > r0 else sm[otop + slot * W + jj])
+                dh = (sm[oh + base] if s0 < H - 1 else f32(0)) - (ph_u if s0 > 0 else f32(0))
+                dw = (np.where(jj < W - 1, sm[ow + base], f32(0))
+                      - np.where(jj > 0, sm[ow + base - 1], f32(0)))
+                uc = (dh + dw) - sm[base]
+                last_off = W + (slot * W if s1 == r1 else 0)
+                at, rows = base, s1 - s0
+                phc, pwc = sm[oh + at], sm[ow + at]
+                nph, npw = [], []
+                for s in range(rows):
+                    last = s == rows - 1
+                    off = last_off if last else W
+                    phn, pwn = sm[oh + at + off], sm[ow + at + off]
+                    pwl = sm[ow + at + off - 1]
+                    ud = ((phn - phc) + (pwn - pwl)) - sm[at + W]
+                    ur = np.concatenate([uc[:, 1:], uc[:, 31:]], 1)   # __shfl_down_sync
+                    eh = ud - uc if (not last or s1 < H) else np.zeros_like(uc)
+                    ew = ur - uc
+                    denom = f32(1) + tau * np.sqrt(np.maximum(eh * eh + ew * ew, tiny))
+                    nph.append((phc + tau * eh) / denom)
+                    npw.append((pwc + tau * ew) / denom)
+                    phc, pwc, uc, at = phn, pwn, ud, at + W
+                new.append((nph, npw))
+        it = iter(new)
+        for k, (r0, r1, sm, groups) in enumerate(ctas):
+            for s0, s1 in groups:
+                nph, npw = next(it)
+                for s, (h, w) in enumerate(zip(nph, npw)):
+                    sm[oh + (s0 - r0 + s) * W + j[owner]] = h[owner]
+                    sm[ow + (s0 - r0 + s) * W + j[owner]] = w[owner]
+                    if s0 + s == r1 - 1 and r1 < H:   # the band's last row, down
+                        ctas[k + 1][2][otop + nxt * W + j[owner]] = h[owner]
+                if s0 == r0 and k > 0:   # the band's first row, up
+                    ctas[k - 1][2][oh + (band + nxt) * W + j[owner]] = nph[0][owner]
+                    ctas[k - 1][2][ow + (band + nxt) * W + j[owner]] = npw[0][owner]
+        for r0, r1, sm, _ in ctas:
+            assert not sm[ow:otop].reshape(band + 2, W)[:, W - 1].any(), t
+            if r1 == H:
+                assert not sm[oh + (H - 1 - r0) * W:oh + (H - r0) * W].any(), t
+    out = []
+    slot = n_iter & 1
+    for r0, r1, sm, _ in ctas:
+        ph = sm[oh:oh + (r1 - r0) * W].reshape(-1, W)
+        pw = sm[ow:ow + (r1 - r0) * W].reshape(-1, W)
+        i = np.arange(r0, r1)[:, None]
+        ph_up = np.concatenate([sm[otop + slot * W:otop + (slot + 1) * W][None], ph[:-1]])
+        dh = np.where(i < H - 1, ph, f32(0)) - np.where(i > 0, ph_up, f32(0))
+        pw_l = np.concatenate([np.zeros((r1 - r0, 1), f32), pw[:, :-1]], 1)
+        dw = (np.where(np.arange(W) < W - 1, pw, f32(0))
+              - np.where(np.arange(W) > 0, pw_l, f32(0)))
+        out.append(x[r0:r1] - f32(gamma) * (dh + dw))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("hw,cluster", [((61, 17), 1), ((61, 17), 2), ((61, 17), 4),
+                                        ((61, 17), 8), ((61, 17), 16), ((31, 40), 16),
+                                        ((10, 70), 4), ((20, 32), 4), ((9, 63), 2),
+                                        ((300, 20), 1), ((256, 40), 1)])
+def test_resident_schedule_matches_plain_prox(hw, cluster):
+    """The resident kernel's reads, band and halo schedule, emulated on the
+    plan's layout (ragged last bands, a one-row last band at 31 rows in 16
+    CTAs, the last column on lane 31 at W = 32, walks of 2 to 32 rows),
+    reproduce the JAX package's XLA loop ``_xla_impl`` and the plain prox:
+    atol 1e-5 (float32 both; the emulation drops the masks the loop takes)."""
+    x = _x(hw, seed=10)
+    plan = tv_plan(*hw, cluster=cluster)
+    got = _resident_walk(x, 0.07, 25, plan)
+    want = np.asarray(jax_tv._xla_impl(jnp.asarray(x)[None, None], 0.07, 25))[0, 0]
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(got, chambolle_prox_plain(torch.from_numpy(x), 0.07, 25).numpy(),
+                               atol=1e-5)

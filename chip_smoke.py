@@ -7,10 +7,16 @@ Phases (each one raises, and the script exits non-zero, if it fails):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. build the CUDA kernels from ``deepinv_tpu_torch/csrc`` (nvcc, sm_90a, one
-   nvcc per source, all started together);
+   nvcc per source, all started together), and check in the library's SASS
+   (``cuobjdump -sass``) that each kernel of the wgmma conv tile
+   (``csrc/conv3x3_wgmma.cuh``: K1's two epilogues, K5's) has ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) instructions;
 3. each kernel against its plain PyTorch version, TF32 off, at its main-path
-   shapes: the DRUNet resblock chain (K1), the DnCNN conv+bias+ReLU chain
-   (K5), the Chambolle TV prox (K7; 1x3x256², 1x2x256², B=2 with two
+   shapes: the DRUNet resblock chain (K1) and the DnCNN conv+bias+ReLU chain
+   (K5) on the wgmma tile at every KERNEL_SHAPES and CHAIN_SHAPES entry and
+   at 8x64x256² (R=4, L=18), each of the tile's nine taps alone at a ragged
+   two-strip shape, and K1 and K5 on the earlier mma.sync tile (the private
+   ``_launch(..., tile="mma")``) at the main shape; the Chambolle TV prox (K7; 1x3x256², 1x2x256², B=2 with two
    gammas, a ragged 1x1x37x53 plane, 8x3x256² with eight gammas, the
    largest and a ragged plane a cluster holds, each on the variant its plan
    picks, the resident one, and a 1x1x1024² plane that no cluster holds, on
@@ -30,8 +36,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    (depth 20, nf 64, seeded random weights, the residual layer scaled to a
    denoiser's size), 8 iterations at stepsize 1.0 and denoiser level 0.05, on
    MRI (1x2x256x256, 30% random k-space mask) and on CT (1x1x256x256,
-   Fourier-slice Tomography, 90 angles, normalized), and the CT Toeplitz
-   normal operator against ``A_adjoint(A(x))``.
+   Fourier-slice Tomography, 90 angles, normalized), each also at B=8, and
+   the CT Toeplitz normal operator against ``A_adjoint(A(x))``.
    For each of the five reconstructions (4 and 5) the output must be finite,
    each of the path's kernels must have been launched once per iteration
    (its counter is set to 0 just before the run and read just after), each
@@ -52,15 +58,21 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    0.5 dB of PSNR;
 7. times, with CUDA events after warm-up, in turns: each kernel against its
    plain version (K1, K5, K2/K3, K4: and against the same stage as cuDNN
-   bf16 layers; K2/K3 and K4 also at B=8; K7's resident variant in
+   bf16 layers; K2/K3 and K4 also at B=8; K1 and K5 on the wgmma tile, on
+   the mma.sync tile and as cuDNN bf16 layers at 1x64x256² and 8x64x256²,
+   with TFLOP/s; K7's resident variant in
    clusters of 8 and 16 and its global variant, in turns, at 1x3x256² and
    8x3x256², and the resident kernel's barrier floor on planes of one and
    two rows a CTA), each reconstruction's iterations
    per second on the kernel path and on the plain version, and the DRUNet
    forward and the HQS iterations per second in ``down``, ``both``,
-   ``sandwich`` and ``"0"`` (no kernel) at B=1 and B=8;
+   ``sandwich`` and ``"0"`` (no kernel) at B=1 and B=8, ``down`` at B=8 also
+   on the mma.sync tile, and PGD on MRI and CT at B=8 on the wgmma tile, the
+   mma.sync tile and cuDNN layers;
 8. where the time goes: ``torch.profiler`` over HQS in each DRUNet
-   configuration at B=1 and B=8, over K7 alone (each variant and cluster
+   configuration at B=1 and B=8, over PGD on MRI and CT at B=1 and B=8 (the
+   wgmma tile's kernel must show by name; its launches a recon are printed
+   beside the 64 of HQS ``down`` and the 144 of PGD), over K7 alone (each variant and cluster
    size at 1x3x256² and 8x3x256²; the resident prox must be one kernel a
    call) and over TV-PGD deblurring at B=1 and B=8 (device time by kernel,
    kernels per call, and the device's idle share against the unprofiled
@@ -100,6 +112,7 @@ import contextlib
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -120,6 +133,14 @@ HQS_BATCH = 8
 L_MAIN = 18                     # DnCNN depth 20: hidden layers in the chain
 CHAIN_SHAPES = [((1, 64, 256, 256), L_MAIN), ((2, 64, 256, 256), L_MAIN),
                 ((1, 64, 40, 56), 3)]
+# K1 and K5 on the wgmma tile are also held at the HQS batch (R=4, L=18),
+# and each of the tile's nine taps alone at a ragged shape of two strips of
+# 128 columns, the second partly outside the image
+TILE_B8_SHAPE = (8, 64, 256, 256)
+TAP_SHAPE = (1, 64, 20, 200)
+# the tile's kernels per call: K1 2R, K5 L (one launch a conv)
+K1_TILE_LAUNCHES = 2 * R_MAIN
+K5_TILE_LAUNCHES = L_MAIN
 # Kernel vs plain: the two differ only in the order of the f32 sums, so an
 # output differs by at most a few bf16 ulps (2^-8 relative) after the chain
 # (tests/test_models.py:616 holds the Pallas kernel to the same bound).
@@ -193,6 +214,16 @@ GRAD_RTOL = 3e-2
 # SURE's JVP divergence against (f(y + tau b) - f(y)) / tau of the f32 model.
 JVP_TAU = 1e-3
 JVP_RTOL = 5e-2
+# queued_ms: calls a measurement (their launches, at most ~40 a call, stay
+# within the launch queue's ~1000) and the spin in front of them (~50 ms at
+# the H100's clock, longer than the host takes to issue those calls)
+QUEUED_REPS = 20
+SPIN_CYCLES = 100_000_000
+# profiler sessions a launch count may take: the profiler loses the records
+# of some launches in a window, never adds any (one run of this script saw 9
+# resident TV proxes of 10), so a count short of the launches made is taken
+# again, and a count above them fails at once
+PROFILE_TRIES = 3
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for the bounds.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
@@ -226,6 +257,25 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Device time of ``fn`` in ms a call: ``reps`` calls enqueued while a
+    spin kernel keeps the device busy, so that the device runs them back to
+    back whatever the host's issue time; CUDA events around the calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def psnr(a, b) -> float:
     mse = float(((a - b) ** 2).mean())
     return 10.0 * math.log10(1.0 / max(mse, 1e-20))
@@ -240,6 +290,114 @@ def swapped(module, name: str, fn):
         yield
     finally:
         setattr(module, name, old)
+
+
+def sass_tile_check(cuobjdump: str, so) -> dict:
+    """``HGMMA``, ``UTMALDG`` and ``UTMASTG`` (TMA store) instructions in each
+    kernel of the wgmma conv tile in the built library (``cuobjdump -sass``).
+    Fails unless K1's two kernels and K5's have wgmma and TMA loads."""
+    out = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            if "conv3x3_wgmma" in fn:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
+        elif fn in counts:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    for fn, c in counts.items():
+        print(f"  sass {fn[:90]}: {c}", flush=True)
+    k1 = [fn for fn in counts if "resblock_chain_cu" in fn]
+    k5 = [fn for fn in counts if "_conv_chain_cu" in fn]
+    check(len(k1) == 2 and len(k5) == 1, f"the wgmma tile's kernels are not all in the library: "
+          f"{list(counts)}")
+    check(all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in counts.values()),
+          f"a wgmma tile kernel lacks HGMMA or UTMALDG in its SASS: {counts}")
+    return counts
+
+
+def tile_turns(label: str, runs: dict, flop: float, reps: int):
+    """Mean ms of each of ``runs`` (name -> fn), timed in turns (a, b, c, c,
+    b, a), and TFLOP/s at ``flop`` a call; also the host's time to issue a
+    call (where it is near the device time, the timing is host-bound) and
+    the device's own time a call (:func:`queued_ms`). Returns ``(ms, device
+    ms)`` by name."""
+    import torch
+
+    times, host = {k: [] for k in runs}, {}
+    with torch.no_grad():
+        for k in list(runs) + list(runs)[::-1]:
+            times[k].append(cuda_ms(runs[k], reps))
+        for k, fn in runs.items():   # the host's time to issue a call, no sync inside
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host[k] = (time.perf_counter() - t0) * 1e3 / reps
+            torch.cuda.synchronize()
+    ms = {k: sum(t) / len(t) for k, t in times.items()}
+    print(f"time {label}, in turns: {times} ms; "
+          + ", ".join(f"{k} {flop / v / 1e9:.1f} TFLOP/s" for k, v in ms.items())
+          + f"; host issue ms a call {host}", flush=True)
+    # the device's own time a call: the calls queued behind a spin kernel,
+    # so that the host's issue time does not show (in turns as above)
+    queued = {k: [] for k in runs}
+    with torch.no_grad():
+        for k in list(runs) + list(runs)[::-1]:
+            queued[k].append(queued_ms(runs[k], QUEUED_REPS))
+    busy = {k: sum(t) / len(t) for k, t in queued.items()}
+    print(f"time {label}, calls queued behind a spin kernel, in turns: {queued} ms", flush=True)
+    return ms, busy
+
+
+def rates_in_turns(label: str, runs: dict, image_its: int, reps: int = 3) -> dict:
+    """Image-iterations per second of each of ``runs`` (name -> one recon),
+    timed in turns (a, b, c, c, b, a) with CUDA events over ``reps`` recons."""
+    times = {k: [] for k in runs}
+    for k in list(runs) + list(runs)[::-1]:
+        times[k].append(cuda_ms(runs[k], reps, warmup=2))
+    rates = {k: image_its * 1e3 * len(t) / sum(t) for k, t in times.items()}
+    print(f"{label}, ms per recon in turns: {times}; image-it/s: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()), flush=True)
+    return rates
+
+
+def counted_profile(label: str, run, calls: int, counted, want: float, top: int = 6):
+    """``device_profile`` of ``run``, taken again (PROFILE_TRIES sessions at
+    most) while the profiler saw no device time or fewer than ``want``
+    launches a call of the kernels whose names ``counted`` accepts. Returns
+    the last profile (None where no session saw device time) and the
+    counted launches a call in it."""
+    for attempt in range(PROFILE_TRIES):
+        prof = device_profile(label, run, calls, top)
+        n = None if prof is None else sum(k[1] for k in prof[3] if counted(k[2]))
+        if n is not None and n >= want:
+            break
+        if attempt + 1 < PROFILE_TRIES:
+            seen = "no device time" if n is None else f"{n:g} of {want:g} launches a call"
+            print(f"profile {label}: the profiler saw {seen}; profiling again", flush=True)
+    return prof, n
+
+
+def tile_in_profile(label: str, run, want: int, top: int = 8):
+    """The wgmma tile's kernel in a profile of three calls of ``run``: its
+    device ms and launches a call beside the ``want`` launches the path
+    makes (phases 4-5 hold the op's calls a recon exactly, each launching
+    2R or L kernels or raising; the profiler may drop events of a busy
+    window, so a short count is profiled again and then printed and only
+    bounded); fails unless the profiler saw the kernel by name."""
+    prof, _ = counted_profile(label, run, 3, lambda name: "conv3x3_wgmma" in name, want, top)
+    check(prof is not None, f"{label}: the profiler saw no device time")
+    found = [(ms, n) for ms, n, name in prof[3] if "conv3x3_wgmma" in name]
+    ms, n = sum(f[0] for f in found), sum(f[1] for f in found)
+    print(f"profile {label}: conv3x3_wgmma {ms:.4f} ms x{n:g} a call of {want} launched "
+          f"({ms / prof[1]:.3f} of the summed kernel time)", flush=True)
+    check(0 < n <= want, f"{label}: expected {want} conv3x3_wgmma launches a call, the "
+          f"profiler saw {n:g}")
+    return ms, n
 
 
 def bound_ms(ops: float, peak_ops: float, nbytes: float):
@@ -378,7 +536,8 @@ def time_chain(label: str, run_k, run_p, run_cudnn, flop: float):
 def device_profile(label: str, run, calls: int, top: int = 6):
     """Device time by kernel over ``calls`` runs of ``run`` (torch.profiler),
     per call, beside the unprofiled wall time per call; the idle share is
-    1 - device busy / wall. Returns ``(wall ms, device busy ms, kernels, [(ms,
+    1 - device busy / wall, device busy being the union of the kernels'
+    intervals. Returns ``(wall ms, kernel times summed ms, kernels, [(ms,
     launches, name)])`` per call, or None where the profiler saw no device
     time."""
     import torch
@@ -410,11 +569,21 @@ def device_profile(label: str, run, calls: int, top: int = 6):
         print(f"profile {label}: the profiler saw no device time; not measured", flush=True)
         return None
     n_kernels = sum(k[1] for k in kernels)
-    top = "; ".join(f"{name[:48]} {ms:.4f} ms x{n:g}"
+    # kernels launched with programmatic dependent launch (the wgmma conv
+    # tile) start while the one before runs: the device is busy for the
+    # union of the kernels' intervals, which their summed times overcount
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA") and "spin_kernel" not in e.name)
+    union, end = 0.0, -math.inf
+    for a, b in spans:
+        union += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy_union = union / 1e3 / calls
+    top_ = "; ".join(f"{name[:48]} {ms:.4f} ms x{n:g}"
                     for ms, n, name in sorted(kernels, reverse=True)[:top])
-    print(f"profile {label}: wall {wall_ms:.3f} ms per call, device busy {busy:.3f} ms "
-          f"({n_kernels:g} kernels), idle share {1 - busy / wall_ms:.3f}; "
-          f"top: {top}", flush=True)
+    print(f"profile {label}: wall {wall_ms:.3f} ms per call, device busy {busy_union:.3f} ms "
+          f"(kernel times summed {busy:.3f} ms; {n_kernels:g} kernels), idle share "
+          f"{1 - busy_union / wall_ms:.3f}; top: {top_}", flush=True)
     return wall_ms, busy, n_kernels, kernels
 
 
@@ -838,9 +1007,11 @@ def main() -> int:
     from deepinv_tpu_torch.models import DnCNN, DRUNet, autocast
     from deepinv_tpu_torch.ops import gaussian_blur
     from deepinv_tpu_torch.ops.kernels import build
+    from deepinv_tpu_torch.ops.kernels.conv_chain import _launch as cc_launch
     from deepinv_tpu_torch.ops.kernels.conv_chain import (
         chain_f32, conv_chain, conv_chain_plain, conv_chain_stash, conv_chain_stash_plain,
-        pack_bias, stash_backward)
+        fused_chains_disabled, pack_bias, stash_backward)
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import _launch as rc_launch
     from deepinv_tpu_torch.ops.kernels.resblock_chain import (
         pack_weights, resblock_chain, resblock_chain_plain)
     from deepinv_tpu_torch.ops.kernels.tv import _launch as tv_launch
@@ -868,8 +1039,9 @@ def main() -> int:
     build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
+    sass_tile_check(build.cuda_tool("cuobjdump"), build.library_path())
 
     # 3. each kernel vs its plain version on the card
     g = torch.Generator().manual_seed(SEED)
@@ -884,6 +1056,9 @@ def main() -> int:
                               lambda v: resblock_chain_plain(v, w1, w2), h, KERNEL_RTOL)
         if main_err is None:
             main_err = err
+            kernel_vs_plain(f"kernel (mma.sync tile) vs plain {shape} R={R}",
+                            lambda v: rc_launch(v, pack_weights(w1), pack_weights(w2), "mma"),
+                            lambda v: resblock_chain_plain(v, w1, w2), h, KERNEL_RTOL)
     he_std = (2.0 / (64 * 9)) ** 0.5           # DnCNN's He-normal init scale
     chain_err = None
     for shape, L in CHAIN_SHAPES:
@@ -895,6 +1070,32 @@ def main() -> int:
                               lambda v: conv_chain_plain(v, ws, bs), h, KERNEL_RTOL)
         if chain_err is None:
             chain_err = err
+            kernel_vs_plain(f"conv_chain (mma.sync tile) vs plain {shape} L={L}",
+                            lambda v: cc_launch(v, pack_weights(ws), pack_bias(bs), "mma"),
+                            lambda v: conv_chain_plain(v, ws, bs), h, KERNEL_RTOL)
+    # the wgmma tile at the HQS batch and tap by tap, on its own generator (the
+    # later phases draw from g what they drew before)
+    g_tile = torch.Generator().manual_seed(SEED + 14)
+    h = torch.randn(TILE_B8_SHAPE, generator=g_tile).to(dev, torch.bfloat16)
+    w1 = (torch.randn((R_MAIN, 64, 64, 3, 3), generator=g_tile) * std).to(dev)
+    w2 = (torch.randn((R_MAIN, 64, 64, 3, 3), generator=g_tile) * std).to(dev)
+    kernel_vs_plain(f"kernel vs plain {TILE_B8_SHAPE} R={R_MAIN}",
+                    lambda v: resblock_chain(v, w1, w2),
+                    lambda v: resblock_chain_plain(v, w1, w2), h, KERNEL_RTOL)
+    ws = (torch.randn((L_MAIN, 64, 64, 3, 3), generator=g_tile) * he_std).to(dev)
+    bs = (torch.randn((L_MAIN, 64), generator=g_tile) * 0.02).to(dev)
+    kernel_vs_plain(f"conv_chain vs plain {TILE_B8_SHAPE} L={L_MAIN}",
+                    lambda v: conv_chain(v, ws, bs), lambda v: conv_chain_plain(v, ws, bs), h,
+                    KERNEL_RTOL)
+    h = torch.randn(TAP_SHAPE, generator=g_tile).to(dev, torch.bfloat16)
+    b0 = torch.zeros((1, 64), device=dev)
+    for tap in range(9):
+        wt = torch.zeros((1, 64, 64, 3, 3))
+        wt[0, :, :, tap // 3, tap % 3] = torch.randn((64, 64), generator=g_tile) * 3 * he_std
+        wt = wt.to(dev)
+        kernel_vs_plain(f"conv_chain tap (dy, dx) = {divmod(tap, 3)} alone vs plain {TAP_SHAPE}",
+                        lambda v: conv_chain(v, wt, b0), lambda v: conv_chain_plain(v, wt, b0),
+                        h, KERNEL_RTOL)
     tv_err = None
     # its own generator: the later phases draw from g what they drew before K7
     g_tv = torch.Generator().manual_seed(SEED + 4)
@@ -1050,7 +1251,7 @@ def main() -> int:
         "CT": (Tomography(img_width=256, angles=90, method="slice", normalize=True),
                torch.rand((1, 1, 256, 256), generator=g).to(dev)),
     }
-    pgd, chain_launches = {}, 0
+    pgd, pgd_models, chain_launches = {}, {}, 0
     for name, (phys, xt) in problems.items():
         c = xt.shape[1]
         net = DnCNN(c, c, depth=20, nf=64, generator=g)
@@ -1068,6 +1269,18 @@ def main() -> int:
               f"max |x_hat| {float(out.abs().max())}, max |x| {float(xt.abs().max())}",
               flush=True)
         pgd[name] = recon(m, yt, phys)
+        pgd_models[name] = (m, den, phys)
+    # the same problems at B=8 (images on their own generator), held the same way
+    g_pgd8 = torch.Generator().manual_seed(SEED + 15)
+    pgd8 = {}
+    for name, (m, den, phys) in pgd_models.items():
+        xt = problems[name][1]
+        xt8 = (torch.randn if name == "MRI" else torch.rand)(
+            (HQS_BATCH,) + tuple(xt.shape[1:]), generator=g_pgd8).to(dev)
+        yt8 = phys.A(xt8)
+        drive(f"PGD {name} B={HQS_BATCH}", m, yt8, phys, den.denoiser, conv_chain,
+              plain_conv_chain, tuple(xt8.shape), exact_conv_chain)
+        pgd8[name] = recon(m, yt8, phys)
     ct, xct = problems["CT"]
     with torch.no_grad():
         fast, slow = ct.A_adjoint_A(xct), ct.A_adjoint(ct.A(xct))
@@ -1093,8 +1306,7 @@ def main() -> int:
     w1b, w2b = ([w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last) for w in ws]
                 for ws in (w1, w2))
 
-    def cudnn_bf16_resblocks():  # the chain as cuDNN bf16 layers, two roundings per block
-        v = h
+    def cudnn_bf16_resblocks(v):  # the chain as cuDNN bf16 layers, two roundings per block
         for r in range(R_MAIN):
             t = torch.relu(F.conv2d(v, w1b[r], padding=1))
             v = v + F.conv2d(t, w2b[r], padding=1)
@@ -1103,7 +1315,8 @@ def main() -> int:
     flop_conv = 2 * 256 * 256 * 64 * 64 * 9
     k_ms, p_ms, k_lib_ms = time_chain(
         f"(1,64,256,256) R={R_MAIN}", lambda: resblock_chain(h, w1, w2, packed),
-        lambda: resblock_chain_plain(h, w1, w2), cudnn_bf16_resblocks, R_MAIN * 2 * flop_conv)
+        lambda: resblock_chain_plain(h, w1, w2), lambda: cudnn_bf16_resblocks(h),
+        R_MAIN * 2 * flop_conv)
 
     ws = (torch.randn((L_MAIN, 64, 64, 3, 3), generator=g) * he_std).to(dev)
     bs = (torch.randn((L_MAIN, 64), generator=g) * 0.02).to(dev)
@@ -1111,15 +1324,33 @@ def main() -> int:
     wsb = [w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last) for w in ws]
     bsb = bs.to(torch.bfloat16)
 
-    def cudnn_bf16_chain():  # the chain as cuDNN bf16 layers, bias added by cuDNN
-        v = h
+    def cudnn_bf16_chain(v):  # the chain as cuDNN bf16 layers, bias added by cuDNN
         for l in range(L_MAIN):
             v = torch.relu(F.conv2d(v, wsb[l], bsb[l], padding=1))
         return v
 
     ck_ms, cp_ms, ck_lib_ms = time_chain(
         f"(1,64,256,256) L={L_MAIN}", lambda: conv_chain(h, ws, bs, chain_packed),
-        lambda: conv_chain_plain(h, ws, bs), cudnn_bf16_chain, L_MAIN * flop_conv)
+        lambda: conv_chain_plain(h, ws, bs), lambda: cudnn_bf16_chain(h), L_MAIN * flop_conv)
+
+    # K1 and K5 on the wgmma tile, on the mma.sync tile and as cuDNN bf16
+    # layers, in turns, at B=1 and at the HQS batch (its own generator)
+    g_t8 = torch.Generator().manual_seed(SEED + 16)
+    h8 = torch.randn(TILE_B8_SHAPE, generator=g_t8).to(dev, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    tiles = {}
+    for b, xb in ((1, h), (HQS_BATCH, h8)):
+        reps = 50 if b == 1 else 10
+        tiles["K1", b] = tile_turns(
+            f"resblock_chain {tuple(xb.shape)} R={R_MAIN}",
+            {"wgmma": lambda: resblock_chain(xb, w1, w2, packed),
+             "mma.sync": lambda: rc_launch(xb, *packed, "mma"),
+             "cuDNN": lambda: cudnn_bf16_resblocks(xb)}, b * R_MAIN * 2 * flop_conv, reps)
+        tiles["K5", b] = tile_turns(
+            f"conv_chain {tuple(xb.shape)} L={L_MAIN}",
+            {"wgmma": lambda: conv_chain(xb, ws, bs, chain_packed),
+             "mma.sync": lambda: cc_launch(xb, *chain_packed, "mma"),
+             "cuDNN": lambda: cudnn_bf16_chain(xb)}, b * L_MAIN * flop_conv, reps)
 
     # K7 at 1x3x256², 100 iterations: plain, kernel, kernel, plain
     tv_shape, tv_gamma = TV_SHAPES[0][0], TV_SHAPES[0][1][0]
@@ -1239,6 +1470,28 @@ def main() -> int:
                   f"{MAX_ITER} it {rec[c]} ms per recon, "
                   f"{b * MAX_ITER * 2e3 / sum(rec[c]):.2f} image-it/s", flush=True)
 
+    def on_mma_tile():
+        """K1 and K5 on the earlier mma.sync tile inside the block."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(swapped(drunet_mod, "resblock_chain", lambda v, w1s, w2s, packed=None:
+                                    rc_launch(v, *(packed or (pack_weights(w1s),
+                                                              pack_weights(w2s))), "mma")))
+        stack.enter_context(swapped(dncnn_mod, "conv_chain", lambda v, ws_, bs_, packed=None:
+                                    cc_launch(v, *(packed or (pack_weights(ws_),
+                                                              pack_bias(bs_))), "mma")))
+        return stack
+
+    # at the HQS batch: HQS down on each tile beside "0", and PGD on each tile
+    # beside the hidden layers as cuDNN layers (the gates closed), in turns
+    down8 = recon(hqs_models["down"][0], y8, physics)
+    rates_in_turns(f"HQS {MAX_ITER} it B={HQS_BATCH}", {
+        "down (wgmma tile)": down8, "down (mma.sync tile)": on_plain(down8, on_mma_tile),
+        '"0" (no kernel)': recon(hqs_models["0"][0], y8, physics)}, HQS_BATCH * MAX_ITER)
+    for name, run in pgd8.items():
+        rates_in_turns(f"PGD {name} {MAX_ITER} it B={HQS_BATCH}", {
+            "wgmma tile": run, "mma.sync tile": on_plain(run, on_mma_tile),
+            "cuDNN layers": on_plain(run, fused_chains_disabled)}, HQS_BATCH * MAX_ITER)
+
     recon_rates(f"HQS {MAX_ITER} it (1x3x256x256, DRUNet full width, bf16)", hqs,
                 on_plain(hqs, plain_resblocks))
     for name, run in pgd.items():
@@ -1250,41 +1503,53 @@ def main() -> int:
                     on_plain(run, lambda priors=priors: plain_tv(priors)), iters=iters, reps=5,
                     plain_reps=1)
 
-    # 8. where the time goes: HQS in each DRUNet configuration, then TV
-    for b, yb in ((1, y), (HQS_BATCH, y8)):
-        for c in HQS_CONFIGS:
-            device_profile(f"HQS {c} B={b} {MAX_ITER} it",
-                           recon(hqs_models[c][0], yb, physics), 3, top=10)
-
-    def one_kernel(prof, label):
+    # 8. where the time goes: TV first (the K7 profiles need exact kernel
+    # counts, and the more profiler sessions come before them, the more
+    # events the profiler drops), then HQS in each DRUNet configuration, then
+    # TV-PGD, then PGD
+    def one_kernel(label, run, calls):
         """The resident prox is one kernel a call: the profiler saw device
         time, every kernel it saw is tv_resident, and exactly one a call (the
-        spin kernels around the window take the launch it drops). Returns the
-        kernels a call."""
+        spin kernels around the window take the launch it drops; a session
+        that still lost one is taken again). Returns the kernels a call."""
+        prof, n = counted_profile(label, run, calls, lambda name: True, 1)
         check(prof is not None, f"{label}: the profiler saw no device time, so the kernels a "
               f"call were not measured")
         names = {name for _, _, name in prof[3]}
-        print(f"profile {label}: {prof[2]:g} kernels a call, device time a launch "
-              f"{prof[1] / prof[2]:.4f} ms", flush=True)
-        check(prof[2] == 1 and all("tv_resident" in n for n in names),
-              f"{label}: the resident prox is not one kernel a call ({prof[2]:g}, {names})")
-        return prof[2]
+        print(f"profile {label}: {n:g} kernels a call, device time a launch "
+              f"{prof[1] / n:.4f} ms", flush=True)
+        check(n == 1 and all("tv_resident" in name for name in names),
+              f"{label}: the resident prox is not one kernel a call ({n:g}, {names})")
+        return n
 
     label = f"tv_prox {tv_shape} n_iter={TV_ITERS} (the plan's layout)"
     check(tv_main.variant == "resident", f"{label}: the plan's variant is {tv_main.variant}")
     # the main shape's CUDA launches a prox, as the profiler counted them
-    tv_per_prox = one_kernel(device_profile(label, lambda: chambolle_prox(xt, gam, TV_ITERS),
-                                            10), label)
+    tv_per_prox = one_kernel(label, lambda: chambolle_prox(xt, gam, TV_ITERS), 10)
     for shp in TV_TIME_SHAPES:
         xs = torch.rand(shp, generator=g_tv).to(dev)
         for name, var, cl in TV_LAYOUTS:
             label = f"tv_prox {shp} n_iter={TV_ITERS} {name}"
-            prof = device_profile(label, lambda: tv_launch(xs, gam, TV_ITERS, var, cl), 5)
+            run = (lambda xs=xs, var=var, cl=cl: tv_launch(xs, gam, TV_ITERS, var, cl))
             if var == "resident":
-                one_kernel(prof, label)
+                one_kernel(label, run, 5)
+            else:
+                device_profile(label, run, 5)
+    for b, yb in ((1, y), (HQS_BATCH, y8)):
+        for c in HQS_CONFIGS:
+            label = f"HQS {c} B={b} {MAX_ITER} it"
+            run = recon(hqs_models[c][0], yb, physics)
+            if c == "down":
+                tile_in_profile(label, run, MAX_ITER * K1_TILE_LAUNCHES, top=10)
+            else:
+                device_profile(label, run, 3, top=10)
     for name, tv_model, yt, phys, _, _, _, iters in tv_problems:
         if name.startswith("TV-PGD deblur"):
             device_profile(f"{name} {iters} it", recon(tv_model, yt, phys), 3)
+    for b, runs in ((1, pgd), (HQS_BATCH, pgd8)):
+        for name, run in runs.items():
+            tile_in_profile(f"PGD {name} B={b} {MAX_ITER} it", run,
+                            MAX_ITER * K5_TILE_LAUNCHES)
 
     # 9. DnCNN training, both train-step configurations (weights and data on
     # their own generator); the bench's DnCNN(1, 1): depth 20, nf 64
@@ -1344,6 +1609,10 @@ def main() -> int:
     w_bytes = 9 * 64 * 64 * 2
     k1_bound = bound_ms(R_MAIN * 2 * flop_conv, PEAK_BF16, act_bytes + 2 * R_MAIN * w_bytes)
     k5_bound = bound_ms(L_MAIN * flop_conv, PEAK_BF16, act_bytes + L_MAIN * (w_bytes + 64 * 4))
+    k1_bound_b8 = bound_ms(HQS_BATCH * R_MAIN * 2 * flop_conv, PEAK_BF16,
+                           HQS_BATCH * act_bytes + 2 * R_MAIN * w_bytes)
+    k5_bound_b8 = bound_ms(HQS_BATCH * L_MAIN * flop_conv, PEAK_BF16,
+                           HQS_BATCH * act_bytes + L_MAIN * (w_bytes + 64 * 4))
     k7_bound = bound_ms(tv_ops, PEAK_F32, 2 * pixels * 4 + tv_shape[0] * 4)
     # K2/K3: v in, the scale-0 output out, the projection and chain weights
     k23_bound = bound_ms(up_flop, PEAK_BF16, 2 * (v.numel() + math.prod(KERNEL_SHAPES[0][0]))
@@ -1368,6 +1637,19 @@ def main() -> int:
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": k_lib_ms,
+        # the conv tile (csrc/conv3x3_wgmma.cuh), its times in turns with the
+        # earlier mma.sync tile and the cuDNN layers (phase 7), and at B=8
+        "tile": "wgmma",
+        "prev_tile_ms": tiles["K1", 1][0]["mma.sync"],
+        "ms_b8": tiles["K1", HQS_BATCH][0]["wgmma"],
+        "library_ms_b8": tiles["K1", HQS_BATCH][0]["cuDNN"],
+        "bound_ms_b8": k1_bound_b8[0],
+        "prev_tile_ms_b8": tiles["K1", HQS_BATCH][0]["mma.sync"],
+        # the device's own time a call, calls queued behind a spin kernel (at
+        # B=1 the host issues a call in about the kernel's time, which the
+        # CUDA-event times above include)
+        "device_ms": tiles["K1", 1][1]["wgmma"],
+        "device_ms_b8": tiles["K1", HQS_BATCH][1]["wgmma"],
     }, {
         "name": "conv_chain",
         "route": "cuda",
@@ -1380,6 +1662,17 @@ def main() -> int:
         "bound_ms": k5_bound[0],
         "bound_by": k5_bound[1],
         "library_ms": ck_lib_ms,
+        "tile": "wgmma",
+        "prev_tile_ms": tiles["K5", 1][0]["mma.sync"],
+        "ms_b8": tiles["K5", HQS_BATCH][0]["wgmma"],
+        "library_ms_b8": tiles["K5", HQS_BATCH][0]["cuDNN"],
+        "bound_ms_b8": k5_bound_b8[0],
+        "prev_tile_ms_b8": tiles["K5", HQS_BATCH][0]["mma.sync"],
+        # the device's own time a call, calls queued behind a spin kernel (at
+        # B=1 the host issues a call in about the kernel's time, which the
+        # CUDA-event times above include)
+        "device_ms": tiles["K5", 1][1]["wgmma"],
+        "device_ms_b8": tiles["K5", HQS_BATCH][1]["wgmma"],
     }, {
         "name": "tv_prox",
         "route": "cuda",

@@ -1,6 +1,7 @@
-// One 3x3 convolution at 64 or 128 channels, bf16 NHWC, for sm_90a: the
-// mainloop the port's conv-chain kernels share (resblock_chain.cu,
-// conv_chain.cu, up_resblock_chain.cu, up_sandwich.cu).
+// One 3x3 convolution at 64 or 128 channels, bf16 NHWC, for sm_90a, on
+// mma.sync: the tile of up_resblock_chain.cu (K2/K3), up_sandwich.cu (K4) and
+// conv_chain.cu's stash entry point (K6), and of the earlier entry points of
+// K1 and K5, which default to the wgmma tile of conv3x3_wgmma.cuh.
 //
 // A block computes an 8 x 16 output tile for 64 output channels: it stages
 // the haloed 10 x 18 x CIN input tile and the 9 x 64 x CIN weights of its 64

@@ -18,17 +18,22 @@
 // [l][tap = ky*3 + kx][co][ci] in bf16; biases as (L, 64) f32.
 //
 // Design. The TPU kernel keeps two whole images in VMEM for the chain; an SM
-// has 227 KB of shared memory, so one C entry point runs L launches of the
-// tiled direct conv of conv3x3.cuh (8 x 16 pixels x 64 channels per block,
-// mma.sync m16n8k16) with a bias+ReLU epilogue. Layer 0 reads the caller's
-// input; the layers then alternate between two NHWC buffers `a` and `t`, which
-// at 1 x 64 x 256 x 256 (8 MB each) stay in the 50 MB L2.
+// has 227 KB of shared memory, so the entry point deepinv_conv_chain_wgmma_bf16
+// (the default) runs L launches of the wgmma + TMA conv tile of
+// conv3x3_wgmma.cuh (one CTA an SM over a band of 128-pixel row-runs, the
+// layer's weights resident, input rows streamed by TMA) with a bias+ReLU
+// epilogue, chained by programmatic dependent launch. Layer 0 reads the
+// caller's input; the layers then alternate between two NHWC buffers `a` and
+// `t`, which at 1 x 64 x 256 x 256 (8 MB each) stay in the 50 MB L2. The
+// earlier entry point deepinv_conv_chain_bf16 runs the same chain on the
+// mma.sync tile of conv3x3.cuh (8 x 16 pixels a block), kept to time the two.
 //
 // What bounds it on an H100: as for resblock_chain.cu, ~300 FLOP per byte of
 // activation traffic per layer, at the bf16 ridge, with the activations in L2:
-// compute. This first version sits well below the tensor-core peak (mma.sync
-// from shared memory, weights re-staged per tile, L launches); wgmma, TMA and
-// a persistent launch for the whole chain are later work.
+// compute, 87 GFLOP at 1 x 64 x 256 x 256, L = 18: 0.088 ms at the bf16
+// peak. The wgmma tile reads ~44 FLOP a byte from shared memory (the
+// mma.sync tile ~21); what it leaves is a launch's fixed cost, a large part
+// of a layer at B = 1.
 //
 // The training forward (second entry point). It replaces the Pallas TPU kernel
 // `_chain_kernel_stash` (conv_chain.py:129, launched by `_fused_fwd_stash_impl`
@@ -41,7 +46,8 @@
 // copy at all: the slots are the chain's buffers. Any L >= 1 runs in the
 // kernel (the TPU stashes an even prefix and runs an odd last layer in XLA,
 // :388-393) and the batch is a grid dimension (the JAX package maps the
-// per-image kernel, :262-272).
+// per-image kernel, :262-272). It still runs the mma.sync tile of
+// conv3x3.cuh.
 //
 // What bounds it on an H100: the same operations as the inference chain
 // (87 GFLOP at 1 x 64 x 256 x 256, L = 18: 0.088 ms at the bf16 peak), and
@@ -51,6 +57,7 @@
 // byte that costs little beside the tile's compute.
 
 #include "conv3x3.cuh"
+#include "conv3x3_wgmma.cuh"
 
 extern "C" {
 
@@ -77,6 +84,33 @@ int deepinv_conv_chain_bf16(const void* src, void* a, void* t, const void* wp,
     in = out;
   }
   return (int)cudaGetLastError();
+}
+
+// The same chain on the wgmma tile (conv3x3_wgmma.cuh), the default: L
+// launches of conv3x3_wgmma over the same buffers. strip .. grid: the launch
+// plan of conv_tile_plan (ops/kernels/conv_tile.py), checked against the tile.
+int deepinv_conv_chain_wgmma_bf16(const void* src, void* a, void* t, const void* wp,
+                                  const void* bias, int B, int H, int W, int L, int strip,
+                                  int depth, int smem_bytes, int rows_per_cta, int grid,
+                                  void* stream) {
+  const wg::Plan plan{strip, depth, smem_bytes, rows_per_cta, grid};
+  cudaError_t err = wg::check_plan(plan, B, H, W);
+  CUtensorMap in[3], out[3], map_w;   // src, a, t (src has no output map)
+  const void* bufs[2] = {a, t};
+  if (err == cudaSuccess) err = wg::act_map(&in[0], src, B, H, W, wg::BOX_W);
+  if (err == cudaSuccess) err = wg::act_maps(in + 1, out + 1, bufs, 2, B, H, W);
+  if (err == cudaSuccess) err = wg::weight_map(&map_w, wp, L);
+  if (err == cudaSuccess) err = wg::allow_smem<wg::kBiasRelu>();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* pb = static_cast<const float*>(bias);
+  for (int l = 0; l < L && err == cudaSuccess; ++l) {
+    // layer l reads src (l = 0) or the buffer layer l - 1 wrote, and writes
+    // a (even l) or t (odd l)
+    const CUtensorMap& src_l = l == 0 ? in[0] : in[1 + ((l - 1) & 1)];
+    err = wg::launch<wg::kBiasRelu>(src_l, out[1 + (l & 1)], map_w, l, pb + (size_t)l * C, H, W,
+                                    plan, s);
+  }
+  return (int)err;
 }
 
 // Runs L layers from `src` (B, H, W, 64) bf16 (read only): layer l writes the

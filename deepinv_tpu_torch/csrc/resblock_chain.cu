@@ -14,23 +14,29 @@
 // the TPU's W-folded (1, H, W/2, 128) tensor, lane q*64 + c. Weights arrive
 // pre-packed tap-major, [r][tap = ky*3 + kx][co][ci] in bf16.
 //
-// Design. One C entry point runs 2R launches of one direct-conv kernel
-// (conv3x3.cuh, which says how a tile is computed) over two ping-pong
-// buffers: `a` holds h (and receives each block's output in place), `t` holds
-// relu(conv1(h)). Writing conv2's output into `a` in place is safe: within one
-// launch `a` is read only at the pixel each thread writes (the residual); the
-// conv input is `t`.
+// Design. The entry point deepinv_resblock_chain_wgmma_bf16 (the default)
+// runs 2R launches of the wgmma + TMA conv tile (conv3x3_wgmma.cuh, which
+// says how a tile is computed) over two ping-pong buffers: `a` holds h (and
+// receives each block's output in place), `t` holds relu(conv1(h)). Writing
+// conv2's output into `a` in place is safe: within one launch `a` is read
+// only as the residual of the row-runs a CTA writes, before it writes them;
+// the conv input is `t`. The layers chain by programmatic dependent launch: a layer's CTAs
+// load their weights while the previous layer finishes. The earlier entry
+// point deepinv_resblock_chain_bf16 runs the same chain on the mma.sync tile
+// of conv3x3.cuh; it stays so that the two tiles can be timed side by side.
 //
 // What bounds it on an H100. One conv at 1 x 64 x 256 x 256 is
 // 2 * 256^2 * 64 * 64 * 9 = 4.8 GFLOP over ~16 MB of activation traffic
 // (~300 FLOP/B), at the card's bf16 ridge; the 8 MB activation fits in the
-// 50 MB L2, so the chain should be compute-bound. This first version uses
-// mma.sync from shared memory, not wgmma/TMA, re-reads the weights per tile
-// (L2-resident) and keeps two blocks of 4 warps per SM, so it will sit well
-// below the tensor-core peak; wgmma, TMA, clusters and one persistent launch
-// for the whole chain are later work.
+// 50 MB L2, so the chain is compute-bound: 39 us for R = 4 at the bf16
+// peak. The wgmma tile feeds the tensor cores from shared memory at ~44
+// FLOP a byte (the mma.sync tile ~21) and loads the weights once a CTA. At
+// B = 1 a launch has 4 output rows a CTA, so its fixed cost (the weights and
+// the first ring rows before the first product, the last epilogue after the
+// last) is a large part of it; at B = 8 (32 rows a CTA) the products are.
 
 #include "conv3x3.cuh"
+#include "conv3x3_wgmma.cuh"
 
 extern "C" {
 
@@ -44,6 +50,31 @@ int deepinv_resblock_chain_bf16(void* a, void* t, const void* w1p, const void* w
       static_cast<const __nv_bfloat16*>(w1p), static_cast<const __nv_bfloat16*>(w2p), B, H, W,
       R, reinterpret_cast<cudaStream_t>(stream));
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The same chain on the wgmma tile (conv3x3_wgmma.cuh), the default: 2R
+// launches of conv3x3_wgmma, conv1 reading `a` into `t`, conv2 reading `t`
+// and adding into `a` in place. strip .. grid: the launch plan of
+// conv_tile_plan (ops/kernels/conv_tile.py), checked against the tile.
+int deepinv_resblock_chain_wgmma_bf16(void* a, void* t, const void* w1p, const void* w2p,
+                                      int B, int H, int W, int R, int strip, int depth,
+                                      int smem_bytes, int rows_per_cta, int grid, void* stream) {
+  const wg::Plan plan{strip, depth, smem_bytes, rows_per_cta, grid};
+  cudaError_t err = wg::check_plan(plan, B, H, W);
+  CUtensorMap in[2], out[2], map_w1, map_w2;   // a, t
+  const void* bufs[2] = {a, t};
+  if (err == cudaSuccess) err = wg::act_maps(in, out, bufs, 2, B, H, W);
+  if (err == cudaSuccess) err = wg::weight_map(&map_w1, w1p, R);
+  if (err == cudaSuccess) err = wg::weight_map(&map_w2, w2p, R);
+  if (err == cudaSuccess) err = wg::allow_smem<wg::kRelu>();
+  if (err == cudaSuccess) err = wg::allow_smem<wg::kResidual>();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  for (int r = 0; r < R && err == cudaSuccess; ++r) {
+    err = wg::launch<wg::kRelu>(in[0], out[1], map_w1, r, nullptr, H, W, plan, s);
+    if (err == cudaSuccess)   // conv2 reads t, and a as its residual and output
+      err = wg::launch<wg::kResidual>(in[1], out[0], map_w2, r, nullptr, H, W, plan, s);
+  }
+  return (int)err;
 }
 
 const char* deepinv_cuda_error_string(int err) {

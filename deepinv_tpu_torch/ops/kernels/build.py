@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "build_log"]
+__all__ = ["load_library", "build_log", "library_path", "cuda_tool"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -33,15 +33,16 @@ def _sources():
     return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of the CUDA toolkit's program ``name`` (``nvcc``, ``cuobjdump``)."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / name
     if cand.exists():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH to "
-                           "build the deepinv_tpu_torch CUDA kernels")
+        raise RuntimeError(f"{name} not found: set CUDA_HOME or put the CUDA toolkit's bin "
+                           "on PATH to build the deepinv_tpu_torch CUDA kernels")
     return found
 
 
@@ -59,6 +60,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.deepinv_resblock_chain_bf16.restype = i
     lib.deepinv_conv_chain_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.deepinv_conv_chain_bf16.restype = i
+    lib.deepinv_resblock_chain_wgmma_bf16.argtypes = [p] * 4 + [i] * 9 + [p]
+    lib.deepinv_resblock_chain_wgmma_bf16.restype = i
+    lib.deepinv_conv_chain_wgmma_bf16.argtypes = [p] * 5 + [i] * 9 + [p]
+    lib.deepinv_conv_chain_wgmma_bf16.restype = i
     lib.deepinv_conv_chain_stash_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.deepinv_conv_chain_stash_bf16.restype = i
     lib.deepinv_up_resblock_chain_bf16.argtypes = [p] * 6 + [i] * 5 + [p]
@@ -89,25 +94,30 @@ def _run_all(cmds, log):
             raise RuntimeError(f"nvcc failed (rc={p.returncode}):\n{out[-4000:]}")
 
 
+def library_path() -> Path:
+    """Where the library of this set of sources and flags is (or will be) built."""
+    return BUILD_DIR / f"libdeepinv_kernels-{_digest()}.so"
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile the kernels if this set of sources has not been built yet,
     then load the library (once per process). Each ``.cu`` file is compiled
     by its own ``nvcc``, all started together, and the objects are linked
     into one library."""
-    so = BUILD_DIR / f"libdeepinv_kernels-{_digest()}.so"
+    so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         log = []
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
             cu = [s for s in _sources() if s.suffix == ".cu"]
             objs = [str(Path(tmpdir) / f"{s.stem}.o") for s in cu]
-            compiles = [[_nvcc(), *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", o, str(s)]
+            compiles = [[cuda_tool("nvcc"), *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", o, str(s)]
                         for s, o in zip(cu, objs)]
             tmp = str(Path(tmpdir) / "lib.so")
             try:
                 _run_all(compiles, log)
-                _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]], log)
+                _run_all([[cuda_tool("nvcc"), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]], log)
             finally:
                 (BUILD_DIR / "build.log").write_text("\n".join(log))
             os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing

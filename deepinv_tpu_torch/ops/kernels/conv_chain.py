@@ -8,8 +8,9 @@ rounding per layer — the contract of ``fused_conv3x3_relu_chain``
 :85-109, odd tail ``_lax_chain`` :175).
 
 - On a CUDA tensor it launches the hand-written kernel
-  ``deepinv_tpu_torch/csrc/conv_chain.cu`` (the source says what bounds it and
-  how it is laid out), or raises: there is no fallback. Any L >= 1 runs in the
+  ``deepinv_tpu_torch/csrc/conv_chain.cu`` on the wgmma + TMA conv tile of
+  ``csrc/conv3x3_wgmma.cuh`` (the sources say what bounds it and how it is
+  laid out), or raises: there is no fallback. Any L >= 1 runs in the
   kernel; the TPU kernel fuses an even prefix and runs an odd last layer in
   XLA (:323-324).
 - On a CPU tensor it runs :func:`conv_chain_plain`, the plain PyTorch version
@@ -41,7 +42,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .resblock_chain import C, check_activations, pack_weights
+from .resblock_chain import C, check_activations, pack_weights, tile_args
 
 __all__ = ["conv_chain", "conv_chain_plain", "conv_chain_stash", "conv_chain_stash_plain",
            "stash_backward", "chain_f32", "pack_weights", "pack_bias", "C",
@@ -112,41 +113,48 @@ def _check_cuda(h, wp, bp):
     check_activations(h, "conv_chain")
     L = wp.shape[0]
     if (L < 1 or wp.shape != (L, 9, C, C) or wp.dtype != torch.bfloat16
-            or not wp.is_contiguous() or wp.device != h.device):
-        raise ValueError("packed weights must be contiguous (L, 9, 64, 64) bf16 with L >= 1 "
-                         "on the activations' device (see pack_weights)")
+            or not wp.is_contiguous() or wp.device != h.device or wp.data_ptr() % 16):
+        raise ValueError("packed weights must be contiguous, 16-byte aligned (L, 9, 64, 64) "
+                         "bf16 with L >= 1 on the activations' device (see pack_weights)")
     if (bp.shape != (L, C) or bp.dtype != torch.float32 or not bp.is_contiguous()
             or bp.device != h.device):
         raise ValueError("packed biases must be contiguous (L, 64) float32 on the "
                          "activations' device (see pack_bias)")
 
 
-def _run(entry: str, h, wp, bp, outs):
-    """Call the C entry point ``entry`` on ``h`` (channels_last memory: a copy
-    only if it is NCHW-contiguous), the output buffers ``outs`` and the packed
-    weights, on the current stream; raise on a CUDA error."""
+def _run(entry: str, h, wp, bp, outs, plan=()):
+    """Call the C entry point ``entry`` on ``h`` (channels_last memory, 16-byte
+    aligned: a copy only if it is not), the output buffers ``outs``, the
+    packed weights and the launch plan's ints ``plan``, on the current
+    stream; raise on a CUDA error."""
     from .build import load_library
 
     lib = load_library()
     B, _, H, W = h.shape
     src = h.contiguous(memory_format=torch.channels_last)
+    if src.data_ptr() % 16:   # TMA reads the input
+        src = src.clone(memory_format=torch.channels_last)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (src, *outs, wp, bp)]
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = getattr(lib, entry)(*ptrs, B, H, W, int(wp.shape[0]), ctypes.c_void_p(stream))
+        rc = getattr(lib, entry)(*ptrs, B, H, W, int(wp.shape[0]), *plan,
+                                 ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.deepinv_cuda_error_string(rc).decode()
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc} ({msg})")
 
 
-def _launch(h, wp, bp):
+def _launch(h, wp, bp, tile: str = "wgmma"):
     """Run the K5 CUDA kernel: the layers alternate between two NHWC buffers,
-    and the last one is handed back as an NCHW view (channels_last memory)."""
+    and the last one is handed back as an NCHW view (channels_last memory).
+    ``tile`` is private (``resblock_chain.tile_args``): ``"mma"`` runs the
+    earlier tile, to time the two side by side."""
     _check_cuda(h, wp, bp)
+    suffix, plan = tile_args(h, tile)
     B, _, H, W = h.shape
     a = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=h.device)
     t = torch.empty_like(a)
-    _run("deepinv_conv_chain_bf16", h, wp, bp, (a, t))
+    _run(f"deepinv_conv_chain{suffix}_bf16", h, wp, bp, (a, t), plan)
     conv_chain.launches += 1
     return (a if wp.shape[0] % 2 else t).permute(0, 3, 1, 2)
 

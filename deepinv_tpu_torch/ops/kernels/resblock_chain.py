@@ -8,8 +8,10 @@ activations, f32 accumulation and one bf16 rounding per conv — the contract of
 ``_resblock_kernel`` :43, per-layer math ``conv_chain._layer`` :85-109).
 
 - On a CUDA tensor it launches the hand-written kernel
-  ``deepinv_tpu_torch/csrc/resblock_chain.cu`` (the source says what bounds it
-  and how it is laid out), or raises: there is no fallback.
+  ``deepinv_tpu_torch/csrc/resblock_chain.cu`` on the wgmma + TMA conv tile
+  of ``csrc/conv3x3_wgmma.cuh`` (the sources say what bounds it and how it
+  is laid out; :func:`~.conv_tile.conv_tile_plan` gives its launch plan), or
+  raises: there is no fallback.
 - On a CPU tensor it runs :func:`resblock_chain_plain`, the plain PyTorch
   version with the kernel's rounding.
 - The batch is native (a grid dimension of the kernel); the JAX package maps
@@ -24,6 +26,7 @@ the kernel), so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -80,12 +83,12 @@ def check_activations(h, op: str, channels: int = C):
 
 def check_packed(h, ws, shape, what: str):
     """Raise unless every packed weight in ``ws`` is a contiguous bf16 tensor
-    of ``shape`` on ``h``'s device."""
+    of ``shape`` on ``h``'s device, 16-byte aligned (TMA reads it)."""
     for w in ws:
         if (tuple(w.shape) != tuple(shape) or w.dtype != torch.bfloat16
-                or not w.is_contiguous() or w.device != h.device):
-            raise ValueError(f"packed {what} must be contiguous {tuple(shape)} bf16 on the "
-                             "activations' device")
+                or not w.is_contiguous() or w.device != h.device or w.data_ptr() % 16):
+            raise ValueError(f"packed {what} must be contiguous, 16-byte aligned "
+                             f"{tuple(shape)} bf16 on the activations' device")
 
 
 def _check_cuda(h, w1p, w2p):
@@ -93,13 +96,36 @@ def _check_cuda(h, w1p, w2p):
     check_packed(h, (w1p, w2p), (w1p.shape[0], 9, C, C), "weights (see pack_weights)")
 
 
-def _launch(h, w1p, w2p):
+def tile_args(h, tile: str):
+    """The C entry point's name suffix and trailing plan arguments for the
+    conv tile ``tile``: ``"wgmma"`` (the default: wgmma + TMA,
+    ``csrc/conv3x3_wgmma.cuh``, with the plan of ``conv_tile_plan``) or
+    ``"mma"`` (the earlier mma.sync tile of ``csrc/conv3x3.cuh``, kept so that
+    the two can be timed side by side)."""
+    if tile == "mma":
+        return "", ()
+    if tile != "wgmma":
+        raise ValueError(f"tile must be 'wgmma' or 'mma', got {tile!r}")
+    from .conv_tile import conv_tile_plan
+
+    B, _, H, W = h.shape
+    plan = conv_tile_plan(B, H, W, _sms(h.device.index))
+    return "_wgmma", (plan.strip, plan.depth, plan.smem_bytes, plan.rows_per_cta, plan.grid)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(h, w1p, w2p, tile: str = "wgmma"):
     """Run the CUDA kernel: NCHW -> NHWC copy into the ping-pong buffer ``a``,
     2R conv launches, and ``a`` handed back as an NCHW view (channels_last
-    memory)."""
+    memory). ``tile`` is private: see :func:`tile_args`."""
     from .build import load_library
 
     _check_cuda(h, w1p, w2p)
+    suffix, plan = tile_args(h, tile)
     lib = load_library()
     B, _, H, W = h.shape
     a = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=h.device)
@@ -107,10 +133,10 @@ def _launch(h, w1p, w2p):
     t = torch.empty_like(a)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = lib.deepinv_resblock_chain_bf16(
+        rc = getattr(lib, f"deepinv_resblock_chain{suffix}_bf16")(
             ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(t.data_ptr()),
             ctypes.c_void_p(w1p.data_ptr()), ctypes.c_void_p(w2p.data_ptr()),
-            B, H, W, int(w1p.shape[0]), ctypes.c_void_p(stream))
+            B, H, W, int(w1p.shape[0]), *plan, ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.deepinv_cuda_error_string(rc).decode()
         raise RuntimeError(f"resblock_chain kernel launch failed: CUDA error {rc} ({msg})")

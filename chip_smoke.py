@@ -8,9 +8,12 @@ Phases (each one raises, and the script exits non-zero, if it fails):
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. build the CUDA kernels from ``deepinv_tpu_torch/csrc`` (nvcc, sm_90a, one
    nvcc per source, all started together), and check in the library's SASS
-   (``cuobjdump -sass``) that each kernel of the wgmma conv tile
-   (``csrc/conv3x3_wgmma.cuh``: K1's two epilogues, K5's) has ``HGMMA``
-   (wgmma) and ``UTMALDG`` (TMA load) instructions;
+   (``cuobjdump -sass``) that each source holds its wgmma kernels
+   (WGMMA_KERNELS: the 64-channel conv tile of ``csrc/conv3x3_wgmma.cuh`` in
+   K1, K5, K2/K3 and K4; the 2x2 projections of ``csrc/proj2x2_wgmma.cuh`` in
+   K2/K3 and K4; the 128-channel cluster tile of
+   ``csrc/conv3x3_c128_wgmma.cuh`` in K4) and that each has ``HGMMA``
+   (wgmma), ``UTMALDG`` (TMA load) and ``UTMASTG`` (TMA store) instructions;
 3. each kernel against its plain PyTorch version, TF32 off, at its main-path
    shapes: the DRUNet resblock chain (K1) and the DnCNN conv+bias+ReLU chain
    (K5) on the wgmma tile at every KERNEL_SHAPES and CHAIN_SHAPES entry and
@@ -23,9 +26,14 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    the global variant; 1x3x256² also in a cluster of 16 and on the global
    variant, the layouts phase 7 times; 100 iterations each, and 0 and 1 at
    1x3x256²), DRUNet's up-projection chain (K2/K3; v 1x128x128²
-   and 2x128x128² with R=4, a ragged 1x128x20x28 with R=1) and its up tail
-   (K4; s2 1x256x64² and d0 1x64x256², the same at B=2, and a ragged scale 0
-   of 40x56, R1=R0=4);
+   and 2x128x128² with R=4, a ragged 1x128x20x28 with R=1, and 8x128x128²)
+   and its up tail (K4; s2 1x256x64² and d0 1x64x256², the same at B=2 and
+   B=8, and a ragged scale 0 of 40x56, R1=R0=4), both on their wgmma kernels
+   and, at the main shape, on the earlier mma.sync kernels (the private
+   ``_launch(..., tile="mma")``); K4's 128-channel cluster tile alone (one
+   block, by its residual branch) at 8x128x128² and at a ragged 1x128x70x100
+   of two strips, where each of its nine taps and two K-blocks is also held
+   alone;
 4. the HQS bench problem through the port's entry points: PnP-HQS deblurring
    of a 1x3x256x256 image (BlurFFT, Gaussian blur sigma 1.5, Gaussian noise
    0.01) with a bf16 full-width DRUNet (nc=(64,128,256,512), nb=4, seeded
@@ -58,21 +66,25 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    0.5 dB of PSNR;
 7. times, with CUDA events after warm-up, in turns: each kernel against its
    plain version (K1, K5, K2/K3, K4: and against the same stage as cuDNN
-   bf16 layers; K2/K3 and K4 also at B=8; K1 and K5 on the wgmma tile, on
-   the mma.sync tile and as cuDNN bf16 layers at 1x64x256² and 8x64x256²,
-   with TFLOP/s; K7's resident variant in
+   bf16 layers; K1 and K5 on the wgmma tile, on the mma.sync tile and as
+   cuDNN bf16 layers at 1x64x256² and 8x64x256², K2/K3 and K4 likewise on
+   their wgmma kernels, their mma.sync kernels and as cuDNN layers at B=1
+   and B=8, with TFLOP/s and the host's issue time a call; K7's resident variant in
    clusters of 8 and 16 and its global variant, in turns, at 1x3x256² and
    8x3x256², and the resident kernel's barrier floor on planes of one and
    two rows a CTA), each reconstruction's iterations
    per second on the kernel path and on the plain version, and the DRUNet
    forward and the HQS iterations per second in ``down``, ``both``,
    ``sandwich`` and ``"0"`` (no kernel) at B=1 and B=8, ``down`` at B=8 also
-   on the mma.sync tile, and PGD on MRI and CT at B=8 on the wgmma tile, the
-   mma.sync tile and cuDNN layers;
+   on the mma.sync tile, ``both`` and ``sandwich`` at B=8 with K2/K3 and K4
+   on their wgmma and on their mma.sync kernels, and PGD on MRI and CT at
+   B=8 on the wgmma tile, the mma.sync tile and cuDNN layers;
 8. where the time goes: ``torch.profiler`` over HQS in each DRUNet
    configuration at B=1 and B=8, over PGD on MRI and CT at B=1 and B=8 (the
-   wgmma tile's kernel must show by name; its launches a recon are printed
-   beside the 64 of HQS ``down`` and the 144 of PGD), over K7 alone (each variant and cluster
+   wgmma kernels must show by name; their launches a recon are printed
+   beside those the path makes, HQS_TILE_LAUNCHES: ``down`` 64 conv tiles,
+   ``both`` 128 and 8 projections, ``sandwich`` 128, 64 128-channel cluster
+   tiles and 24 projections; PGD 144), over K7 alone (each variant and cluster
    size at 1x3x256² and 8x3x256²; the resident prox must be one kernel a
    call) and over TV-PGD deblurring at B=1 and B=8 (device time by kernel,
    kernels per call, and the device's idle share against the unprofiled
@@ -119,6 +131,7 @@ import time
 
 SEED = 0
 R_MAIN = 4                      # DRUNet nb: blocks in the scale-0 chain
+MAX_ITER = 8                    # iterations of each reconstruction
 KERNEL_SHAPES = [((1, 64, 256, 256), R_MAIN), ((2, 64, 256, 256), R_MAIN),
                  ((1, 64, 40, 56), 1)]
 # K2/K3: (v shape, R); v is DRUNet's m_up1 input at 256² (Ci = nc[1] = 128)
@@ -126,6 +139,11 @@ UP_SHAPES = [((1, 128, 128, 128), R_MAIN), ((2, 128, 128, 128), R_MAIN),
              ((1, 128, 20, 28), 1)]
 # K4: (B, H2, W2) of s2 (B, 256, H2, W2); d0 is (B, 64, 4 H2, 4 W2), R1 = R0 = 4
 SANDWICH_SHAPES = [(1, 64, 64), (2, 64, 64), (1, 10, 14)]
+# projection inputs past 256 channels, whose weights the wgmma projection
+# streams in chunks of 256: K2/K3 at Ci = 272 ((v shape, R)) and K4 at Ci2 =
+# 512 ((B, H2, W2, Ci2)), at ragged shapes
+UP_WIDE = ((1, 272, 20, 28), 1)
+SANDWICH_WIDE = (1, 10, 14, 512)
 # DRUNet configurations run on the HQS bench problem; "0" (every stage on
 # cuDNN layers) is timed beside them
 HQS_CONFIGS = ("0", "down", "both", "sandwich")
@@ -141,6 +159,24 @@ TAP_SHAPE = (1, 64, 20, 200)
 # the tile's kernels per call: K1 2R, K5 L (one launch a conv)
 K1_TILE_LAUNCHES = 2 * R_MAIN
 K5_TILE_LAUNCHES = L_MAIN
+# K2/K3 and K4 on their wgmma kernels are also held at the HQS batch, and on
+# the earlier mma.sync kernels at the main shape; K4's 128-channel cluster
+# tile alone (R=1, held by its residual branch) at 8x128x128² and at a ragged
+# shape of two 64-column strips with a short last band, where each of its
+# nine taps and two K-blocks is also held alone
+UP_B8_SHAPE = (8, 128, 128, 128)
+SANDWICH_B8 = (8, 64, 64)
+TILE128_SHAPES = ((8, 128, 128, 128), (1, 128, 70, 100))
+# the wgmma kernels' launches a recon in each HQS configuration (8 DRUNet
+# calls): K1 2R conv tiles a call; K2/K3 2R conv tiles and one projection;
+# K4 2R0 conv tiles at 64 channels, 2R1 cluster tiles at 128 and three
+# projections
+HQS_TILE_LAUNCHES = {
+    "down": {"conv3x3_wgmma": MAX_ITER * K1_TILE_LAUNCHES},
+    "both": {"conv3x3_wgmma": 2 * MAX_ITER * K1_TILE_LAUNCHES, "proj2x2_wgmma": MAX_ITER},
+    "sandwich": {"conv3x3_wgmma": 2 * MAX_ITER * K1_TILE_LAUNCHES,
+                 "conv3x3_c128_wgmma": MAX_ITER * 2 * R_MAIN, "proj2x2_wgmma": 3 * MAX_ITER},
+}
 # Kernel vs plain: the two differ only in the order of the f32 sums, so an
 # output differs by at most a few bf16 ulps (2^-8 relative) after the chain
 # (tests/test_models.py:616 holds the Pallas kernel to the same bound).
@@ -157,7 +193,6 @@ DENOISER_RTOL = 3e-2
 # to the repo's bf16 quality policy of 0.1 dB PSNR.
 RECON_RTOL = 5e-2
 RECON_PSNR_DB = 0.1
-MAX_ITER = 8
 PGD_PARAMS = {"stepsize": 1.0, "g_param": 0.05}
 # DnCNN predicts the noise, so a trained one's residual at g_param 0.05 is a
 # few percent of its input. With He-normal out_conv weights the random net's
@@ -218,6 +253,12 @@ JVP_RTOL = 5e-2
 # within the launch queue's ~1000) and the spin in front of them (~50 ms at
 # the H100's clock, longer than the host takes to issue those calls)
 QUEUED_REPS = 20
+# the tensor maps' memo (wg::encode keeps the last 64 maps by their
+# arguments): K4 at B=1 issued on one set of inputs and packed weights, and
+# on MAP_SETS sets in turn, whose input and weight maps (9 of a call's 20,
+# 72 over the sets) the memo cannot keep; MAP_REPS calls a measurement
+MAP_SETS = 8
+MAP_REPS = 16
 SPIN_CYCLES = 100_000_000
 # profiler sessions a launch count may take: the profiler loses the records
 # of some launches in a window, never adds any (one run of this script saw 9
@@ -292,30 +333,60 @@ def swapped(module, name: str, fn):
         setattr(module, name, old)
 
 
+# the wgmma kernels each source's library code must hold (kernel name ->
+# instances: one an epilogue or a projection mode; wg::resblocks<Tile64>
+# launches two, kRelu and kResidual, and K5's chain one, kBiasRelu)
+WGMMA_KERNELS = {
+    "resblock_chain": {"conv3x3_wgmma": 2},                        # K1
+    "conv_chain": {"conv3x3_wgmma": 1},                            # K5
+    "up_resblock_chain": {"conv3x3_wgmma": 2, "proj2x2_wgmma": 1},  # K2/K3
+    "up_sandwich": {"conv3x3_wgmma": 2, "conv3x3_c128_wgmma": 2, "proj2x2_wgmma": 2},  # K4
+}
+
+
+def source_of(fn: str):
+    """The ``.cu`` file stem of a kernel in an unnamed namespace, from its
+    mangled name (``_GLOBAL__N__<hash>_<len>_<stem>_cu_...``), or None. The
+    matches may overlap: a hash of digits alone shares its last underscore
+    with ``_<len>_``."""
+    for m in re.finditer(r"(?=_(\d+)_)", fn):
+        start = m.start() + len(m.group(1)) + 2
+        name = fn[start:start + int(m.group(1))]
+        if name.endswith("_cu"):
+            return name[:-3]
+    return None
+
+
 def sass_tile_check(cuobjdump: str, so) -> dict:
     """``HGMMA``, ``UTMALDG`` and ``UTMASTG`` (TMA store) instructions in each
-    kernel of the wgmma conv tile in the built library (``cuobjdump -sass``).
-    Fails unless K1's two kernels and K5's have wgmma and TMA loads."""
+    wgmma kernel of the built library (``cuobjdump -sass``): the 64-channel
+    conv tile (K1, K5, the scale-0 chains of K2/K3 and K4), the 128-channel
+    cluster tile and the 2x2 projections (K2/K3, K4). Fails unless each
+    source holds the kernels of WGMMA_KERNELS and each has all three."""
     out = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
                          check=True, timeout=300).stdout
+    names = {k for kernels in WGMMA_KERNELS.values() for k in kernels}
     counts, fn = {}, None
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            if "conv3x3_wgmma" in fn:
+            if any(re.search(rf"\d{k}I", fn) for k in names):
                 counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "UTMASTG": 0}
         elif fn in counts:
             for op in counts[fn]:
                 counts[fn][op] += op in line
     for fn, c in counts.items():
-        print(f"  sass {fn[:90]}: {c}", flush=True)
-    k1 = [fn for fn in counts if "resblock_chain_cu" in fn]
-    k5 = [fn for fn in counts if "_conv_chain_cu" in fn]
-    check(len(k1) == 2 and len(k5) == 1, f"the wgmma tile's kernels are not all in the library: "
-          f"{list(counts)}")
-    check(all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in counts.values()),
-          f"a wgmma tile kernel lacks HGMMA or UTMALDG in its SASS: {counts}")
+        print(f"  sass {fn[:110]}: {c}", flush=True)
+    found = {}
+    for fn in counts:
+        kernel = next(k for k in names if re.search(rf"\d{k}I", fn))
+        key = (source_of(fn), kernel)
+        found[key] = found.get(key, 0) + 1
+    want = {(src, k): n for src, kernels in WGMMA_KERNELS.items() for k, n in kernels.items()}
+    check(found == want, f"the wgmma kernels in the library are {found}, not {want}")
+    check(all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["UTMASTG"] > 0 for c in counts.values()),
+          f"a wgmma kernel lacks HGMMA, UTMALDG or UTMASTG in its SASS: {counts}")
     return counts
 
 
@@ -353,6 +424,25 @@ def tile_turns(label: str, runs: dict, flop: float, reps: int):
     return ms, busy
 
 
+def issue_turns(label: str, calls: dict, reps: int) -> dict:
+    """The host's ms to issue one call of each of ``calls`` (name -> a list
+    of fns, called in turn), no sync inside, in turns (a, b, b, a)."""
+    import torch
+
+    times = {k: [] for k in calls}
+    with torch.no_grad():
+        for k in list(calls) + list(calls)[::-1]:
+            fns = calls[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(reps):
+                fns[i % len(fns)]()
+            times[k].append((time.perf_counter() - t0) * 1e3 / reps)
+            torch.cuda.synchronize()
+    print(f"host issue ms a call, {label}, in turns: {times}", flush=True)
+    return {k: sum(t) / len(t) for k, t in times.items()}
+
+
 def rates_in_turns(label: str, runs: dict, image_its: int, reps: int = 3) -> dict:
     """Image-iterations per second of each of ``runs`` (name -> one recon),
     timed in turns (a, b, c, c, b, a) with CUDA events over ``reps`` recons."""
@@ -382,22 +472,27 @@ def counted_profile(label: str, run, calls: int, counted, want: float, top: int 
     return prof, n
 
 
-def tile_in_profile(label: str, run, want: int, top: int = 8):
-    """The wgmma tile's kernel in a profile of three calls of ``run``: its
-    device ms and launches a call beside the ``want`` launches the path
-    makes (phases 4-5 hold the op's calls a recon exactly, each launching
-    2R or L kernels or raising; the profiler may drop events of a busy
-    window, so a short count is profiled again and then printed and only
-    bounded); fails unless the profiler saw the kernel by name."""
-    prof, _ = counted_profile(label, run, 3, lambda name: "conv3x3_wgmma" in name, want, top)
+def tile_in_profile(label: str, run, wants: dict, top: int = 8) -> dict:
+    """The wgmma kernels in a profile of three calls of ``run``: for each
+    kernel name of ``wants`` (``conv3x3_wgmma``, ``conv3x3_c128_wgmma``,
+    ``proj2x2_wgmma``) its device ms and launches a call beside the launches
+    the path makes (phases 4-5 hold the ops' calls a recon exactly, each
+    launching its kernels or raising; the profiler may drop events of a busy
+    window, so a short count is profiled again); fails unless the profiler
+    saw each kernel exactly as often as the path launches it."""
+    prof, _ = counted_profile(label, run, 3, lambda name: any(k in name for k in wants),
+                              sum(wants.values()), top)
     check(prof is not None, f"{label}: the profiler saw no device time")
-    found = [(ms, n) for ms, n, name in prof[3] if "conv3x3_wgmma" in name]
-    ms, n = sum(f[0] for f in found), sum(f[1] for f in found)
-    print(f"profile {label}: conv3x3_wgmma {ms:.4f} ms x{n:g} a call of {want} launched "
-          f"({ms / prof[1]:.3f} of the summed kernel time)", flush=True)
-    check(0 < n <= want, f"{label}: expected {want} conv3x3_wgmma launches a call, the "
-          f"profiler saw {n:g}")
-    return ms, n
+    seen = {}
+    for kernel, want in wants.items():
+        found = [(ms, n) for ms, n, name in prof[3] if kernel in name]
+        ms, n = sum(f[0] for f in found), sum(f[1] for f in found)
+        print(f"profile {label}: {kernel} {ms:.4f} ms x{n:g} a call of {want} launched "
+              f"({ms / prof[1]:.3f} of the summed kernel time)", flush=True)
+        check(n == want, f"{label}: expected {want} {kernel} launches a call, the profiler "
+              f"saw {n:g}")
+        seen[kernel] = (ms, n)
+    return seen
 
 
 def bound_ms(ops: float, peak_ops: float, nbytes: float):
@@ -723,15 +818,16 @@ def up_weights(gen, ci: int, R: int):
             rn((R, 64, 64, 3, 3), drunet_std(576, 0.2)))
 
 
-def sandwich_weights(gen, R: int):
-    """Random weights of DRUNet's up tail at full width (m_up2 256 -> 128 and
-    R blocks at 128, m_down1's 64 -> 128 down conv, m_up1 128 -> 64 and R
-    blocks at 64) at its init scales, on the card, in up_sandwich's order."""
+def sandwich_weights(gen, R: int, ci2: int = 256):
+    """Random weights of DRUNet's up tail at full width (m_up2 ci2 = 256 ->
+    128 and R blocks at 128, m_down1's 64 -> 128 down conv, m_up1 128 -> 64
+    and R blocks at 64) at its init scales, on the card, in up_sandwich's
+    order."""
     def rn(shape, std):
         return randn_on_card(gen, shape, std)
 
     s1, s0 = drunet_std(128 * 9, 0.2), drunet_std(576, 0.2)
-    return (rn((256, 128, 2, 2), drunet_std(1024)), rn((R, 128, 128, 3, 3), s1),
+    return (rn((ci2, 128, 2, 2), drunet_std(4 * ci2)), rn((R, 128, 128, 3, 3), s1),
             rn((R, 128, 128, 3, 3), s1), rn((128, 64, 2, 2), drunet_std(256)),
             rn((128, 64, 2, 2), drunet_std(512)), rn((R, 64, 64, 3, 3), s0),
             rn((R, 64, 64, 3, 3), s0))
@@ -1017,8 +1113,12 @@ def main() -> int:
     from deepinv_tpu_torch.ops.kernels.tv import _launch as tv_launch
     from deepinv_tpu_torch.ops.kernels.tv import _resident_clusters as tv_clusters
     from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox, chambolle_prox_plain, tv_plan
+    from deepinv_tpu_torch.ops.kernels.conv_tile import conv128_tile_plan
+    from deepinv_tpu_torch.ops.kernels.up_resblock_chain import _launch as up_launch
     from deepinv_tpu_torch.ops.kernels.up_resblock_chain import (
         pack_up_chain, up_resblock_chain, up_resblock_chain_plain)
+    from deepinv_tpu_torch.ops.kernels.up_sandwich import _c128_clusters, _chain128
+    from deepinv_tpu_torch.ops.kernels.up_sandwich import _launch as sw_launch
     from deepinv_tpu_torch.ops.kernels.up_sandwich import (
         pack_sandwich, up_sandwich, up_sandwich_plain)
     from deepinv_tpu_torch.optim import L2, PnP, optim_builder
@@ -1152,6 +1252,76 @@ def main() -> int:
                               lambda t: up_sandwich_plain(t, d0, *wts), s2, KERNEL_RTOL)
         if sw_err is None:
             sw_err = err
+    # K2/K3 and K4 at the HQS batch, and on the earlier mma.sync kernels at
+    # the main shape; own generator, so that the later phases draw what they
+    # drew before
+    g_b8 = torch.Generator().manual_seed(SEED + 17)
+    v = torch.randn(UP_SHAPES[0][0], generator=g_b8).to(dev, torch.bfloat16)
+    wu, w1, w2 = up_weights(g_b8, v.shape[1], R_MAIN)
+    kernel_vs_plain(f"up_resblock_chain (mma.sync) vs plain {tuple(v.shape)} R={R_MAIN}",
+                    lambda t: up_launch(t, *pack_up_chain(wu, w1, w2), "mma"),
+                    lambda t: up_resblock_chain_plain(t, wu, w1, w2), v, KERNEL_RTOL)
+    v = torch.randn(UP_B8_SHAPE, generator=g_b8).to(dev, torch.bfloat16)
+    kernel_vs_plain(f"up_resblock_chain vs plain {UP_B8_SHAPE} R={R_MAIN}",
+                    lambda t: up_resblock_chain(t, wu, w1, w2),
+                    lambda t: up_resblock_chain_plain(t, wu, w1, w2), v, KERNEL_RTOL)
+    wts = sandwich_weights(g_b8, R_MAIN)
+    for (B, H2, W2), tile in ((SANDWICH_SHAPES[0], "mma"), (SANDWICH_B8, "wgmma")):
+        s2 = torch.randn((B, 256, H2, W2), generator=g_b8).to(dev, torch.bfloat16)
+        d0 = torch.randn((B, 64, 4 * H2, 4 * W2), generator=g_b8).to(dev, torch.bfloat16)
+        kernel_vs_plain(f"up_sandwich ({tile}) vs plain s2 {tuple(s2.shape)} d0 "
+                        f"{tuple(d0.shape)} R1=R0={R_MAIN}",
+                        lambda t: sw_launch(t, d0, pack_sandwich(*wts), tile),
+                        lambda t: up_sandwich_plain(t, d0, *wts), s2, KERNEL_RTOL)
+    # projection inputs past 256 channels (the streamed weight chunks)
+    g_wide = torch.Generator().manual_seed(SEED + 18)
+    shape, R = UP_WIDE
+    v = torch.randn(shape, generator=g_wide).to(dev, torch.bfloat16)
+    wu, w1, w2 = up_weights(g_wide, shape[1], R)
+    kernel_vs_plain(f"up_resblock_chain vs plain {shape} R={R} (Ci past 256)",
+                    lambda t: up_resblock_chain(t, wu, w1, w2),
+                    lambda t: up_resblock_chain_plain(t, wu, w1, w2), v, KERNEL_RTOL)
+    B, H2, W2, ci2 = SANDWICH_WIDE
+    wts = sandwich_weights(g_wide, R_MAIN, ci2)
+    s2 = torch.randn((B, ci2, H2, W2), generator=g_wide).to(dev, torch.bfloat16)
+    d0 = torch.randn((B, 64, 4 * H2, 4 * W2), generator=g_wide).to(dev, torch.bfloat16)
+    kernel_vs_plain(f"up_sandwich vs plain s2 {tuple(s2.shape)} d0 {tuple(d0.shape)} "
+                    f"R1=R0={R_MAIN} (Ci2 past 256)", lambda t: up_sandwich(t, d0, *wts),
+                    lambda t: up_sandwich_plain(t, d0, *wts), s2, KERNEL_RTOL)
+    # the 128-channel cluster tile alone: one block (R=1), held by its
+    # residual branch out - h (the residual dominates the output); then each
+    # tap and K-block alone (conv1 that one 64 x 64 block, conv2 the identity)
+    clusters = _c128_clusters(dev.index)
+    s1 = drunet_std(128 * 9)
+    for shape in TILE128_SHAPES:
+        plan = conv128_tile_plan(shape[0], *shape[2:], clusters)
+        print(f"  128-channel tile plan at {shape}: {plan} ({clusters} clusters fit)", flush=True)
+        h = torch.randn(shape, generator=g_b8).to(dev, torch.bfloat16)
+        wc1, wc2 = randn_on_card(g_b8, (1, 128, 128, 3, 3), s1), randn_on_card(
+            g_b8, (1, 128, 128, 3, 3), s1)
+        pk1, pk2 = pack_weights(wc1), pack_weights(wc2)
+        kernel_vs_plain(f"128-channel tile, one block, branch out - h, vs plain {shape}",
+                        lambda t: _chain128(t, pk1, pk2).float() - t.float(),
+                        lambda t: resblock_chain_plain(t, wc1, wc2).float() - t.float(), h,
+                        KERNEL_RTOL)
+    check(plan.strips == 2, f"the tap shape {shape} is not two strips: {plan}")
+    print(f"  tap shape {shape}: last band {shape[2] - (plan.bands - 1) * plan.rows_per_cta} "
+          f"rows of {plan.rows_per_cta}", flush=True)
+    eye = torch.zeros((1, 128, 128, 3, 3))
+    eye[0, :, :, 1, 1] = torch.eye(128)
+    eye = eye.to(dev)
+    for tap in range(9):
+        for kb in range(2):
+            wt = torch.zeros((1, 128, 128, 3, 3))
+            wt[0, :, 64 * kb:64 * kb + 64, tap // 3, tap % 3] = torch.randn(
+                (128, 64), generator=g_b8) * 3 * s1
+            wt = wt.to(dev)
+            pkt, pke = pack_weights(wt), pack_weights(eye)
+            kernel_vs_plain(f"128-channel tile tap (dy, dx) = {divmod(tap, 3)} K-block {kb} "
+                            f"alone, branch, vs plain {shape}",
+                            lambda t: _chain128(t, pkt, pke).float() - t.float(),
+                            lambda t: resblock_chain_plain(t, wt, eye).float() - t.float(), h,
+                            KERNEL_RTOL)
     # K6 (the stash forward) and its stash backward, on its own generator
     g_k6 = torch.Generator().manual_seed(SEED + 9)
     stash_err = None
@@ -1449,10 +1619,30 @@ def main() -> int:
 
     sw_flop = sandwich_ops(h2s, w2s, 256, R_MAIN, R_MAIN)
     sk_ms, sp_ms, sk_lib_ms = time_sandwich(s2, d0)
-    # the same stages at the HQS batch (the JAX gates fuse at B = 1 only)
-    time_up(bf16_cl(torch.randn((HQS_BATCH,) + up_shape[1:], generator=g_t)))
-    time_sandwich(bf16_cl(torch.randn((HQS_BATCH,) + s2.shape[1:], generator=g_t)),
-                  bf16_cl(torch.randn((HQS_BATCH,) + d0.shape[1:], generator=g_t)))
+    # K2/K3 and K4 on their wgmma kernels, on the earlier mma.sync kernels and
+    # as cuDNN bf16 layers, in turns, at B=1 and at the HQS batch (the JAX
+    # gates fuse at B = 1 only)
+    v8 = bf16_cl(torch.randn((HQS_BATCH,) + up_shape[1:], generator=g_t))
+    s2_8 = bf16_cl(torch.randn((HQS_BATCH,) + s2.shape[1:], generator=g_t))
+    d0_8 = bf16_cl(torch.randn((HQS_BATCH,) + d0.shape[1:], generator=g_t))
+    for b, vb, s2b, d0b in ((1, v, s2, d0), (HQS_BATCH, v8, s2_8, d0_8)):
+        reps = 50 if b == 1 else 10
+        tiles["K2/K3", b] = tile_turns(
+            f"up_resblock_chain {tuple(vb.shape)} R={R_MAIN}",
+            {"wgmma": lambda: up_resblock_chain(vb, wu, uw1, uw2, up_pk),
+             "mma.sync": lambda: up_launch(vb, *up_pk, "mma"),
+             "cuDNN": lambda: cudnn_bf16_up(vb)}, b * up_flop, reps)
+        tiles["K4", b] = tile_turns(
+            f"up_sandwich s2 {tuple(s2b.shape)} d0 {tuple(d0b.shape)} R1=R0={R_MAIN}",
+            {"wgmma": lambda: up_sandwich(s2b, d0b, *sw, sw_pk),
+             "mma.sync": lambda: sw_launch(s2b, d0b, sw_pk, "mma"),
+             "cuDNN": lambda: cudnn_bf16_sandwich(s2b, d0b)}, b * sw_flop, reps)
+    sets = [(s2.clone(), d0.clone(), pack_sandwich(*sw)) for _ in range(MAP_SETS)]
+    issue_turns(f"K4 s2 {tuple(s2.shape)}: its maps memoised (one set) or not ({MAP_SETS} sets)",
+                {"one set": [lambda: up_sandwich(s2, d0, *sw, sw_pk)],
+                 f"{MAP_SETS} sets": [lambda a=a: up_sandwich(a[0], a[1], *sw, a[2])
+                                      for a in sets]}, MAP_REPS)
+    del sets
 
     # the DRUNet forward and HQS in each configuration, B=1 and B=8, in turns
     x8 = torch.rand((HQS_BATCH,) + shape[1:], generator=g_t).to(dev)
@@ -1487,6 +1677,25 @@ def main() -> int:
     rates_in_turns(f"HQS {MAX_ITER} it B={HQS_BATCH}", {
         "down (wgmma tile)": down8, "down (mma.sync tile)": on_plain(down8, on_mma_tile),
         '"0" (no kernel)': recon(hqs_models["0"][0], y8, physics)}, HQS_BATCH * MAX_ITER)
+    def on_mma_up():
+        """K2/K3 and K4 on the earlier mma.sync kernels inside the block."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(swapped(
+            drunet_mod, "up_resblock_chain", lambda v, w_up, w1s, w2s, packed=None: up_launch(
+                v, *(packed or pack_up_chain(w_up, w1s, w2s)), "mma")))
+        stack.enter_context(swapped(
+            drunet_mod, "up_sandwich", lambda s2, d0, *ws, packed=None: sw_launch(
+                s2, d0, packed or pack_sandwich(*ws), "mma")))
+        return stack
+
+    # at the HQS batch: HQS both and sandwich with K2/K3 and K4 on their wgmma
+    # kernels and on the mma.sync kernels, in turns
+    both8 = recon(hqs_models["both"][0], y8, physics)
+    sand8 = recon(hqs_models["sandwich"][0], y8, physics)
+    rates_in_turns(f"HQS {MAX_ITER} it B={HQS_BATCH}, K2/K3 and K4 by kernel", {
+        "both (wgmma)": both8, "both (mma.sync)": on_plain(both8, on_mma_up),
+        "sandwich (wgmma)": sand8, "sandwich (mma.sync)": on_plain(sand8, on_mma_up)},
+        HQS_BATCH * MAX_ITER)
     for name, run in pgd8.items():
         rates_in_turns(f"PGD {name} {MAX_ITER} it B={HQS_BATCH}", {
             "wgmma tile": run, "mma.sync tile": on_plain(run, on_mma_tile),
@@ -1539,8 +1748,8 @@ def main() -> int:
         for c in HQS_CONFIGS:
             label = f"HQS {c} B={b} {MAX_ITER} it"
             run = recon(hqs_models[c][0], yb, physics)
-            if c == "down":
-                tile_in_profile(label, run, MAX_ITER * K1_TILE_LAUNCHES, top=10)
+            if c in HQS_TILE_LAUNCHES:
+                tile_in_profile(label, run, HQS_TILE_LAUNCHES[c], top=10)
             else:
                 device_profile(label, run, 3, top=10)
     for name, tv_model, yt, phys, _, _, _, iters in tv_problems:
@@ -1549,7 +1758,7 @@ def main() -> int:
     for b, runs in ((1, pgd), (HQS_BATCH, pgd8)):
         for name, run in runs.items():
             tile_in_profile(f"PGD {name} B={b} {MAX_ITER} it", run,
-                            MAX_ITER * K5_TILE_LAUNCHES)
+                            {"conv3x3_wgmma": MAX_ITER * K5_TILE_LAUNCHES})
 
     # 9. DnCNN training, both train-step configurations (weights and data on
     # their own generator); the bench's DnCNN(1, 1): depth 20, nf 64
@@ -1617,9 +1826,13 @@ def main() -> int:
     # K2/K3: v in, the scale-0 output out, the projection and chain weights
     k23_bound = bound_ms(up_flop, PEAK_BF16, 2 * (v.numel() + math.prod(KERNEL_SHAPES[0][0]))
                          + 2 * wu.numel() + 2 * R_MAIN * w_bytes)
+    k23_bound_b8 = bound_ms(HQS_BATCH * up_flop, PEAK_BF16, 2 * HQS_BATCH * (
+        v.numel() + math.prod(KERNEL_SHAPES[0][0])) + 2 * wu.numel() + 2 * R_MAIN * w_bytes)
     # K4: s2 and d0 in, the scale-0 output out, the seven weights
     k4_bound = bound_ms(sw_flop, PEAK_BF16, 2 * (s2.numel() + 2 * d0.numel())
                         + 2 * sum(w.numel() for w in sw))
+    k4_bound_b8 = bound_ms(HQS_BATCH * sw_flop, PEAK_BF16, 2 * HQS_BATCH * (
+        s2.numel() + 2 * d0.numel()) + 2 * sum(w.numel() for w in sw))
     # K6: the input in, the L stash slots out, the weights and biases
     k6_bound = bound_ms(L_MAIN * flop_conv, PEAK_BF16, act_bytes // 2 * (1 + L_MAIN)
                         + L_MAIN * (w_bytes + 64 * 4))
@@ -1706,6 +1919,18 @@ def main() -> int:
         "bound_ms": k23_bound[0],
         "bound_by": k23_bound[1],
         "library_ms": uk_lib_ms,
+        # the projection and chain kernels, their times in turns with the
+        # earlier mma.sync kernels and the cuDNN layers (phase 7), and at B=8
+        "tile": "wgmma",
+        "tile_sources": ["deepinv_tpu_torch/csrc/proj2x2_wgmma.cuh",
+                         "deepinv_tpu_torch/csrc/conv3x3_wgmma.cuh"],
+        "prev_tile_ms": tiles["K2/K3", 1][0]["mma.sync"],
+        "ms_b8": tiles["K2/K3", HQS_BATCH][0]["wgmma"],
+        "library_ms_b8": tiles["K2/K3", HQS_BATCH][0]["cuDNN"],
+        "bound_ms_b8": k23_bound_b8[0],
+        "prev_tile_ms_b8": tiles["K2/K3", HQS_BATCH][0]["mma.sync"],
+        "device_ms": tiles["K2/K3", 1][1]["wgmma"],
+        "device_ms_b8": tiles["K2/K3", HQS_BATCH][1]["wgmma"],
     }, {
         "name": "up_sandwich",
         "route": "cuda",
@@ -1718,6 +1943,17 @@ def main() -> int:
         "bound_ms": k4_bound[0],
         "bound_by": k4_bound[1],
         "library_ms": sk_lib_ms,
+        "tile": "wgmma",
+        "tile_sources": ["deepinv_tpu_torch/csrc/proj2x2_wgmma.cuh",
+                         "deepinv_tpu_torch/csrc/conv3x3_c128_wgmma.cuh",
+                         "deepinv_tpu_torch/csrc/conv3x3_wgmma.cuh"],
+        "prev_tile_ms": tiles["K4", 1][0]["mma.sync"],
+        "ms_b8": tiles["K4", HQS_BATCH][0]["wgmma"],
+        "library_ms_b8": tiles["K4", HQS_BATCH][0]["cuDNN"],
+        "bound_ms_b8": k4_bound_b8[0],
+        "prev_tile_ms_b8": tiles["K4", HQS_BATCH][0]["mma.sync"],
+        "device_ms": tiles["K4", 1][1]["wgmma"],
+        "device_ms_b8": tiles["K4", HQS_BATCH][1]["wgmma"],
     }, {
         "name": "conv_chain_stash",
         "route": "cuda",

@@ -1,7 +1,10 @@
 // One 3x3 convolution at 64 channels, bf16 NHWC, on Hopper's wgmma fed by
-// TMA (sm_90a): the tile of the DRUNet scale-0 chain (resblock_chain.cu, K1)
-// and the DnCNN chain (conv_chain.cu, K5). The mma.sync tile of conv3x3.cuh
-// stays for the other kernels.
+// TMA (sm_90a): the tile of the DRUNet scale-0 chains (resblock_chain.cu, K1;
+// up_resblock_chain.cu, K2/K3; up_sandwich.cu, K4) and the DnCNN chain
+// (conv_chain.cu, K5). The primitives here (barriers, TMA, wgmma
+// descriptors, clusters) also serve the 128-channel tile
+// (conv3x3_c128_wgmma.cuh) and the 2x2 projections (proj2x2_wgmma.cuh). The
+// mma.sync tile of conv3x3.cuh stays for K6 and the earlier entry points.
 //
 // The GEMM. For one output row-run of NPIX = 128 pixels along an image row:
 //   M = the 64 output channels (wgmma's fixed m64), A = the tap's 64 x 64
@@ -28,8 +31,10 @@
 //     waits for ring rows y - 1, y, y + 1 (mbarriers), issues the 36
 //     products, waits for them, and releases ring rows y - 1 and y, which
 //     its next row does not read (each ring row is released by both
-//     warpgroups; the band's first row stands in for the absent row above
-//     it);
+//     warpgroups; warpgroup 1 first waits for and releases ring row y0 - 1,
+//     standing for the absent row above the band, so that it waits for the
+//     loads of each slot in order: a parity wait two phases ahead would pass
+//     at once);
 //   - the epilogue works on the f32 accumulator in registers (channel-
 //     major: row = channel, column = pixel), rounds each value to bf16 once
 //     and writes it with stmatrix .trans into the warpgroup's output buffer
@@ -57,10 +62,11 @@
 // reads and writes its activation in device memory: ~40 us at 3.35 TB/s
 // against ~39 us of products at the bf16 peak.
 //
-// Host side: the tensor maps are encoded per call (an input and an output
-// map per activation buffer, one per packed weight stack) through
+// Host side: the tensor maps (an input and an output map per activation
+// buffer, one per packed weight stack) are encoded through
 // cuTensorMapEncodeTiled, taken from the driver with cudaGetDriverEntryPoint
-// (the library links no libcuda), and passed by value as __grid_constant__
+// (the library links no libcuda), once for each set of arguments (encode
+// keeps the last maps), and passed by value as __grid_constant__
 // parameters. Layers chain by programmatic dependent launch.
 //
 // Everything here has internal linkage (an unnamed namespace, nested
@@ -72,6 +78,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace {
 namespace wg {
@@ -95,7 +104,7 @@ static_assert(SMEM_BYTES <= 232448, "the tile exceeds an SM's 227 KB of shared m
 static_assert(BOX_W <= 256, "a TMA box dimension is at most 256");
 static_assert((2 * DEPTH + 1 + NCONS) * 8 <= BAR_BYTES, "the barriers exceed their space");
 
-enum Epilogue { kRelu = 0, kResidual = 1, kBiasRelu = 2 };
+enum Epilogue { kRelu = 0, kResidual = 1, kBiasRelu = 2, kRound = 3 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -157,9 +166,11 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Wait until this thread's TMA stores have read their shared memory.
+// Wait until at most N of this thread's TMA stores have not yet read their
+// shared memory.
+template <int N = 0>
 __device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // Wait until this thread's TMA stores are complete.
@@ -183,6 +194,49 @@ __device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// The epilogue of a warpgroup's 64-channel x 2R-pixel f32 accumulator (the
+// wgmma fragment: thread (warp, lane) holds channels 16 warp + lane / 4 (+ 8)
+// at pixels 8 j + 2 (lane % 4) (+ 1)), one bf16 rounding a value, written by
+// stmatrix .trans into a 1024-byte-aligned buffer of 128-byte pixel rows with
+// the 128-byte swizzle, as TMA stores it. Fragment pixel px lands in buffer
+// row px * pstride + poff. kResidual adds the value the buffer already holds
+// (ldmatrix .trans); kRelu and kBiasRelu add bv (the bias of the thread's two
+// channels; zero for kRelu) and apply the ReLU; kRound only rounds.
+template <int EPI, int R>
+__device__ __forceinline__ void store_fragment(const float (&d)[R], uint32_t buf, int pstride,
+                                               int poff, const float (&bv)[2]) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  // matrix m = lane / 8 of each x4 covers pixels 8 (2 jj + m / 2) .. +7 and
+  // channels 16 warp + 8 (m % 2) .. +7: this thread addresses one 16-byte
+  // chunk of one pixel row
+  const int m_px = 8 * ((lane >> 3) >> 1) + (lane & 7), m_chunk = 2 * warp + ((lane >> 3) & 1);
+#pragma unroll
+  for (int jj = 0; jj < R / 8; ++jj) {
+    const int row = (16 * jj + m_px) * pstride + poff;
+    const uint32_t addr = buf + row * 128 + ((m_chunk ^ (row & 7)) << 4);
+    uint32_t res[4] = {0u, 0u, 0u, 0u}, out[4];
+    if (EPI == kResidual) ldmatrix_x4_trans(res, addr);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int j = 2 * jj + (m >> 1), i = m & 1;
+      float v0 = d[4 * j + 2 * i], v1 = d[4 * j + 2 * i + 1];
+      if (EPI == kResidual) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&res[m]));
+        v0 += f.x;
+        v1 += f.y;
+      } else if (EPI != kRound) {
+        v0 += bv[i];
+        v1 += bv[i];
+        v0 = v0 < 0.f ? 0.f : v0;   // keeps NaN, like torch.relu
+        v1 = v1 < 0.f ? 0.f : v1;
+      }
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(v0, v1);
+      out[m] = *reinterpret_cast<const uint32_t*>(&h2);
+    }
+    stmatrix_x4_trans(addr, out);
+  }
 }
 
 // wgmma descriptor of a K-major operand with the 128-byte swizzle: rows of
@@ -209,9 +263,17 @@ __device__ __forceinline__ void wgmma_wait_all() {
 
 // Keep the compiler from moving accesses of the accumulator across the
 // asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Wait until at most N of this warpgroup's committed wgmma groups are
+// pending (they retire in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // d (64 x 128 f32, the warpgroup's fragment) = A * B + (accumulate ? d : 0);
@@ -238,6 +300,74 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32) = A * B + (accumulate ? d : 0); A 64 x 16 and B 16 x 64.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ---------------------------------------------------------- thread-block clusters
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of the cluster that has not exited arrives, then waits for
+// the others (release / acquire at cluster scope).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Arrive on the barrier at the same shared-memory offset in CTA `rank` of
+// the cluster (this CTA's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %0, %1;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(bar), "r"(rank) : "memory");
+}
+
+// mbar_wait for a barrier that CTAs of the cluster arrive on (acquire at
+// cluster scope); traps after ~2^34 clocks like mbar_wait.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+// TMA load of a box into the same shared-memory offset of every CTA in
+// `mask` (bit r: cluster rank r); each destination's barrier at `bar`'s
+// offset receives the box's bytes.
+__device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst, const CUtensorMap* map, int c0,
+                                                      int c1, int c2, int c3, uint32_t bar,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar), "h"(mask) : "memory");
 }
 
 __device__ __forceinline__ void named_bar(int id, int threads) {
@@ -316,11 +446,6 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
 #pragma unroll
   for (int i = 0; i < 2; ++i)
     bv[i] = EPI == kBiasRelu ? __ldg(bias + 16 * warp + (lane >> 2) + 8 * i) : 0.f;
-  // this thread's row address for stmatrix/ldmatrix: matrix m = lane / 8 of
-  // each x4 covers pixels 8 (2 jj + m / 2) .. +7 and channels 16 warp + 8 (m % 2)
-  // .. +7, one 16-byte chunk of a 128-byte pixel row (128-byte swizzle, as TMA
-  // reads and writes the output box)
-  const int m_px = 8 * ((lane >> 3) >> 1) + (lane & 7), m_chunk = 2 * warp + ((lane >> 3) & 1);
   asm volatile("griddepcontrol.wait;\n" ::: "memory");   // before the residual and the stores
   mbar_wait(wbar, 0);
 
@@ -338,7 +463,17 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
         tma_load_4d(s_o, &out_map, 0, x0, y, b, rbar(q));
       }
     }
-    // input rows y - 1, y, y + 1 are ring loads r, r + 1, r + 2
+    // input rows y - 1, y, y + 1 are ring loads r, r + 1, r + 2. A parity
+    // wait cannot tell a phase from the one two ahead of it, so each
+    // warpgroup waits for the loads of a slot in order: warpgroup 1 first
+    // waits for load 0 (ring row y0 - 1), which it does not read, and
+    // releases it for the absent row above the band; load DEPTH (slot 0)
+    // cannot land before
+    if (r == 1) {
+      mbar_wait(full(0), 0);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(0));
+    }
 #pragma unroll
     for (int k = 0; k < 3; ++k) mbar_wait(full((r + k) % DEPTH), ((r + k) / DEPTH) & 1);
     fence_acc(d);
@@ -364,7 +499,6 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
     if (lane == 0) {
       mbar_arrive(empty(r % DEPTH));
       mbar_arrive(empty((r + 1) % DEPTH));
-      if (r == 0) mbar_arrive(empty(0));
     }
     if (EPI == kResidual)
       mbar_wait(rbar(q), (r >> 1) & 1);   // the residual is in (and the store has read)
@@ -373,31 +507,7 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
 
     // epilogue in registers, one bf16 rounding a value, into the buffer by
     // stmatrix (transposed: a pixel's channels contiguous)
-#pragma unroll
-    for (int jj = 0; jj < NPIX / 16; ++jj) {
-      const int px = 16 * jj + m_px;
-      const uint32_t addr = s_o + px * ROW_BYTES + ((m_chunk ^ (px & 7)) << 4);
-      uint32_t res[4] = {0u, 0u, 0u, 0u}, out[4];
-      if (EPI == kResidual) ldmatrix_x4_trans(res, addr);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int j = 2 * jj + (m >> 1), i = m & 1;
-        float v0 = d[4 * j + 2 * i], v1 = d[4 * j + 2 * i + 1];
-        if (EPI == kResidual) {
-          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&res[m]));
-          v0 += f.x;
-          v1 += f.y;
-        } else {
-          v0 += bv[i];
-          v1 += bv[i];
-          v0 = v0 < 0.f ? 0.f : v0;   // keeps NaN, like torch.relu
-          v1 = v1 < 0.f ? 0.f : v1;
-        }
-        const __nv_bfloat162 h2 = __floats2bfloat162_rn(v0, v1);
-        out[m] = *reinterpret_cast<const uint32_t*>(&h2);
-      }
-      stmatrix_x4_trans(addr, out);
-    }
+    store_fragment<EPI>(d, s_o, 1, 0, bv);
     fence_async_shared();
     named_bar(1 + q, 128);
     if (wtid == 0) tma_store_4d(&out_map, s_o, 0, x0, y, b);   // clipped at the image's edge
@@ -430,8 +540,51 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The arguments a map is encoded from; the map is a function of them alone.
+struct MapKey {
+  const void* ptr;
+  int rank;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4];
+};
+
+// Maps encoded before, by their arguments: an encode costs host time a map,
+// and most maps come back call after call (the packed weights DRUNet keeps,
+// the activation buffers the caching allocator hands out again). A map that
+// comes back serves as it was encoded; the table keeps the last MEMO maps.
+constexpr int MEMO = 64;
+struct MapMemo {
+  std::mutex mu;
+  MapKey keys[MEMO];
+  CUtensorMap maps[MEMO];
+  int size = 0, next = 0;
+};
+
+inline MapMemo& map_memo() {
+  static MapMemo memo;
+  return memo;
+}
+
 inline cudaError_t encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
                           const cuuint64_t* strides, const cuuint32_t* box) {
+  MapKey key;
+  memset(&key, 0, sizeof key);   // padding too: keys compare as bytes
+  key.ptr = ptr;
+  key.rank = rank;
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    if (i + 1 < rank) key.strides[i] = strides[i];
+  }
+  MapMemo& memo = map_memo();
+  {
+    std::lock_guard<std::mutex> lock(memo.mu);
+    for (int i = 0; i < memo.size; ++i)
+      if (memcmp(&memo.keys[i], &key, sizeof key) == 0) {
+        *map = memo.maps[i];
+        return cudaSuccess;
+      }
+  }
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[4] = {1, 1, 1, 1};
@@ -439,34 +592,46 @@ inline cudaError_t encode(CUtensorMap* map, const void* ptr, int rank, const cuu
                         strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);   // out of bounds reads as zero
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(memo.mu);
+  memo.keys[memo.next] = key;
+  memo.maps[memo.next] = *map;
+  memo.next = (memo.next + 1) % MEMO;
+  if (memo.size < MEMO) ++memo.size;
+  return cudaSuccess;
 }
 
-// The map of a (B, H, W, 64) bf16 activation: boxes of box_w pixels x 64
-// channels (BOX_W for a layer's input, NPIX for its output and residual).
-inline cudaError_t act_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int box_w) {
-  const cuuint64_t dims[4] = {CH, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {ROW_BYTES, (cuuint64_t)W * ROW_BYTES,
-                                 (cuuint64_t)H * W * ROW_BYTES};
+// The map of a (B, H, W, C) bf16 NHWC activation: boxes of box_w pixels x 64
+// channels (one 128-byte swizzle row a pixel; a box at channel c0 reads
+// channels c0 .. c0 + 63, zero past C).
+inline cudaError_t act_map_c(CUtensorMap* map, const void* ptr, int C, int B, int H, int W,
+                             int box_w) {
+  const cuuint64_t row = 2ull * C;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {row, (cuuint64_t)W * row, (cuuint64_t)H * W * row};
   const cuuint32_t box[4] = {CH, (cuuint32_t)box_w, 1, 1};
   return encode(map, ptr, 4, dims, strides, box);
 }
 
-// The input and the output map of each of n activation buffers.
+// The input and the output map of each of n (B, H, W, C) activation
+// buffers: boxes of box_in pixels (a layer's haloed input rows) and box_out
+// (its output and residual row-runs).
 inline cudaError_t act_maps(CUtensorMap* in, CUtensorMap* out, const void* const* ptrs, int n,
-                            int B, int H, int W) {
+                            int C, int B, int H, int W, int box_in, int box_out) {
   cudaError_t err = cudaSuccess;
   for (int i = 0; i < n && err == cudaSuccess; ++i) {
-    err = act_map(&in[i], ptrs[i], B, H, W, BOX_W);
-    if (err == cudaSuccess) err = act_map(&out[i], ptrs[i], B, H, W, NPIX);
+    err = act_map_c(&in[i], ptrs[i], C, B, H, W, box_in);
+    if (err == cudaSuccess) err = act_map_c(&out[i], ptrs[i], C, B, H, W, box_out);
   }
   return err;
 }
 
-// The map of L packed layers (L, 9, 64, 64) bf16 as 576 L rows of 64: boxes of one tap.
-inline cudaError_t weight_map(CUtensorMap* map, const void* ptr, int L) {
-  const cuuint64_t dims[2] = {CH, (cuuint64_t)L * 9 * CH};
-  const cuuint64_t strides[1] = {ROW_BYTES};
+// The map of a (rows, cols) bf16 row-major matrix of packed weights: boxes
+// of 64 rows x 64 columns (a box at column c0 reads columns c0 .. c0 + 63,
+// zero past cols).
+inline cudaError_t matrix_map(CUtensorMap* map, const void* ptr, int cols, long long rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {2ull * cols};
   const cuuint32_t box[2] = {CH, CH};
   return encode(map, ptr, 2, dims, strides, box);
 }
@@ -478,48 +643,125 @@ struct Plan {
   int strip, depth, smem_bytes, rows_per_cta, grid;
 };
 
-inline cudaError_t check_plan(const Plan& p, int B, int H, int W) {
-  if (p.strip != NPIX || p.depth != DEPTH || p.smem_bytes != SMEM_BYTES || p.rows_per_cta < 1 ||
+// A conv tile's plan against its constants: strips of npix columns, depth
+// ring slots, smem bytes, a band of rows to each cluster of `cluster` CTAs.
+inline cudaError_t check_tile_plan(const Plan& p, int npix, int depth, int smem, int cluster,
+                                   int B, int H, int W) {
+  if (p.strip != npix || p.depth != depth || p.smem_bytes != smem || p.rows_per_cta < 1 ||
       B < 1 || H < 1 || W < 1)
     return cudaErrorInvalidValue;
-  const long long strips = (W + NPIX - 1) / NPIX;
+  const long long strips = (W + npix - 1) / npix;
   const long long bands = (H + p.rows_per_cta - 1) / p.rows_per_cta;
-  return (long long)p.grid == B * strips * bands ? cudaSuccess : cudaErrorInvalidValue;
+  return (long long)p.grid == cluster * B * strips * bands ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int EPI>
-cudaError_t allow_smem() {
-  // once a device: the attribute stays set, and the call costs host time at B = 1
+inline cudaError_t check_plan(const Plan& p, int B, int H, int W) {
+  return check_tile_plan(p, NPIX, DEPTH, SMEM_BYTES, 1, B, H, W);
+}
+
+// Allow `Kernel` `bytes` of dynamic shared memory (above the 48 KB default),
+// once a device: the attribute stays set, and the call costs host time at
+// B = 1. Every wgmma kernel here goes through it.
+template <auto Kernel>
+cudaError_t allow_smem_once(int bytes) {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(conv3x3_wgmma<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
 }
 
-// Launch one layer, with programmatic dependent launch: it may start while
-// the previous kernel on `s` finishes (see conv3x3_wgmma).
 template <int EPI>
-cudaError_t launch(const CUtensorMap& src, const CUtensorMap& out, const CUtensorMap& w,
-                   int layer, const float* bias, int H, int W, const Plan& p, cudaStream_t s) {
+cudaError_t allow_smem() {
+  return allow_smem_once<conv3x3_wgmma<EPI>>(SMEM_BYTES);
+}
+
+// The configuration of a launch of `grid` CTAs on `s` with programmatic
+// dependent launch (attr[0]): it may start while the previous kernel on `s`
+// finishes. Every wgmma kernel here reads and writes activations only after
+// griddepcontrol.wait.
+inline cudaLaunchConfig_t pdl_config(int grid, int threads, int smem, cudaStream_t s,
+                                     cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.grid);
-  cfg.blockDim = dim3(NTHREADS);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Launch one layer, with programmatic dependent launch (see conv3x3_wgmma).
+template <int EPI>
+cudaError_t launch(const CUtensorMap& src, const CUtensorMap& out, const CUtensorMap& w,
+                   int layer, const float* bias, int H, int W, const Plan& p, cudaStream_t s) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = pdl_config(p.grid, NTHREADS, SMEM_BYTES, s, attr);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, conv3x3_wgmma<EPI>, src, out, w,
                                              layer * 9 * CH, bias, H, (W + NPIX - 1) / NPIX,
                                              p.rows_per_cta);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
+
+// A conv tile as the chain's host loop drives it (this one, or wg128::Tile
+// for the 128-channel cluster tile): its channels, the box widths of a
+// layer's input and output maps, a layer's rows in the packed weight stack,
+// its plan check, its shared-memory opt-in and its launch of one layer.
+struct Tile64 {
+  static constexpr int channels = CH;
+  static constexpr int box_in = BOX_W;
+  static constexpr int box_out = NPIX;
+  static constexpr int layer_rows = 9 * CH;   // [tap][co][ci]
+  static cudaError_t check(const Plan& p, int B, int H, int W) { return check_plan(p, B, H, W); }
+  template <int EPI>
+  static cudaError_t allow() {
+    return allow_smem<EPI>();
+  }
+  template <int EPI>
+  static cudaError_t launch(const CUtensorMap& src, const CUtensorMap& out, const CUtensorMap& w,
+                            int layer, int H, int W, const Plan& p, cudaStream_t s) {
+    return wg::launch<EPI>(src, out, w, layer, nullptr, H, W, p, s);
+  }
+};
+
+// R residual blocks h <- h + conv2(relu(conv1(h))) in place on `a` (B, H, W,
+// C) bf16 on the tile `Tile`, with `t` (same shape) as scratch: 2R launches
+// on `s`, conv1 reading `a` into `t`, conv2 reading `t` and adding into `a`
+// in place. Writing into `a` in place is safe: within one launch `a` is read
+// only as the residual of the row-runs a CTA writes, before it writes them.
+// w1p/w2p: (R, layer_rows, C) bf16 packed by pack_weights. The plan is
+// checked against the tile and the shape first. The chains of K1, K2/K3 and
+// K4 (both scales) run through here.
+template <class Tile>
+cudaError_t resblocks(void* a, void* t, const void* w1p, const void* w2p, int B, int H, int W,
+                      int R, const Plan& plan, cudaStream_t s) {
+  cudaError_t err = Tile::check(plan, B, H, W);
+  CUtensorMap in[2], out[2], map_w1, map_w2;   // a, t
+  const void* bufs[2] = {a, t};
+  const int C = Tile::channels;
+  const long long rows = (long long)R * Tile::layer_rows;
+  if (err == cudaSuccess)
+    err = act_maps(in, out, bufs, 2, C, B, H, W, Tile::box_in, Tile::box_out);
+  if (err == cudaSuccess) err = matrix_map(&map_w1, w1p, C, rows);
+  if (err == cudaSuccess) err = matrix_map(&map_w2, w2p, C, rows);
+  if (err == cudaSuccess) err = Tile::template allow<kRelu>();
+  if (err == cudaSuccess) err = Tile::template allow<kResidual>();
+  for (int r = 0; r < R && err == cudaSuccess; ++r) {
+    err = Tile::template launch<kRelu>(in[0], out[1], map_w1, r, H, W, plan, s);
+    if (err == cudaSuccess)   // conv2 reads t, and a as its residual and output
+      err = Tile::template launch<kResidual>(in[1], out[0], map_w2, r, H, W, plan, s);
+  }
+  return err;
+}
+
+// A plan passed from Python as an int array: strip, depth, smem_bytes,
+// rows_per_cta, grid.
+inline Plan plan_at(const int* p) { return Plan{p[0], p[1], p[2], p[3], p[4]}; }
 
 }  // namespace wg
 }  // namespace

@@ -97,9 +97,10 @@ int deepinv_conv_chain_wgmma_bf16(const void* src, void* a, void* t, const void*
   cudaError_t err = wg::check_plan(plan, B, H, W);
   CUtensorMap in[3], out[3], map_w;   // src, a, t (src has no output map)
   const void* bufs[2] = {a, t};
-  if (err == cudaSuccess) err = wg::act_map(&in[0], src, B, H, W, wg::BOX_W);
-  if (err == cudaSuccess) err = wg::act_maps(in + 1, out + 1, bufs, 2, B, H, W);
-  if (err == cudaSuccess) err = wg::weight_map(&map_w, wp, L);
+  if (err == cudaSuccess) err = wg::act_map_c(&in[0], src, C, B, H, W, wg::BOX_W);
+  if (err == cudaSuccess)
+    err = wg::act_maps(in + 1, out + 1, bufs, 2, C, B, H, W, wg::BOX_W, wg::NPIX);
+  if (err == cudaSuccess) err = wg::matrix_map(&map_w, wp, C, (long long)L * 9 * C);
   if (err == cudaSuccess) err = wg::allow_smem<wg::kBiasRelu>();
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float* pb = static_cast<const float*>(bias);

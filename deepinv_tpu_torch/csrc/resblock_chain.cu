@@ -20,8 +20,9 @@
 // receives each block's output in place), `t` holds relu(conv1(h)). Writing
 // conv2's output into `a` in place is safe: within one launch `a` is read
 // only as the residual of the row-runs a CTA writes, before it writes them;
-// the conv input is `t`. The layers chain by programmatic dependent launch: a layer's CTAs
-// load their weights while the previous layer finishes. The earlier entry
+// the conv input is `t`. The layers chain by programmatic dependent launch: a
+// layer's CTAs load their weights while the previous layer finishes. The
+// loop is wg::resblocks, which K2/K3 and K4 run too. The earlier entry
 // point deepinv_resblock_chain_bf16 runs the same chain on the mma.sync tile
 // of conv3x3.cuh; it stays so that the two tiles can be timed side by side.
 //
@@ -60,21 +61,8 @@ int deepinv_resblock_chain_wgmma_bf16(void* a, void* t, const void* w1p, const v
                                       int B, int H, int W, int R, int strip, int depth,
                                       int smem_bytes, int rows_per_cta, int grid, void* stream) {
   const wg::Plan plan{strip, depth, smem_bytes, rows_per_cta, grid};
-  cudaError_t err = wg::check_plan(plan, B, H, W);
-  CUtensorMap in[2], out[2], map_w1, map_w2;   // a, t
-  const void* bufs[2] = {a, t};
-  if (err == cudaSuccess) err = wg::act_maps(in, out, bufs, 2, B, H, W);
-  if (err == cudaSuccess) err = wg::weight_map(&map_w1, w1p, R);
-  if (err == cudaSuccess) err = wg::weight_map(&map_w2, w2p, R);
-  if (err == cudaSuccess) err = wg::allow_smem<wg::kRelu>();
-  if (err == cudaSuccess) err = wg::allow_smem<wg::kResidual>();
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  for (int r = 0; r < R && err == cudaSuccess; ++r) {
-    err = wg::launch<wg::kRelu>(in[0], out[1], map_w1, r, nullptr, H, W, plan, s);
-    if (err == cudaSuccess)   // conv2 reads t, and a as its residual and output
-      err = wg::launch<wg::kResidual>(in[1], out[0], map_w2, r, nullptr, H, W, plan, s);
-  }
-  return (int)err;
+  return (int)wg::resblocks<wg::Tile64>(a, t, w1p, w2p, B, H, W, R, plan,
+                            reinterpret_cast<cudaStream_t>(stream));
 }
 
 const char* deepinv_cuda_error_string(int err) {

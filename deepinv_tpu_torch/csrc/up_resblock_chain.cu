@@ -22,16 +22,23 @@
 // packed (4*64, Ci) bf16, row (ph*2 + pw)*64 + co; the chain weights as in
 // resblock_chain.cu.
 //
-// Design. One C entry point: the projection as one implicit-GEMM launch
-// (M = B*H/2*W/2 pixels, K = Ci, N = 256) that writes the interleaved scale-0
-// buffer, then the 2R launches of the K1 tile (conv3x3.cuh), all on the
-// caller's stream. What bounds it on an H100: at the bench shape (Ci = 128,
-// 256²) the projection is 1.07 GFLOP and the chain 38.7 GFLOP, so it is
-// compute-bound like K1 (its 8 MB activations stay in L2), and the chain
-// carries 97% of the operations; the projection's GEMM is plain mma.sync from
-// shared memory, the same first-version plan as the chain.
+// Design. The default entry point, deepinv_up_resblock_chain_wgmma_bf16, runs
+// the projection as one launch of the wgmma + TMA projection kernel
+// (proj2x2_wgmma.cuh: a GEMM a row-run of 64 input pixels, whose epilogue
+// scatters the two pw phases into one 128-pixel output row-run), then the
+// chain as K1 runs it (wg::resblocks, conv3x3_wgmma.cuh: 2R launches of the
+// 64-channel wgmma tile), all chained by programmatic dependent launch on the
+// caller's stream. The chain is K1's: 64 channels on the 2x image; only the
+// projection reads Ci channels. The earlier entry point,
+// deepinv_up_resblock_chain_bf16, runs the same function on the mma.sync
+// GEMM of proj2x2.cuh and the mma.sync tile of conv3x3.cuh; it stays so that
+// the two can be timed side by side. What bounds it on an H100: at the bench
+// shape (Ci = 128, 256²) the projection is 1.07 GFLOP over ~12 MB and the
+// chain 38.7 GFLOP over 8 MB activations that stay in L2 at B = 1: the chain
+// carries 97% of the operations and is compute-bound like K1.
 
 #include "proj2x2.cuh"
+#include "proj2x2_wgmma.cuh"
 
 extern "C" {
 
@@ -51,6 +58,21 @@ int deepinv_up_resblock_chain_bf16(const void* v, void* a, void* t, const void* 
   err = resblocks<C>(pa, static_cast<__nv_bfloat16*>(t), static_cast<const __nv_bfloat16*>(w1p),
                      static_cast<const __nv_bfloat16*>(w2p), B, 2 * H2, 2 * W2, R, s);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The same function on the wgmma + TMA kernels, the default. plans: the
+// projection's launch plan (proj_plan: 6 ints) and the chain's
+// (conv_tile_plan at the 2x image: 5 ints), checked against the kernels.
+int deepinv_up_resblock_chain_wgmma_bf16(const void* v, void* a, void* t, const void* wup,
+                                         const void* w1p, const void* w2p, int B, int H2,
+                                         int W2, int Ci, int R, const int* plans,
+                                         void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err = wgp::project<wgp::kUp>(v, wup, a, B, H2, W2, Ci, C, wgp::plan_at(plans), s);
+  if (err == cudaSuccess)
+    err = wg::resblocks<wg::Tile64>(a, t, w1p, w2p, B, 2 * H2, 2 * W2, R,
+                                    wg::plan_at(plans + 6), s);
+  return (int)err;
 }
 
 }  // extern "C"

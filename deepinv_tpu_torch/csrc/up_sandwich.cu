@@ -22,15 +22,27 @@
 //
 // Design. The TPU kernel keeps the scale-1 and scale-0 ping-pong buffers in
 // VMEM (~110 MB budget); an SM has 227 KB, so here one C entry point issues
-// the 3 projections (proj2x2.cuh) and the 2(R1 + R0) conv launches
-// (conv3x3.cuh) in order on the caller's stream. At the bench size (256²)
-// every intermediate (scale 1: 4 MB, scale 0: 8 MB) stays in the 50 MB L2.
-// The C = 128 conv splits its output channels over two blocks per tile, since
-// one layer's weights (288 KB) exceed an SM. What bounds it on an H100: 80.5
-// GFLOP at the bench size, 97% of it in the two chains, with the activations
-// in L2: compute. Making it resident or persistent is later work.
+// the 3 projections and the 2(R1 + R0) conv launches in order on the caller's
+// stream. The default, deepinv_up_sandwich_wgmma_bf16, runs every stage on
+// wgmma fed by TMA, chained by programmatic dependent launch: the projections
+// on proj2x2_wgmma.cuh (the skip's strided conv reads d0 as (B, H, W/2, 128)
+// rows, in the packed weight's column order, and adds into a1 in place), the
+// scale-1 chain on the 128-channel cluster tile of conv3x3_c128_wgmma.cuh
+// (one layer's 288 KB of weights exceed an SM, so two CTAs of a cluster
+// split the output channels, each with its half resident, and share each
+// input row by TMA multicast), and the scale-0 chain on K1's 64-channel tile
+// (wg::resblocks). The earlier entry point, deepinv_up_sandwich_bf16, runs
+// the same function on the mma.sync kernels (proj2x2.cuh, conv3x3.cuh, whose
+// 128-channel tile splits the output channels over two blocks) and stays so
+// that the two can be timed side by side. What bounds it on an H100: 80.5
+// GFLOP at the bench size, 97% of it in the two chains; at B = 1 every
+// intermediate (scale 1: 4 MB, scale 0: 8 MB) stays in the 50 MB L2, so it
+// is compute-bound; at B = 8 (a1, t1 33.5 MB; d0, a0, t0 67 MB) each layer
+// also reads and writes its activations in device memory.
 
+#include "conv3x3_c128_wgmma.cuh"
 #include "proj2x2.cuh"
+#include "proj2x2_wgmma.cuh"
 
 extern "C" {
 
@@ -63,6 +75,51 @@ int deepinv_up_sandwich_bf16(const void* s2, const void* d0, void* a1, void* t1,
   err = resblocks<C>(pa0, static_cast<bf*>(t0), static_cast<const bf*>(w1s),
                      static_cast<const bf*>(w2s), B, 2 * H1, 2 * W1, R0, s);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The same function on the wgmma + TMA kernels, the default. plans: the
+// launch plans in launch order, checked against the kernels: up2 (proj_plan,
+// 6 ints), the scale-1 chain (conv128_tile_plan, 5), the skip (proj_plan, 6),
+// up1 (proj_plan, 6), the scale-0 chain (conv_tile_plan, 5).
+int deepinv_up_sandwich_wgmma_bf16(const void* s2, const void* d0, void* a1, void* t1, void* a0,
+                                   void* t0, const void* wup2, const void* w1s1,
+                                   const void* w2s1, const void* wd, const void* wup1,
+                                   const void* w1s, const void* w2s, int B, int H2, int W2,
+                                   int Ci2, int R1, int R0, const int* plans, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int H1 = 2 * H2, W1 = 2 * W2;
+  cudaError_t err =
+      wgp::project<wgp::kUp>(s2, wup2, a1, B, H2, W2, Ci2, 2 * C, wgp::plan_at(plans), s);
+  if (err == cudaSuccess)
+    err = wg::resblocks<wg128::Tile>(a1, t1, w1s1, w2s1, B, H1, W1, R1,
+                                     wg::plan_at(plans + 6), s);
+  if (err == cudaSuccess)
+    err = wgp::project<wgp::kDownAdd>(d0, wd, a1, B, H1, W1, 4 * C, 2 * C,
+                                      wgp::plan_at(plans + 11), s);
+  if (err == cudaSuccess)
+    err = wgp::project<wgp::kUp>(a1, wup1, a0, B, H1, W1, 2 * C, C, wgp::plan_at(plans + 17), s);
+  if (err == cudaSuccess)
+    err = wg::resblocks<wg::Tile64>(a0, t0, w1s, w2s, B, 2 * H1, 2 * W1, R0,
+                                    wg::plan_at(plans + 23), s);
+  return (int)err;
+}
+
+// The scale-1 chain alone (R blocks in place on `a` (B, H, W, 128) with `t`
+// as scratch; w1p/w2p (R, 18, 64, 128)) on the 128-channel cluster tile, for
+// checking that tile on its own. plan: conv128_tile_plan (5 ints).
+int deepinv_resblock_chain_c128_wgmma_bf16(void* a, void* t, const void* w1p, const void* w2p,
+                                           int B, int H, int W, int R, const int* plan,
+                                           void* stream) {
+  return (int)wg::resblocks<wg128::Tile>(a, t, w1p, w2p, B, H, W, R, wg::plan_at(plan),
+                               reinterpret_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of the 128-channel tile the device holds at once, or a
+// negative CUDA error.
+int deepinv_conv_c128_max_clusters(void) {
+  int count = 0;
+  const cudaError_t err = wg128::max_clusters(&count);
+  return err != cudaSuccess ? -(int)err : count;
 }
 
 }  // extern "C"

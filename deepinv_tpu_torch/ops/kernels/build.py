@@ -70,6 +70,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.deepinv_up_resblock_chain_bf16.restype = i
     lib.deepinv_up_sandwich_bf16.argtypes = [p] * 13 + [i] * 6 + [p]
     lib.deepinv_up_sandwich_bf16.restype = i
+    plans = ctypes.POINTER(i)   # a launch plan (or several) as an int array
+    lib.deepinv_up_resblock_chain_wgmma_bf16.argtypes = [p] * 6 + [i] * 5 + [plans, p]
+    lib.deepinv_up_resblock_chain_wgmma_bf16.restype = i
+    lib.deepinv_up_sandwich_wgmma_bf16.argtypes = [p] * 13 + [i] * 6 + [plans, p]
+    lib.deepinv_up_sandwich_wgmma_bf16.restype = i
+    lib.deepinv_resblock_chain_c128_wgmma_bf16.argtypes = [p] * 4 + [i] * 4 + [plans, p]
+    lib.deepinv_resblock_chain_c128_wgmma_bf16.restype = i
+    lib.deepinv_conv_c128_max_clusters.argtypes = []
+    lib.deepinv_conv_c128_max_clusters.restype = i
     lib.deepinv_tv_prox_f32.argtypes = [p, p, i, p, p, i, i, i, i, p]
     lib.deepinv_tv_prox_f32.restype = i
     lib.deepinv_tv_prox_resident_f32.argtypes = [p, p, i, p] + [i] * 9 + [p]

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["resblock_chain", "resblock_chain_plain", "resblocks_f32",
-           "pack_weights", "check_activations", "check_packed", "C"]
+           "pack_weights", "check_activations", "check_packed", "int_array", "C"]
 
 C = 64  # channel width the kernel is built for
 
@@ -116,6 +116,11 @@ def tile_args(h, tile: str):
 @functools.lru_cache(maxsize=None)
 def _sms(index) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def int_array(values):
+    """``values`` as a C int array: the launch plans the C entry points take."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def _launch(h, w1p, w2p, tile: str = "wgmma"):

@@ -8,10 +8,13 @@ transposed conv (Ci -> 64, kernel == stride) with f32 accumulation and one
 bf16 rounding, then R blocks of ``h <- h + conv3x3(relu(conv3x3(h)))`` with one
 rounding per conv. The skip add ``v + x2`` is the caller's, already rounded.
 
-- On a CUDA tensor it launches the hand-written kernel
+- On a CUDA tensor it launches the hand-written kernels of
   ``deepinv_tpu_torch/csrc/up_resblock_chain.cu`` (the source says what bounds
-  it and how it is laid out), or raises: there is no fallback. The two TPU
-  variants, ``_up_resblock_kernel`` :62 (the projection in the kernel) and
+  it and how it is laid out): the projection on the wgmma + TMA kernel of
+  ``csrc/proj2x2_wgmma.cuh`` and the chain on K1's 64-channel wgmma tile
+  (launch plans :func:`~.conv_tile.proj_plan` and
+  :func:`~.conv_tile.conv_tile_plan`), or raises: there is no fallback. The
+  two TPU variants, ``_up_resblock_kernel`` :62 (the projection in the kernel) and
   ``_up_resblock_kernel2`` :97 (the projection in XLA, the default), compute
   the same function and differ only in where the H-interleave happens; here
   it is the projection's epilogue, so one op stands for both.
@@ -33,8 +36,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .resblock_chain import (C, check_activations, check_packed, pack_weights,
-                             resblock_chain_plain, resblocks_f32)
+from .resblock_chain import (C, _sms, check_activations, check_packed, int_array,
+                             pack_weights, resblock_chain_plain, resblocks_f32)
 
 __all__ = ["up_resblock_chain", "up_resblock_chain_plain", "up_resblocks_f32",
            "pack_up_weights", "pack_up_chain", "up_plain"]
@@ -42,8 +45,8 @@ __all__ = ["up_resblock_chain", "up_resblock_chain_plain", "up_resblocks_f32",
 
 def pack_up_weights(w_iohw: torch.Tensor) -> torch.Tensor:
     """(Ci, Co, 2, 2) IOHW transposed-conv weight -> (4*Co, Ci) bf16 with
-    row ``(ph*2 + pw)*Co + co``: the projection kernel's weight layout
-    (``csrc/proj2x2.cuh``, kUp)."""
+    row ``(ph*2 + pw)*Co + co``: the projection kernels' weight layout
+    (``csrc/proj2x2_wgmma.cuh`` and ``csrc/proj2x2.cuh``, kUp)."""
     Ci, Co = w_iohw.shape[:2]
     return w_iohw.detach().permute(2, 3, 1, 0).reshape(4 * Co, Ci).to(
         torch.bfloat16).contiguous()
@@ -83,24 +86,36 @@ def _check_cuda(v, wup, w1p, w2p):
     check_packed(v, (w1p, w2p), (w1p.shape[0], 9, C, C), "chain weights (see pack_weights)")
 
 
-def _launch(v, wup, w1p, w2p):
+def _launch(v, wup, w1p, w2p, tile: str = "wgmma"):
     """Run the CUDA kernel: ``v`` read in channels_last memory (a copy only
     if it is NCHW-contiguous), the projection into the ping-pong buffer
     ``a``, 2R conv launches, and ``a`` handed back as an NCHW view
-    (channels_last memory)."""
+    (channels_last memory). ``tile`` is private: ``"wgmma"`` (the default)
+    or ``"mma"``, the earlier mma.sync kernels, kept so that the two can be
+    timed side by side."""
     from .build import load_library
+    from .conv_tile import conv_tile_plan, proj_plan
 
     _check_cuda(v, wup, w1p, w2p)
+    if tile not in ("wgmma", "mma"):
+        raise ValueError(f"tile must be 'wgmma' or 'mma', got {tile!r}")
     lib = load_library()
     B, Ci, H2, W2 = v.shape
+    R = int(w1p.shape[0])
     src = v.contiguous(memory_format=torch.channels_last)
     a = torch.empty((B, 2 * H2, 2 * W2, C), dtype=torch.bfloat16, device=v.device)
     t = torch.empty_like(a)
+    ptrs = [ctypes.c_void_p(x.data_ptr()) for x in (src, a, t, wup, w1p, w2p)]
     with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        rc = lib.deepinv_up_resblock_chain_bf16(
-            *(ctypes.c_void_p(x.data_ptr()) for x in (src, a, t, wup, w1p, w2p)),
-            B, H2, W2, Ci, int(w1p.shape[0]), ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(v.device).cuda_stream)
+        if tile == "mma":
+            rc = lib.deepinv_up_resblock_chain_bf16(*ptrs, B, H2, W2, Ci, R, stream)
+        else:
+            sms = _sms(v.device.index)
+            plans = (proj_plan("up", B, H2, W2, Ci, C, sms).args()
+                     + conv_tile_plan(B, 2 * H2, 2 * W2, sms).args())
+            rc = lib.deepinv_up_resblock_chain_wgmma_bf16(*ptrs, B, H2, W2, Ci, R,
+                                                          int_array(plans), stream)
     if rc != 0:
         msg = lib.deepinv_cuda_error_string(rc).decode()
         raise RuntimeError(f"up_resblock_chain kernel launch failed: CUDA error {rc} ({msg})")

@@ -16,9 +16,13 @@ the TPU kernel ``_sandwich_kernel`` (:442), f32 accumulation throughout:
 4. the up1 projection (128 -> 64), rounded once;
 5. R0 scale-0 blocks at C = 64, as ``resblock_chain``.
 
-- On a CUDA tensor it launches the hand-written kernel
+- On a CUDA tensor it launches the hand-written kernels of
   ``deepinv_tpu_torch/csrc/up_sandwich.cu`` (the source says what bounds it and
-  how it is laid out), or raises: there is no fallback.
+  how it is laid out), or raises: there is no fallback. Every stage runs on
+  wgmma fed by TMA: the three projections on ``csrc/proj2x2_wgmma.cuh``, the
+  scale-1 chain on the 128-channel cluster tile of
+  ``csrc/conv3x3_c128_wgmma.cuh``, the scale-0 chain on K1's 64-channel tile
+  (launch plans in :mod:`~.conv_tile`).
 - On a CPU tensor it runs :func:`up_sandwich_plain`, the plain PyTorch version
   with the kernel's rounding.
 - The batch is native (a grid dimension); the JAX gate fuses at B = 1 only
@@ -33,12 +37,13 @@ the kernel).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
-from .resblock_chain import (C, check_activations, check_packed, pack_weights,
-                             resblock_chain_plain, resblocks_f32)
+from .resblock_chain import (C, _sms, check_activations, check_packed, int_array,
+                             pack_weights, resblock_chain_plain, resblocks_f32)
 from .up_resblock_chain import pack_up_weights, up_plain
 
 __all__ = ["up_sandwich", "up_sandwich_plain", "sandwich_f32", "pack_down_weights",
@@ -49,8 +54,8 @@ C1 = 2 * C  # scale-1 channels the kernel is built for
 
 def pack_down_weights(w_oihw: torch.Tensor) -> torch.Tensor:
     """(Co, Ci, 2, 2) OIHW strided-conv weight -> (Co, 4*Ci) bf16 with
-    column ``dh*2Ci + dw*Ci + ci``: the down-projection kernel's layout
-    (``csrc/proj2x2.cuh``, kDownAdd)."""
+    column ``dh*2Ci + dw*Ci + ci``: the down-projection kernels' layout
+    (``csrc/proj2x2_wgmma.cuh`` and ``csrc/proj2x2.cuh``, kDownAdd)."""
     Co, Ci = w_oihw.shape[:2]
     return w_oihw.detach().permute(0, 2, 3, 1).reshape(Co, 4 * Ci).to(
         torch.bfloat16).contiguous()
@@ -101,34 +106,93 @@ def _check_cuda(s2, d0, packed):
     check_packed(s2, (w1s, w2s), (w1s.shape[0], 9, C, C), "scale-0 chain weights")
 
 
-def _launch(s2, d0, packed):
+@functools.lru_cache(maxsize=None)
+def _c128_clusters(index) -> int:
+    """How many clusters of the 128-channel tile device ``index`` holds at
+    once (the plan's wave); raises if none."""
+    from .build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(index):
+        count = lib.deepinv_conv_c128_max_clusters()
+    if count <= 0:
+        why = (f"CUDA error {-count} ({lib.deepinv_cuda_error_string(-count).decode()})"
+               if count < 0 else "0 clusters fit")
+        raise RuntimeError(f"up_sandwich: the device holds no cluster of the 128-channel conv "
+                           f"tile: {why}")
+    return count
+
+
+def _launch(s2, d0, packed, tile: str = "wgmma"):
     """Run the CUDA kernel: s2 and d0 read in channels_last memory (a copy
     only if NCHW-contiguous), the scale-1 and scale-0 ping-pong buffers
     allocated here, and the scale-0 result handed back as an NCHW view
-    (channels_last memory)."""
+    (channels_last memory). ``tile`` is private: ``"wgmma"`` (the default)
+    or ``"mma"``, the earlier mma.sync kernels, kept so that the two can be
+    timed side by side."""
     from .build import load_library
+    from .conv_tile import conv128_tile_plan, conv_tile_plan, proj_plan
 
     _check_cuda(s2, d0, packed)
+    if tile not in ("wgmma", "mma"):
+        raise ValueError(f"tile must be 'wgmma' or 'mma', got {tile!r}")
     lib = load_library()
     B, Ci2, H2, W2 = s2.shape
+    H1, W1 = 2 * H2, 2 * W2
     src2 = s2.contiguous(memory_format=torch.channels_last)
     src0 = d0.contiguous(memory_format=torch.channels_last)
     kw = {"dtype": torch.bfloat16, "device": s2.device}
-    a1 = torch.empty((B, 2 * H2, 2 * W2, C1), **kw)
+    a1 = torch.empty((B, H1, W1, C1), **kw)
     t1 = torch.empty_like(a1)
-    a0 = torch.empty((B, 4 * H2, 4 * W2, C), **kw)
+    a0 = torch.empty((B, 2 * H1, 2 * W1, C), **kw)
     t0 = torch.empty_like(a0)
+    ptrs = [ctypes.c_void_p(x.data_ptr()) for x in (src2, src0, a1, t1, a0, t0, *packed)]
+    dims = (B, H2, W2, Ci2, int(packed[1].shape[0]), int(packed[5].shape[0]))
     with torch.cuda.device(s2.device):
-        stream = torch.cuda.current_stream(s2.device).cuda_stream
-        rc = lib.deepinv_up_sandwich_bf16(
-            *(ctypes.c_void_p(x.data_ptr()) for x in (src2, src0, a1, t1, a0, t0, *packed)),
-            B, H2, W2, Ci2, int(packed[1].shape[0]), int(packed[5].shape[0]),
-            ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(s2.device).cuda_stream)
+        if tile == "mma":
+            rc = lib.deepinv_up_sandwich_bf16(*ptrs, *dims, stream)
+        else:
+            idx = s2.device.index
+            sms = _sms(idx)
+            plans = (proj_plan("up", B, H2, W2, Ci2, C1, sms).args()
+                     + conv128_tile_plan(B, H1, W1, _c128_clusters(idx)).args()
+                     + proj_plan("down_add", B, H1, W1, 4 * C, C1, sms).args()
+                     + proj_plan("up", B, H1, W1, C1, C, sms).args()
+                     + conv_tile_plan(B, 2 * H1, 2 * W1, sms).args())
+            rc = lib.deepinv_up_sandwich_wgmma_bf16(*ptrs, *dims, int_array(plans), stream)
     if rc != 0:
         msg = lib.deepinv_cuda_error_string(rc).decode()
         raise RuntimeError(f"up_sandwich kernel launch failed: CUDA error {rc} ({msg})")
     up_sandwich.launches += 1
     return a0.permute(0, 3, 1, 2)
+
+
+def _chain128(h, w1p, w2p):
+    """The scale-1 chain alone on the 128-channel cluster tile: R blocks of
+    ``h <- h + conv(relu(conv(h)))`` on ``h`` (B, 128, H, W) bf16 with packed
+    weights (R, 18, 64, 128) (:func:`pack_weights`). Private: it holds the
+    tile to :func:`resblock_chain_plain` on its own, and counts no launch."""
+    from .build import load_library
+    from .conv_tile import conv128_tile_plan
+
+    check_activations(h, "up_sandwich scale-1 chain", C1)
+    check_packed(h, (w1p, w2p), (w1p.shape[0], 18, C, C1), "scale-1 chain weights")
+    lib = load_library()
+    B, _, H, W = h.shape
+    a = torch.empty((B, H, W, C1), dtype=torch.bfloat16, device=h.device)
+    a.copy_(h.permute(0, 2, 3, 1))
+    t = torch.empty_like(a)
+    with torch.cuda.device(h.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(h.device).cuda_stream)
+        plan = conv128_tile_plan(B, H, W, _c128_clusters(h.device.index)).args()
+        rc = lib.deepinv_resblock_chain_c128_wgmma_bf16(
+            *(ctypes.c_void_p(x.data_ptr()) for x in (a, t, w1p, w2p)), B, H, W,
+            int(w1p.shape[0]), int_array(plan), stream)
+    if rc != 0:
+        msg = lib.deepinv_cuda_error_string(rc).decode()
+        raise RuntimeError(f"up_sandwich scale-1 chain launch failed: CUDA error {rc} ({msg})")
+    return a.permute(0, 3, 1, 2)
 
 
 class _UpSandwich(torch.autograd.Function):

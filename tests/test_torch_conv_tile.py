@@ -5,7 +5,9 @@ The kernel (``deepinv_tpu_torch/csrc/conv3x3_wgmma.cuh``) runs only on a GPU;
 plan it is launched with (``conv_tile_plan``) is checked: the strips and
 bands cover every output pixel exactly once, shared memory fits an SM, no
 TMA box exceeds 256, and the plan agrees with the header's constants. The
-kernel's ring protocol (which warpgroup releases which input row) is
+conv tiles' ring protocol (which warpgroup waits for and releases which
+input row, with parity waits and loads landing out of order; the
+128-channel tile's file replays its cluster with :func:`replay_ring`) is
 replayed under random interleavings, and the tile's arithmetic (output
 channels x pixels, one tap a shifted row, zero-filled halo, one rounding
 per conv) is emulated in numpy band by band and held to the JAX package's
@@ -126,53 +128,151 @@ def test_tile_argument():
         tile_args(h, "fast")
 
 
-def _replay_ring(rows: int, rng) -> None:
-    """The kernel's ring protocol for a band of ``rows`` output rows, one
-    random interleaving: the producer issues load i (input row y0 - 1 + i)
-    once the load DEPTH before it in the same slot has 8 releases (4 warps of
-    each consumer warpgroup); warpgroup q computes rows q, q + 2, ..., each
-    reading loads r, r + 1, r + 2, then releasing loads r and r + 1 (and row 0
-    load 0 once more, for the absent row above the band). Checks: every load
-    a row reads is in its slot and not yet overwritten, no load is released
-    more than 8 times, and the band ends."""
-    loads = rows + 2
-    issued, released = [], [0] * loads
-    nxt = {0: 0, 1: 1}   # each warpgroup's next row
+def replay_ring(rows: int, rng, cluster: int = 1, depth: int = DEPTH, early: bool = False,
+                protocol: str = "kernel", late: tuple = ()) -> None:
+    """The conv tiles' ring for one band of ``rows`` output rows in a ring of
+    ``depth`` slots, one random interleaving of the producers and consumer
+    warpgroups of a ``cluster`` of CTAs, with the mbarriers' phase-parity
+    waits and TMA writes that land in any order. The 64-channel tile
+    (``conv3x3_wgmma.cuh``) is one CTA whose ring row is one box; the
+    128-channel tile (``conv3x3_c128_wgmma.cuh``) a cluster of two whose ring
+    row is two K-block halves, CTA p loading half p into both (multicast).
+
+    Producer p issues load i (input row y0 - 1 + i) once its CTA's empty
+    barrier of slot i % depth has completed the phase of load i - depth (a
+    parity wait); a CTA's full barrier completes a phase when all halves of
+    the load are in. Warpgroup q of each CTA computes rows q, q + 2, ...: it
+    starts a row once its parity waits on loads r, r + 1, r + 2 pass, and
+    releases loads r and r + 1 in every CTA of the cluster (4 warps each),
+    load r when its dy = 0 group retires if ``early`` (the 128-channel tile)
+    or with load r + 1 when the row retires. Before its first row,
+    warpgroup 1 waits for load 0 and releases it (for the absent row above
+    the band). Checks: a row finds in its slots the loads it reads, and they
+    stay there until it releases them; an empty phase completes on the
+    releases of its own load; the band ends. The loads in ``late`` land only
+    when nothing else can move. ``protocol`` "no_wait"
+    (warpgroup 0 releases load 0 twice instead) and "wait_no_release"
+    (warpgroup 1 waits for load 0 but warpgroup 0 releases it twice) are the
+    two faulty versions the tests show the replay catching."""
+    D, loads, count = depth, rows + 2, cluster * 2 * 4
+    slots = [[[None] * cluster for _ in range(D)] for _ in range(cluster)]
+    full_done = [[0] * D for _ in range(cluster)]      # completed phases
+    empty_done = [[0] * D for _ in range(cluster)]
+    empty_arrivals = [[0] * D for _ in range(cluster)]
+    released = [[0] * loads for _ in range(cluster)]   # arrivals for each load
+    issued = [0] * cluster
+    flying = []                           # (CTA, half, load): TMA writes not yet landed
+    wgs = {(c, q): {"row": q, "stage": "idle" if q == 0 or protocol == "no_wait" else "w0"}
+           for c in range(cluster) for q in (0, 1)}
+
+    def passes(done, i):   # try_wait.parity on the phase of load i (phase i // D of its slot)
+        return (done[i % D] & 1) != ((i // D) & 1)
+
+    def holds(c, i):
+        return slots[c][i % D] == [i] * cluster
+
+    def release(i):
+        for c in range(cluster):
+            released[c][i] += 4
+            empty_arrivals[c][i % D] += 4
+            assert released[c][i] <= count, f"load {i} released too often"
+            if empty_arrivals[c][i % D] == count:
+                # the phase that completes is that of load i: no mixing of loads
+                assert empty_done[c][i % D] == i // D and released[c][i] == count
+                empty_done[c][i % D] += 1
+                empty_arrivals[c][i % D] = 0
+
+    def release_top(r):   # load r, which no later row of the warpgroup reads
+        release(r)
+        if r == 0 and protocol != "kernel":
+            release(0)
+
     while True:
-        moves = []
-        i = len(issued)
-        if i < loads and (i < DEPTH or released[i - DEPTH] == 8):
-            moves.append("p")
-        for q in (0, 1):
-            r = nxt[q]
-            if r < rows and len(issued) >= r + 3:
-                moves.append(q)
+        moves = [("land", k) for k, f in enumerate(flying) if f[2] not in late]
+        for p in range(cluster):
+            i = issued[p]
+            if i < loads and (i < D or passes(empty_done[p], i - D)):
+                moves.append(("p", p))
+        for key, st in wgs.items():
+            r = st["row"]
+            if r >= rows:
+                continue
+            if st["stage"] == "w0" and passes(full_done[key[0]], 0):
+                moves.append(("w0", key))
+            elif st["stage"] == "idle" and all(passes(full_done[key[0]], r + k)
+                                               for k in range(3)):
+                moves.append(("start", key))
+            elif st["stage"] in ("busy", "dy0"):
+                moves.append(("step", key))
+        if not moves:
+            moves = [("land", k) for k in range(len(flying))]
         if not moves:
             break
-        m = moves[rng.integers(len(moves))]
-        if m == "p":
-            issued.append(len(issued))
+        kind, who = moves[rng.integers(len(moves))]
+        if kind == "p":   # half `who` of load i to every CTA of the cluster, in flight
+            flying += [(c, who, issued[who]) for c in range(cluster)]
+            issued[who] += 1
             continue
-        r = nxt[m]
-        for k in range(3):   # the slot still holds load r + k
-            assert len(issued) <= r + k + DEPTH
-        released[r] += 4
-        released[r + 1] += 4
-        if r == 0:
-            released[0] += 4
-        assert max(released) <= 8
-        nxt[m] = r + 2
-    assert len(issued) == loads, f"the producer stalled at load {len(issued)} of {loads}"
-    assert nxt[0] >= rows and nxt[1] >= rows, "a consumer stalled"
-    # every load but the band's last two is released by both warpgroups
-    assert all(v == 8 for v in released[:max(rows - 1, 0)])
+        if kind == "land":   # TMA writes land in any order
+            c, half, i = flying.pop(who)
+            old = slots[c][i % D][half]   # the slot's old load must be released in this CTA
+            assert old is None or released[c][old] == count, "slot overwritten early"
+            slots[c][i % D][half] = i
+            if holds(c, i):   # all halves in: the full barrier's phase of load i completes
+                assert full_done[c][i % D] == i // D
+                full_done[c][i % D] += 1
+            continue
+        c, q = who
+        st = wgs[who]
+        r = st["row"]
+        if kind == "w0":               # warpgroup 1 has seen load 0's phase complete
+            assert full_done[c][0] == 1, "the wait for load 0 passed on another phase"
+            if protocol == "kernel":
+                release(0)
+            st["stage"] = "idle"
+        elif kind == "start":
+            assert all(holds(c, r + k) for k in range(3)), f"row {r} read a slot too early"
+            st["stage"] = "busy"
+        elif st["stage"] == "busy":   # the dy = 0 group retired
+            assert holds(c, r) and holds(c, r + 1) and holds(c, r + 2)
+            if early:
+                release_top(r)
+            st["stage"] = "dy0"
+        else:                          # the row retired: load r + 1 is free
+            assert holds(c, r + 1) and holds(c, r + 2) and (early or holds(c, r))
+            if not early:
+                release_top(r)
+            release(r + 1)
+            st["row"], st["stage"] = r + 2, "idle"
+    assert issued == [loads] * cluster and not flying, \
+        f"a producer stalled: {issued} of {loads}"
+    assert all(st["row"] >= rows for st in wgs.values()), "a consumer stalled"
+    # every load but the band's last two is released by all warps of the cluster
+    assert all(released[c][i] == count for c in range(cluster) for i in range(max(rows - 1, 0)))
 
 
 @pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8, 13, 32, 64])
 def test_ring_protocol_never_stalls_or_overwrites(rows):
+    """The 64-channel tile's protocol (one CTA, DEPTH = 7 slots, both
+    releases when the row retires), also with load 0 landing last."""
     rng = np.random.default_rng(rows)
-    for _ in range(30):
-        _replay_ring(rows, rng)
+    for k in range(30):
+        replay_ring(rows, rng, late=(0,) if k % 2 else ())
+
+
+@pytest.mark.parametrize("protocol,fault", [("no_wait", "too early"),
+                                            ("wait_no_release", "stalled")])
+def test_ring_replay_catches_the_faulty_protocols(protocol, fault):
+    """At the 64-channel tile's 7 slots too: without warpgroup 1's wait for
+    load 0, its row 5 waits for load 7 (slot 0, phase 1), which passes while
+    load 0 is still in flight (here it lands last), and the row reads the
+    slot too early. With the wait but without its release, load 7 can land
+    first, and the parity wait for load 0 then blocks until load 14, which
+    never comes: a stall."""
+    rng = np.random.default_rng(5)
+    with pytest.raises(AssertionError, match=fault):
+        for _ in range(300):
+            replay_ring(8, rng, protocol=protocol, late=(0,) if protocol == "no_wait" else ())
 
 
 def _bf16(x):

@@ -134,6 +134,24 @@ def test_other_widths_run_the_modules(monkeypatch):
         assert calls == want and bool(torch.isfinite(out).all())
 
 
+def test_projection_inputs_past_256_channels_take_the_op(monkeypatch):
+    """A projection input wider than 256 channels (scale 1 at 272 for the up
+    chain, scale 2 at 272 for the sandwich) still takes the stage's op: the
+    wgmma projection kernel streams its weights in chunks of 256 input
+    channels, so no width gate stands between the op and the JAX gates'."""
+    calls = _count_ops(monkeypatch)
+    x = torch.rand((1, 3, 32, 32), generator=torch.Generator().manual_seed(0))
+    for nc, mode, want in [((64, 272, 32, 32), "up", ["up_resblock_chain"]),
+                           ((64, 128, 272, 32), "sandwich", ["resblock_chain", "up_sandwich"]),
+                           ((64, 128, 256, 32), "sandwich", ["resblock_chain", "up_sandwich"])]:
+        calls.clear()
+        port = DRUNet(nc=nc, nb=1, device=DEV, fused=mode,
+                      generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            out = autocast(port)(x, 0.05)
+        assert calls == want and bool(torch.isfinite(out).all())
+
+
 def test_packed_weights_are_cached_per_call_site():
     """Each kernel call site keeps its own stacks (``stacked_weights`` by
     name), so the sandwich's and the up chain's stacks do not evict each

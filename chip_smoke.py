@@ -10,7 +10,9 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    nvcc per source, all started together), and check in the library's SASS
    (``cuobjdump -sass``) that each source holds its wgmma kernels
    (WGMMA_KERNELS: the 64-channel conv tile of ``csrc/conv3x3_wgmma.cuh`` in
-   K1, K5, K2/K3 and K4; the 2x2 projections of ``csrc/proj2x2_wgmma.cuh`` in
+   K1, K5 (with K6 and the stash backward's dX chain: its bias+ReLU,
+   mask+db and rounding epilogues), K2/K3 and K4; the 2x2 projections of
+   ``csrc/proj2x2_wgmma.cuh`` in
    K2/K3 and K4; the 128-channel cluster tile of
    ``csrc/conv3x3_c128_wgmma.cuh`` in K4) and that each has ``HGMMA``
    (wgmma), ``UTMALDG`` (TMA load) and ``UTMASTG`` (TMA store) instructions;
@@ -100,10 +102,16 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    in ``True`` and none in ``False`` (no K5 in either), each step's loss
    within TRAIN_LOSS_RTOL of the other configuration's, the first step's
    gradients within GRAD_RTOL, and the last step's loss below the first's.
-   Timed: K6 against K5, its plain version and the same stage as cuDNN
-   layers under autograd, the stash backward against autodiff through those
-   layers, and train steps per second in each configuration (a second epoch,
-   in turns); profiled: one step at B=1 and B=16 in each configuration;
+   The stash backward's kernels (head, L dX tiles, fold) launch L + 2 times
+   a step in ``True`` and never in ``False``. Timed, in turns at B=1 and
+   B=16: K6 on the wgmma tile, on the mma.sync tile (the private
+   ``_launch_stash(..., tile="mma")``) and as the same stage of cuDNN bf16
+   layers under autograd; the stash backward on its kernels, on the earlier
+   cuDNN route (the private ``route="cudnn"``) and as autodiff through those
+   layers; K5 and the plain versions at B=1; train steps per second in each
+   configuration (a second epoch, in turns). Profiled: three steps at B=1
+   and B=16 in each configuration, where a ``True`` step must show exactly
+   2L ``conv3x3_wgmma`` launches (L forward, L dX);
 10. self-supervised training (the bench's train_ssl rows): the same model on
    256² ``Inpainting`` (mask 0.7, sigma 0.1) with ``SureGaussianLoss(0.1)``
    + ``EILoss(Rotate())``, Adam(1e-4), at B=1 and B=16, in the reference
@@ -111,9 +119,12 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    finite losses, SURE's JVP divergence within JVP_RTOL of a finite
    difference of the f32 model, and steps per second.
 
-Phase 3 also holds K6 (the stash forward) to its plain version at the chain
-shapes, every stash slot, and the stash backward from the card's stash to
-its plain version (STASH_BWD_RTOL). It prints the card line and a JSON line
+Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
+version at the chain shapes, at the train batch (16x64x256², L=18) and at
+TAP_SHAPE (two strips), every stash slot, and on the mma.sync tile at the
+main shape; and the stash backward on its kernels from the card's stash to
+its plain version (STASH_BWD_RTOL) at the same shapes, with L + 2 launches
+a call and db the same bits in two calls. It prints the card line and a JSON line
 ``{"kernels": [...]}`` before the last line, and ends with ``{"ok": true, "device": {...}}``. It exits non-zero with
 no result when there is no CUDA device. It imports no JAX.
 """
@@ -156,6 +167,9 @@ CHAIN_SHAPES = [((1, 64, 256, 256), L_MAIN), ((2, 64, 256, 256), L_MAIN),
 # 128 columns, the second partly outside the image
 TILE_B8_SHAPE = (8, 64, 256, 256)
 TAP_SHAPE = (1, 64, 20, 200)
+# K6 and its stash backward are also held at the train batch of phase 9 and
+# at TAP_SHAPE with L = 3
+TRAIN_B16_SHAPE = (16, 64, 256, 256)
 # the tile's kernels per call: K1 2R, K5 L (one launch a conv)
 K1_TILE_LAUNCHES = 2 * R_MAIN
 K5_TILE_LAUNCHES = L_MAIN
@@ -230,10 +244,11 @@ TV_FLOOR_STEPS = (500, 1500)
 TV_RECON_RTOL = 1e-4
 # ... and its PSNR against the naive estimate's (demo_tv_minimisation.py:44).
 TV_PSNR_SLACK_DB = 0.5
-# K6's stash backward on the card (cuDNN bf16 dX, dW in f32 of bf16 values)
-# against its plain version (f32 convs of the same values): the same masks
-# and rounding points, f32 sums in another order; dh is rounded to bf16 after
-# each of the L layers. Relative max error of dh, dW and db.
+# K6's stash backward on the card (dX on the wgmma tile with the masks and
+# db in its epilogue, dW a cuDNN wgrad) against its plain version (f32 convs
+# of the same values): the same masks and rounding points, f32 sums in
+# another order; dh is rounded to bf16 after each of the L layers. Relative
+# max error of dh, dW and db.
 STASH_BWD_RTOL = 3e-2
 # Training (phases 9-10): steps per epoch, the batch sizes, and the bounds
 # between the two train-step configurations, which round at other points
@@ -335,10 +350,11 @@ def swapped(module, name: str, fn):
 
 # the wgmma kernels each source's library code must hold (kernel name ->
 # instances: one an epilogue or a projection mode; wg::resblocks<Tile64>
-# launches two, kRelu and kResidual, and K5's chain one, kBiasRelu)
+# launches two, kRelu and kResidual; conv_chain.cu three: kBiasRelu (K5,
+# K6), kMaskDb and kRound (the stash backward's dX chain))
 WGMMA_KERNELS = {
     "resblock_chain": {"conv3x3_wgmma": 2},                        # K1
-    "conv_chain": {"conv3x3_wgmma": 1},                            # K5
+    "conv_chain": {"conv3x3_wgmma": 3},                            # K5, K6, dX
     "up_resblock_chain": {"conv3x3_wgmma": 2, "proj2x2_wgmma": 1},  # K2/K3
     "up_sandwich": {"conv3x3_wgmma": 2, "conv3x3_c128_wgmma": 2, "proj2x2_wgmma": 2},  # K4
 }
@@ -390,12 +406,12 @@ def sass_tile_check(cuobjdump: str, so) -> dict:
     return counts
 
 
-def tile_turns(label: str, runs: dict, flop: float, reps: int):
+def tile_turns(label: str, runs: dict, flop: float, reps: int, queued_reps: int = QUEUED_REPS):
     """Mean ms of each of ``runs`` (name -> fn), timed in turns (a, b, c, c,
     b, a), and TFLOP/s at ``flop`` a call; also the host's time to issue a
     call (where it is near the device time, the timing is host-bound) and
-    the device's own time a call (:func:`queued_ms`). Returns ``(ms, device
-    ms)`` by name."""
+    the device's own time a call (:func:`queued_ms` over ``queued_reps``
+    calls). Returns ``(ms, device ms)`` by name."""
     import torch
 
     times, host = {k: [] for k in runs}, {}
@@ -418,7 +434,7 @@ def tile_turns(label: str, runs: dict, flop: float, reps: int):
     queued = {k: [] for k in runs}
     with torch.no_grad():
         for k in list(runs) + list(runs)[::-1]:
-            queued[k].append(queued_ms(runs[k], QUEUED_REPS))
+            queued[k].append(queued_ms(runs[k], queued_reps))
     busy = {k: sum(t) / len(t) for k, t in queued.items()}
     print(f"time {label}, calls queued behind a spin kernel, in turns: {queued} ms", flush=True)
     return ms, busy
@@ -700,19 +716,25 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def stash_vs_plain(label: str, h, ws, bs, cot) -> float:
-    """K6 against its plain version: one K6 launch and no K5 launch per call,
-    every stash slot within KERNEL_RTOL of its max, and the stash backward
-    from the card's stash (cotangent ``cot``) within STASH_BWD_RTOL of the
-    plain backward. Returns the max abs error over the stash."""
+def stash_vs_plain(label: str, h, ws, bs, cot, tile: str = "wgmma"):
+    """K6 on ``tile`` against its plain version: one K6 launch and no K5
+    launch per call, every stash slot within KERNEL_RTOL of its max. On the
+    default tile also the stash backward on its kernels from the card's
+    stash (cotangent ``cot``), for f32 and bf16 weights: L + 2 launches a
+    call (``stash_backward.launches`` set to 0 just before), db the same bits
+    in a second call, and dh, dW, db within STASH_BWD_RTOL of the plain
+    backward. Returns the max abs error over the stash and the backward's
+    max abs errors by output (bf16 weights; None on the mma.sync tile)."""
     import torch
 
-    from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain, conv_chain_stash,
-                                                          conv_chain_stash_plain, stash_backward)
+    from deepinv_tpu_torch.ops.kernels.conv_chain import (
+        _launch_stash, conv_chain, conv_chain_stash, conv_chain_stash_plain, pack_bias,
+        pack_weights, stash_backward)
 
     conv_chain.launches = conv_chain_stash.launches = 0
     with torch.no_grad():
-        got = conv_chain_stash(h, ws, bs)
+        got = (conv_chain_stash(h, ws, bs) if tile == "wgmma"
+               else _launch_stash(h, pack_weights(ws), pack_bias(bs), tile))
         torch.cuda.synchronize()
         launches = (conv_chain_stash.launches, conv_chain.launches)
         want = conv_chain_stash_plain(h, ws, bs)
@@ -724,11 +746,21 @@ def stash_vs_plain(label: str, h, ws, bs, cot) -> float:
     print(f"{label}: max_abs_err {err}, per-slot relative max error max {float(slot_err.max())} "
           f"(bound {KERNEL_RTOL}), last slot {float(slot_err[-1])}", flush=True)
     check(float(slot_err.max()) <= KERNEL_RTOL, f"stash disagrees with plain: {label}")
+    del want, diff
+    if tile != "wgmma":
+        return err, None
+    L, bwd_err = ws.shape[0], {}
     # f32 weights (dW in f32, TF32) and bf16 weights (training under
     # autocast: dW as a bf16 cuDNN wgrad)
     for wdt in (torch.float32, torch.bfloat16):
         w = ws.to(wdt)
+        stash_backward.launches = 0
         k = stash_backward(h, w, got, cot)
+        torch.cuda.synchronize()
+        n = stash_backward.launches
+        check(n == L + 2, f"{label}: stash backward launched {n} kernels, not L + 2 = {L + 2}")
+        again = stash_backward(h, w, got, cot)[2]
+        check(torch.equal(again, k[2]), f"{label}: db differs between two runs on the same inputs")
         p = stash_backward(h, w, got, cot, plain=True)
         for name, a, b in zip(("dh", "dW", "db"), k, p):
             e, e2 = rel_max(a, b), rel_l2(a, b)
@@ -736,7 +768,11 @@ def stash_vs_plain(label: str, h, ws, bs, cot) -> float:
                   f"(bound {STASH_BWD_RTOL}), relative L2 {e2}", flush=True)
             check(bool(torch.isfinite(a.float()).all()) and e <= STASH_BWD_RTOL,
                   f"{label}: stash backward {name} disagrees with plain")
-    return err
+            if wdt == torch.bfloat16:
+                bwd_err[name] = float((a.float() - b.float()).abs().max())
+        print(f"{label} stash backward, {wdt} weights: {n} launches a call, db identical in two "
+              "runs", flush=True)
+    return err, bwd_err
 
 
 def make_trainer(net, physics, xs, batch: int, fused: bool, losses=None):
@@ -977,15 +1013,17 @@ def train_phase(dev, net, gen, size: int = 256, batches=TRAIN_BATCHES, steps: in
     configurations from the same weights, at each batch size: the launch
     counts (set to 0 just before each run, read just after), the losses and
     the first step's gradients checked; steps per second timed over a second
-    and third epoch in turns; one step profiled. Returns the K6 launches of
-    the ``fused_chains=True`` runs."""
+    and third epoch in turns; three steps profiled (a ``True`` step: 2L
+    ``conv3x3_wgmma`` launches). Returns the K6 launches and the stash
+    backward's kernel launches of the ``fused_chains=True`` runs."""
     import torch
 
-    from deepinv_tpu_torch.ops.kernels.conv_chain import conv_chain, conv_chain_stash
+    from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain, conv_chain_stash,
+                                                          stash_backward)
     from deepinv_tpu_torch.physics import Denoising, GaussianNoise
 
     physics = Denoising(GaussianNoise(0.1, device=dev))
-    k6_launches = 0
+    k6_launches = bwd_launches = 0
     for B in batches:
         xs = torch.rand((B, 1, size, size), generator=gen).to(dev).repeat(steps, 1, 1, 1)
         trainers = {f: make_trainer(net, physics, xs, B, f) for f in (False, True)}
@@ -996,18 +1034,22 @@ def train_phase(dev, net, gen, size: int = 256, batches=TRAIN_BATCHES, steps: in
         check(gerr <= GRAD_RTOL, f"train B={B}: first-step gradients disagree")
         losses = {}
         for f, t in trainers.items():
-            conv_chain.launches = conv_chain_stash.launches = 0
+            conv_chain.launches = conv_chain_stash.launches = stash_backward.launches = 0
             secs = train_epoch(t, 0, dev)
-            n6, n5 = conv_chain_stash.launches, conv_chain.launches
+            n6, n5, nb = conv_chain_stash.launches, conv_chain.launches, stash_backward.launches
             losses[f] = t.logs_total_loss_train.vals
             print(f"train B={B} fused_chains={f}: {steps} steps in {secs:.3f} s (first epoch), "
-                  f"K6 launches {n6}, K5 launches {n5}, losses {losses[f]}", flush=True)
-            check((n6, n5) == ((steps if f else 0), 0),
-                  f"train B={B} fused_chains={f}: launches K6 {n6}, K5 {n5}")
+                  f"K6 launches {n6}, K5 launches {n5}, stash backward launches {nb}, losses "
+                  f"{losses[f]}", flush=True)
+            want_b = steps * (L_MAIN + 2) if f else 0
+            check((n6, n5, nb) == ((steps if f else 0), 0, want_b),
+                  f"train B={B} fused_chains={f}: launches K6 {n6}, K5 {n5}, stash backward "
+                  f"{nb} (expected {want_b})")
             check(len(losses[f]) == steps and all(math.isfinite(v) for v in losses[f]),
                   f"train B={B} fused_chains={f}: non-finite loss")
             check(losses[f][-1] < losses[f][0], f"train B={B} fused_chains={f}: loss did not fall")
             k6_launches += n6
+            bwd_launches += nb
         lerr = max(abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False]))
         print(f"train B={B}: per-step loss, fused_chains=True vs False: max relative error "
               f"{lerr} (bound {TRAIN_LOSS_RTOL})", flush=True)
@@ -1023,9 +1065,12 @@ def train_phase(dev, net, gen, size: int = 256, batches=TRAIN_BATCHES, steps: in
         if profile:
             x, y, phys = first_batch(trainers[False])
             for f, t in trainers.items():
-                device_profile(f"train step B={B} fused_chains={f}", step_fn(t, x, y, phys), 3,
-                               top=8)
-    return k6_launches
+                label, run = f"train step B={B} fused_chains={f}", step_fn(t, x, y, phys)
+                if f:   # K6's L layers and the backward's L dX layers on the tile
+                    tile_in_profile(label, run, {"conv3x3_wgmma": 2 * L_MAIN}, top=8)
+                else:
+                    device_profile(label, run, 3, top=8)
+    return k6_launches, bwd_launches
 
 
 def ssl_phase(dev, net, gen, size: int = 256, batches=TRAIN_BATCHES, steps: int = SSL_STEPS):
@@ -1104,6 +1149,7 @@ def main() -> int:
     from deepinv_tpu_torch.ops import gaussian_blur
     from deepinv_tpu_torch.ops.kernels import build
     from deepinv_tpu_torch.ops.kernels.conv_chain import _launch as cc_launch
+    from deepinv_tpu_torch.ops.kernels.conv_chain import _launch_stash as cc_launch_stash
     from deepinv_tpu_torch.ops.kernels.conv_chain import (
         chain_f32, conv_chain, conv_chain_plain, conv_chain_stash, conv_chain_stash_plain,
         fused_chains_disabled, pack_bias, stash_backward)
@@ -1322,17 +1368,21 @@ def main() -> int:
                             lambda t: _chain128(t, pkt, pke).float() - t.float(),
                             lambda t: resblock_chain_plain(t, wt, eye).float() - t.float(), h,
                             KERNEL_RTOL)
-    # K6 (the stash forward) and its stash backward, on its own generator
+    # K6 (the stash forward) and its stash backward, on its own generator; K6
+    # also on the mma.sync tile at the main shape
     g_k6 = torch.Generator().manual_seed(SEED + 9)
-    stash_err = None
-    for shape, L in CHAIN_SHAPES:
+    stash_err = bwd_err = None
+    for shape, L in CHAIN_SHAPES + [(TRAIN_B16_SHAPE, L_MAIN), (TAP_SHAPE, 3)]:
         h = torch.randn(shape, generator=g_k6).to(dev, torch.bfloat16)
         ws = (torch.randn((L, 64, 64, 3, 3), generator=g_k6) * he_std).to(dev)
         bs = (torch.randn((L, 64), generator=g_k6) * 0.02).to(dev)
         cot = torch.randn(shape, generator=g_k6).to(dev)
-        err = stash_vs_plain(f"conv_chain_stash vs plain {shape} L={L}", h, ws, bs, cot)
+        err, berr = stash_vs_plain(f"conv_chain_stash vs plain {shape} L={L}", h, ws, bs, cot)
         if stash_err is None:
-            stash_err = err
+            stash_err, bwd_err = err, berr
+            stash_vs_plain(f"conv_chain_stash (mma.sync tile) vs plain {shape} L={L}", h, ws, bs,
+                           cot, tile="mma")
+        del h, cot
 
     # 4. the HQS bench problem, kernel path, then the plain chain on the card;
     # physics, models and reconstructors are on the GPU by default
@@ -1764,51 +1814,71 @@ def main() -> int:
     # their own generator); the bench's DnCNN(1, 1): depth 20, nf 64
     g_tr = torch.Generator().manual_seed(SEED + 12)
     train_net = DnCNN(1, 1, depth=20, nf=64, generator=g_tr)
-    k6_launches = train_phase(dev, train_net, g_tr)
-    # K6 against K5, its plain version and the stage as cuDNN layers under
-    # autograd (what the reference configuration runs); the stash backward
-    # against autodiff through those layers; 1x64x256², L=18, channels_last
+    k6_launches, bwd_launches = train_phase(dev, train_net, g_tr)
+    # K6 on the wgmma tile, on the mma.sync tile and as the same stage of
+    # cuDNN bf16 layers under autograd (what the reference configuration
+    # runs); the stash backward on its kernels, on the earlier cuDNN route
+    # and as autodiff through those layers; in turns at B=1 and B=16, L=18,
+    # channels_last, with a bf16 cotangent as the train step hands it; K5 and
+    # the plain versions at B=1
     g9 = torch.Generator().manual_seed(SEED + 13)
     h9 = torch.randn(CHAIN_SHAPES[0][0], generator=g9).to(dev, torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     ws9 = (torch.randn((L_MAIN, 64, 64, 3, 3), generator=g9) * he_std).to(dev)
     bs9 = (torch.randn((L_MAIN, 64), generator=g9) * 0.02).to(dev)
-    cot9 = torch.randn(CHAIN_SHAPES[0][0], generator=g9).to(dev).contiguous(
+    cot9 = torch.randn(CHAIN_SHAPES[0][0], generator=g9).to(dev, torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     pk9 = (pack_weights(ws9), pack_bias(bs9))
-    acts9 = conv_chain_stash(h9, ws9, bs9, pk9)
     wl9 = [w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last).requires_grad_()
            for w in ws9]
     bl9 = [b.to(torch.bfloat16).requires_grad_() for b in bs9]
-    h9g = h9.detach().requires_grad_()
+    # bf16 weights, as the training path under autocast hands them
+    wb9 = ws9.to(torch.bfloat16)
+    train_chain = {}
+    for B in TRAIN_BATCHES:
+        if B == 1:
+            hB, cotB = h9, cot9
+        else:
+            hB = torch.randn((B, 64, 256, 256), generator=g9).to(dev, torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            cotB = torch.randn((B, 64, 256, 256), generator=g9).to(dev, torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+        actsB = conv_chain_stash(hB, ws9, bs9, pk9)
+        hBg = hB.detach().requires_grad_()
 
-    def cudnn_train_chain():  # the chain as cuDNN bf16 layers, autograd keeping its inputs
-        with torch.enable_grad():
-            v = h9g
-            for l in range(L_MAIN):
-                v = torch.relu(F.conv2d(v, wl9[l], bl9[l], padding=1))
-        return v
+        def cudnn_train_chain(hBg=hBg):  # cuDNN bf16 layers, autograd keeping their inputs
+            with torch.enable_grad():
+                v = hBg
+                for l in range(L_MAIN):
+                    v = torch.relu(F.conv2d(v, wl9[l], bl9[l], padding=1))
+            return v
 
+        reps = 50 if B == 1 else 10
+        fwd = tile_turns(f"conv_chain_stash {tuple(hB.shape)} L={L_MAIN}", {
+            "wgmma": lambda: conv_chain_stash(hB, ws9, bs9, pk9),
+            "mma.sync": lambda: cc_launch_stash(hB, *pk9, "mma"),
+            "cuDNN": cudnn_train_chain}, B * L_MAIN * flop_conv, reps)
+        outB = cudnn_train_chain()
+        # the launch queue holds ~1000 launches: a backward makes ~60-80
+        bwd = tile_turns(f"stash backward {tuple(hB.shape)} L={L_MAIN}", {
+            "kernels": lambda: stash_backward(hB, wb9, actsB, cotB),
+            "cuDNN route": lambda: stash_backward(hB, wb9, actsB, cotB, route="cudnn"),
+            "autodiff": lambda: torch.autograd.grad(outB, [hBg] + wl9 + bl9, cotB,
+                                                    retain_graph=True)},
+            2 * B * L_MAIN * flop_conv, max(reps // 2, 5), queued_reps=8)
+        train_chain[B] = (fwd, bwd)
+        del outB, actsB
+    acts9 = conv_chain_stash(h9, ws9, bs9, pk9)
     with torch.no_grad():
         s_p = [cuda_ms(lambda: conv_chain_stash_plain(h9, ws9, bs9), 5, warmup=1)]
         s_k = [cuda_ms(lambda: conv_chain_stash(h9, ws9, bs9, pk9), 50) for _ in range(2)]
         s_p.append(cuda_ms(lambda: conv_chain_stash_plain(h9, ws9, bs9), 5, warmup=1))
         s_k5 = cuda_ms(lambda: conv_chain(h9, ws9, bs9, pk9), 50)
-    s_lib = cuda_ms(cudnn_train_chain, 50)
-    out9 = cudnn_train_chain()
-    cot9b = cot9.to(torch.bfloat16)
-    b_auto = [cuda_ms(lambda: torch.autograd.grad(out9, [h9g] + wl9 + bl9, cot9b,
-                                                  retain_graph=True), 20) for _ in range(2)]
-    # bf16 weights, as the training path under autocast hands them
-    wb9 = ws9.to(torch.bfloat16)
-    b_k = [cuda_ms(lambda: stash_backward(h9, wb9, acts9, cot9), 20) for _ in range(2)]
     b_plain = cuda_ms(lambda: stash_backward(h9, wb9, acts9, cot9, plain=True), 5, warmup=1)
     k6_ms, k6_plain_ms = sum(s_k) / 2, sum(s_p) / 2
     print(f"time conv_chain_stash (1,64,256,256) L={L_MAIN}: K6 {s_k} ms, K5 {s_k5} ms, plain "
-          f"{s_p} ms, cuDNN bf16 layers under autograd {s_lib} ms; K6 "
-          f"{L_MAIN * flop_conv / k6_ms / 1e9:.1f} TFLOP/s", flush=True)
-    print(f"time stash backward (1,64,256,256) L={L_MAIN}: {b_k} ms (plain, TF32 off, "
-          f"{b_plain} ms); autodiff through the cuDNN layers {b_auto} ms", flush=True)
+          f"{s_p} ms; K6 {L_MAIN * flop_conv / k6_ms / 1e9:.1f} TFLOP/s; stash backward plain "
+          f"(TF32 off) {b_plain} ms", flush=True)
 
     # 10. EI + SURE training in the reference configuration, same weights
     ssl_phase(dev, train_net, g_tr)
@@ -1834,8 +1904,15 @@ def main() -> int:
     k4_bound_b8 = bound_ms(HQS_BATCH * sw_flop, PEAK_BF16, 2 * HQS_BATCH * (
         s2.numel() + 2 * d0.numel()) + 2 * sum(w.numel() for w in sw))
     # K6: the input in, the L stash slots out, the weights and biases
-    k6_bound = bound_ms(L_MAIN * flop_conv, PEAK_BF16, act_bytes // 2 * (1 + L_MAIN)
-                        + L_MAIN * (w_bytes + 64 * 4))
+    k6_bound, k6_bound_b16 = (bound_ms(
+        b * L_MAIN * flop_conv, PEAK_BF16,
+        b * act_bytes // 2 * (1 + L_MAIN) + L_MAIN * (w_bytes + 64 * 4)) for b in TRAIN_BATCHES)
+    # the stash backward: dX and dW convs; h, the bf16 cotangent and the L
+    # stash slots in, the bf16 weights in and dW out, dh and db out
+    bwd_bound, bwd_bound_b16 = (bound_ms(
+        2 * b * L_MAIN * flop_conv, PEAK_BF16,
+        b * act_bytes // 2 * (3 + L_MAIN) + L_MAIN * (2 * w_bytes + 64 * 4)) for b in TRAIN_BATCHES)
+    (k6_b1, bwd_b1), (k6_b16, bwd_b16) = (train_chain[b] for b in TRAIN_BATCHES)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -1967,8 +2044,43 @@ def main() -> int:
         "bound_ms": k6_bound[0],
         "bound_by": k6_bound[1],
         # the same stage as 18 cuDNN bf16 layers under autograd (no single
-        # library call computes the chain)
-        "library_ms": s_lib,
+        # library call computes the chain), timed in turns with the wgmma and
+        # the mma.sync tile
+        "library_ms": k6_b1[0]["cuDNN"],
+        "tile": "wgmma",
+        "prev_tile_ms": k6_b1[0]["mma.sync"],
+        "ms_b16": k6_b16[0]["wgmma"],
+        "library_ms_b16": k6_b16[0]["cuDNN"],
+        "bound_ms_b16": k6_bound_b16[0],
+        "prev_tile_ms_b16": k6_b16[0]["mma.sync"],
+        "device_ms": k6_b1[1]["wgmma"],
+        "device_ms_b16": k6_b16[1]["wgmma"],
+        "k5_ms": s_k5,
+    }, {
+        "name": "stash_backward",
+        "route": "cuda",
+        "source": "deepinv_tpu_torch/csrc/conv_chain.cu",
+        "tile_sources": ["deepinv_tpu_torch/csrc/conv3x3_wgmma.cuh"],
+        "replaces": "deepinv_tpu/ops/pallas/conv_chain.py:405 (_bwd, XLA)",
+        # the head, L dX tiles and the fold a step of phase 9's fused_chains=True runs
+        "launches": bwd_launches,
+        "max_abs_err": bwd_err["dh"],
+        "max_abs_err_dW": bwd_err["dW"],
+        "max_abs_err_db": bwd_err["db"],
+        "ms": bwd_b1[0]["kernels"],
+        "plain_ms": b_plain,
+        "bound_ms": bwd_bound[0],
+        "bound_by": bwd_bound[1],
+        # autodiff through the 18 cuDNN bf16 layers (one torch.autograd.grad
+        # call), and the earlier cuDNN route (dgrad, mask pass, sum), in turns
+        "library_ms": bwd_b1[0]["autodiff"],
+        "cudnn_route_ms": bwd_b1[0]["cuDNN route"],
+        "ms_b16": bwd_b16[0]["kernels"],
+        "library_ms_b16": bwd_b16[0]["autodiff"],
+        "cudnn_route_ms_b16": bwd_b16[0]["cuDNN route"],
+        "bound_ms_b16": bwd_bound_b16[0],
+        "device_ms": bwd_b1[1]["kernels"],
+        "device_ms_b16": bwd_b16[1]["kernels"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,11 @@
 // One 3x3 convolution at 64 channels, bf16 NHWC, on Hopper's wgmma fed by
 // TMA (sm_90a): the tile of the DRUNet scale-0 chains (resblock_chain.cu, K1;
 // up_resblock_chain.cu, K2/K3; up_sandwich.cu, K4) and the DnCNN chain
-// (conv_chain.cu, K5). The primitives here (barriers, TMA, wgmma
-// descriptors, clusters) also serve the 128-channel tile
-// (conv3x3_c128_wgmma.cuh) and the 2x2 projections (proj2x2_wgmma.cuh). The
-// mma.sync tile of conv3x3.cuh stays for K6 and the earlier entry points.
+// (conv_chain.cu: K5, the training forward K6 and the dX chain of its stash
+// backward). The primitives here (barriers, TMA, wgmma descriptors,
+// clusters) also serve the 128-channel tile (conv3x3_c128_wgmma.cuh) and the
+// 2x2 projections (proj2x2_wgmma.cuh). The mma.sync tile of conv3x3.cuh stays
+// only for the earlier entry points.
 //
 // The GEMM. For one output row-run of NPIX = 128 pixels along an image row:
 //   M = the 64 output channels (wgmma's fixed m64), A = the tap's 64 x 64
@@ -40,14 +41,22 @@
 //     and writes it with stmatrix .trans into the warpgroup's output buffer
 //     in NHWC (a pixel's 64 channels one 128-byte row, 128-byte swizzle);
 //     one thread then stores the row-run with one TMA store, which clips
-//     the ragged right edge. kResidual first TMA-loads the residual row-run
-//     into the same buffer (during the products) and reads it with
-//     ldmatrix .trans into the accumulator's layout. Bands past the bottom
-//     edge are shortened.
+//     the ragged right edge. kResidual (kMaskDb) first TMA-loads the
+//     residual (mask) row-run into the same buffer (during the products)
+//     and reads it with ldmatrix .trans into the accumulator's layout.
+//     Bands past the bottom edge are shortened.
 // Epilogues:
 //   kRelu:      dst = bf16(relu(conv(src)))
 //   kResidual:  dst = bf16(dst + conv(src))        (dst read at the same pixel)
 //   kBiasRelu:  dst = bf16(relu(conv(src) + bias))  (bias in f32)
+//   kRound:     dst = bf16(conv(src))
+//   kMaskDb:    dst = where(aux > 0, bf16(conv(src)), 0), and the CTA's f32
+//               sums of the values written, one per output channel, into its
+//               row of `partials` (the stash backward's db; aux is the
+//               stashed activation, whose out-of-bounds pixels read as zero)
+// A launch's maps may cover several tensors stacked along the batch (the
+// K6 stash, (L * B, H, W, 64)): image b reads batch coordinate b + in_b0 of
+// src_map and writes b + out_b0 of out_map (and reads b + aux_b0 of aux_map).
 //
 // What bounds it. One wgmma.m64n128k16 reads 2 KB of A and 4 KB of B from
 // shared memory for 262 kFLOP, ~44 FLOP a byte: above the ~32 the tensor
@@ -104,7 +113,7 @@ static_assert(SMEM_BYTES <= 232448, "the tile exceeds an SM's 227 KB of shared m
 static_assert(BOX_W <= 256, "a TMA box dimension is at most 256");
 static_assert((2 * DEPTH + 1 + NCONS) * 8 <= BAR_BYTES, "the barriers exceed their space");
 
-enum Epilogue { kRelu = 0, kResidual = 1, kBiasRelu = 2, kRound = 3 };
+enum Epilogue { kRelu = 0, kResidual = 1, kBiasRelu = 2, kRound = 3, kMaskDb = 4 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -203,10 +212,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
 // the 128-byte swizzle, as TMA stores it. Fragment pixel px lands in buffer
 // row px * pstride + poff. kResidual adds the value the buffer already holds
 // (ldmatrix .trans); kRelu and kBiasRelu add bv (the bias of the thread's two
-// channels; zero for kRelu) and apply the ReLU; kRound only rounds.
+// channels; zero for kRelu) and apply the ReLU; kRound only rounds; kMaskDb
+// keeps the values where the buffer holds a positive value, zeros the rest,
+// and adds the rounded values of each of the thread's two channels into
+// sum[0], sum[1].
 template <int EPI, int R>
 __device__ __forceinline__ void store_fragment(const float (&d)[R], uint32_t buf, int pstride,
-                                               int poff, const float (&bv)[2]) {
+                                               int poff, const float (&bv)[2],
+                                               float* sum = nullptr) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   // matrix m = lane / 8 of each x4 covers pixels 8 (2 jj + m / 2) .. +7 and
   // channels 16 warp + 8 (m % 2) .. +7: this thread addresses one 16-byte
@@ -217,7 +230,7 @@ __device__ __forceinline__ void store_fragment(const float (&d)[R], uint32_t buf
     const int row = (16 * jj + m_px) * pstride + poff;
     const uint32_t addr = buf + row * 128 + ((m_chunk ^ (row & 7)) << 4);
     uint32_t res[4] = {0u, 0u, 0u, 0u}, out[4];
-    if (EPI == kResidual) ldmatrix_x4_trans(res, addr);
+    if (EPI == kResidual || EPI == kMaskDb) ldmatrix_x4_trans(res, addr);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const int j = 2 * jj + (m >> 1), i = m & 1;
@@ -226,6 +239,10 @@ __device__ __forceinline__ void store_fragment(const float (&d)[R], uint32_t buf
         const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&res[m]));
         v0 += f.x;
         v1 += f.y;
+      } else if (EPI == kMaskDb) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&res[m]));
+        v0 = f.x > 0.f ? v0 : 0.f;
+        v1 = f.y > 0.f ? v1 : 0.f;
       } else if (EPI != kRound) {
         v0 += bv[i];
         v1 += bv[i];
@@ -233,6 +250,10 @@ __device__ __forceinline__ void store_fragment(const float (&d)[R], uint32_t buf
         v1 = v1 < 0.f ? 0.f : v1;
       }
       const __nv_bfloat162 h2 = __floats2bfloat162_rn(v0, v1);
+      if (EPI == kMaskDb) {
+        const float2 r = __bfloat1622float2(h2);
+        sum[i] += r.x + r.y;
+      }
       out[m] = *reinterpret_cast<const uint32_t*>(&h2);
     }
     stmatrix_x4_trans(addr, out);
@@ -376,16 +397,21 @@ __device__ __forceinline__ void named_bar(int id, int threads) {
 
 // One conv layer over a (B, H, W, 64) bf16 NHWC tensor: src_map (boxes of
 // BOX_W pixels) is the input, out_map (boxes of NPIX pixels) the output, and
-// for kResidual also the residual. w_map covers the packed weight stack as
-// rows [l][tap][co] of 64 ci; the layer's 576 rows start at w_row0. bias (64
-// f32) is read by kBiasRelu only. The grid is B * strips * ceil(H /
-// rows_per_cta) CTAs, one band each.
+// for kResidual also the residual; aux_map (boxes of NPIX pixels) the mask
+// of kMaskDb. w_map covers the packed weight stack as rows [l][tap][co] of
+// 64 ci; the layer's 576 rows start at w_row0. bias (64 f32) is read by
+// kBiasRelu only; kMaskDb writes 64 f32 at partials + 64 * blockIdx.x. The
+// grid is B * strips * ceil(H / rows_per_cta) CTAs, one band each; image b
+// is batch coordinate b + in_b0 (b + out_b0, b + aux_b0) of src_map
+// (out_map, aux_map).
 template <int EPI>
 __global__ void __launch_bounds__(NTHREADS, 1)
 conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
               const __grid_constant__ CUtensorMap out_map,
+              const __grid_constant__ CUtensorMap aux_map,
               const __grid_constant__ CUtensorMap w_map, int w_row0,
-              const float* __restrict__ bias, int H, int strips, int rows_per_cta) {
+              const float* __restrict__ bias, float* __restrict__ partials, int H, int strips,
+              int rows_per_cta, int in_b0, int out_b0, int aux_b0) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // the swizzle atoms need 1024-B alignment
@@ -432,7 +458,8 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
         const int slot = i % DEPTH;
         if (i >= DEPTH) mbar_wait(empty(slot), (i / DEPTH - 1) & 1);
         mbar_expect_tx(full(slot), BOX_BYTES);
-        tma_load_4d(s_ring + slot * SLOT_BYTES, &src_map, 0, x0 - 1, y0 - 1 + i, b, full(slot));
+        tma_load_4d(s_ring + slot * SLOT_BYTES, &src_map, 0, x0 - 1, y0 - 1 + i, b + in_b0,
+                    full(slot));
       }
     }
     return;
@@ -449,18 +476,22 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
   asm volatile("griddepcontrol.wait;\n" ::: "memory");   // before the residual and the stores
   mbar_wait(wbar, 0);
 
+  float sum[2] = {0.f, 0.f};   // kMaskDb: the written values of the thread's two channels
   float d[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0.f;
   for (int r = q; r < nrows; r += NCONS) {
     const int y = y0 + r;
     // the output buffer is free once this warpgroup's previous store has
-    // read it; the residual of this row-run is loaded into it meanwhile
+    // read it; the residual (mask) of this row-run is loaded into it meanwhile
     if (wtid == 0) {
       tma_store_wait_read();
-      if (EPI == kResidual) {
+      if (EPI == kResidual || EPI == kMaskDb) {
         mbar_expect_tx(rbar(q), OUT_BYTES);
-        tma_load_4d(s_o, &out_map, 0, x0, y, b, rbar(q));
+        if (EPI == kResidual)
+          tma_load_4d(s_o, &out_map, 0, x0, y, b + out_b0, rbar(q));
+        else
+          tma_load_4d(s_o, &aux_map, 0, x0, y, b + aux_b0, rbar(q));
       }
     }
     // input rows y - 1, y, y + 1 are ring loads r, r + 1, r + 2. A parity
@@ -500,19 +531,45 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
       mbar_arrive(empty(r % DEPTH));
       mbar_arrive(empty((r + 1) % DEPTH));
     }
-    if (EPI == kResidual)
+    if (EPI == kResidual || EPI == kMaskDb)
       mbar_wait(rbar(q), (r >> 1) & 1);   // the residual is in (and the store has read)
     else
       named_bar(1 + q, 128);              // the previous store has read the buffer
 
     // epilogue in registers, one bf16 rounding a value, into the buffer by
     // stmatrix (transposed: a pixel's channels contiguous)
-    store_fragment<EPI>(d, s_o, 1, 0, bv);
+    store_fragment<EPI>(d, s_o, 1, 0, bv, sum);
     fence_async_shared();
     named_bar(1 + q, 128);
-    if (wtid == 0) tma_store_4d(&out_map, s_o, 0, x0, y, b);   // clipped at the image's edge
+    if (wtid == 0) tma_store_4d(&out_map, s_o, 0, x0, y, b + out_b0);   // clipped at the edge
   }
   if (wtid == 0) tma_store_wait_all();
+  if (EPI == kMaskDb) {
+    // the CTA's sums a channel, in a fixed order (no atomics): over the
+    // thread's pixels and rows (above), the 4 lanes of a channel, then the
+    // two warpgroups, through their output buffers, which the completed
+    // stores have freed
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    }
+    named_bar(1 + q, 128);
+    auto red = [&](int k) {   // warpgroup k's 64 sums, in its output buffer
+      return reinterpret_cast<float*>(smem_raw + (s_out + k * OUT_BYTES - raw));
+    };
+    if ((lane & 3) == 0) {
+      red(q)[16 * warp + (lane >> 2)] = sum[0];
+      red(q)[16 * warp + (lane >> 2) + 8] = sum[1];
+    }
+    named_bar(1 + NCONS, NCONS * 128);
+    if (q == 0 && wtid < CH) {
+      float t = 0.f;
+#pragma unroll
+      for (int k = 0; k < NCONS; ++k) t += red(k)[wtid];
+      partials[blockIdx.x * CH + wtid] = t;
+    }
+  }
 }
 
 // ---------------------------------------------------------------- host side
@@ -696,15 +753,26 @@ inline cudaLaunchConfig_t pdl_config(int grid, int threads, int smem, cudaStream
   return cfg;
 }
 
+// The batch offsets of a launch's maps (see conv3x3_wgmma): image b is batch
+// coordinate b + in of the input map, b + out of the output map, b + aux of
+// the mask map.
+struct Batch0 {
+  int in = 0, out = 0, aux = 0;
+};
+
 // Launch one layer, with programmatic dependent launch (see conv3x3_wgmma).
+// kMaskDb reads its mask through *aux and writes its sums to partials.
 template <int EPI>
 cudaError_t launch(const CUtensorMap& src, const CUtensorMap& out, const CUtensorMap& w,
-                   int layer, const float* bias, int H, int W, const Plan& p, cudaStream_t s) {
+                   int layer, const float* bias, int H, int W, const Plan& p, cudaStream_t s,
+                   const Batch0& b0 = Batch0{}, const CUtensorMap* aux = nullptr,
+                   float* partials = nullptr) {
+  if (EPI == kMaskDb && (aux == nullptr || partials == nullptr)) return cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = pdl_config(p.grid, NTHREADS, SMEM_BYTES, s, attr);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, conv3x3_wgmma<EPI>, src, out, w,
-                                             layer * 9 * CH, bias, H, (W + NPIX - 1) / NPIX,
-                                             p.rows_per_cta);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, conv3x3_wgmma<EPI>, src, out, aux != nullptr ? *aux : out, w, layer * 9 * CH, bias,
+      partials, H, (W + NPIX - 1) / NPIX, p.rows_per_cta, b0.in, b0.out, b0.aux);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 

@@ -66,6 +66,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.deepinv_conv_chain_wgmma_bf16.restype = i
     lib.deepinv_conv_chain_stash_bf16.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.deepinv_conv_chain_stash_bf16.restype = i
+    lib.deepinv_conv_chain_stash_wgmma_bf16.argtypes = [p] * 4 + [i] * 9 + [p]
+    lib.deepinv_conv_chain_stash_wgmma_bf16.restype = i
+    lib.deepinv_chain_bwd_head_bf16.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.deepinv_chain_bwd_head_bf16.restype = i
+    lib.deepinv_chain_bwd_dx_wgmma_bf16.argtypes = [p] * 5 + [i] * 10 + [p]
+    lib.deepinv_chain_bwd_dx_wgmma_bf16.restype = i
+    lib.deepinv_chain_bwd_fold_f32.argtypes = [p] * 2 + [i] * 2 + [p]
+    lib.deepinv_chain_bwd_fold_f32.restype = i
     lib.deepinv_up_resblock_chain_bf16.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.deepinv_up_resblock_chain_bf16.restype = i
     lib.deepinv_up_sandwich_bf16.argtypes = [p] * 13 + [i] * 6 + [p]

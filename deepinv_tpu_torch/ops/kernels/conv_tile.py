@@ -1,8 +1,11 @@
 """Launch plans of the port's wgmma + TMA kernels (``csrc/*wgmma*.cuh``):
 
 - :func:`conv_tile_plan`, the 64-channel 3x3 conv tile
-  (``csrc/conv3x3_wgmma.cuh``) of K1 (``resblock_chain``), K5
-  (``conv_chain``) and the scale-0 chains of K2/K3 and K4;
+  (``csrc/conv3x3_wgmma.cuh``) of K1 (``resblock_chain``), K5 and K6
+  (``conv_chain``, ``conv_chain_stash``), the dX chain of
+  ``stash_backward`` (whose head kernel takes the same grid, so that every
+  row of its bias partials has ``grid`` entries) and the scale-0 chains of
+  K2/K3 and K4;
 - :func:`conv128_tile_plan`, the 128-channel 3x3 conv tile
   (``csrc/conv3x3_c128_wgmma.cuh``) of K4's scale-1 chain, a thread-block
   cluster of two CTAs a band (each CTA half of the output channels);

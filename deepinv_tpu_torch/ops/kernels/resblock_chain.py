@@ -31,8 +31,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-__all__ = ["resblock_chain", "resblock_chain_plain", "resblocks_f32",
-           "pack_weights", "check_activations", "check_packed", "int_array", "C"]
+__all__ = ["resblock_chain", "resblock_chain_plain", "resblocks_f32", "pack_weights",
+           "pack_weights_transposed", "check_activations", "check_packed", "int_array", "C"]
 
 C = 64  # channel width the kernel is built for
 
@@ -45,6 +45,16 @@ def pack_weights(ws: torch.Tensor) -> torch.Tensor:
     R, Co, Ci = ws.shape[:3]
     return ws.detach().reshape(R, Co // C, C, Ci, 3, 3).permute(0, 1, 4, 5, 2, 3).reshape(
         R, 9 * (Co // C), C, Ci).to(torch.bfloat16).contiguous()
+
+
+def pack_weights_transposed(ws: torch.Tensor) -> torch.Tensor:
+    """(R, Co, Ci, 3, 3) OIHW -> the :func:`pack_weights` layout of the
+    transposed conv's weights, ``[r][ky*3+kx][ci][co] = ws[r][co][ci][2-ky][2-kx]``
+    (at 64 channels): the taps flipped and input and output swapped, so that
+    the conv tile computes a conv's input gradient as a conv (``_bwd``'s
+    ``flip``/``swapaxes``, deepinv_tpu/ops/pallas/conv_chain.py:447-448).
+    Callers pack once per weight version, as for :func:`pack_weights`."""
+    return pack_weights(ws.detach().transpose(1, 2).flip((3, 4)))
 
 
 def resblocks_f32(h, w1s, w2s):

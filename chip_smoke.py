@@ -117,7 +117,26 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    + ``EILoss(Rotate())``, Adam(1e-4), at B=1 and B=16, in the reference
    configuration (SURE's forward-mode JVP needs the kernel gates closed):
    finite losses, SURE's JVP divergence within JVP_RTOL of a finite
-   difference of the f32 model, and steps per second.
+   difference of the f32 model, and steps per second;
+11. diffusion and Langevin sampling through the samplers' entry points with
+   a bf16 full-width DRUNet (nc=(64,128,256,512), nb=4, ``fused="down"``,
+   seeded random weights) at 256² RGB (``bench.py:384-475``): DDRM on
+   ``Inpainting(mask=0.7)`` with noise 0.05 at B=1 (12 steps) and B=8 (6),
+   DPS and DiffPIR on 4x bicubic super-resolution (``Downsampling``, 256² to
+   64², noise 0.05) at B=1 (12), and short runs of ULA (``ScorePrior``,
+   deblurring) and of ``PosteriorDiffusion`` (VP SDE, ``DPSDataFidelity``).
+   Each run must launch K1 once per denoiser call and make the JAX
+   sampler's number of calls (DDRM n + 1, DPS n, DiffPIR max_iter - 1, ULA
+   one a step, PosteriorDiffusion two a step), give a finite sample, hold
+   its first denoiser calls within DENOISER_RTOL of K1's plain version and
+   the sample within RECON_RTOL of the run on the plain version from the
+   same generator seed. One DPS step's guidance gradient must be within
+   SAMPLE_GRAD_RTOL of the plain path's, with K1's backward asked for dh
+   alone and no weight gradient. Timed: the rates by the slope between n and
+   4n steps under the bench's metric names (``rate:`` lines, with the card),
+   and K1's backward at the DPS step's shape with TF32 (the op's) and
+   without, beside cuDNN f32 layers under autograd; profiled: a DDRM and a
+   DPS sample at B=1 (kernels and device busy a step).
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -264,6 +283,19 @@ GRAD_RTOL = 3e-2
 # SURE's JVP divergence against (f(y + tau b) - f(y)) / tau of the f32 model.
 JVP_TAU = 1e-3
 JVP_RTOL = 5e-2
+# Sampling (phase 11): steps of the checked runs and the short end of the
+# rates' slope (bench.py's n_short at B=1: max(N_ITER // 4, 8) with N_ITER
+# 48; at B=8 half of it), the DDRM batch, the denoiser calls of each run held
+# against the plain version (the first ones), the short ULA and
+# PosteriorDiffusion runs, and DPS's guidance gradient against the plain
+# path's, relative L2 (the gradient of a bf16 net: each call's bf16
+# differences pass through the backward)
+SAMPLE_STEPS = 12
+SAMPLE_BATCH = 8
+SAMPLE_CHECKED_CALLS = 3
+ULA_STEPS = 4
+PD_STEPS = 3
+SAMPLE_GRAD_RTOL = 3e-2
 # queued_ms: calls a measurement (their launches, at most ~40 a call, stay
 # within the launch queue's ~1000) and the spin in front of them (~50 ms at
 # the H100's clock, longer than the host takes to issue those calls)
@@ -283,6 +315,7 @@ PROFILE_TRIES = 3
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for the bounds.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -649,8 +682,8 @@ def device_profile(label: str, run, calls: int, top: int = 6):
     per call, beside the unprofiled wall time per call; the idle share is
     1 - device busy / wall, device busy being the union of the kernels'
     intervals. Returns ``(wall ms, kernel times summed ms, kernels, [(ms,
-    launches, name)])`` per call, or None where the profiler saw no device
-    time."""
+    launches, name)], device busy ms)`` per call, or None where the profiler
+    saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -695,7 +728,7 @@ def device_profile(label: str, run, calls: int, top: int = 6):
     print(f"profile {label}: wall {wall_ms:.3f} ms per call, device busy {busy_union:.3f} ms "
           f"(kernel times summed {busy:.3f} ms; {n_kernels:g} kernels), idle share "
           f"{1 - busy_union / wall_ms:.3f}; top: {top_}", flush=True)
-    return wall_ms, busy, n_kernels, kernels
+    return wall_ms, busy, n_kernels, kernels, busy_union
 
 
 def sync(dev) -> None:
@@ -1132,6 +1165,262 @@ def ssl_phase(dev, net, gen, size: int = 256, batches=TRAIN_BATCHES, steps: int 
           f"(tau {JVP_TAU}) {div_fd}, relative error {err} (bound {JVP_RTOL}); JVP vs finite "
           f"difference relative L2 {rel_l2(jvp, fd)}", flush=True)
     check(err <= JVP_RTOL, "SURE's JVP divergence disagrees with the finite difference")
+
+
+def plain_k1():
+    """DRUNet's scale-0 chain on K1's plain version instead of the kernel
+    (differentiable: DPS's plain gradient runs through it)."""
+    import deepinv_tpu_torch.models.drunet as drunet_mod
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import resblock_chain_plain
+
+    return swapped(drunet_mod, "resblock_chain",
+                   lambda h, w1s, w2s, packed=None: resblock_chain_plain(h, w1s, w2s))
+
+
+def sample_drive(name: str, run, net, calls: int, dev):
+    """One sampler run on the kernel path (K1's ``launches`` set to 0 just
+    before it and read just after), checked: K1 launched once per denoiser
+    call and ``calls`` calls, each of the first SAMPLE_CHECKED_CALLS calls of
+    ``net`` against the same call on K1's plain version, finite output, and
+    the whole sample against the run on the plain version from the same
+    generator seed. ``run()`` makes its own generator. Returns the launches."""
+    import torch
+
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import resblock_chain
+
+    seen, kept = [], []   # every call; the first calls' inputs
+
+    def keep(mod, args):
+        seen.append(1)
+        if len(kept) < SAMPLE_CHECKED_CALLS:
+            kept.append((args[0].detach().clone(), args[1]))
+
+    hook = net.register_forward_pre_hook(keep)
+    resblock_chain.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = run()
+    sync(dev)
+    first_s = time.perf_counter() - t0
+    launches = resblock_chain.launches
+    hook.remove()
+    print(f"{name}: first run {first_s:.3f} s, K1 launches {launches}, denoiser calls "
+          f"{len(seen)} (expected {calls})", flush=True)
+    check(launches == calls and len(seen) == calls,
+          f"{name}: {launches} K1 launches and {len(seen)} denoiser calls, expected {calls}")
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite sample")
+    for i, (xin, sigma) in enumerate(kept):
+        with torch.no_grad():
+            d_k = net(xin, sigma).float()
+            with plain_k1():
+                d_p = net(xin, sigma).float()
+        err, scale = float((d_k - d_p).abs().max()), float(d_p.abs().max())
+        print(f"{name} denoiser call {i}: kernel vs plain max_abs_err {err} (scale {scale}, "
+              f"rel {err / scale}, bound {DENOISER_RTOL})", flush=True)
+        check(err <= DENOISER_RTOL * scale, f"{name}: denoiser call {i} disagrees with plain")
+    resblock_chain.launches = 0
+    with torch.no_grad(), plain_k1():
+        out_plain = run()
+    check(resblock_chain.launches == 0, f"{name}: the plain run launched K1")
+    rerr = rel_l2(out, out_plain)
+    print(f"{name} kernel vs plain: relative L2 error {rerr} (bound {RECON_RTOL}), max |x| "
+          f"{float(out.abs().max())}, plain {float(out_plain.abs().max())}", flush=True)
+    check(rerr <= RECON_RTOL, f"{name}: the sample disagrees with the plain run")
+    return launches
+
+
+def slope_rate(label: str, make_run, n_short: int, reps: int = 3):
+    """Seconds a step by the slope between runs of ``n_short`` and
+    ``4 n_short`` steps (``bench.py``'s ``_timed_slope``: set-up and the
+    first and last phases cancel), each the least of ``reps`` CUDA-event
+    times, in turns (n, 4n, 4n, n); returns steps per second."""
+    import torch
+
+    runs = {n: make_run(n) for n in (n_short, 4 * n_short)}
+    times = {n: [] for n in runs}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for n in (n_short, 4 * n_short, 4 * n_short, n_short):
+        runs[n]()
+        for _ in range(reps):
+            start.record()
+            runs[n]()
+            end.record()
+            torch.cuda.synchronize()
+            times[n].append(start.elapsed_time(end))
+    t_short, t_long = min(times[n_short]), min(times[4 * n_short])
+    per_step = (t_long - t_short) / (3 * n_short)
+    print(f"{label}: ms per sample {times}; slope {per_step:.4f} ms a step, "
+          f"{1e3 / per_step:.2f} steps/s", flush=True)
+    return 1e3 / per_step
+
+
+def sampling_phase(dev, card: str, size: int = 256, nc=(64, 128, 256, 512)) -> dict:
+    """Phase 11: the samplers through their entry points with a bf16
+    full-width DRUNet in ``down`` (K1) at 256² (``bench.py:384-475``): DDRM
+    on inpainting at B=1 and B=8, DPS and DiffPIR on 4x bicubic
+    super-resolution at B=1, short ULA and PosteriorDiffusion runs; the
+    guidance gradient of a DPS step against the plain path, with K1's
+    backward asked for dh alone and no weight gradient; rates by the slope
+    between n and 4n steps under the bench's metric names; K1's backward
+    timed with TF32 (the op's) and without, beside cuDNN f32 layers under
+    autograd; a DDRM and a DPS sample profiled. Returns the numbers of the
+    kernels line. On the CPU (``dev``), at a small ``size`` and ``nc``, it
+    rehearses the checks and stops before the times."""
+    import numpy as np
+    import torch
+
+    import deepinv_tpu_torch.ops.kernels.resblock_chain as rc_mod
+    from deepinv_tpu_torch.models import DRUNet, autocast
+    from deepinv_tpu_torch.ops import gaussian_blur
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import pack_weights, resblock_chain
+    from deepinv_tpu_torch.optim import L2, ScorePrior
+    from deepinv_tpu_torch.physics import BlurFFT, Downsampling, GaussianNoise, Inpainting
+    from deepinv_tpu_torch.sampling import (DDRM, DPS, ULA, DiffPIR, DPSDataFidelity,
+                                            EulerSolver, PosteriorDiffusion,
+                                            VariancePreservingDiffusion)
+
+    g = torch.Generator().manual_seed(SEED + 19)
+    net = DRUNet(nc=nc, nb=R_MAIN, generator=g, device=dev)
+    den = autocast(net)
+    shape = (1, 3, size, size)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    inp = Inpainting(shape[1:], mask=0.7, generator=torch.Generator().manual_seed(SEED + 20),
+                     noise_model=GaussianNoise(0.05, device=dev), device=dev)
+    sr = Downsampling(img_size=shape[1:], filter="bicubic", factor=4,
+                      noise_model=GaussianNoise(0.05, device=dev), device=dev)
+    x1 = torch.rand(shape, generator=g).to(dev)
+    x8 = torch.rand((SAMPLE_BATCH,) + shape[1:], generator=g).to(dev)
+    y1, y8 = inp(x1, generator=gen(SEED + 21)), inp(x8, generator=gen(SEED + 22))
+    ys = sr(x1, generator=gen(SEED + 23))
+    check(tuple(ys.shape) == (1, 3, size // 4, size // 4), f"SR measurement {tuple(ys.shape)}")
+    out = {"launches": {}}
+
+    def sample(m, *args, seed):
+        """One sample of ``m`` under ``torch.no_grad()``, as a caller runs it
+        (DPS differentiates its guidance inside), on a fresh generator."""
+        def run():
+            with torch.no_grad():
+                return m(*args, generator=gen(seed))
+        return run
+
+    def ddrm(n, y):
+        return sample(DDRM(den, sigmas=np.linspace(1, 0, n + 1)), y, inp, seed=SEED + 24)
+
+    def dps(n):
+        return sample(DPS(den, max_iter=n), ys, sr, seed=SEED + 25)
+
+    def diffpir(n):
+        return sample(DiffPIR(den, sigma=0.05, max_iter=n), ys, sr, seed=SEED + 26)
+
+    n1, n8 = SAMPLE_STEPS, SAMPLE_STEPS // 2
+    out["launches"]["DDRM B=1"] = sample_drive(f"DDRM B=1 n={n1}", ddrm(n1, y1), net, n1 + 1, dev)
+    out["launches"][f"DDRM B={SAMPLE_BATCH}"] = sample_drive(
+        f"DDRM B={SAMPLE_BATCH} n={n8}", ddrm(n8, y8), net, n8 + 1, dev)
+    out["launches"]["DPS B=1"] = sample_drive(f"DPS B=1 n={n1}", dps(n1), net, n1, dev)
+    out["launches"]["DiffPIR B=1"] = sample_drive(f"DiffPIR B=1 max_iter={n1}", diffpir(n1), net,
+                                                  n1 - 1, dev)
+
+    # DPS's guidance gradient for one step, kernel path against plain; K1's
+    # backward is asked for dh alone and no weight gets a gradient
+    m = DPS(den, max_iter=n1)
+    at = m._sched[n1 // 2][0]
+    xg = torch.randn(shape, generator=gen(SEED + 27), device=dev)
+    asked = []
+    f32_chain = rc_mod.resblocks_f32
+    with swapped(rc_mod, "resblocks_f32",
+                 lambda *a: asked.append([v.requires_grad for v in a]) or f32_chain(*a)):
+        resblock_chain.launches = 0
+        g_k, _, _ = m.guidance(xg, ys, sr, at)
+        sync(dev)
+    check(resblock_chain.launches == 1, "DPS guidance: K1 not launched once")
+    check(asked == [[True, False, False]], f"DPS guidance: K1's backward asked for {asked}")
+    check(all(p.grad is None and p.requires_grad for p in den.parameters()),
+          "DPS guidance: a weight got a gradient, or its flag was not restored")
+    with plain_k1():
+        g_p, _, _ = m.guidance(xg, ys, sr, at)
+    with swapped(rc_mod, "_tf32_convs", contextlib.nullcontext):
+        g_k32, _, _ = m.guidance(xg, ys, sr, at)
+    gerr, gerr32 = rel_l2(g_k, g_p), rel_l2(g_k32, g_p)
+    print(f"DPS guidance gradient (alpha_bar {at}): kernel path vs plain relative L2 {gerr} "
+          f"(K1 backward in TF32, the op's; bound {SAMPLE_GRAD_RTOL}), {gerr32} with TF32 off; "
+          f"TF32 vs off {rel_l2(g_k, g_k32)}", flush=True)
+    check(gerr <= SAMPLE_GRAD_RTOL, "DPS guidance gradient disagrees with the plain path")
+    out["grad_err"], out["grad_err_tf32_off"] = gerr, gerr32
+
+    # short runs: ULA (ScorePrior) on deblurring, PosteriorDiffusion (VP SDE
+    # with DPS guidance) on super-resolution
+    blur = BlurFFT(shape[1:], filter=gaussian_blur(sigma=1.5),
+                   noise_model=GaussianNoise(0.05, device=dev), device=dev)
+    yb = blur(x1, generator=gen(SEED + 28))
+    ula = ULA(ScorePrior(den), L2(sigma=0.05), step_size=1e-4, sigma=0.05, max_iter=ULA_STEPS,
+              thinning=1, burnin_ratio=0.0)
+    out["launches"]["ULA B=1"] = sample_drive(f"ULA B=1 {ULA_STEPS} steps",
+                                              sample(ula, yb, blur, seed=SEED + 29), net,
+                                              ULA_STEPS, dev)
+    pd = PosteriorDiffusion(VariancePreservingDiffusion(den), DPSDataFidelity(den),
+                            solver=EulerSolver(np.linspace(1.0, 0.05, PD_STEPS + 1)))
+    out["launches"]["PosteriorDiffusion B=1"] = sample_drive(
+        f"PosteriorDiffusion (VP) B=1 {PD_STEPS} steps",
+        sample(pd, ys, sr, seed=SEED + 30), net, 2 * PD_STEPS, dev)
+    check(all(p.grad is None for p in den.parameters()), "a sampler gave a weight a gradient")
+    if dev.type != "cuda":
+        return out
+
+    # rates: the slope between n and 4n steps (bench.py:434-436)
+    rates = {
+        "ddrm_drunet_inpainting_256px_steps_per_sec_chip":
+            (1, slope_rate("DDRM B=1", lambda n: ddrm(n, y1), n1)),
+        f"ddrm_drunet_inpainting_256px_steps_per_sec_chip_b{SAMPLE_BATCH}":
+            (SAMPLE_BATCH, slope_rate(f"DDRM B={SAMPLE_BATCH}", lambda n: ddrm(n, y8), n8)),
+        "dps_drunet_sr4_256px_steps_per_sec_chip": (1, slope_rate("DPS B=1", dps, n1)),
+    }
+    for metric, (b, v) in rates.items():
+        row = {"metric": metric, "value": v, "unit": "step/s", "card": card}
+        if b > 1:
+            row.update(batch=b, images_per_sec=v * b)
+        print(f"rate: {json.dumps(row)}", flush=True)
+    out["rates"] = {k: v for k, (_, v) in rates.items()}
+
+    # K1's backward at the DPS step's shape (dh only): TF32 (the op's) and
+    # off, in turns, beside cuDNN f32 layers under autograd (their dgrad)
+    w1 = torch.stack([b.conv1.weight for b in net.m_down1[:-1]]).detach().to(torch.bfloat16)
+    w2 = torch.stack([b.conv2.weight for b in net.m_down1[:-1]]).detach().to(torch.bfloat16)
+    hk = torch.randn((1, 64, 256, 256), generator=gen(SEED + 31), device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last).requires_grad_()
+    ok = resblock_chain(hk, w1, w2, (pack_weights(w1), pack_weights(w2)))
+    gk = torch.randn(ok.shape, generator=gen(SEED + 32), device=dev).to(torch.bfloat16)
+    hf = hk.detach().float().requires_grad_()
+    with torch.enable_grad():
+        of = rc_mod.resblocks_f32(hf, w1.float(), w2.float())
+
+    def bwd():
+        return torch.autograd.grad(ok, hk, gk, retain_graph=True)
+
+    def bwd_off():
+        with swapped(rc_mod, "_tf32_convs", contextlib.nullcontext):
+            return bwd()
+
+    flop_conv = 2 * 256 * 256 * 64 * 64 * 9
+    bwd_flop = 4 * R_MAIN * flop_conv   # the recompute and dX: 4R convs
+    ms, dev_ms = tile_turns("K1 backward (dh) 1x64x256² R=4", {
+        "TF32 (the op)": bwd, "TF32 off": bwd_off,
+        "cuDNN f32 layers under autograd": lambda: torch.autograd.grad(
+            of, hf, gk.float(), retain_graph=True)}, bwd_flop, 20, queued_reps=10)
+    prof = device_profile("K1 backward (dh) 1x64x256² R=4, TF32", bwd, 5)
+    out["k1_bwd"] = {"ms": ms, "device_ms": dev_ms, "flop": bwd_flop,
+                     "profile_ms": None if prof is None else prof[4]}
+
+    # where a step's time goes: a DDRM and a DPS sample at B=1
+    for label, run, steps in ((f"DDRM B=1 n={n1}", ddrm(n1, y1), n1 + 1),
+                              (f"DPS B=1 n={n1}", dps(n1), n1)):
+        prof = device_profile(label, run, 2, top=10)
+        if prof is not None:
+            print(f"profile {label}: {prof[2] / steps:.1f} kernels a step, device busy "
+                  f"{prof[4] / steps:.4f} ms a step", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1883,6 +2172,9 @@ def main() -> int:
     # 10. EI + SURE training in the reference configuration, same weights
     ssl_phase(dev, train_net, g_tr)
 
+    # 11. diffusion and Langevin sampling with a full-width bf16 DRUNet (K1)
+    smp = sampling_phase(dev, card)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -1913,6 +2205,11 @@ def main() -> int:
         2 * b * L_MAIN * flop_conv, PEAK_BF16,
         b * act_bytes // 2 * (3 + L_MAIN) + L_MAIN * (2 * w_bytes + 64 * 4)) for b in TRAIN_BATCHES)
     (k6_b1, bwd_b1), (k6_b16, bwd_b16) = (train_chain[b] for b in TRAIN_BATCHES)
+    # K1's backward at the DPS step's shape: the recompute and dX (4R convs)
+    # at the TF32 peak it runs at; h and the bf16 cotangent in, dh out, the
+    # bf16 weights in
+    k1_bwd_bound = bound_ms(smp["k1_bwd"]["flop"], PEAK_TF32, 3 * act_bytes // 2
+                            + 2 * R_MAIN * w_bytes)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -1940,6 +2237,21 @@ def main() -> int:
         # CUDA-event times above include)
         "device_ms": tiles["K1", 1][1]["wgmma"],
         "device_ms_b8": tiles["K1", HQS_BATCH][1]["wgmma"],
+        # phase 11: K1's launches in each sampler run (one a denoiser call),
+        # its backward at the DPS step's shape (dh only: cuDNN convs in TF32,
+        # the op's, and with TF32 off, in turns; cuDNN f32 layers under
+        # autograd), the DPS guidance gradient's error against the plain
+        # path, and the sampling rates
+        "launches_sampling": smp["launches"],
+        "backward_ms": smp["k1_bwd"]["ms"]["TF32 (the op)"],
+        "backward_ms_tf32_off": smp["k1_bwd"]["ms"]["TF32 off"],
+        "backward_library_ms": smp["k1_bwd"]["ms"]["cuDNN f32 layers under autograd"],
+        "backward_device_ms": smp["k1_bwd"]["device_ms"]["TF32 (the op)"],
+        "backward_bound_ms": k1_bwd_bound[0],
+        "backward_bound_by": k1_bwd_bound[1],
+        "dps_grad_rel_l2": smp["grad_err"],
+        "dps_grad_rel_l2_tf32_off": smp["grad_err_tf32_off"],
+        "sampling_rates": smp["rates"],
     }, {
         "name": "conv_chain",
         "route": "cuda",

@@ -14,8 +14,14 @@ def handle_sigma(sigma, x: torch.Tensor) -> torch.Tensor:
     (deepinv_tpu/models/base.py:14): scalar, ``(B,)``, ``(B, 1)``,
     ``(B, 1, 1, ...)``, ``(1,)`` or a full map."""
     B, spatial = x.shape[0], tuple(x.shape[2:])
-    s = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
     full = (B, 1) + spatial
+    if isinstance(sigma, (int, float)) or (isinstance(sigma, torch.Tensor) and sigma.numel() == 1
+                                           and sigma.device.type == "cpu"
+                                           and not sigma.requires_grad):
+        # a host number is filled in on x's device: a host-to-device copy
+        # would wait for the device to finish its queue
+        return x.new_full((), float(sigma)).expand(full)
+    s = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
     if s.dim() == 0 or tuple(s.shape) == (1,):
         return s.reshape(()).expand(full)
     if tuple(s.shape) in ((B,), (B, 1), (B,) + (1,) * len(spatial)):

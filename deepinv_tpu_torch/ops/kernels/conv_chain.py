@@ -47,7 +47,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .resblock_chain import C, check_activations, pack_weights, pack_weights_transposed, tile_args
+from .resblock_chain import (C, _tf32_convs, check_activations, pack_weights,
+                             pack_weights_transposed, tile_args)
 
 __all__ = ["conv_chain", "conv_chain_plain", "conv_chain_stash", "conv_chain_stash_plain",
            "stash_backward", "chain_f32", "pack_weights", "pack_weights_transposed", "pack_bias",
@@ -193,18 +194,6 @@ def conv_chain_stash(h, ws, bs, packed=None):
         return conv_chain_stash_plain(h, ws, bs)
     wp, bp = packed if packed is not None else (pack_weights(ws), pack_bias(bs))
     return _launch_stash(h, wp, bp)
-
-
-@contextlib.contextmanager
-def _tf32_convs():
-    """cuDNN convs may use TF32 inside the block (the backward's dW: TF32
-    holds bf16 values exactly, so nothing is rounded)."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _wgrad(x_in, d, shape, bf16_dw: bool, plain: bool):

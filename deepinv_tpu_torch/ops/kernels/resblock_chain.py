@@ -17,7 +17,8 @@ activations, f32 accumulation and one bf16 rounding per conv — the contract of
 - The batch is native (a grid dimension of the kernel); the JAX package maps
   the per-image kernel with ``lax.map`` (resblock_chain.py:183-195).
 - The gradient is autodiff of the f32 chain :func:`resblocks_f32`, like the
-  JAX ``custom_vjp`` backward (resblock_chain.py:246-250).
+  JAX ``custom_vjp`` backward (resblock_chain.py:246-250), for the inputs
+  that need one (``ctx.needs_input_grad``).
 
 ``resblock_chain.launches`` counts kernel launches (one per call that reaches
 the kernel), so a run can show that its main path went through the kernel.
@@ -25,6 +26,7 @@ the kernel), so a run can show that its main path went through the kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -159,6 +161,18 @@ def _launch(h, w1p, w2p, tile: str = "wgmma"):
     return a.permute(0, 3, 1, 2)
 
 
+@contextlib.contextmanager
+def _tf32_convs():
+    """cuDNN convs may use TF32 inside the block (the stash backward's dW:
+    TF32 holds bf16 values exactly, so nothing is rounded; K1's backward)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 class _ResblockChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, w1s, w2s, w1p, w2p):
@@ -169,12 +183,20 @@ class _ResblockChain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        h, w1s, w2s = ctx.saved_tensors
-        with torch.enable_grad():
-            args = [v.detach().float().requires_grad_() for v in (h, w1s, w2s)]
+        """Autodiff of the f32 chain, for the inputs that need a gradient
+        only: a DPS step asks for dh alone, which skips the dW convs, a third
+        of the backward's arithmetic. TF32 convs: the recompute's inputs and
+        weights are bf16 values, which TF32 holds exactly; the hidden
+        activations and the cotangent round to TF32's 10-bit mantissa."""
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad(), _tf32_convs():
+            args = [v.detach().float().requires_grad_(n) for v, n in zip(saved, need)]
             out = resblocks_f32(*args)
-            dh, dw1, dw2 = torch.autograd.grad(out, args, g.float())
-        return dh.to(h.dtype), dw1.to(w1s.dtype), dw2.to(w2s.dtype), None, None
+            grads = iter(torch.autograd.grad(out, [a for a, n in zip(args, need) if n],
+                                             g.float()))
+        return (*(next(grads).to(v.dtype) if n else None for v, n in zip(saved, need)),
+                None, None)
 
 
 def resblock_chain(h, w1s, w2s, packed=None):

@@ -7,9 +7,9 @@ from .iterators import (ADMMIteration, CPIteration, DRSIteration, FISTAIteration
 from .optimizers import (ADMM, CP, DRS, FISTA, GD, HQS, PDCP, PGD, BaseOptim, create_iterator,
                          optim_builder)
 from .potential import Potential
-from .prior import PnP, Prior, TVPrior, Zero
+from .prior import PnP, Prior, ScorePrior, TVPrior, Zero
 
-__all__ = ["Potential", "DataFidelity", "L2", "Prior", "Zero", "PnP", "TVPrior",
+__all__ = ["Potential", "DataFidelity", "L2", "Prior", "Zero", "PnP", "ScorePrior", "TVPrior",
            "OptimIterator", "GDIteration", "HQSIteration", "PGDIteration", "FISTAIteration",
            "ADMMIteration", "DRSIteration", "CPIteration", "FixedPoint", "BaseOptim",
            "create_iterator", "optim_builder", "PGD", "FISTA", "ADMM", "DRS", "CP", "GD", "HQS",

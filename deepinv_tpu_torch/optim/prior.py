@@ -1,6 +1,7 @@
 """Priors ``g(x)`` (port of deepinv_tpu/optim/prior.py): the base, ``Zero``,
-the Plug-and-Play prior and isotropic total variation. RED, score,
-``TVL1Prior`` and the sparsity priors wait for ROADMAP queue 1 item 8."""
+the Plug-and-Play prior, the score prior of the Langevin samplers and
+isotropic total variation. RED, ``TVL1Prior`` and the sparsity priors wait
+for ROADMAP queue 1 item 8."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from ..ops.kernels.tv import div_op as _div_op
 from ..ops.kernels.tv import grad_op as _grad_op
 from .potential import Potential
 
-__all__ = ["Prior", "Zero", "PnP", "TVPrior"]
+__all__ = ["Prior", "Zero", "PnP", "ScorePrior", "TVPrior"]
 
 
 def _batch_sum(v):
@@ -52,6 +53,35 @@ class PnP(Prior):
 
     def prox(self, x, sigma_denoiser, *args, gamma=None, **kwargs):
         return self.denoiser(x, sigma_denoiser)
+
+
+class ScorePrior(Prior):
+    r"""Score prior by Tweedie's formula: ``grad g(x) = (x - D(x, sigma)) /
+    sigma^2`` for a denoiser ``D`` (deepinv_tpu/optim/prior.py:103); the prior
+    of :class:`~deepinv_tpu_torch.sampling.ULA` and
+    :class:`~deepinv_tpu_torch.sampling.SKRock`."""
+
+    explicit_prior = False
+
+    def __init__(self, denoiser):
+        super().__init__()
+        self.denoiser = denoiser
+
+    def grad(self, x, sigma_denoiser, *args, **kwargs):
+        return (1 / sigma_denoiser ** 2) * (x - self.denoiser(x, sigma_denoiser))
+
+    def score(self, x, sigma_denoiser, *args, **kwargs):
+        """``-grad g(x)``, the score of the prior (prior.py:115)."""
+        return -self.grad(x, sigma_denoiser, *args, **kwargs)
+
+    @staticmethod
+    def stable_division(a, b, epsilon: float = 1e-7):
+        """``a / b`` with the denominator pushed away from zero (prior.py:119)."""
+        if isinstance(b, (int, float)):
+            return a / (max(epsilon, abs(b)) * (1.0 if b >= 0 else -1.0))
+        b = torch.as_tensor(b)
+        sign = torch.where(b >= 0, 1.0, -1.0)
+        return a / torch.where(b.abs() > epsilon, b, sign * epsilon)
 
 
 class TVPrior(Prior):

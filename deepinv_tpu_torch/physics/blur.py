@@ -1,12 +1,16 @@
-"""FFT-diagonalized circular blur (port of ``BlurFFT``,
-deepinv_tpu/physics/blur.py:88).
+"""Blur and super-resolution physics (port of deepinv_tpu/physics/blur.py):
+:class:`Blur` (:63, spatial convolution in five padding modes),
+:class:`BlurFFT` (:88, circular blur diagonalized by the FFT),
+:class:`Downsampling` (:214, filter then decimate, with the closed-form FFT
+polyphase ``prox_l2``) and :class:`Upsampling` (:351).
 
-Real inputs always take the half-spectrum (rfft) closed forms
+BlurFFT's real inputs always take the half-spectrum (rfft) closed forms
 (blur.py:182-211): cuFFT's and pocketfft's rfft are genuine half-size
 transforms. The JAX package gated them per backend (``_RFFT_BACKENDS``,
 blur.py:42) because the TPU lowers rfft to full complex FFTs. Complex inputs
 take the generic SVD path of :class:`DecomposablePhysics`.
-``Blur``/``Downsampling`` wait for ROADMAP queue 1 item 5.
+``SpaceVaryingBlur``, ``TiledSpaceVaryingBlur``, ``DownsamplingMatlab`` and
+the 5-D (volumetric) Blur wait for ROADMAP queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -14,10 +18,12 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
-from ..ops.conv import filter_fft_2d, gaussian_blur
-from .base import DecomposablePhysics, _add_inv_gamma, _inv_gamma_mul, replace
+from ..ops.conv import (bicubic_filter, bilinear_filter, conv2d, conv_transpose2d,
+                        filter_fft_2d, gaussian_blur, sinc_filter)
+from .base import (DecomposablePhysics, LinearPhysics, _add_inv_gamma, _inv_gamma_mul,
+                   replace)
 
-__all__ = ["BlurFFT"]
+__all__ = ["Blur", "BlurFFT", "Downsampling", "Upsampling"]
 
 
 def _resolve_filter(filter, factor: int = 2):
@@ -25,13 +31,57 @@ def _resolve_filter(filter, factor: int = 2):
     if isinstance(filter, str):
         if filter == "gaussian":
             return gaussian_blur(sigma=(factor, factor))
-        if filter in ("bilinear", "bicubic", "sinc"):
-            raise NotImplementedError(
-                f"the {filter!r} filter waits for ROADMAP queue 1 item 5")
+        if filter == "bilinear":
+            return bilinear_filter(factor)
+        if filter == "bicubic":
+            return bicubic_filter(factor)
+        if filter == "sinc":
+            # length scales with the factor (blur.py:55)
+            return sinc_filter(factor, length=4 * factor)
         raise ValueError(f"unknown filter {filter!r}")
     if filter is None:
         return None
     return torch.as_tensor(filter, dtype=torch.float32)
+
+
+def _per_sample(gamma, x):
+    """``gamma`` as it is if a number (no device copy), else as a tensor on
+    ``x``'s device broadcast over its trailing dimensions (blur.py:327-329)."""
+    if isinstance(gamma, (int, float)):
+        return gamma
+    g = torch.as_tensor(gamma, device=x.device)
+    return g.reshape(g.shape + (1,) * (x.dim() - g.dim()))
+
+
+class Blur(LinearPhysics):
+    r"""Blur ``y = h * x`` by spatial convolution (deepinv_tpu/physics/blur.py:63).
+
+    :param filter: PSF ``(b, c, h, w)`` with b in {1, B}, c in {1, C}, or a
+        filter name (``gaussian``, ``bilinear``, ``bicubic``, ``sinc``).
+    :param padding: ``valid``, ``circular`` (default), ``replicate``,
+        ``reflect`` or ``constant``.
+    :param noise_model: e.g. :class:`~deepinv_tpu_torch.physics.GaussianNoise`.
+    :param device: where the filter lives; the CUDA device by default.
+    """
+
+    def __init__(self, filter=None, padding: str = "circular", noise_model=None, device=None):
+        super().__init__(noise_model=noise_model)
+        self.register_buffer("filter", _resolve_filter(filter))
+        self.padding = padding
+        self.to(resolve_device(device))
+
+    def _psf(self, filter, x):
+        f = self.filter if filter is None else _resolve_filter(filter).to(x.device)
+        if f.dim() == 5:
+            raise NotImplementedError("the volumetric (5-D PSF) Blur waits for ROADMAP "
+                                      "queue 1 item 8")
+        return f
+
+    def A(self, x, filter=None, **params):
+        return conv2d(x, self._psf(filter, x), padding=self.padding)
+
+    def A_adjoint(self, y, filter=None, **params):
+        return conv_transpose2d(y, self._psf(filter, y), padding=self.padding)
 
 
 class BlurFFT(DecomposablePhysics):
@@ -109,3 +159,120 @@ class BlurFFT(DecomposablePhysics):
         bf = mr.conj() * torch.fft.rfft2(y) + _inv_gamma_mul(gamma, torch.fft.rfft2(z))
         scaling = _add_inv_gamma((mr.conj() * mr).real, gamma)
         return torch.fft.irfft2(bf / scaling, s=self.img_size[-2:])
+
+
+class Downsampling(LinearPhysics):
+    r"""``y = S(h * x)``: an anti-aliasing filter, then decimation by
+    ``factor`` (deepinv_tpu/physics/blur.py:214).
+
+    :param img_size: ``(C, H, W)`` of the high-resolution image.
+    :param filter: None, ``gaussian``, ``bilinear``, ``bicubic``, ``sinc`` or
+        a PSF ``(b, c, h, w)``.
+    :param factor: integer decimation factor.
+    :param padding: the convolution's padding mode.
+    :param noise_model: e.g. :class:`~deepinv_tpu_torch.physics.GaussianNoise`.
+    :param device: where the filter lives; the CUDA device by default.
+    """
+
+    def __init__(self, img_size=None, filter=None, factor: int = 2, padding: str = "circular",
+                 noise_model=None, device=None):
+        super().__init__(noise_model=noise_model)
+        self.factor = int(factor)
+        self.imsize = tuple(img_size) if img_size is not None else None
+        self.padding = padding
+        self.register_buffer("filter", _resolve_filter(filter, self.factor))
+        self.to(resolve_device(device))
+
+    @staticmethod
+    def check_factor(factor) -> int:
+        """A downsampling factor as an int (blur.py:248): a 1D tensor or array
+        must hold one value."""
+        if isinstance(factor, (int, float)):
+            return int(factor)
+        vals = torch.as_tensor(factor).cpu()
+        if vals.dim() > 1:
+            raise ValueError("Factor tensor must be 1D.")
+        vals = vals.reshape(-1)
+        if vals.numel() == 0 or not bool((vals == vals[0]).all()):
+            raise ValueError("Downsampling only supports one factor per batch.")
+        return int(vals[0])
+
+    @staticmethod
+    def get_filter_parameters(img_size=None, filter=None, factor=None, **kwargs) -> dict:
+        """``{"filter", "factor"}`` for a given factor (blur.py:267)."""
+        f = Downsampling.check_factor(factor) if factor is not None else None
+        out = {"filter": _resolve_filter(filter, f if f is not None else 2)}
+        if f is not None:
+            out["factor"] = f
+        return out
+
+    def _resolved(self, filter, factor, like):
+        fac = self.factor if factor is None else self.check_factor(factor)
+        f = self.filter if filter is None else _resolve_filter(filter, fac)
+        return fac, (None if f is None else f.to(like.device))
+
+    def A(self, x, filter=None, factor=None, **params):
+        fac, f = self._resolved(filter, factor, x)
+        if f is not None:
+            x = conv2d(x, f, padding=self.padding)
+        return x[:, :, ::fac, ::fac]
+
+    def A_adjoint(self, y, filter=None, factor=None, **params):
+        fac, f = self._resolved(filter, factor, y)
+        if self.imsize is not None:
+            C, H, W = self.imsize
+        else:
+            C, H, W = y.shape[1], y.shape[-2] * fac, y.shape[-1] * fac
+        if f is not None and self.padding == "valid":
+            H, W = H - f.shape[-2] + 1, W - f.shape[-1] + 1
+        x = y.new_zeros((y.shape[0], C, H, W))
+        x[:, :, ::fac, ::fac] = y
+        if f is not None:
+            x = conv_transpose2d(x, f, padding=self.padding)
+        return x
+
+    def prox_l2(self, z, y, gamma, use_fft: bool = True, **kwargs):
+        r"""``argmin_x gamma/2 ||Ax - y||^2 + 1/2 ||x - z||^2`` in closed form
+        by the FFT polyphase decomposition, for circular padding and a size
+        the factor divides (Zhu & Milanfar 2014; blur.py:307). Elsewhere the
+        JAX package solves it by Krylov iteration, which waits for ROADMAP
+        queue 1 item 8 (:meth:`LinearPhysics.prox_l2` raises)."""
+        if not (use_fft and self.padding == "circular" and self.filter is not None):
+            return LinearPhysics.prox_l2(self, z, y, gamma, **kwargs)
+        if z is None or isinstance(z, (int, float)):
+            z = torch.full_like(self.A_adjoint(y), 0.0 if z is None else float(z))
+        sf = self.factor
+        B, C, H, W = z.shape
+        if H % sf or W % sf:
+            return LinearPhysics.prox_l2(self, z, y, gamma, **kwargs)
+        Fh = filter_fft_2d(self.filter, (C, H, W), real_fft=False)
+        Fh2 = (Fh.conj() * Fh).real
+
+        def splits_mean(a):
+            # (B, C, H, W) -> the mean over the sf x sf distinct polyphase blocks
+            return a.reshape(B, C, sf, H // sf, sf, W // sf).mean((2, 4))
+
+        g = _per_sample(gamma, z)
+        z_hat = self.A_adjoint(y) + z / g
+        Fz_hat = torch.fft.fft2(z_hat)
+        top = splits_mean(Fh * Fz_hat)
+        below = splits_mean(Fh2.expand(Fz_hat.shape)) + 1.0 / g
+        r = torch.fft.ifft2(Fh.conj() * (top / below).repeat(1, 1, sf, sf)).real
+        return (z_hat - r) * g
+
+
+class Upsampling(Downsampling):
+    r""":class:`Downsampling` with the roles of ``A`` and ``A_adjoint``
+    swapped (deepinv_tpu/physics/blur.py:351): ``A`` fills zeros between the
+    samples and applies the transposed filter, ``A_adjoint`` filters and
+    decimates. Its ``prox_l2`` is the Krylov one (blur.py:362), which waits for
+    ROADMAP queue 1 item 8."""
+
+    def A(self, x, **params):
+        return Downsampling.A_adjoint(self, x, **params)
+
+    def A_adjoint(self, y, **params):
+        return Downsampling.A(self, y, **params)
+
+    def prox_l2(self, z, y, gamma, **kwargs):
+        return LinearPhysics.prox_l2(self, z, y, gamma, **kwargs)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import deepinv_tpu_torch.ops.kernels.resblock_chain as rc_mod
 from deepinv_tpu.ops.pallas.resblock_chain import (_fold, _lax_resblocks_f32, _unfold,
                                                    fused_resblock_chain_folded)
 from deepinv_tpu_torch.ops.kernels import build
@@ -136,3 +137,26 @@ def test_kernel_input_checks_raise(case):
     else:
         with pytest.raises(ValueError):
             _check_cuda(h, wp, wp[:, :8])
+
+
+def test_backward_computes_only_the_gradients_asked_for(monkeypatch):
+    """With weights that ask for no gradient (a DPS step: the guidance is
+    differentiated with respect to x alone), the backward's f32 recompute
+    asks autograd for dh only, and dh equals the dh of the backward that
+    also computes dW1 and dW2."""
+    h, w1, w2 = _inputs(2, seed=11, shape=(1, 64, 12, 10))
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal(h.shape).astype(np.float32))
+    asked = []
+    f32_chain = rc_mod.resblocks_f32
+    monkeypatch.setattr(rc_mod, "resblocks_f32",
+                        lambda *a: asked.append([v.requires_grad for v in a]) or f32_chain(*a))
+    hb = torch.from_numpy(h).to(torch.bfloat16)
+    grads = []
+    for weights_need_grad in (True, False):
+        ht = hb.clone().requires_grad_()
+        ws = [torch.from_numpy(w).requires_grad_(weights_need_grad) for w in (w1, w2)]
+        (dh,) = torch.autograd.grad((resblock_chain(ht, *ws).float() * g).sum(), ht)
+        grads.append(dh)
+        assert all(w.grad is None for w in ws)
+    assert asked == [[True, True, True], [True, False, False]]
+    assert grads[1].dtype == torch.bfloat16 and torch.equal(grads[0], grads[1])

@@ -136,7 +136,28 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    4n steps under the bench's metric names (``rate:`` lines, with the card),
    and K1's backward at the DPS step's shape with TF32 (the op's) and
    without, beside cuDNN f32 layers under autograd; profiled: a DDRM and a
-   DPS sample at B=1 (kernels and device busy a step).
+   DPS sample at B=1 (kernels and device busy a step);
+12. the Krylov data step (``krylov_phase``): CG, BiCGStab, MINRES and LSQR
+   on batched random systems (4 x 1024 unknowns) against a float64 solve on
+   the card; ``Tomography.prox_l2`` (CG over the Toeplitz normal, the
+   physics' defaults) at 1x and 8x1x256² with a scalar and a per-sample
+   gamma, held by its normal-equation residual (PROX_RESIDUAL_TOLS x tol),
+   the same bits with the stop flag read every iteration, with its CG
+   iterations and host reads a prox; the implicit backward (y, z, gamma and
+   a Blur filter) against a float64 central difference; PnP-ADMM on the CT
+   bench problem (the full-depth bf16 DnCNN of phase 5) at B=1 and B=8, and
+   DRS, Chambolle-Pock (identity K) and g-first PGD (a score-prior step to
+   the denoiser's output) at B=1, each held as phase 5 holds PGD (K5 once an
+   iteration, every denoiser call, the plain and the unrounded chain's
+   runs) with its CG iterations and host reads a prox; TV-PGD on CT from
+   the FBP with Anderson acceleration and with early stop, and TV-PGD
+   deblurring with backtracking at a stepsize plain PGD diverges with, on
+   K7 (one resident launch a loop body and a retry), each within 1e-4 of
+   the run on the plain prox, stopping at its iteration and retrying as it
+   does, and within 0.5 dB of the naive estimate. Timed: ADMM's rates in
+   turns with PGD on CT at B=1 and B=8; profiled: an ADMM recon and its
+   eight data steps replayed (kernels, device busy, idle share, the Krylov
+   solves' share of device time).
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -296,6 +317,32 @@ SAMPLE_CHECKED_CALLS = 3
 ULA_STEPS = 4
 PD_STEPS = 3
 SAMPLE_GRAD_RTOL = 3e-2
+# Phase 12: the Krylov solvers on B batched systems of N unknowns (SPD for CG,
+# BiCGStab and MINRES, eigenvalues in [1, 5]; for LSQR 2N x N, singular
+# values in [0.29, 1.71]) at tol 1e-6, against a float64 solve on the card:
+# the error is at most the condition number times the tolerance (~6e-6)
+# plus f32 rounding; bound on the relative L2 error
+KRYLOV_SYSTEM = (4, 1024)
+KRYLOV_TOL = 1e-6
+KRYLOV_RTOL = 1e-4
+# Tomography.prox_l2 at the physics' defaults (CG, 50 iterations, tol 1e-4)
+# stops once each sample's recurrence residual is within tol of its right-hand
+# side; the true residual of (gamma A^T A + I) x = gamma A^T y + z drifts from
+# the recurrence by f32 rounding only: bound PROX_RESIDUAL_TOLS x tol
+PROX_RESIDUAL_TOLS = 2.0
+# the implicit backward (f32, CG at tol 1e-6) against a float64 central
+# difference (CG at tol 1e-12) of sum(w * prox_l2(z, y, gamma)) on a Blur,
+# directional derivatives in y, z, gamma and the filter, relative error
+GRAD_FD_SIZE = 64
+GRAD_FD_EPS = 1e-3
+GRAD_FD_RTOL = 1e-3
+# the loop options on K7: TV-PGD on CT from the FBP (phase 6's problem) with
+# Anderson acceleration (30 iterations) and with early stop at a relative
+# change the run reaches (at most TV_EARLY_MAX iterations); TV-PGD deblurring
+# (phase 6's) with backtracking at a stepsize plain PGD diverges with
+TV_EARLY_THRES = 1e-3
+TV_EARLY_MAX = 100
+TV_BACKTRACK_STEP = 2.5
 # queued_ms: calls a measurement (their launches, at most ~40 a call, stay
 # within the launch queue's ~1000) and the spin in front of them (~50 ms at
 # the H100's clock, longer than the host takes to issue those calls)
@@ -588,18 +635,20 @@ def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain
     hook = net.register_forward_pre_hook(
         lambda mod, args: calls.append((args[0].detach().clone(), args[1])))
     ops = op if isinstance(op, tuple) else (op,)
-    torch.cuda.reset_peak_memory_stats()
+    cuda = y.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     for o in ops:
         o.launches = 0
     t0 = time.perf_counter()
     with torch.no_grad():
         out = model(y, physics)
-    torch.cuda.synchronize()
+    sync(y.device)
     first_s = time.perf_counter() - t0
     counts = [o.launches for o in ops]
     launches = counts[0]
     hook.remove()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
     print(f"{name} {MAX_ITER} it: first run {first_s:.3f} s, kernel launches "
           f"{dict(zip((o.__name__ for o in ops), counts))}, peak memory {peak_gib:.3f} GiB",
           flush=True)
@@ -628,7 +677,7 @@ def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain
     launches_after = [o.launches for o in ops]
     with plain_chain(), torch.no_grad():
         out_plain = model(y, physics)
-    torch.cuda.synchronize()
+    sync(y.device)
     check([o.launches for o in ops] == launches_after, f"{name}: the plain run launched a kernel")
     rerr = float((out - out_plain).norm() / out_plain.norm())
     print(f"{name} kernel vs plain chain: relative L2 error {rerr} (bound {RECON_RTOL}), "
@@ -729,6 +778,27 @@ def device_profile(label: str, run, calls: int, top: int = 6):
           f"(kernel times summed {busy:.3f} ms; {n_kernels:g} kernels), idle share "
           f"{1 - busy_union / wall_ms:.3f}; top: {top_}", flush=True)
     return wall_ms, busy, n_kernels, kernels, busy_union
+
+
+def plain_conv_chain():
+    """DnCNN's hidden chain on the plain version instead of the kernel."""
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    from deepinv_tpu_torch.ops.kernels.conv_chain import conv_chain_plain
+
+    return swapped(dncnn_mod, "conv_chain",
+                   lambda h, ws, bs, packed=None: conv_chain_plain(h, ws, bs))
+
+
+def exact_conv_chain():
+    """DnCNN's hidden chain in f32 with no rounding inside it (bf16 weights
+    and input, one rounding of the output)."""
+    import torch
+
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    from deepinv_tpu_torch.ops.kernels.conv_chain import chain_f32
+
+    return swapped(dncnn_mod, "conv_chain", lambda h, ws, bs, packed=None: chain_f32(
+        h, ws.to(torch.bfloat16), bs).to(torch.bfloat16))
 
 
 def sync(dev) -> None:
@@ -1423,6 +1493,342 @@ def sampling_phase(dev, card: str, size: int = 256, nc=(64, 128, 256, 512)) -> d
     return out
 
 
+def tv_option_drive(name: str, model, y, physics, prior, x, naive, op, expect: str) -> dict:
+    """One TV reconstruction with a loop option on K7 (``op.launches`` and
+    ``op.launches_by_variant`` set to 0 just before it and read just after),
+    against the same run on the plain prox: finite output shaped like ``x``,
+    every prox on the resident variant, within TV_RECON_RTOL of the plain
+    run, the same iterations (early stop) and retries (backtracking), and no
+    worse than ``naive`` by more than TV_PSNR_SLACK_DB. ``expect`` names the
+    launches the run must make: ``"iterations"`` one a loop body
+    (``max_iter`` with Anderson; under early stop the bodies, frozen ones
+    included, fewer than ``check_every`` past the stop), ``"retries"`` one an
+    iteration and one a retry. Returns the run's numbers."""
+    import torch
+
+    from deepinv_tpu_torch.core import loop_stats
+
+    fp = model.fixed_point
+    op.launches = 0
+    for v in op.launches_by_variant:
+        op.launches_by_variant[v] = 0
+    loop_stats.reset()
+    with torch.no_grad():
+        out = model(y, physics)
+    sync(y.device)
+    launches, by_variant = op.launches, dict(op.launches_by_variant)
+    its, retries, bodies = int(fp.last_run["iterations"]), fp.last_run["retries"], loop_stats.bodies
+    want = fp.max_iter + retries if expect == "retries" else (bodies if fp.early_stop else
+                                                              fp.max_iter)
+    print(f"{name}: {its} iterations (of {fp.max_iter}), {retries} retries, {bodies} loop bodies, "
+          f"{loop_stats.host_reads} host reads; prox launches {launches} {by_variant} "
+          f"(expected {want})", flush=True)
+    check(launches == want and by_variant == {"resident": want, "global": 0},
+          f"{name}: {launches} prox launches {by_variant}, expected {want} resident")
+    check(not fp.early_stop or its <= bodies < its + fp.check_every,
+          f"{name}: {bodies} loop bodies for {its} iterations")
+    check(tuple(out.shape) == tuple(x.shape) and bool(torch.isfinite(out).all()),
+          f"{name}: bad or non-finite reconstruction")
+    with plain_tv([prior]), torch.no_grad():
+        out_plain = model(y, physics)
+    sync(y.device)
+    check(op.launches == launches, f"{name}: the plain run launched the kernel")
+    its_p, retries_p = int(fp.last_run["iterations"]), fp.last_run["retries"]
+    rerr = rel_l2(out, out_plain)
+    p_k, p_p, p_n = psnr(out, x), psnr(out_plain, x), psnr(naive, x)
+    print(f"{name}: kernel vs plain prox relative L2 error {rerr} (bound {TV_RECON_RTOL}); plain "
+          f"run {its_p} iterations, {retries_p} retries; PSNR vs x: kernel {p_k:.4f} dB, plain "
+          f"{p_p:.4f} dB, naive {p_n:.4f} dB (slack {TV_PSNR_SLACK_DB} dB)", flush=True)
+    check(rerr <= TV_RECON_RTOL, f"{name}: reconstruction disagrees with the plain prox")
+    check((its, retries) == (its_p, retries_p),
+          f"{name}: {its} iterations and {retries} retries, the plain run {its_p} and {retries_p}")
+    check(p_k >= p_n - TV_PSNR_SLACK_DB, f"{name}: worse than the naive estimate")
+    return {"launches": launches, "iterations": its, "retries": retries, "rel_l2": rerr,
+            "psnr_db": p_k, "naive_psnr_db": p_n}
+
+
+def krylov_phase(dev, card: str, size: int = 256, depth: int = 20, batch: int = HQS_BATCH,
+                 pgd_ct=None) -> dict:
+    """Phase 12: the Krylov data step and the loop options. CG, BiCGStab,
+    MINRES and LSQR on batched random systems against float64;
+    ``Tomography.prox_l2`` at 1x and ``batch``x1x``size``² with a scalar and a
+    per-sample gamma, by its normal-equation residual, with its CG
+    iterations and host reads; the implicit backward against a float64
+    central difference; PnP-ADMM on the bench's CT problem (a bf16 DnCNN of
+    ``depth`` layers, 64 channels, the residual layer scaled as phase 5's) at
+    B=1 and B=``batch`` and DRS, Chambolle-Pock and g-first PGD at B=1, each
+    held as phase 5 holds PGD (``drive``: K5 once an iteration, every
+    denoiser call, the plain and the unrounded chain's runs); the TV runs
+    with Anderson acceleration, early stop and backtracking on K7
+    (``tv_option_drive``). Then, on the card only: the ADMM rates in turns
+    with PGD on CT (``pgd_ct``: batch -> one recon), profiles of an ADMM
+    recon and of its eight data steps replayed (the Krylov share of device
+    time). Returns the numbers of the kernels line. On the CPU, at a small
+    ``size`` and ``depth``, it rehearses the checks and stops before the
+    times (count the plain K5 and K7 calls as launches by wrapping
+    ``deepinv_tpu_torch.models.dncnn.conv_chain`` and
+    ``deepinv_tpu_torch.optim.prior.chambolle_prox``)."""
+    import numpy as np
+    import torch
+
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    import deepinv_tpu_torch.optim.prior as prior_mod
+    from deepinv_tpu_torch.core import loop_stats
+    from deepinv_tpu_torch.models import DnCNN, autocast
+    from deepinv_tpu_torch.ops import gaussian_blur
+    from deepinv_tpu_torch.optim import (L2, PnP, ScorePrior, TVPrior, bicgstab,
+                                         conjugate_gradient, lsqr, minres, optim_builder)
+    from deepinv_tpu_torch.physics import Blur, BlurFFT, GaussianNoise, Tomography
+
+    g = torch.Generator().manual_seed(SEED + 40)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    out = {"launches": {"K5": {}, "K7": {}}}
+
+    # 12.1 the four solvers on batched random systems, against float64
+    B, N = KRYLOV_SYSTEM
+    M = (torch.randn((N, N), generator=g) / N ** 0.5).to(dev)
+    S = M.T @ M + torch.eye(N, device=dev)
+    A = (torch.randn((2 * N, N), generator=g) / (2 * N) ** 0.5).to(dev)
+    xs = torch.randn((B, N), generator=g).to(dev)
+    b, ya = xs @ S.T, xs @ A.T
+    exact = torch.linalg.solve(S.double(), b.double().T).T
+    A64 = A.double()
+    exact_ls = torch.linalg.solve(A64.T @ A64, A64.T @ ya.double().T).T
+    runs = {"CG": lambda: conjugate_gradient(lambda v: v @ S.T, b, max_iter=200, tol=KRYLOV_TOL),
+            "BiCGStab": lambda: bicgstab(lambda v: v @ S.T, b, max_iter=200, tol=KRYLOV_TOL),
+            "MINRES": lambda: minres(lambda v: v @ S.T, b, max_iter=200, tol=KRYLOV_TOL),
+            "LSQR": lambda: lsqr(lambda v: v @ A.T, lambda u: u @ A, ya, max_iter=200,
+                                 tol=KRYLOV_TOL)}
+    out["solvers"] = {}
+    for name, run in runs.items():
+        loop_stats.reset()
+        x_hat = run()
+        sync(dev)
+        err = rel_l2(x_hat, exact_ls if name == "LSQR" else exact)
+        its = loop_stats.iterations
+        print(f"{name} on {B} systems of {N} unknowns, tol {KRYLOV_TOL}: relative L2 error vs "
+              f"float64 {err} (bound {KRYLOV_RTOL}), {its} iterations, {loop_stats.host_reads} "
+              f"host reads", flush=True)
+        check(bool(torch.isfinite(x_hat).all()) and err <= KRYLOV_RTOL,
+              f"{name} disagrees with the float64 solve")
+        out["solvers"][name] = {"rel_l2": err, "iterations": its}
+
+    # 12.2 the CT prox at B=1 and B=batch, a scalar and a per-sample gamma
+    ct = Tomography(img_width=size, angles=90, method="slice", normalize=True, device=dev)
+    out["prox"] = {}
+    for nb in (1, batch):
+        x = torch.rand((nb, 1, size, size), generator=g).to(dev)
+        y = ct.A(x)
+        z = ct.A_dagger(y)    # the FBP
+        for gamma in (1.0, torch.linspace(0.5, 4.0, nb).to(dev)):
+            label = f"Tomography.prox_l2 {nb}x1x{size}², gamma " + (
+                f"{gamma}" if isinstance(gamma, float) else "per sample")
+            loop_stats.reset()
+            with torch.no_grad():
+                xp = ct.prox_l2(z, y, gamma)
+            sync(dev)
+            its, reads = loop_stats.iterations, loop_stats.host_reads
+            with torch.no_grad():
+                gb = gamma if isinstance(gamma, float) else gamma[:, None, None, None]
+                rhs = gb * ct.A_adjoint(y) + z
+                res = (gb * ct.A_adjoint_A(xp) + xp - rhs).flatten(1).norm(dim=1)
+                rel = float((res / rhs.flatten(1).norm(dim=1)).max())
+                # the backprojection in A^T y adds with atomics (index_add_), so
+                # two prox calls may differ in the last bits; the loop itself,
+                # on the prox's system, gives the same bits for every read interval
+                cg = [conjugate_gradient(lambda v: gb * ct.A_adjoint_A(v) + v, rhs, init=z,
+                                         max_iter=ct.max_iter, tol=ct.tol, check_every=k)
+                      for k in (1, 8)]
+                same = torch.equal(*cg)
+            print(f"{label}: normal-equation residual {rel} (bound {PROX_RESIDUAL_TOLS} x tol "
+                  f"{ct.tol}), {its} CG iterations, {reads} host reads a prox; CG on its system "
+                  f"the same bits with the flag read every iteration and every 8: {same}",
+                  flush=True)
+            check(bool(torch.isfinite(xp).all()) and rel <= PROX_RESIDUAL_TOLS * ct.tol,
+                  f"{label}: residual {rel}")
+            check(same, f"{label}: a host read every iteration changes the result")
+            out["prox"][label] = {"residual": rel, "cg_iterations": its, "host_reads": reads}
+
+    # 12.3 the implicit backward against a float64 central difference
+    s_ = GRAD_FD_SIZE
+    blur = Blur(gaussian_blur(sigma=1.0), padding="reflect", device=dev)
+    f0 = blur.filter.detach().clone()
+    y0, z0, w = (torch.randn((2, 1, s_, s_), generator=g).to(dev) for _ in range(3))
+    g0 = torch.tensor([0.7, 3.0], device=dev)
+    dirs = {"y": torch.randn(y0.shape, generator=g).to(dev),
+            "z": torch.randn(z0.shape, generator=g).to(dev),
+            "gamma": torch.randn(g0.shape, generator=g).to(dev),
+            "filter": torch.randn(f0.shape, generator=g).to(dev) * 0.01}
+    blur.filter.requires_grad_(True)
+    ins = {"y": y0.clone().requires_grad_(), "z": z0.clone().requires_grad_(),
+           "gamma": g0.clone().requires_grad_()}
+    (blur.prox_l2(ins["z"], ins["y"], ins["gamma"], max_iter=200, tol=1e-6) * w).sum().backward()
+    grads = {k: v.grad for k, v in ins.items()}
+    grads["filter"] = blur.filter.grad
+    blur.filter.requires_grad_(False)
+    blur64 = Blur(gaussian_blur(sigma=1.0), padding="reflect", device=dev).double()
+
+    def loss64(e, k):
+        v = {"y": y0.double(), "z": z0.double(), "gamma": g0.double(), "filter": f0.double()}
+        v[k] = v[k] + e * dirs[k].double()
+        p = blur64.update(filter=v["filter"])
+        with torch.no_grad():
+            return float((p.prox_l2(v["z"], v["y"], v["gamma"], max_iter=500, tol=1e-12)
+                          * w.double()).sum())
+
+    out["grad_fd"] = {}
+    for k, d in dirs.items():
+        ad = float((grads[k].double() * d.double()).sum())
+        fd = (loss64(GRAD_FD_EPS, k) - loss64(-GRAD_FD_EPS, k)) / (2 * GRAD_FD_EPS)
+        rel = abs(ad - fd) / abs(fd)
+        print(f"implicit backward d/d{k}: {ad} vs float64 central difference {fd}, relative "
+              f"error {rel} (bound {GRAD_FD_RTOL})", flush=True)
+        check(rel <= GRAD_FD_RTOL, f"implicit backward: d/d{k} disagrees with float64")
+        out["grad_fd"][k] = rel
+
+    # 12.4-12.5 PnP-ADMM on CT at B=1 and B=batch; DRS, CP, g-first PGD at B=1
+    net = DnCNN(1, 1, depth=depth, nf=64, generator=g, device=dev)
+    with torch.no_grad():
+        net.out_conv.weight.mul_(DNCNN_RESIDUAL_SCALE)
+    den = autocast(net)
+    op = dncnn_mod.conv_chain
+    x1 = torch.rand((1, 1, size, size), generator=g).to(dev)
+    x8 = torch.rand((batch, 1, size, size), generator=g).to(dev)
+    y1, y8 = ct.A(x1), ct.A(x8)
+    models = {
+        "ADMM": optim_builder("ADMM", data_fidelity=L2(), prior=PnP(den), params_algo=PGD_PARAMS,
+                              max_iter=MAX_ITER, device=dev),
+        "DRS": optim_builder("DRS", data_fidelity=L2(), prior=PnP(den), params_algo=PGD_PARAMS,
+                             max_iter=MAX_ITER, device=dev),
+        "CP": optim_builder("CP", data_fidelity=L2(), prior=PnP(den), params_algo=PGD_PARAMS,
+                            max_iter=MAX_ITER, device=dev),
+        # a gradient step on the score prior at lambda = g_param^2 steps to
+        # the denoiser's output; then the prox of f
+        "PGD g-first": optim_builder(
+            "PGD", data_fidelity=L2(), prior=ScorePrior(den), g_first=True, device=dev,
+            params_algo={**PGD_PARAMS, "lambda": PGD_PARAMS["g_param"] ** 2}, max_iter=MAX_ITER),
+    }
+    problems = [("ADMM", y1, x1), ("ADMM", y8, x8), ("DRS", y1, x1), ("CP", y1, x1),
+                ("PGD g-first", y1, x1)]
+    out["recon"] = {}
+    for name, y, x in problems:
+        label = f"{name} CT B={y.shape[0]}"
+        res, res_plain, n = drive(label, models[name], y, ct, net, op, plain_conv_chain,
+                                  tuple(x.shape), exact_conv_chain)
+        out["launches"]["K5"][label] = n
+        loop_stats.reset()
+        with torch.no_grad():
+            models[name](y, ct)
+        sync(dev)
+        its = loop_stats.iterations
+        print(f"{label}: PSNR vs x kernel {psnr(res, x):.4f} dB, plain {psnr(res_plain, x):.4f} "
+              f"dB, FBP {psnr(ct.A_dagger(y), x):.4f} dB; data steps {loop_stats.loops}, CG "
+              f"iterations {its} ({its / MAX_ITER:.2f} a prox), host reads "
+              f"{loop_stats.host_reads} ({loop_stats.host_reads / MAX_ITER:.2f} a prox), loop "
+              f"bodies {loop_stats.bodies}", flush=True)
+        check(loop_stats.loops == MAX_ITER, f"{label}: {loop_stats.loops} Krylov solves")
+        out["recon"][label] = {"cg_iterations_per_prox": its / MAX_ITER,
+                               "host_reads_per_prox": loop_stats.host_reads / MAX_ITER,
+                               "rel_l2_plain": rel_l2(res, res_plain)}
+
+    # 12.6 the loop options on K7
+    rng = np.random.default_rng(SEED + 41)
+    tv_op = prior_mod.chambolle_prox
+    ct_tv = Tomography(img_width=size, angles=90, method="slice", normalize=True,
+                       noise_model=GaussianNoise(0.002, device=dev), device=dev)
+    x_ct = torch.from_numpy(discs(rng, 1, size)[None]).to(dev)
+    y_ct = ct_tv(x_ct, generator=gen(SEED + 42))
+    blur_tv = BlurFFT((3, size, size), filter=gaussian_blur(sigma=2.0),
+                      noise_model=GaussianNoise(0.02, device=dev), device=dev)
+    x_bl = torch.from_numpy(discs(rng, 3, size)[None]).to(dev)
+    y_bl = blur_tv(x_bl, generator=gen(SEED + 43))
+    ct_params = {"stepsize": 1.0, "lambda": 5e-4}
+    fbp_init = lambda v, p: p.A_dagger(v)   # noqa: E731
+    options = [
+        ("TV-PGD CT from FBP, Anderson", ct_tv, y_ct, x_ct, ct_tv.A_dagger(y_ct), "iterations",
+         dict(params_algo=ct_params, max_iter=30, custom_init=fbp_init,
+              anderson_acceleration=True)),
+        ("TV-PGD CT from FBP, early stop", ct_tv, y_ct, x_ct, ct_tv.A_dagger(y_ct), "iterations",
+         dict(params_algo=ct_params, max_iter=TV_EARLY_MAX, custom_init=fbp_init,
+              early_stop=True, thres_conv=TV_EARLY_THRES)),
+        (f"TV-PGD deblur 1x3x{size}², backtracking", blur_tv, y_bl, x_bl, y_bl, "retries",
+         dict(params_algo={"stepsize": TV_BACKTRACK_STEP, "lambda": 0.05}, max_iter=30,
+              backtracking=True)),
+    ]
+    out["loop_options"] = {}
+    for name, phys, y, x, naive, expect, kw in options:
+        prior = TVPrior()
+        model = optim_builder("PGD", data_fidelity=L2(), prior=prior, device=dev, **kw)
+        res = tv_option_drive(name, model, y, phys, prior, x, naive, tv_op, expect)
+        out["launches"]["K7"][name] = res["launches"]
+        out["loop_options"][name] = res
+    # the same deblurring without backtracking: the stepsize is past 2 / L
+    plain_step = optim_builder("PGD", data_fidelity=L2(), prior=TVPrior(), device=dev,
+                               params_algo={"stepsize": TV_BACKTRACK_STEP, "lambda": 0.05},
+                               max_iter=30)
+    with torch.no_grad():
+        div = plain_step(y_bl, blur_tv)
+    p_div = psnr(div, x_bl)
+    print(f"TV-PGD deblur at stepsize {TV_BACKTRACK_STEP} without backtracking: PSNR {p_div:.4f} "
+          f"dB, max |x| {float(div.abs().max())}", flush=True)
+    check(p_div < out["loop_options"][options[2][0]]["psnr_db"] - 1.0,
+          "plain PGD at the backtracking stepsize does not diverge")
+    if dev.type != "cuda":
+        return out
+
+    # 12.7 rates in turns beside PGD on CT, and where an ADMM recon's time goes
+    def recon(m, v):
+        def run():
+            with torch.no_grad():
+                return m(v, ct)
+        return run
+
+    out["rates"] = {}
+    for nb, y in ((1, y1), (batch, y8)):
+        r = rates_in_turns(f"ADMM vs PGD, CT B={nb}", {"ADMM": recon(models["ADMM"], y),
+                                                       "PGD": pgd_ct[nb]}, nb * MAX_ITER)
+        out["rates"][f"B={nb}"] = r
+        print(f"rate: ADMM CT B={nb} {r['ADMM'] / nb:.2f} it/s, {r['ADMM']:.2f} image-it/s; PGD "
+              f"CT {r['PGD'] / nb:.2f} it/s, {r['PGD']:.2f} image-it/s ({card})", flush=True)
+    out["profile"] = {}
+    for nb, y in ((1, y1), (batch, y8)):
+        steps = []
+        orig = ct.prox_l2
+
+        def record(z, yy, gamma, **kw):
+            steps.append((z.detach().clone(), yy, gamma))
+            return orig(z, yy, gamma, **kw)
+
+        ct.prox_l2 = record
+        try:
+            with torch.no_grad():
+                models["ADMM"](y, ct)
+        finally:
+            del ct.prox_l2
+        check(len(steps) == MAX_ITER, f"ADMM CT B={nb}: {len(steps)} data steps recorded")
+
+        def data_steps():
+            with torch.no_grad():
+                for z, yy, gamma in steps:
+                    ct.prox_l2(z, yy, gamma)
+
+        prof = device_profile(f"ADMM CT B={nb} recon", recon(models["ADMM"], y), 3, top=8)
+        prof_k = device_profile(f"ADMM CT B={nb} its {MAX_ITER} data steps replayed",
+                                data_steps, 3, top=8)
+        if prof is not None and prof_k is not None:
+            share = prof_k[4] / prof[4]
+            print(f"profile ADMM CT B={nb}: {prof[2]:g} kernels a recon, device busy {prof[4]:.3f} "
+                  f"ms, idle share {1 - prof[4] / prof[0]:.3f}; the Krylov solves {prof_k[4]:.3f} "
+                  f"ms of device time ({share:.3f} of it), {prof_k[2]:g} kernels", flush=True)
+            out["profile"][f"B={nb}"] = {
+                "wall_ms": prof[0], "device_busy_ms": prof[4], "idle_share": 1 - prof[4] / prof[0],
+                "kernels": prof[2], "krylov_device_ms": prof_k[4], "krylov_share": share}
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1742,17 +2148,6 @@ def main() -> int:
     hqs = recon(model, y, physics)
 
     # 5. the PGD bench problems (bench.py:140-162): MRI, then CT
-    def plain_conv_chain():
-        """DnCNN's hidden chain on the plain version instead of the kernel."""
-        return swapped(dncnn_mod, "conv_chain",
-                       lambda h, ws, bs, packed=None: conv_chain_plain(h, ws, bs))
-
-    def exact_conv_chain():
-        """DnCNN's hidden chain in f32 with no rounding inside it (bf16
-        weights and input, one rounding of the output)."""
-        return swapped(dncnn_mod, "conv_chain", lambda h, ws, bs, packed=None: chain_f32(
-            h, ws.to(torch.bfloat16), bs).to(torch.bfloat16))
-
     mask = (np.random.default_rng(0).random((256, 256)) < 0.3).astype(np.float32)
     problems = {
         "MRI": (MRI(mask=mask, img_size=(256, 256)),
@@ -2175,6 +2570,10 @@ def main() -> int:
     # 11. diffusion and Langevin sampling with a full-width bf16 DRUNet (K1)
     smp = sampling_phase(dev, card)
 
+    # 12. the Krylov data step: ADMM, DRS, CP and g-first PGD on CT over K5,
+    # and the loop options on K7
+    kry = krylov_phase(dev, card, pgd_ct={1: pgd["CT"], HQS_BATCH: pgd8["CT"]})
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -2275,6 +2674,13 @@ def main() -> int:
         # CUDA-event times above include)
         "device_ms": tiles["K5", 1][1]["wgmma"],
         "device_ms_b8": tiles["K5", HQS_BATCH][1]["wgmma"],
+        # phase 12: K5's launches in each recon over the CT Krylov prox (one
+        # an iteration), ADMM's rates beside PGD's, its CG iterations and
+        # host reads a prox, and where an ADMM recon's device time goes
+        "launches_krylov": kry["launches"]["K5"],
+        "admm_ct_rates": kry["rates"],
+        "admm_ct_krylov": kry["recon"],
+        "admm_ct_profile": kry["profile"],
     }, {
         "name": "tv_prox",
         "route": "cuda",
@@ -2294,6 +2700,9 @@ def main() -> int:
         "launches_per_prox": tv_per_prox,
         "layout_ms": {f"{'x'.join(map(str, k))}": v for k, v in tv_layout_ms.items()},
         "barrier_floor_ms": tv_floor_us.get(tv_main.cluster, tv_floor_us[16]) * TV_ITERS / 1e3,
+        # phase 12: K7's launches under Anderson acceleration, early stop and
+        # backtracking (one a loop body, one a retry)
+        "launches_loop_options": kry["launches"]["K7"],
     }, {
         "name": "up_resblock_chain",
         "route": "cuda",

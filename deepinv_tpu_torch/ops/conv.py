@@ -94,7 +94,8 @@ def conv_transpose2d(y: torch.Tensor, filter: torch.Tensor, padding: str = "vali
                      correlation: bool = False) -> torch.Tensor:
     """Exact adjoint of :func:`conv2d` in the same padding mode (conv.py:129):
     the vector-Jacobian product of :func:`conv2d` at ``y``, computed by
-    autograd (differentiable in ``y`` where ``y`` requires grad)."""
+    autograd (differentiable in ``y`` and ``filter`` where they require
+    grad)."""
     padding = _check_padding(padding)
     B, C = y.shape[:2]
     filt = _broadcast_filter(filter, B, C)
@@ -103,7 +104,8 @@ def conv_transpose2d(y: torch.Tensor, filter: torch.Tensor, padding: str = "vali
     with torch.enable_grad():
         x = y.new_zeros(x_shape).requires_grad_()
         out = conv2d(x, filt, padding=padding, correlation=correlation)
-        (xt,) = torch.autograd.grad(out, x, y, create_graph=y.requires_grad)
+        (xt,) = torch.autograd.grad(out, x, y,
+                                    create_graph=y.requires_grad or filter.requires_grad)
     return xt
 
 

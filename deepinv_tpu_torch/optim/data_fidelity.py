@@ -1,15 +1,18 @@
 """Data-fidelity terms ``f(x) = d(A x, y)`` (port of
 deepinv_tpu/optim/data_fidelity.py). The measurement-space distance ``d`` is
 written into each subclass as ``d_fn``/``d_grad``; the JAX package's separate
-``Distance`` classes (optim/distance.py) wait for their slices."""
+``Distance`` classes (optim/distance.py) wait for their slices. A stacked
+physics' measurements are a :class:`~deepinv_tpu_torch.core.TensorList`: the
+distance sums over its members (data_fidelity.py:49-61)."""
 
 from __future__ import annotations
 
 import contextlib
 
+from ..core import TensorList
 from .potential import Potential
 
-__all__ = ["DataFidelity", "L2"]
+__all__ = ["DataFidelity", "StackedPhysicsDataFidelity", "L2"]
 
 
 class DataFidelity(Potential):
@@ -53,10 +56,16 @@ class DataFidelity(Potential):
         return m[2]
 
     def fn(self, x, y, physics, *args, **kwargs):
-        return self.d_fn(physics.A(x), y)
+        Ax = physics.A(x)
+        if isinstance(Ax, TensorList):
+            return sum(self.d_fn(a, b) for a, b in zip(Ax, y))
+        return self.d_fn(Ax, y)
 
     def grad(self, x, y, physics, *args, **kwargs):
-        return physics.A_vjp(x, self.d_grad(physics.A(x), y))
+        Ax = physics.A(x)
+        if isinstance(Ax, TensorList):
+            return physics.A_vjp(x, TensorList([self.d_grad(a, b) for a, b in zip(Ax, y)]))
+        return physics.A_vjp(x, self.d_grad(Ax, y))
 
     def prox(self, x, y, physics, *args, gamma=1.0, stepsize_inter=1.0,
              max_iter_inter: int = 50, **kwargs):
@@ -79,6 +88,24 @@ class DataFidelity(Potential):
     def prox_d_conjugate(self, x, y, *args, gamma=1.0, lamb=1.0, **kwargs):
         """The Moreau identity on the distance ``d`` alone (data_fidelity.py:92)."""
         return x - gamma * self.prox_d(x / gamma, y, *args, gamma=lamb / gamma, **kwargs)
+
+
+class StackedPhysicsDataFidelity(DataFidelity):
+    r"""``f(x) = sum_i f_i(A_i x, y_i)`` over the members of a stacked physics,
+    each with its own fidelity (data_fidelity.py:97). Its prox is the base
+    class's inner gradient descent."""
+
+    def __init__(self, data_fidelity_list):
+        super().__init__()
+        self.data_fidelity_list = list(data_fidelity_list)
+
+    def fn(self, x, y, physics, *args, **kwargs):
+        return sum(f.fn(x, yi, p)
+                   for f, yi, p in zip(self.data_fidelity_list, y, physics.physics_list))
+
+    def grad(self, x, y, physics, *args, **kwargs):
+        return sum(f.grad(x, yi, p)
+                   for f, yi, p in zip(self.data_fidelity_list, y, physics.physics_list))
 
 
 class L2(DataFidelity):

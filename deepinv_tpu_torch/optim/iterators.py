@@ -12,7 +12,16 @@ from __future__ import annotations
 from torch import nn
 
 __all__ = ["OptimIterator", "GDIteration", "HQSIteration", "PGDIteration", "FISTAIteration",
-           "ADMMIteration", "DRSIteration", "CPIteration"]
+           "ADMMIteration", "DRSIteration", "CPIteration", "objective_function"]
+
+
+def objective_function(x, data_fidelity, prior, params, y, physics):
+    """``F(x) = f(x) + lambda g(x)`` per sample, ``g`` counted only for a prior
+    with a cost (``explicit_prior``; iterators.py:41)."""
+    F = data_fidelity.fn(x, y, physics)
+    if prior is not None and getattr(prior, "explicit_prior", False):
+        F = F + params["lambda"] * prior.fn(x, params.get("g_param"))
+    return F
 
 
 class OptimIterator(nn.Module):

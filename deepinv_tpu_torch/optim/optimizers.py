@@ -7,7 +7,8 @@ one value per iteration; it is stored as a ``(max_iter, ...)`` buffer. The
 reconstructor, with its prior and denoiser, is put on ``device``: the CUDA
 device unless the caller passes another. The named builders (``PGD``,
 ``FISTA``, ``ADMM``, ``DRS``, ``CP``, ``GD``, ``HQS``) and ``PDCP`` are
-``optim_builder`` with the iteration fixed.
+``optim_builder`` with the iteration fixed. Early stop, Anderson
+acceleration, backtracking and ``remat`` are :class:`FixedPoint`'s.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from ..models.base import Reconstructor
 from .data_fidelity import L2
 from .fixed_point import FixedPoint
 from .iterators import (ADMMIteration, CPIteration, DRSIteration, FISTAIteration, GDIteration,
-                        HQSIteration, OptimIterator, PGDIteration)
+                        HQSIteration, OptimIterator, PGDIteration, objective_function)
 from .prior import Zero
 
 __all__ = ["BaseOptim", "optim_builder", "create_iterator", "PGD", "FISTA", "ADMM", "DRS", "CP",
@@ -73,6 +74,12 @@ class BaseOptim(Reconstructor):
     :param max_iter: number of iterations.
     :param custom_init: ``f(y, physics) -> x0`` (default ``A_adjoint(y)``).
     :param g_first: prior step first.
+    :param early_stop: stop when the iterate's relative change is below
+        ``thres_conv`` (``crit_conv`` names the criterion, ``"residual"``).
+    :param anderson_acceleration: Anderson mixing over ``history_size``
+        iterates.
+    :param backtracking: Armijo backtracking on the stepsize.
+    :param remat: recompute each iteration in the backward.
     :param device: where the schedule, the prior and the data fidelity (and
         a denoiser in them) live; the CUDA device by default.
     :param kwargs: ``K``, ``K_adjoint`` for the CP iteration.
@@ -80,15 +87,13 @@ class BaseOptim(Reconstructor):
 
     def __init__(self, iterator, data_fidelity=None, prior=None, params_algo: dict = None,
                  max_iter: int = 100, custom_init: Optional[Callable] = None,
-                 g_first: bool = False, early_stop: bool = False,
-                 anderson_acceleration: bool = False, backtracking: bool = False,
-                 device=None, **kwargs):
+                 g_first: bool = False, early_stop: bool = False, crit_conv: str = "residual",
+                 thres_conv: float = 1e-5, anderson_acceleration: bool = False,
+                 history_size: int = 5, backtracking: bool = False, remat: bool = False,
+                 verbose: bool = False, device=None, **kwargs):
         device = resolve_device(device)
         super().__init__()
-        if early_stop or anderson_acceleration or backtracking:
-            raise NotImplementedError(
-                "early stopping, Anderson acceleration and backtracking wait for "
-                "ROADMAP queue 1 item 8")
+        self.verbose = verbose
         self.iterator = create_iterator(iterator, g_first=g_first, **kwargs)
         self.data_fidelity = data_fidelity if data_fidelity is not None else L2()
         self.prior = prior if prior is not None else Zero()
@@ -99,7 +104,10 @@ class BaseOptim(Reconstructor):
         self._param_names = tuple(pa)
         for k, v in pa.items():
             self.register_buffer(f"param_{k}", self._stack_param(v, max_iter))
-        self.fixed_point = FixedPoint(self.iterator, max_iter=max_iter)
+        self.fixed_point = FixedPoint(
+            self.iterator, max_iter=max_iter, early_stop=early_stop, crit_conv=crit_conv,
+            thres_conv=thres_conv, anderson_acceleration=anderson_acceleration,
+            history_size=history_size, remat=remat, backtracking=backtracking)
         self.to(device)
 
     @property
@@ -141,6 +149,29 @@ class BaseOptim(Reconstructor):
             X = self.fixed_point(x0, self.data_fidelity, self.prior, self.params_algo, y,
                                  physics)
         return self.iterator.get_output(X)
+
+    def check_conv_fn(self, it: int, X_prev, X) -> bool:
+        """Host-side convergence test (optimizers.py:280): the batch mean of
+        each sample's ``||x_prev - x|| / (||x|| + 1e-6)`` below ``thres_conv``."""
+        xp = self.iterator.get_output(X_prev).flatten(1)
+        x = self.iterator.get_output(X).flatten(1)
+        crit = float(((xp - x).norm(dim=-1) / (x.norm(dim=-1) + 1e-6)).mean())
+        converged = crit < self.fixed_point.thres_conv
+        if converged and self.verbose:
+            print(f"Iteration {it}, converge crit. = {crit:.2E}")
+        return converged
+
+    def backtracking_check_fn(self, X_prev, X, cur_params, y, physics, data_fidelity=None,
+                              prior=None):
+        """Whether the objective rose from ``X_prev`` to ``X``, a 0-d bool
+        tensor: the Armijo test (optimizers.py:295)."""
+        df = data_fidelity if data_fidelity is not None else self.data_fidelity
+        pr = prior if prior is not None else self.prior
+        F_old = objective_function(self.iterator.get_output(X_prev), df, pr, cur_params, y,
+                                   physics).sum()
+        F_new = objective_function(self.iterator.get_output(X), df, pr, cur_params, y,
+                                   physics).sum()
+        return F_new > F_old
 
 
 def optim_builder(iteration, data_fidelity=None, prior=None, params_algo=None,

@@ -1,7 +1,7 @@
 """Priors ``g(x)`` (port of deepinv_tpu/optim/prior.py): the base, ``Zero``,
-the Plug-and-Play prior, the score prior of the Langevin samplers and
-isotropic total variation. RED, ``TVL1Prior`` and the sparsity priors wait
-for ROADMAP queue 1 item 8."""
+the Plug-and-Play prior, the score prior of the Langevin samplers,
+Tikhonov and isotropic total variation. RED, ``TVL1Prior`` and the sparsity
+priors wait for ROADMAP queue 1 item 8."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from ..ops.kernels.tv import div_op as _div_op
 from ..ops.kernels.tv import grad_op as _grad_op
 from .potential import Potential
 
-__all__ = ["Prior", "Zero", "PnP", "ScorePrior", "TVPrior"]
+__all__ = ["Prior", "Zero", "PnP", "ScorePrior", "Tikhonov", "TVPrior"]
 
 
 def _batch_sum(v):
@@ -82,6 +82,19 @@ class ScorePrior(Prior):
         b = torch.as_tensor(b)
         sign = torch.where(b >= 0, 1.0, -1.0)
         return a / torch.where(b.abs() > epsilon, b, sign * epsilon)
+
+
+class Tikhonov(Prior):
+    r"""``g(x) = 1/2 ||x||^2`` (deepinv_tpu/optim/prior.py:130)."""
+
+    def fn(self, x, *args, **kwargs):
+        return 0.5 * _batch_sum(x.abs() ** 2)
+
+    def grad(self, x, *args, **kwargs):
+        return x
+
+    def prox(self, x, *args, gamma=1.0, **kwargs):
+        return x / (1 + gamma)
 
 
 class TVPrior(Prior):

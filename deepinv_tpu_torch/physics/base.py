@@ -4,18 +4,27 @@ Every physics is an ``nn.Module``: operator parameters (filters, masks) are
 buffers, so ``physics.to(device)`` moves them. Parameter changes are
 functional, as in the JAX package (core/module.py:104-122):
 ``physics.update(filter=...)`` returns a new physics and leaves the old one
-as it was.
+as it was. A linear physics without a closed form solves its ``prox_l2`` and
+``A_dagger`` by the Krylov solvers of :mod:`~deepinv_tpu_torch.optim.linear`
+(its ``solver``, ``max_iter`` and ``tol``). Physics compose
+(:func:`compose`, ``p1 * p2``) and stack (:func:`stack`, measurements a
+:class:`~deepinv_tpu_torch.core.TensorList`).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
-__all__ = ["Physics", "LinearPhysics", "DecomposablePhysics", "Denoising", "replace", "update"]
+from ..core import CHECK_EVERY, TensorList, device_while, power_method, tree_map, tree_norm
+from ..core import tree_real_vdot, tree_sub
+
+__all__ = ["Physics", "LinearPhysics", "DecomposablePhysics", "Denoising", "ComposedPhysics",
+           "ComposedLinearPhysics", "StackedPhysics", "StackedLinearPhysics", "compose", "stack",
+           "replace", "update"]
 
 
 def replace(module: nn.Module, **changes) -> nn.Module:
@@ -54,14 +63,24 @@ def update(module: nn.Module, **params) -> nn.Module:
 
 class Physics(nn.Module):
     """Generic forward operator ``y = sensor(noise(A(x)))``
-    (deepinv_tpu/physics/base.py:55)."""
+    (deepinv_tpu/physics/base.py:55).
+
+    :param solver: how :meth:`A_dagger` inverts ``A`` (gradient descent
+        here; a Krylov solver for :class:`LinearPhysics`).
+    :param max_iter: iterations of that solver.
+    :param tol: its stopping tolerance.
+    """
 
     def __init__(self, A: Optional[Callable] = None, noise_model: Optional[nn.Module] = None,
-                 sensor_model: Optional[Callable] = None):
+                 sensor_model: Optional[Callable] = None, solver: str = "gradient_descent",
+                 max_iter: int = 50, tol: float = 1e-4):
         super().__init__()
         self.fwd_fn = A
         self.noise_model = noise_model
         self.sensor_model = sensor_model
+        self.solver = solver
+        self.max_iter = max_iter
+        self.tol = tol
 
     def A(self, x, **params):
         phys = self.update(**params) if params else self
@@ -89,13 +108,64 @@ class Physics(nn.Module):
                 new = replace(new, noise_model=nm2)
         return new
 
+    def A_dagger(self, y, x_init=None, check_every: int = CHECK_EVERY, **params):
+        """Pseudo-inverse of a nonlinear ``A`` by gradient descent on
+        ``1/2 ||A(x) - y||^2`` at step 0.1 from ``A_adjoint(y)`` (or ``y``),
+        until the gradient's norm falls below ``tol`` or ``max_iter``
+        iterations (base.py:110)."""
+        phys = self.update(**params) if params else self
+        if x_init is None:
+            x_init = phys.A_adjoint(y) if hasattr(phys, "A_adjoint") else y
+
+        def grad(x):
+            with torch.enable_grad():
+                u = tree_map(lambda v: v.detach().requires_grad_(), x)
+                r = tree_sub(phys.A(u), y)
+                loss = 0.5 * tree_real_vdot(r, r)
+                return torch.autograd.grad(loss, u)[0]
+
+        def body(s):
+            g = grad(s[0])
+            return tree_map(lambda a, b: a - 0.1 * b, s[0], g), tree_norm(g)
+
+        inf = torch.full((), float("inf"), device=x_init.device)
+        (x, _), _ = device_while(lambda s: s[1] > self.tol, body, (x_init, inf), self.max_iter,
+                                 check_every)
+        return x
+
+    def A_vjp(self, x, v):
+        """``v^T (dA/dx)`` at ``x`` by autograd (base.py:140)."""
+        with torch.enable_grad():
+            u = x.detach().requires_grad_()
+            return torch.autograd.grad(self.A(u), u, v)[0]
+
+    def A_jvp(self, x, v):
+        """``(dA/dx) v`` at ``x`` by forward-mode autodiff (base.py:146)."""
+        return torch.func.jvp(lambda u: self.A(u), (x,), (v,))[1]
+
+    def compute_norm(self, x0, max_iter: int = 100, tol: float = 1e-6):
+        """Squared spectral norm of the Jacobian at ``x0``: power iteration on
+        ``v -> J^T J v`` (base.py:151)."""
+        return power_method(lambda v: self.A_vjp(x0, self.A_jvp(x0, v)), x0, max_iter=max_iter,
+                            tol=tol)
+
+    def __mul__(self, other: "Physics") -> "Physics":
+        """``(p1 * p2).A(x) == p1.A(p2.A(x))`` (base.py:207)."""
+        return compose(other, self)
+
+    def stack(self, other: "Physics") -> "StackedPhysics":
+        """``stack(self, other)`` (base.py:211)."""
+        return stack(self, other)
+
 
 class LinearPhysics(Physics):
     """Linear operator with an adjoint (deepinv_tpu/physics/base.py:243)."""
 
     def __init__(self, A: Optional[Callable] = None, A_adjoint: Optional[Callable] = None,
-                 noise_model=None, sensor_model=None):
-        super().__init__(A=A, noise_model=noise_model, sensor_model=sensor_model)
+                 noise_model=None, sensor_model=None, solver: str = "CG", max_iter: int = 50,
+                 tol: float = 1e-4):
+        super().__init__(A=A, noise_model=noise_model, sensor_model=sensor_model, solver=solver,
+                         max_iter=max_iter, tol=tol)
         self.adj_fn = A_adjoint
 
     def A_adjoint(self, y, **params):
@@ -113,6 +183,10 @@ class LinearPhysics(Physics):
         overrides it and sets :attr:`fast_normal`."""
         return self.A_adjoint(self.A(x, **params), **params)
 
+    def A_A_adjoint(self, y, **params):
+        """``A A^T y`` (base.py:307)."""
+        return self.A(self.A_adjoint(y, **params), **params)
+
     @property
     def fast_normal(self) -> bool:
         """Whether :meth:`A_adjoint_A` is faster than ``A_adjoint(A(x))``; the
@@ -129,10 +203,42 @@ class LinearPhysics(Physics):
         return torch.vdot(Au.flatten(), v.flatten()) - torch.vdot(
             u.flatten(), self.A_adjoint(v).flatten())
 
-    def prox_l2(self, z, y, gamma, **kwargs):
-        raise NotImplementedError(
-            "the Krylov prox_l2 of a general LinearPhysics (optim/linear.py) waits "
-            "for ROADMAP queue 1 item 8")
+    def compute_norm(self, x0, max_iter: int = 100, tol: float = 1e-6):
+        """Squared operator norm ``||A||_2^2`` by power iteration on ``A^T A``
+        (base.py:314)."""
+        return power_method(self.A_adjoint_A, x0, max_iter=max_iter, tol=tol)
+
+    def condition_number(self, x0, max_iter: int = 500, tol: float = 1e-8):
+        """``sqrt(lambda_max / lambda_min)`` of ``A^T A``, the smallest
+        eigenvalue by the power method on ``lambda_max I - A^T A``
+        (base.py:332)."""
+        lmax = power_method(self.A_adjoint_A, x0, max_iter, tol)
+        lshift = power_method(lambda v: tree_map(lambda a, b: lmax * a - b, v,
+                                                 self.A_adjoint_A(v)), x0, max_iter, tol)
+        return torch.sqrt(lmax / (lmax - lshift).clamp_min(1e-30))
+
+    def prox_l2(self, z, y, gamma, solver=None, max_iter=None, tol=None, **kwargs):
+        """``argmin_x gamma/2 ||Ax - y||^2 + 1/2 ||x - z||^2`` by the Krylov
+        solver ``solver`` from ``z``, with the implicit backward (base.py:345).
+        ``z`` None or a number fills ``A^T y``'s shape; ``gamma`` a number or a
+        per-sample tensor (B,)."""
+        from ..optim.linear import least_squares
+
+        if z is None or isinstance(z, (int, float)):
+            fill = 0.0 if z is None else float(z)
+            z = tree_map(lambda a: torch.full_like(a, fill), self.A_adjoint(y))
+        return least_squares(self.A, self.A_adjoint, y, solver=solver or self.solver,
+                             gamma=gamma, z=z, init=z, physics=self,
+                             max_iter=max_iter or self.max_iter, tol=tol or self.tol, **kwargs)
+
+    def A_dagger(self, y, solver=None, max_iter=None, tol=None, **kwargs):
+        """Least-squares pseudo-inverse by the Krylov solver ``solver``
+        (base.py:367)."""
+        from ..optim.linear import least_squares
+
+        return least_squares(self.A, self.A_adjoint, y, solver=solver or self.solver,
+                             gamma=kwargs.pop("gamma", None), max_iter=max_iter or self.max_iter,
+                             tol=tol or self.tol, **kwargs)
 
 
 def _inv_gamma_mul(gamma, x):
@@ -218,3 +324,107 @@ class Denoising(DecomposablePhysics):
 
     def __init__(self, noise_model=None, **kwargs):
         super().__init__(mask=1.0, noise_model=noise_model, **kwargs)
+
+
+# -- composition and stacking (base.py:513-640) ---------------------------------
+
+
+class ComposedPhysics(Physics):
+    """``A = A_k o ... o A_1``, ``physics_list[0]`` applied first; the noise
+    and sensor of the last one (base.py:513)."""
+
+    def __init__(self, physics_list: Sequence[Physics], **kwargs):
+        super().__init__(**kwargs)
+        self.physics_list = nn.ModuleList(physics_list)
+        self.noise_model = physics_list[-1].noise_model
+        self.sensor_model = physics_list[-1].sensor_model
+
+    def A(self, x, **params):
+        for p in self.physics_list:
+            x = p.A(x, **params)
+        return x
+
+    def A_dagger(self, y, **params):
+        for p in reversed(self.physics_list):
+            y = p.A_dagger(y, **params)
+        return y
+
+
+class ComposedLinearPhysics(ComposedPhysics, LinearPhysics):
+    """Composition of linear physics (base.py:537): the adjoint runs the
+    adjoints backwards; ``A_dagger`` and ``prox_l2`` solve the composed
+    least-squares problem by the Krylov solver (a product's pseudo-inverse is
+    not the product of the pseudo-inverses)."""
+
+    def A_adjoint(self, y, **params):
+        for p in reversed(self.physics_list):
+            y = p.A_adjoint(y, **params)
+        return y
+
+    def A_dagger(self, y, **params):
+        return LinearPhysics.A_dagger(self, y, **params)
+
+    def prox_l2(self, z, y, gamma, **kwargs):
+        return LinearPhysics.prox_l2(self, z, y, gamma, **kwargs)
+
+
+def _flatten(physics, cls) -> list:
+    flat = []
+    for p in physics:
+        flat.extend(p.physics_list if isinstance(p, cls) else [p])
+    return flat
+
+
+def compose(*physics: Physics, **kwargs) -> Physics:
+    """``compose(p1, p2).A(x) == p2.A(p1.A(x))`` (base.py:557); linear when
+    every member is."""
+    flat = _flatten(physics, ComposedPhysics)
+    if all(isinstance(p, LinearPhysics) for p in flat):
+        return ComposedLinearPhysics(flat, **kwargs)
+    return ComposedPhysics(flat, **kwargs)
+
+
+class StackedPhysics(Physics):
+    """``A(x) = [A_1(x), ..., A_k(x)]``, a TensorList, each member with its
+    own noise and sensor (base.py:571)."""
+
+    def __init__(self, physics_list: Sequence[Physics], **kwargs):
+        super().__init__(**kwargs)
+        self.physics_list = nn.ModuleList(physics_list)
+
+    def A(self, x, **params):
+        return TensorList([p.A(x, **params) for p in self.physics_list])
+
+    def noise(self, y, generator=None):
+        return TensorList([p.noise(yi, generator=generator)
+                           for p, yi in zip(self.physics_list, y)])
+
+    def sensor(self, y):
+        return TensorList([p.sensor(yi) for p, yi in zip(self.physics_list, y)])
+
+    def __getitem__(self, i):
+        return self.physics_list[i]
+
+    def __len__(self):
+        return len(self.physics_list)
+
+
+class StackedLinearPhysics(StackedPhysics, LinearPhysics):
+    """Stacked linear physics: the adjoint sums the members' adjoints
+    (base.py:599)."""
+
+    def A_adjoint(self, y, **params):
+        outs = [p.A_adjoint(yi, **params) for p, yi in zip(self.physics_list, y)]
+        tot = outs[0]
+        for o in outs[1:]:
+            tot = tree_map(torch.add, tot, o)
+        return tot
+
+
+def stack(*physics: Physics, **kwargs) -> StackedPhysics:
+    """Stack physics into one operator whose measurements are a TensorList
+    (base.py:616); linear when every member is."""
+    flat = _flatten(physics, StackedPhysics)
+    if all(isinstance(p, LinearPhysics) for p in flat):
+        return StackedLinearPhysics(flat, **kwargs)
+    return StackedPhysics(flat, **kwargs)

@@ -8,7 +8,9 @@ BlurFFT's real inputs always take the half-spectrum (rfft) closed forms
 (blur.py:182-211): cuFFT's and pocketfft's rfft are genuine half-size
 transforms. The JAX package gated them per backend (``_RFFT_BACKENDS``,
 blur.py:42) because the TPU lowers rfft to full complex FFTs. Complex inputs
-take the generic SVD path of :class:`DecomposablePhysics`.
+take the generic SVD path of :class:`DecomposablePhysics`. ``Blur``,
+``Upsampling``, and ``Downsampling`` outside its FFT closed form, solve
+their ``prox_l2`` by the Krylov solver of :class:`LinearPhysics`.
 ``SpaceVaryingBlur``, ``TiledSpaceVaryingBlur``, ``DownsamplingMatlab`` and
 the 5-D (volumetric) Blur wait for ROADMAP queue 1 item 8.
 """
@@ -62,10 +64,13 @@ class Blur(LinearPhysics):
         ``reflect`` or ``constant``.
     :param noise_model: e.g. :class:`~deepinv_tpu_torch.physics.GaussianNoise`.
     :param device: where the filter lives; the CUDA device by default.
+    :param kwargs: ``solver``, ``max_iter``, ``tol`` of the Krylov
+        ``prox_l2`` and ``A_dagger`` (:class:`LinearPhysics`).
     """
 
-    def __init__(self, filter=None, padding: str = "circular", noise_model=None, device=None):
-        super().__init__(noise_model=noise_model)
+    def __init__(self, filter=None, padding: str = "circular", noise_model=None, device=None,
+                 **kwargs):
+        super().__init__(noise_model=noise_model, **kwargs)
         self.register_buffer("filter", _resolve_filter(filter))
         self.padding = padding
         self.to(resolve_device(device))
@@ -172,11 +177,13 @@ class Downsampling(LinearPhysics):
     :param padding: the convolution's padding mode.
     :param noise_model: e.g. :class:`~deepinv_tpu_torch.physics.GaussianNoise`.
     :param device: where the filter lives; the CUDA device by default.
+    :param kwargs: ``solver``, ``max_iter``, ``tol`` of the Krylov
+        ``prox_l2`` and ``A_dagger`` (:class:`LinearPhysics`).
     """
 
     def __init__(self, img_size=None, filter=None, factor: int = 2, padding: str = "circular",
-                 noise_model=None, device=None):
-        super().__init__(noise_model=noise_model)
+                 noise_model=None, device=None, **kwargs):
+        super().__init__(noise_model=noise_model, **kwargs)
         self.factor = int(factor)
         self.imsize = tuple(img_size) if img_size is not None else None
         self.padding = padding
@@ -234,9 +241,8 @@ class Downsampling(LinearPhysics):
     def prox_l2(self, z, y, gamma, use_fft: bool = True, **kwargs):
         r"""``argmin_x gamma/2 ||Ax - y||^2 + 1/2 ||x - z||^2`` in closed form
         by the FFT polyphase decomposition, for circular padding and a size
-        the factor divides (Zhu & Milanfar 2014; blur.py:307). Elsewhere the
-        JAX package solves it by Krylov iteration, which waits for ROADMAP
-        queue 1 item 8 (:meth:`LinearPhysics.prox_l2` raises)."""
+        the factor divides (Zhu & Milanfar 2014; blur.py:307); elsewhere by
+        the Krylov solver of :meth:`LinearPhysics.prox_l2` (blur.py:311,319)."""
         if not (use_fft and self.padding == "circular" and self.filter is not None):
             return LinearPhysics.prox_l2(self, z, y, gamma, **kwargs)
         if z is None or isinstance(z, (int, float)):
@@ -265,8 +271,7 @@ class Upsampling(Downsampling):
     r""":class:`Downsampling` with the roles of ``A`` and ``A_adjoint``
     swapped (deepinv_tpu/physics/blur.py:351): ``A`` fills zeros between the
     samples and applies the transposed filter, ``A_adjoint`` filters and
-    decimates. Its ``prox_l2`` is the Krylov one (blur.py:362), which waits for
-    ROADMAP queue 1 item 8."""
+    decimates. Its ``prox_l2`` is the Krylov one (blur.py:362)."""
 
     def A(self, x, **params):
         return Downsampling.A_adjoint(self, x, **params)

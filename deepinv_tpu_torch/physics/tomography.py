@@ -4,9 +4,11 @@
 Fourier-slice projector (``method="slice"``), both ``circle`` settings, and
 its filtered backprojection (``A_dagger``). The sampling plan and the
 Toeplitz spectrum of ``A^T A`` are built once, at construction, and are
-buffers: ``physics.to(device)`` moves them. The other projector methods, the
-fan beam (and its FBP) and ``TomographyWithAstra`` wait for ROADMAP queue 1
-item 8.
+buffers: ``physics.to(device)`` moves them. ``prox_l2`` is the Krylov one of
+:class:`~deepinv_tpu_torch.physics.LinearPhysics` (CG by default) over that
+Toeplitz ``A_adjoint_A`` (deepinv_tpu/optim/linear.py:367-370). The other
+projector methods, the fan beam (and its FBP) and ``TomographyWithAstra``
+wait for ROADMAP queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ class Tomography(LinearPhysics):
         750 complex64 for 256-pixel images) so ``A_adjoint_A`` is two FFTs.
     :param device: where the plan and the spectrum live; the CUDA device by
         default.
+    :param kwargs: ``noise_model``, and ``solver``, ``max_iter``, ``tol`` of
+        the Krylov ``prox_l2`` (:class:`~deepinv_tpu_torch.physics.LinearPhysics`).
     """
 
     def __init__(self, angles: Union[int, np.ndarray], img_width: int, circle: bool = False,

@@ -177,20 +177,33 @@ def test_downsampling_overrides_and_parameters():
     assert _rel(plain.A_adjoint(_t(y)).numpy(), want) == 0
 
 
-def test_downsampling_krylov_prox_waits():
+KRYLOV_CASES = {
+    "reflect": ("down", dict(img_size=(1, 16, 16), filter="bicubic", factor=2, padding="reflect")),
+    "no-filter": ("down", dict(img_size=(1, 16, 16), filter=None, factor=2)),
+    "size-not-divided": ("down", dict(img_size=(1, 15, 15), filter="bicubic", factor=2)),
+    "upsampling": ("up", dict(img_size=(1, 16, 16), filter="bicubic", factor=2)),
+}
+
+
+@pytest.mark.parametrize("case", list(KRYLOV_CASES))
+def test_downsampling_krylov_prox_waits(case):
     """Where the JAX package falls back to its Krylov prox_l2 (a padding
     other than circular, no filter, a size the factor does not divide, and
-    Upsampling), the port raises and names ROADMAP queue 1 item 8."""
-    y = torch.zeros((1, 1, 8, 8))
-    for phys, z in ((Downsampling((1, 16, 16), "bicubic", 2, padding="reflect", device=DEV), None),
-                    (Downsampling((1, 16, 16), None, 2, device=DEV), None),
-                    (Downsampling((1, 15, 15), "bicubic", 2, device=DEV),
-                     torch.zeros((1, 1, 15, 15)))):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            phys.prox_l2(z, y, 1.0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        Upsampling((1, 16, 16), "bicubic", 2, device=DEV).prox_l2(None, torch.zeros(1, 1, 32, 32),
-                                                                  1.0)
+    Upsampling), the port solves it by the same CG (the physics' defaults,
+    50 iterations, tol 1e-4) from the same z: within 1e-4 of JAX, for a
+    scalar and a per-sample gamma."""
+    kind, kw = KRYLOV_CASES[case]
+    jcls, tcls = (JDownsampling, Downsampling) if kind == "down" else (JUpsampling, Upsampling)
+    jp, tp = jcls(**kw), tcls(**kw, device=DEV)
+    rng = np.random.default_rng(21)
+    C, H, W = kw["img_size"]
+    x_shape = (2, C, H, W) if kind == "down" else (2, C, H // 2, W // 2)   # A upsamples
+    x, z = (rng.random(x_shape).astype(np.float32) for _ in range(2))
+    y = np.array(jp.A(jnp.asarray(x)))
+    for gamma in (0.7, np.array([0.5, 3.0], np.float32)):
+        want = jp.prox_l2(jnp.asarray(z), jnp.asarray(y), jnp.asarray(gamma))
+        got = tp.prox_l2(_t(z), _t(y), gamma if isinstance(gamma, float) else _t(gamma))
+        assert got.shape == x_shape and _rel(got.numpy(), want) <= 1e-4
 
 
 @pytest.mark.parametrize("factor", [2, 4])

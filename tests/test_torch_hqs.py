@@ -144,8 +144,8 @@ def test_builder_schedule_and_unported_options():
         create_iterator("MD")
     with pytest.raises(ValueError):
         create_iterator("nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim_builder("HQS", early_stop=True, device=DEV)
+    model = optim_builder("HQS", early_stop=True, thres_conv=1e-3, device=DEV)
+    assert model.fixed_point.early_stop and model.fixed_point.thres_conv == 1e-3
 
 
 def test_import_loads_no_jax():

@@ -100,14 +100,12 @@ def test_pgd_bf16_psnr_matches_jax(kind):
 
 
 @pytest.mark.parametrize("kind,iterator", [("mri", "PGD"), ("ct", "PGD"),
-                                            ("mri", "PGD-g_first")])
+                                            ("mri", "PGD-g_first"), ("ct", "PGD-g_first")])
 def test_pgd_branches_schedule_and_relaxation_match_jax(kind, iterator):
     """Both PGD orders (``create_iterator("PGD", g_first=True)`` takes a
-    gradient step on g, then the prox of f), relaxation beta = 0.7 and a
-    stepsize schedule that cycles, with an explicit quadratic prior; f32,
-    relative max error <= 1e-4. The g-first order needs the prox of f, which
-    CT's slice projector has only through the Krylov solver (waiting, ROADMAP
-    queue 1 item 8), so it runs on MRI."""
+    gradient step on g, then the prox of f: MRI's closed form, CT's Krylov
+    solve), relaxation beta = 0.7 and a stepsize schedule that cycles, with
+    an explicit quadratic prior; f32, relative max error <= 1e-4."""
     def g_jax(v, *args):
         return 0.5 * jnp.sum(v.reshape(v.shape[0], -1) ** 2, axis=1)
 

@@ -157,7 +157,26 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    does, and within 0.5 dB of the naive estimate. Timed: ADMM's rates in
    turns with PGD on CT at B=1 and B=8; profiled: an ADMM recon and its
    eight data steps replayed (kernels, device busy, idle share, the Krylov
-   solves' share of device time).
+   solves' share of device time);
+13. the ops layer's CT projectors and blurs (``ct_breadth_phase``):
+   ``Tomography`` by interp, fourier and slice and the fan beam, and the 2-D
+   ``TomographyWithAstra`` fan beam, on 256² Shepp-Logan at 90 angles,
+   normalized: adjointness within ADJOINT_RTOL, the FBP above its PSNR floor
+   (FBP_PSNR_FLOOR_DB), ``A`` and ``A_adjoint`` timed in turns at B=1 and
+   B=8; PnP-PGD with the full-depth bf16 DnCNN of phase 5 on the fan beam at
+   B=1 and B=8 at stepsize 1 / ||A||², held as phase 5 holds PGD (K5 once an
+   iteration, every denoiser call, the plain and the unrounded chain's
+   runs), its rates in turns with the same PGD on the slice CT, and
+   profiled (the projector's share of the device time); TV-PGD from the FBP
+   on the interp and fourier projectors and TV-PGD on a ``SpaceVaryingBlur``
+   (four Gaussian PSFs, smooth multipliers summing to one, 1x3x256²), each
+   as phase 6 holds its runs (K7 once an iteration on its resident variant,
+   within 1e-4 of the plain prox, within 0.5 dB of the naive estimate);
+   cone-beam ``TomographyWithAstra`` on the 128³ ellipsoid phantom of
+   ``examples/demo_conebeam_fdk.py`` (120 views, 128x192 detector):
+   adjointness, the FDK and a CG ``A_dagger`` above their floors, with times;
+   ``DownsamplingMatlab`` x2 adjointness, the 5-D ``Blur`` (conv3d) against
+   ``conv3d_fft`` on 64x128x128, and the db4 wavelet and DCT round trips.
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -359,6 +378,40 @@ SPIN_CYCLES = 100_000_000
 # resident TV proxes of 10), so a count short of the launches made is taken
 # again, and a count above them fails at once
 PROFILE_TRIES = 3
+# Phase 13: the CT projectors on 256² Shepp-Logan at 90 angles, normalized
+# (the bench's CT size), timed at B=1 and PROJ_BATCH; each one's FBP PSNR
+# floor, 1 dB under what the CPU gives at 256² (deepinv_tpu_torch on the
+# CPU: interp 25.64, fourier 22.72, slice 22.71, the fan beam at its
+# default geometry 13.35, the 2-D TomographyWithAstra fan of ASTRA_FAN 19.40 dB),
+# and the adjointness bound |<Ax, y> - <x, A^T y>| / (||Ax|| ||y||)
+CT_ANGLES = 90
+PROJ_BATCH = 8
+FBP_PSNR_FLOOR_DB = {"interp": 24.6, "fourier": 21.7, "slice": 21.7, "fan": 12.3,
+                     "astra fan": 18.4}
+ADJOINT_RTOL = 1e-5
+# the 2-D TomographyWithAstra fan beam: the source two image widths from the
+# centre, the detector one, its cells 1.5 pixels wide, views over 360 degrees
+ASTRA_FAN = dict(geometry_type="fanbeam", angular_range=(0, 360), detector_spacing=1.5,
+                 geometry_parameters=dict(source_radius=512.0, detector_radius=256.0))
+# cone beam (examples/demo_conebeam_fdk.py at 128³: its radii 90 and 30 and
+# detector (48, 64) at 32³ scaled by 4 to (128, 192) with the cells 1.5
+# voxels wide), 120 views over 360 degrees; the FDK and a CG A_dagger of
+# CONE_CG_ITERS iterations held above a PSNR floor 1 dB under the first run
+# on the card (FDK 25.78 dB, CG 23.38 dB; the CPU at 64³ and 60 views gives
+# an FDK of 23.18 dB)
+CONE_SIZE = 128
+CONE_VIEWS = 120
+CONE_DETECTOR = (128, 192)
+CONE_RADII = (90.0, 30.0)      # the demo's at 32³, scaled by size / 32
+CONE_CG_ITERS = 8
+CONE_FDK_FLOOR_DB = 24.7
+CONE_CG_FLOOR_DB = 22.3
+# the 3-D Blur of a 64x128x128 volume: conv3d (circular) against conv3d_fft,
+# and the round trips of the wavelet transform and the DCT (max error over
+# the input's max)
+BLUR3D_SHAPE = (1, 1, 64, 128, 128)
+BLUR3D_RTOL = 1e-4
+ROUND_TRIP_RTOL = 1e-5
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for the bounds.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
@@ -1031,7 +1084,7 @@ def tv_drive(name: str, model, y, physics, priors, x, naive, iters: int, op) -> 
     t0 = time.perf_counter()
     with torch.no_grad():
         out = model(y, physics)
-    torch.cuda.synchronize()
+    sync(y.device)
     first_s = time.perf_counter() - t0
     launches, by_variant = op.launches, dict(op.launches_by_variant)
     print(f"{name} {iters} it: first run {first_s:.3f} s, prox launches {launches} "
@@ -1044,7 +1097,7 @@ def tv_drive(name: str, model, y, physics, priors, x, naive, iters: int, op) -> 
     check(bool(torch.isfinite(out).all()), f"{name}: non-finite reconstruction")
     with plain_tv(priors), torch.no_grad():
         out_plain = model(y, physics)
-    torch.cuda.synchronize()
+    sync(y.device)
     check(op.launches == launches, f"{name}: the plain run launched the kernel")
     rerr = float((out - out_plain).norm() / out_plain.norm())
     p_k, p_p, p_n = psnr(out, x), psnr(out_plain, x), psnr(naive, x)
@@ -1829,6 +1882,295 @@ def krylov_phase(dev, card: str, size: int = 256, depth: int = 20, batch: int = 
     return out
 
 
+def ellipsoids(n: int):
+    """The 3-D phantom of examples/demo_conebeam_fdk.py: four ellipsoids on
+    an ``n³`` grid, float32 in [-0.5, 1.4]."""
+    import numpy as np
+
+    zz, yy, xx = np.meshgrid(*(np.linspace(-1, 1, n),) * 3, indexing="ij")
+    return (1.0 * ((xx / 0.7) ** 2 + (yy / 0.9) ** 2 + (zz / 0.8) ** 2 < 1)
+            - 0.5 * ((xx / 0.55) ** 2 + (yy / 0.75) ** 2 + (zz / 0.65) ** 2 < 1)
+            + 0.4 * (((xx - 0.2) / 0.15) ** 2 + (yy / 0.2) ** 2 + (zz / 0.3) ** 2 < 1)
+            + 0.4 * (((xx + 0.2) / 0.15) ** 2 + (yy / 0.25) ** 2 + (zz / 0.3) ** 2 < 1)
+            ).astype(np.float32)
+
+
+def adjointness(A, At, x, y) -> float:
+    """``|<Ax, y> - <x, A^T y>| / (||Ax|| ||y||)``, the sums in float64."""
+    Ax = A(x).double()
+    return abs(float((Ax * y.double()).sum() - (x.double() * At(y).double()).sum())) / float(
+        Ax.norm() * y.double().norm())
+
+
+def ct_breadth_phase(dev, card: str, size: int = 256, depth: int = 20, batch: int = PROJ_BATCH,
+                     cone: int = CONE_SIZE, cone_views: int = CONE_VIEWS,
+                     cone_det=CONE_DETECTOR) -> dict:
+    """Phase 13: the CT projectors and blurs of the ops layer through the
+    entry points with the default device.
+
+    13.1 ``Tomography`` interp, fourier, slice and the fan beam, and the 2-D
+    ``TomographyWithAstra`` fan beam on ``shepp_logan(size)`` at 90 angles,
+    normalized: adjointness, the FBP's PSNR, ``A`` and ``A_adjoint`` timed in
+    turns at B=1 and B=``batch``. 13.2 PnP-PGD with a bf16 DnCNN of ``depth``
+    layers (64 channels, the residual layer scaled as phase 5's) on the fan
+    beam at B=1 and B=``batch``, held as phase 5 holds PGD (``drive``), its
+    rates in turns with the same PGD on the slice CT, and profiled.
+    13.3 TV-PGD from the FBP on the interp and fourier projectors
+    (``tv_drive``). 13.4 cone-beam ``TomographyWithAstra`` on the ellipsoid
+    phantom: adjointness, the FDK and a CG ``A_dagger`` above their floors,
+    times. 13.5 ``SpaceVaryingBlur`` (adjointness, TV-PGD), ``DownsamplingMatlab``
+    (adjointness), the 5-D ``Blur`` against ``conv3d_fft``, the wavelet and
+    DCT round trips. Returns the numbers of the kernels line. On the CPU, at a
+    small ``size``, it rehearses the checks (count the plain K5 and K7 calls
+    as launches by wrapping ``deepinv_tpu_torch.models.dncnn.conv_chain`` and
+    ``deepinv_tpu_torch.optim.prior.chambolle_prox``) and skips the times and
+    profiles."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    import deepinv_tpu_torch.optim.prior as prior_mod
+    from deepinv_tpu_torch.datasets import shepp_logan
+    from deepinv_tpu_torch.models import DnCNN, autocast
+    from deepinv_tpu_torch.ops import WaveletTransform, conv3d_fft, dct2, gaussian_blur, idct2
+    from deepinv_tpu_torch.optim import L2, PnP, TVPrior, optim_builder
+    from deepinv_tpu_torch.physics import (Blur, DownsamplingMatlab, GaussianNoise,
+                                           SpaceVaryingBlur, Tomography, TomographyWithAstra)
+
+    cuda = dev.type == "cuda"
+    g = torch.Generator().manual_seed(SEED + 50)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    out = {"launches": {"K5": {}, "K7": {}}, "projectors": {}}
+    x1 = torch.from_numpy(shepp_logan(size))[None, None].to(dev)
+    x8 = torch.cat([x1, torch.rand((batch - 1, 1, size, size), generator=g).to(dev)])
+
+    # 13.1 the projectors
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        projs = {m: Tomography(angles=CT_ANGLES, img_width=size, method=m, normalize=True)
+                 for m in ("interp", "fourier", "slice")}
+        projs["fan"] = Tomography(angles=CT_ANGLES, img_width=size, normalize=True,
+                                  fan_beam=True)
+        projs["astra fan"] = TomographyWithAstra((size, size), angles=CT_ANGLES,
+                                                 normalize=True, **ASTRA_FAN)
+    for name, phys in projs.items():
+        with torch.no_grad():
+            y = phys.A(x1)
+            v = torch.randn(y.shape, generator=g).to(dev)
+            adj = adjointness(phys.A, phys.A_adjoint, x1, v)
+            fbp = phys.A_dagger(y, fbp=True) if name == "astra fan" else phys.A_dagger(y)
+        sync(dev)
+        p_fbp = psnr(fbp, x1)
+        ms = {}
+        if cuda:
+            y8 = phys.A(x8)
+            runs = {f"A B={b}": (lambda u=u: phys.A(u)) for b, u in ((1, x1), (batch, x8))}
+            runs.update({f"A_adjoint B={b}": (lambda u=u: phys.A_adjoint(u))
+                         for b, u in ((1, y), (batch, y8))})
+            with torch.no_grad():
+                for k in list(runs) + list(runs)[::-1]:
+                    ms.setdefault(k, []).append(cuda_ms(runs[k], 10, warmup=2))
+            ms = {k: sum(t) / len(t) for k, t in ms.items()}
+        print(f"projector {name} {size}², {CT_ANGLES} angles: sinogram {tuple(y.shape)}, "
+              f"adjointness {adj:.3e} (bound {ADJOINT_RTOL}), FBP PSNR {p_fbp:.4f} dB (floor "
+              f"{FBP_PSNR_FLOOR_DB[name]}); ms a call in turns: "
+              + ", ".join(f"{k} {t:.4f}" for k, t in ms.items()) + f" ({card})", flush=True)
+        check(adj <= ADJOINT_RTOL, f"projector {name}: adjointness {adj}")
+        # the floors are for 256² (a CPU rehearsal at a smaller size holds finiteness)
+        check(bool(torch.isfinite(fbp).all()) and (size != 256 or p_fbp >= FBP_PSNR_FLOOR_DB[name]),
+              f"projector {name}: FBP PSNR {p_fbp}")
+        out["projectors"][name] = {"adjointness": adj, "fbp_psnr_db": p_fbp, "ms": ms}
+
+    # 13.2 PnP-PGD on the fan beam over K5
+    fan = projs["fan"]
+    with torch.no_grad():
+        lip = float(fan.compute_norm(torch.randn(x1.shape, generator=g).to(dev), max_iter=30))
+    params = {"stepsize": 1.0 / lip, "g_param": PGD_PARAMS["g_param"]}
+    net = DnCNN(1, 1, depth=depth, nf=64, generator=g, device=dev)
+    with torch.no_grad():
+        net.out_conv.weight.mul_(DNCNN_RESIDUAL_SCALE)
+    model = optim_builder("PGD", data_fidelity=L2(), prior=PnP(autocast(net)), params_algo=params,
+                          max_iter=MAX_ITER, device=dev)
+    y1, y8 = fan.A(x1), fan.A(x8)
+    out["pgd"] = {"lipschitz": lip}
+    print(f"fan-beam CT {size}²: ||A||² {lip:.6f}, PGD stepsize {params['stepsize']:.6f}",
+          flush=True)
+    for y, x in ((y1, x1), (y8, x8)):
+        label = f"PnP-PGD fan-beam CT B={y.shape[0]}"
+        res, res_plain, n = drive(label, model, y, fan, net, dncnn_mod.conv_chain,
+                                  plain_conv_chain, tuple(x.shape), exact_conv_chain)
+        with torch.no_grad():
+            p_fbp = psnr(fan.A_dagger(y)[:1], x[:1])
+        print(f"{label}: PSNR of the phantom kernel {psnr(res[:1], x[:1]):.4f} dB, plain "
+              f"{psnr(res_plain[:1], x[:1]):.4f} dB, FBP {p_fbp:.4f} dB", flush=True)
+        out["launches"]["K5"][label] = n
+        out["pgd"][label] = {"rel_l2_plain": rel_l2(res, res_plain)}
+
+    # 13.3 TV-PGD from the FBP on the interp and fourier projectors over K7
+    tv_op = prior_mod.chambolle_prox
+    for m in ("interp", "fourier"):
+        phys = Tomography(angles=CT_ANGLES, img_width=size, method=m, normalize=True,
+                          noise_model=GaussianNoise(0.002))
+        y = phys(x1, generator=gen(SEED + 51))
+        prior = TVPrior()
+        tv = optim_builder("PGD", data_fidelity=L2(), prior=prior,
+                           params_algo={"stepsize": 1.0, "lambda": 5e-4}, max_iter=30,
+                           custom_init=lambda v, p: p.A_dagger(v))
+        name = f"TV-PGD {m} CT {size}² from FBP"
+        with torch.no_grad():
+            naive = phys.A_dagger(y)
+        out["launches"]["K7"][name] = tv_drive(name, tv, y, phys, [prior], x1, naive, 30, tv_op)
+
+    # 13.4 cone beam
+    vol = torch.from_numpy(ellipsoids(cone))[None, None].to(dev)
+    scale = cone / 32      # the demo's geometry is for 32³
+    t0 = time.perf_counter()
+    cb = TomographyWithAstra((cone,) * 3, angles=cone_views, angular_range=(0, 360),
+                             geometry_type="conebeam", n_detector_pixels=cone_det,
+                             detector_spacing=(1.5, 1.5), normalize=True,
+                             geometry_parameters=dict(source_radius=CONE_RADII[0] * scale,
+                                                      detector_radius=CONE_RADII[1] * scale))
+    sync(dev)
+    t_plan = time.perf_counter() - t0
+    with torch.no_grad():
+        yc = cb.A(vol)
+        vc = torch.randn(yc.shape, generator=g).to(dev)
+    adj = adjointness(cb.A, cb.A_adjoint, vol, vc)
+    cone_ms = {}
+
+    def clock(name, fn):
+        sync(dev)
+        t = time.perf_counter()
+        with torch.no_grad():
+            r = fn()
+        sync(dev)
+        cone_ms[name] = (time.perf_counter() - t) * 1e3
+        return r
+
+    clock("A", lambda: cb.A(vol))
+    clock("A_adjoint", lambda: cb.A_adjoint(yc))
+    fdk = clock("FDK", lambda: cb.A_dagger(yc, fbp=True))
+    cg = clock("CG", lambda: cb.A_dagger(yc, max_iter=CONE_CG_ITERS, tol=1e-12))
+    p_fdk, p_cg = psnr(fdk, vol), psnr(cg, vol)
+    print(f"cone beam {cone}³, {cone_views} views, detector {cone_det}: radiographs "
+          f"{tuple(yc.shape)}, plan and normalize {t_plan:.2f} s, ||A|| "
+          f"{float(cb.operator_norm):.4f}, adjointness {adj:.3e} (bound {ADJOINT_RTOL}); FDK "
+          f"PSNR {p_fdk:.4f} dB (floor {CONE_FDK_FLOOR_DB}), CG {CONE_CG_ITERS} it PSNR "
+          f"{p_cg:.4f} dB (floor {CONE_CG_FLOOR_DB}); ms (host clock): "
+          + ", ".join(f"{k} {t:.2f}" for k, t in cone_ms.items()) + f" ({card})", flush=True)
+    check(adj <= ADJOINT_RTOL, f"cone beam: adjointness {adj}")
+    check(bool(torch.isfinite(fdk).all()) and bool(torch.isfinite(cg).all()),
+          "cone beam: non-finite FDK or CG")
+    if cone == CONE_SIZE:
+        check(p_fdk >= CONE_FDK_FLOOR_DB and p_cg >= CONE_CG_FLOOR_DB,
+              f"cone beam: FDK {p_fdk} dB, CG {p_cg} dB under the floors")
+    out["cone"] = {"adjointness": adj, "fdk_psnr_db": p_fdk, "cg_psnr_db": p_cg,
+                   "ms": cone_ms, "plan_s": t_plan}
+
+    # 13.5 the blurs
+    rng = np.random.default_rng(SEED + 52)
+    xb = torch.from_numpy(discs(rng, 3, size)[None]).to(dev)
+    sigmas = (0.5, 1.0, 2.0, 3.0)
+    h = torch.cat([gaussian_blur(sigma=s, psf_size=15) for s in sigmas], dim=1)[:, None]
+    t = torch.linspace(0, 1, size)[:, None].expand(size, size)
+    w = torch.stack([(1 - t) ** 3, 3 * t * (1 - t) ** 2, 3 * t ** 2 * (1 - t), t ** 3])[None, None]
+    svb = SpaceVaryingBlur(filters=h, multipliers=w, padding="circular",
+                           noise_model=GaussianNoise(0.02))
+    yb = svb(xb, generator=gen(SEED + 53))
+    vb = torch.randn(yb.shape, generator=g).to(dev)
+    adj_svb = adjointness(svb.A, svb.A_adjoint, xb, vb)
+    check(adj_svb <= ADJOINT_RTOL, f"SpaceVaryingBlur: adjointness {adj_svb}")
+    prior = TVPrior()
+    tv = optim_builder("PGD", data_fidelity=L2(), prior=prior,
+                       params_algo={"stepsize": 1.0, "lambda": 0.05}, max_iter=30)
+    name = f"TV-PGD SpaceVaryingBlur 1x3x{size}²"
+    out["launches"]["K7"][name] = tv_drive(name, tv, yb, svb, [prior], xb, yb, 30, tv_op)
+    dm = DownsamplingMatlab(img_size=(3, size, size), factor=2)
+    adj_dm = adjointness(dm.A, dm.A_adjoint, xb, torch.randn((1, 3, size // 2, size // 2),
+                                                                generator=g).to(dev))
+    check(adj_dm <= ADJOINT_RTOL, f"DownsamplingMatlab: adjointness {adj_dm}")
+    shape3 = BLUR3D_SHAPE if size == 256 else (1, 1, size // 4, size // 2, size // 2)
+    v3 = torch.rand(shape3, generator=g).to(dev)
+    psf3 = gaussian_blur(sigma=(1.0, 2.0, 2.0))
+    blur3 = Blur(filter=psf3, padding="circular")
+    with torch.no_grad():
+        b_direct, b_fft = blur3.A(v3), conv3d_fft(v3, psf3.to(dev))
+    err3 = rel_max(b_direct, b_fft)
+    check(err3 <= BLUR3D_RTOL, f"5-D Blur: conv3d vs conv3d_fft {err3}")
+    wt = WaveletTransform("db4", 3)
+    with torch.no_grad():
+        err_w = rel_max(wt.idwt2(wt.dwt2(xb)), xb)
+        err_d = rel_max(idct2(dct2(xb)), xb)
+    check(err_w <= ROUND_TRIP_RTOL and err_d <= ROUND_TRIP_RTOL,
+          f"round trips: wavelet {err_w}, DCT {err_d}")
+    blur_ms = {}
+    if cuda:
+        with torch.no_grad():
+            for k, fn in (("SpaceVaryingBlur A", lambda: svb.A(xb)),
+                          ("SpaceVaryingBlur A_adjoint", lambda: svb.A_adjoint(yb)),
+                          ("DownsamplingMatlab A", lambda: dm.A(xb)),
+                          ("5-D Blur (conv3d)", lambda: blur3.A(v3)),
+                          ("conv3d_fft", lambda: conv3d_fft(v3, psf3.to(dev))),
+                          ("db4 dwt2 + idwt2", lambda: wt.idwt2(wt.dwt2(xb))),
+                          ("dct2 + idct2", lambda: idct2(dct2(xb)))):
+                blur_ms[k] = cuda_ms(fn, 10, warmup=2)
+    print(f"blurs: SpaceVaryingBlur adjointness {adj_svb:.3e}, DownsamplingMatlab x2 "
+          f"{adj_dm:.3e} (bound {ADJOINT_RTOL}); 5-D Blur {shape3} conv3d vs conv3d_fft {err3:.3e}"
+          f" (bound {BLUR3D_RTOL}); round trips db4 level 3 {err_w:.3e}, DCT {err_d:.3e} (bound "
+          f"{ROUND_TRIP_RTOL}); ms a call: "
+          + ", ".join(f"{k} {t:.4f}" for k, t in blur_ms.items()) + f" ({card})", flush=True)
+    out["blurs"] = {"adjointness_svb": adj_svb, "adjointness_matlab": adj_dm,
+                    "conv3d_vs_fft": err3, "wavelet_round_trip": err_w, "dct_round_trip": err_d,
+                    "ms": blur_ms}
+    if not cuda:
+        return out
+
+    # 13.2, timed and profiled: fan-beam PGD in turns with the same PGD on the
+    # slice CT (phase 5's problem)
+    def recon(y, phys=fan):
+        def run():
+            with torch.no_grad():
+                return model(y, phys)
+        return run
+
+    out["rates"] = {}
+    ct = projs["slice"]
+    for nb, y, x in ((1, y1, x1), (batch, y8, x8)):
+        r = rates_in_turns(f"PGD fan-beam vs slice CT, B={nb}",
+                           {"fan": recon(y), "slice": recon(ct.A(x), ct)}, nb * MAX_ITER)
+        out["rates"][f"B={nb}"] = r
+        print(f"rate: PGD fan-beam CT B={nb} {r['fan'] / nb:.2f} it/s, {r['fan']:.2f} image-it/s;"
+              f" PGD slice CT {r['slice'] / nb:.2f} it/s, {r['slice']:.2f} image-it/s ({card})",
+              flush=True)
+    out["profile"] = {}
+    for nb, y, x in ((1, y1, x1), (batch, y8, x8)):
+        z = fan.A_dagger(y)
+
+        def data_steps(z=z, y=y):
+            with torch.no_grad():
+                for _ in range(MAX_ITER):
+                    fan.A_adjoint(fan.A(z) - y)
+
+        prof = device_profile(f"PnP-PGD fan-beam CT B={nb} recon", recon(y), 3, top=8)
+        prof_d = device_profile(f"PnP-PGD fan-beam CT B={nb}: {MAX_ITER} gradients "
+                                f"A^T(Ax - y)", data_steps, 3, top=8)
+        if prof is not None and prof_d is not None:
+            share = prof_d[4] / prof[4]
+            print(f"profile PnP-PGD fan-beam CT B={nb}: {prof[2]:g} kernels a recon, device busy "
+                  f"{prof[4]:.3f} ms, idle share {1 - prof[4] / prof[0]:.3f}; the projector "
+                  f"{prof_d[4]:.3f} ms of device time ({share:.3f} of it), {prof_d[2]:g} "
+                  f"kernels", flush=True)
+            out["profile"][f"B={nb}"] = {
+                "wall_ms": prof[0], "device_busy_ms": prof[4], "idle_share": 1 - prof[4] / prof[0],
+                "kernels": prof[2], "projector_device_ms": prof_d[4], "projector_share": share}
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2574,6 +2916,11 @@ def main() -> int:
     # and the loop options on K7
     kry = krylov_phase(dev, card, pgd_ct={1: pgd["CT"], HQS_BATCH: pgd8["CT"]})
 
+    # 13. the ops layer's CT projectors and blurs: PnP-PGD on fan-beam CT over
+    # K5, TV-PGD on the interp and fourier projectors and a space-varying blur
+    # over K7, cone-beam CT
+    ctb = ct_breadth_phase(dev, card)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -2681,6 +3028,12 @@ def main() -> int:
         "admm_ct_rates": kry["rates"],
         "admm_ct_krylov": kry["recon"],
         "admm_ct_profile": kry["profile"],
+        # phase 13: K5's launches in PnP-PGD on fan-beam CT (one an
+        # iteration), its rates beside PGD on the slice CT, and where a recon's
+        # device time goes (the projector's share)
+        "launches_ct_breadth": ctb["launches"]["K5"],
+        "fan_pgd_rates": ctb["rates"],
+        "fan_pgd_profile": ctb["profile"],
     }, {
         "name": "tv_prox",
         "route": "cuda",
@@ -2703,6 +3056,9 @@ def main() -> int:
         # phase 12: K7's launches under Anderson acceleration, early stop and
         # backtracking (one a loop body, one a retry)
         "launches_loop_options": kry["launches"]["K7"],
+        # phase 13: one resident launch an iteration of TV-PGD on the interp
+        # and fourier CT projectors and on SpaceVaryingBlur
+        "launches_ct_breadth": ctb["launches"]["K7"],
     }, {
         "name": "up_resblock_chain",
         "route": "cuda",

@@ -24,7 +24,8 @@ from .tensorlist import TensorList
 
 __all__ = ["tree_map", "tree_add", "tree_sub", "tree_scale", "tree_axpy", "tree_vdot",
            "tree_real_vdot", "tree_norm", "tree_zeros_like", "tree_conj", "tree_where",
-           "power_method", "device_while", "LoopStats", "loop_stats", "CHECK_EVERY"]
+           "power_method", "device_while", "LoopStats", "loop_stats", "CHECK_EVERY",
+           "linear_transpose"]
 
 # iterations between two host reads of a loop's stop flag. The CT prox of the
 # ADMM bench problem stops after 2-3 CG iterations (PERF.md, "ADMM on CT"): a
@@ -153,6 +154,29 @@ def device_while(cond, body, state, max_iter: int, check_every: int = CHECK_EVER
         done = done | ~cond(state)
     loop_stats._record(count, bodies)
     return state, count
+
+
+def linear_transpose(fwd, y, x_shape, create_graph: bool = False):
+    """The transpose of the linear map ``fwd`` applied to ``y``: the autograd
+    vector-Jacobian product of ``fwd`` at a zero primal of ``x_shape`` (and
+    ``y``'s dtype), the JAX package's ``jax.linear_transpose`` of a forward
+    map. ``y`` may be a tuple when ``fwd`` returns one. The graph is kept when
+    ``y`` or ``create_graph`` asks for it, so a gradient reaches the
+    cotangent and the forward's parameters (the implicit Krylov backward
+    differentiates through an adjoint).
+
+    The JAX package's ``transpose_primal`` (linalg.py:116), the primal's shape
+    and dtype for ``jax.linear_transpose`` under ``shard_map``, has no
+    counterpart: the port has no varying-manual-axes types, and the zero
+    primal here is a plain tensor."""
+    ys = y if isinstance(y, tuple) else (y,)
+    create_graph = create_graph or any(v.requires_grad for v in ys)
+    with torch.enable_grad():
+        x = ys[0].new_zeros(x_shape).requires_grad_()
+        out = fwd(x)
+        outs = out if isinstance(out, tuple) else (out,)
+        (xt,) = torch.autograd.grad(outs, x, ys, create_graph=create_graph)
+    return xt
 
 
 def power_method(op, x0, max_iter: int = 100, tol: float = 1e-6,

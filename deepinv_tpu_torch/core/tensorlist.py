@@ -1,5 +1,8 @@
 """TensorList: a list of tensors with elementwise arithmetic (port of
-deepinv_tpu/core/tensorlist.py:27).
+deepinv_tpu/core/tensorlist.py:27), and :func:`zeros_like`,
+:func:`ones_like`, :func:`randn_like`, :func:`rand_like` over a tensor or a
+TensorList (tensorlist.py:222-256; the draws take a ``torch.Generator`` in
+place of the JAX key).
 
 Stacked physics (:func:`~deepinv_tpu_torch.physics.stack`) measure
 ``y = [A_1 x, ..., A_k x]`` with members of any shape; the Krylov solvers
@@ -13,7 +16,7 @@ import operator
 
 import torch
 
-__all__ = ["TensorList"]
+__all__ = ["TensorList", "zeros_like", "ones_like", "randn_like", "rand_like"]
 
 
 class TensorList:
@@ -40,7 +43,27 @@ class TensorList:
         return iter(self.x)
 
     def __getitem__(self, i):
+        if isinstance(i, slice):
+            return TensorList(self.x[i])
         return self.x[i]
+
+    def append(self, other):
+        """A new TensorList with ``other`` (a tensor, or a TensorList's
+        members) after these (tensorlist.py:71)."""
+        new = list(self.x)
+        if isinstance(other, TensorList):
+            new.extend(other.x)
+        else:
+            new.append(other)
+        return TensorList(new)
+
+    @property
+    def shape(self):
+        return [v.shape for v in self.x]
+
+    @property
+    def dtype(self):
+        return [v.dtype for v in self.x]
 
     def flatten(self):
         """All members, each flattened, in one 1D tensor (tensorlist.py:87)."""
@@ -80,8 +103,62 @@ class TensorList:
     def __rtruediv__(self, o):
         return self._rbinary(o, operator.truediv)
 
+    def __pow__(self, o):
+        return self._binary(o, operator.pow)
+
     def __neg__(self):
         return TensorList([-a for a in self.x])
+
+    def __abs__(self):
+        return TensorList([a.abs() for a in self.x])
+
+    def __gt__(self, o):
+        return self._binary(o, operator.gt)
+
+    def __lt__(self, o):
+        return self._binary(o, operator.lt)
+
+    def abs(self):
+        """Member-wise absolute value (tensorlist.py:143)."""
+        return abs(self)
+
+    def max(self):
+        """A TensorList of each member's maximum (tensorlist.py:147)."""
+        return TensorList([a.max() for a in self.x])
+
+    def numpy(self):
+        """The members as numpy arrays (tensorlist.py:160)."""
+        return [a.detach().cpu().numpy() for a in self.x]
+
+    def isnan(self):
+        """Member-wise NaN masks (tensorlist.py:166)."""
+        return TensorList([torch.isnan(a) for a in self.x])
+
+    def numel(self):
+        """Elements over all members (tensorlist.py:170)."""
+        return sum(a.numel() for a in self.x)
+
+    def any(self):
+        """True if any member has a true element (tensorlist.py:174)."""
+        return any(bool(a.any()) for a in self.x)
+
+    def all(self):
+        """True if every element of every member is true (tensorlist.py:178)."""
+        return all(bool(a.all()) for a in self.x)
+
+    def squeeze(self, axis=None):
+        """Member-wise squeeze (tensorlist.py:189)."""
+        return TensorList([a.squeeze() if axis is None else a.squeeze(axis) for a in self.x])
+
+    def unsqueeze(self, axis):
+        """Member-wise ``unsqueeze`` (tensorlist.py:196)."""
+        return TensorList([a.unsqueeze(axis) for a in self.x])
+
+    def reshape(self, shapes):
+        return TensorList([a.reshape(s) for a, s in zip(self.x, shapes)])
+
+    def astype(self, dtype):
+        return TensorList([a.to(dtype) for a in self.x])
 
     def conj(self):
         return TensorList([a.conj() for a in self.x])
@@ -104,3 +181,37 @@ class TensorList:
 
     def __repr__(self):
         return f"TensorList({[tuple(v.shape) for v in self.x]})"
+
+
+def _map(fn, y):
+    return TensorList([fn(v) for v in y.x]) if isinstance(y, TensorList) else fn(y)
+
+
+def zeros_like(y):
+    """Zeros shaped like a tensor or a TensorList (tensorlist.py:222)."""
+    return _map(torch.zeros_like, y)
+
+
+def ones_like(y):
+    """Ones shaped like a tensor or a TensorList (tensorlist.py:226)."""
+    return _map(torch.ones_like, y)
+
+
+def randn_like(generator, y):
+    """Standard normal draws shaped like a tensor or a TensorList, from
+    ``generator`` (tensorlist.py:230): a complex member draws its real and
+    imaginary parts each of variance 1/2."""
+    def draw(v):
+        if v.is_complex():
+            real = torch.randn((2,) + tuple(v.shape), generator=generator, device=v.device,
+                               dtype=v.real.dtype) / 2 ** 0.5
+            return torch.complex(real[0], real[1]).to(v.dtype)
+        return torch.randn(v.shape, generator=generator, device=v.device, dtype=v.dtype)
+    return _map(draw, y)
+
+
+def rand_like(generator, y):
+    """Uniform [0, 1) draws shaped like a tensor or a TensorList (real
+    dtypes), from ``generator`` (tensorlist.py:251)."""
+    return _map(lambda v: torch.rand(v.shape, generator=generator, device=v.device,
+                                      dtype=v.dtype), y)

@@ -10,12 +10,17 @@ transfer functions (port of deepinv_tpu/ops/conv.py).
   padding's adjoint included: the JAX package takes ``jax.linear_transpose``
   of the forward map, the port the autograd vector-Jacobian product of
   :func:`conv2d`, which is the same linear transpose.
-- The filter factories :func:`gaussian_blur` (:313, the 2D PSF),
-  :func:`bilinear_filter` (:418), :func:`bicubic_filter` (:428),
-  :func:`kaiser_window` (:440) and :func:`sinc_filter` (:450), built on the
-  host with numpy; :func:`filter_fft_2d` (:146).
-
-The 3D convolutions and the FFT convolutions wait for ROADMAP queue 1 item 8.
+- :func:`conv3d` (:229) and :func:`conv_transpose3d` (:260) likewise on
+  ``(B, C, D, H, W)``; the FFT convolutions :func:`conv2d_fft` (:175,
+  ``circular`` exact, ``valid`` a linear convolution cropped, the other modes
+  padded first), :func:`conv3d_fft` (:278, circular) and their transposes
+  :func:`conv_transpose2d_fft` (:210) and :func:`conv_transpose3d_fft`
+  (:300). Every transpose is the autograd one
+  (:func:`~deepinv_tpu_torch.core.linear_transpose`).
+- The filter factories :func:`gaussian_blur` (:313: 1D, 2D and 3D, batched
+  sigmas and angles), :func:`bilinear_filter` (:418), :func:`bicubic_filter`
+  (:428), :func:`kaiser_window` (:440) and :func:`sinc_filter` (:450), built
+  on the host with numpy; :func:`filter_fft_2d` (:146).
 """
 
 from __future__ import annotations
@@ -26,8 +31,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv2d", "conv_transpose2d", "filter_fft_2d", "gaussian_blur", "bilinear_filter",
-           "bicubic_filter", "kaiser_window", "sinc_filter"]
+from ..core.linalg import linear_transpose
+
+__all__ = ["conv2d", "conv_transpose2d", "conv3d", "conv_transpose3d", "conv2d_fft",
+           "conv_transpose2d_fft", "conv3d_fft", "conv_transpose3d_fft", "filter_fft_2d",
+           "gaussian_blur", "bilinear_filter", "bicubic_filter", "kaiser_window", "sinc_filter"]
 
 # padding mode -> torch.nn.functional.pad mode
 _PAD_MODES = {"circular": "circular", "replicate": "replicate", "reflect": "reflect",
@@ -101,12 +109,39 @@ def conv_transpose2d(y: torch.Tensor, filter: torch.Tensor, padding: str = "vali
     filt = _broadcast_filter(filter, B, C)
     h, w = filt.shape[-2:]
     x_shape = (B, C, y.shape[-2] + h - 1, y.shape[-1] + w - 1) if padding == "valid" else y.shape
-    with torch.enable_grad():
-        x = y.new_zeros(x_shape).requires_grad_()
-        out = conv2d(x, filt, padding=padding, correlation=correlation)
-        (xt,) = torch.autograd.grad(out, x, y,
-                                    create_graph=y.requires_grad or filter.requires_grad)
-    return xt
+    return linear_transpose(lambda x: conv2d(x, filt, padding=padding, correlation=correlation),
+                            y, x_shape, create_graph=filter.requires_grad)
+
+
+def conv3d(x: torch.Tensor, filter: torch.Tensor, padding: str = "valid",
+           correlation: bool = False) -> torch.Tensor:
+    """3D convolution of ``x`` ``(B, C, D, H, W)`` with ``filter`` ``(b, c,
+    d, h, w)``, one group per (batch, channel) pair (conv.py:229), in the
+    padding modes of :func:`conv2d`."""
+    padding = _check_padding(padding)
+    B, C = x.shape[:2]
+    filt = _broadcast_filter(filter.to(x.dtype), B, C, nd=3)
+    d, h, w = filt.shape[-3:]
+    if not correlation:
+        filt = filt.flip((-3, -2, -1))
+    if padding != "valid":
+        x = _pad_same(x, (d, h, w), padding)
+    out = F.conv3d(x.reshape(1, B * C, *x.shape[-3:]), filt.reshape(B * C, 1, d, h, w),
+                   groups=B * C)
+    return out.reshape(B, C, *out.shape[-3:])
+
+
+def conv_transpose3d(y: torch.Tensor, filter: torch.Tensor, padding: str = "valid",
+                     correlation: bool = False) -> torch.Tensor:
+    """Exact adjoint of :func:`conv3d` in the same padding mode (conv.py:260)."""
+    padding = _check_padding(padding)
+    B, C = y.shape[:2]
+    filt = _broadcast_filter(filter, B, C, nd=3)
+    d, h, w = filt.shape[-3:]
+    x_shape = ((B, C, y.shape[-3] + d - 1, y.shape[-2] + h - 1, y.shape[-1] + w - 1)
+               if padding == "valid" else y.shape)
+    return linear_transpose(lambda x: conv3d(x, filt, padding=padding, correlation=correlation),
+                            y, x_shape, create_graph=filter.requires_grad)
 
 
 def filter_fft_2d(filter: torch.Tensor, img_shape, real_fft: bool = True) -> torch.Tensor:
@@ -132,48 +167,149 @@ def filter_fft_2d(filter: torch.Tensor, img_shape, real_fft: bool = True) -> tor
     return torch.fft.rfft2(f) if real_fft else torch.fft.fft2(f)
 
 
+def conv2d_fft(x: torch.Tensor, filter: torch.Tensor, padding: str = "circular",
+               real_fft: bool = True) -> torch.Tensor:
+    """Convolution by the FFT (conv.py:175): ``circular`` is exact circular
+    convolution (complex output when ``real_fft`` is False), ``valid`` the
+    linear convolution cropped to its valid part, any other mode pads to
+    the same size first."""
+    padding = _check_padding(padding)
+    B, C = x.shape[:2]
+    filt = _broadcast_filter(filter, B, C)
+    h, w = filt.shape[-2:]
+    if padding == "circular":
+        Fk = filter_fft_2d(filt, x.shape, real_fft=real_fft)
+        if real_fft:
+            return torch.fft.irfft2(torch.fft.rfft2(x) * Fk, s=x.shape[-2:]).to(x.dtype)
+        return torch.fft.ifft2(torch.fft.fft2(x) * Fk)
+    if padding == "valid":
+        H, W = x.shape[-2:]
+        fpad = F.pad(filt, (0, W - w, 0, H - h))
+        full = torch.fft.irfft2(torch.fft.rfft2(x) * torch.fft.rfft2(fpad), s=(H, W))
+        return full[..., h - 1:H, w - 1:W].to(x.dtype)
+    return conv2d_fft(_pad_same(x, (h, w), padding), filt, padding="valid", real_fft=real_fft)
+
+
+def conv_transpose2d_fft(y: torch.Tensor, filter: torch.Tensor, padding: str = "circular",
+                         real_fft: bool = True) -> torch.Tensor:
+    """Exact adjoint of :func:`conv2d_fft` (conv.py:210)."""
+    padding = _check_padding(padding)
+    B, C = y.shape[:2]
+    filt = _broadcast_filter(filter, B, C)
+    h, w = filt.shape[-2:]
+    x_shape = (B, C, y.shape[-2] + h - 1, y.shape[-1] + w - 1) if padding == "valid" else y.shape
+    return linear_transpose(lambda x: conv2d_fft(x, filt, padding=padding, real_fft=real_fft),
+                            y, x_shape, create_graph=filter.requires_grad)
+
+
+def conv3d_fft(x: torch.Tensor, filter: torch.Tensor, padding: str = "circular",
+               real_fft: bool = True) -> torch.Tensor:
+    """3D circular convolution of ``(B, C, D, H, W)`` by the FFT (conv.py:278)."""
+    padding = _check_padding(padding)
+    if padding != "circular":
+        raise NotImplementedError("conv3d_fft currently supports circular padding")
+    B, C = x.shape[:2]
+    filt = _broadcast_filter(filter, B, C, nd=3)
+    d, h, w = filt.shape[-3:]
+    D, H, W = x.shape[-3:]
+    f = torch.roll(F.pad(filt, (0, W - w, 0, H - h, 0, D - d)),
+                   shifts=(-(d // 2), -(h // 2), -(w // 2)), dims=(-3, -2, -1))
+    dims = (-3, -2, -1)
+    if real_fft:
+        return torch.fft.irfftn(torch.fft.rfftn(x, dim=dims) * torch.fft.rfftn(f, dim=dims),
+                                s=(D, H, W), dim=dims)
+    return torch.fft.ifftn(torch.fft.fftn(x, dim=dims) * torch.fft.fftn(f, dim=dims), dim=dims)
+
+
+def conv_transpose3d_fft(y: torch.Tensor, filter: torch.Tensor, padding: str = "circular",
+                         real_fft: bool = True) -> torch.Tensor:
+    """Exact adjoint of :func:`conv3d_fft` (conv.py:300)."""
+    return linear_transpose(lambda x: conv3d_fft(x, filter, padding=padding, real_fft=real_fft),
+                            y, y.shape, create_graph=filter.requires_grad)
+
+
 def _psf(w2d: np.ndarray) -> torch.Tensor:
     """A host-side 2D PSF as a ``(1, 1, h, w)`` float32 tensor summing to 1."""
     return torch.from_numpy(np.ascontiguousarray(w2d / np.sum(w2d), np.float32))[None, None]
 
 
-def gaussian_blur(sigma=(1.0, 1.0), angle: float = 0.0, psf_size=None) -> torch.Tensor:
-    """Anisotropic rotated 2D Gaussian PSF of shape ``(1, 1, h, w)`` summing
-    to 1 (deepinv_tpu/ops/conv.py:313, 2D with a scalar angle).
+def gaussian_blur(sigma=(1.0, 1.0), angle=0.0, psf_size=None) -> torch.Tensor:
+    """Anisotropic rotated Gaussian PSFs ``(B, 1, *psf_size)``, each summing
+    to 1 (deepinv_tpu/ops/conv.py:313), built on the host with numpy (a
+    tensor argument is read to the host).
 
-    :param sigma: scalar (isotropic) or ``(sigma_h, sigma_w)``.
-    :param angle: rotation in degrees.
-    :param psf_size: ``int`` or ``(h, w)``; default ``2 * int(max(sigma) / 0.3 + 1) + 1``.
+    :param sigma: a scalar (an isotropic 2D PSF), a tuple whose length is the
+        dimension (1, 2 or 3), or an array ``(B, dim)`` in (depth, height,
+        width) order.
+    :param angle: degrees: a scalar, ``(B,)`` in 2D, or ``(B, 3)`` of
+        (gamma, beta, alpha) rotations about the x, y, z axes in 3D.
+    :param psf_size: ``int`` (2D) or a tuple; default ``2 * int(max(sigma) /
+        0.3 + 1) + 1`` on each axis (``psf_size`` is required with an array
+        sigma).
     """
+    def host(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+    sigma, angle = host(sigma), host(angle)
     if isinstance(sigma, (int, float)):
         sigma = (float(sigma), float(sigma))
-    sigma = tuple(float(s) for s in sigma)
-    if len(sigma) != 2:
-        raise NotImplementedError(
-            "gaussian_blur ports the 2D PSF only; 1D/3D and batched PSFs wait "
-            "for ROADMAP queue 1 item 8")
     if psf_size is None:
+        if isinstance(sigma, np.ndarray):
+            raise ValueError("psf_size is required when sigma is an array")
         c = int(max(sigma) / 0.3 + 1)
-        psf_size = (2 * c + 1,) * 2
+        psf_size = (2 * c + 1,) * len(sigma)
     elif isinstance(psf_size, int):
         psf_size = (psf_size, psf_size)
     psf_size = tuple(int(s) for s in psf_size)
-
-    # (x, y) coordinates with x along the last PSF axis, as the JAX package
+    dim = len(psf_size)
+    if dim not in (1, 2, 3):
+        raise ValueError("Only 1D, 2D, and 3D kernels are supported.")
+    # sigma -> (B, dim), angle -> (B,) in 2D, (B, 3) in 3D
+    B = 1
+    if isinstance(sigma, np.ndarray) and sigma.ndim == 2:
+        B = sigma.shape[0]
+    if isinstance(angle, np.ndarray) and angle.ndim >= 1 and angle.shape[0] > B:
+        B = angle.shape[0]
+    if isinstance(sigma, (tuple, list)):
+        if len(sigma) != dim:
+            raise ValueError(f"len(sigma) must match psf_size dimension {dim}")
+        sig = np.asarray([list(map(float, sigma))] * B, np.float32)
+    else:
+        sig = np.broadcast_to(np.asarray(sigma, np.float32).reshape(-1, dim), (B, dim))
+    if isinstance(angle, (int, float)):
+        ang = (np.full((B,), float(angle), np.float32) if dim <= 2
+               else np.asarray([[float(angle), 0.0, 0.0]] * B, np.float32))
+    elif isinstance(angle, (tuple, list)):
+        ang = np.asarray([list(map(float, angle))] * B, np.float32)
+    else:
+        ang = np.broadcast_to(np.asarray(angle, np.float32).reshape(B, -1),
+                              (B, 3 if dim == 3 else 1))
+        if dim == 2:
+            ang = ang.reshape(B)
+    ang = ang * (math.pi / 180.0)
+    # (x, y, z) coordinates, x along the last PSF axis
     grids = [np.linspace(-(n - 1) / 2, (n - 1) / 2, n, dtype=np.float32) for n in psf_size]
     mesh = np.meshgrid(*grids, indexing="ij")
-    coords = np.stack(mesh[::-1], axis=-1)  # (h, w, 2) as (x, y)
-    a = np.float32(angle * math.pi / 180.0)
-    rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]], np.float32)
-    coords = np.einsum("ij,...j->...i", rot, coords)
-    sig = sigma[::-1]  # (x, y) order
-    kernel = np.ones(psf_size, np.float32)
-    for d in range(2):
-        sd = np.float32(sig[d])
+    coords = np.broadcast_to(np.stack(mesh[::-1], axis=-1)[None], (B, *psf_size, dim))
+    sig = sig[:, ::-1]                                    # (x, y, z) order
+    if dim == 2:
+        c, s = np.cos(ang), np.sin(ang)
+        rot = np.stack([c, -s, s, c], axis=1).reshape(B, 2, 2)
+        coords = np.einsum("bij,b...j->b...i", rot, coords)
+    elif dim == 3:
+        g, b_, a = ang[:, 0], ang[:, 1], ang[:, 2]
+        ca, sa, cb, sb, cg, sg = np.cos(a), np.sin(a), np.cos(b_), np.sin(b_), np.cos(g), np.sin(g)
+        R = np.stack([ca * cb, ca * sb * sg - sa * cg, ca * sb * cg + sa * sg,
+                      sa * cb, sa * sb * sg + ca * cg, sa * sb * cg - ca * sg,
+                      -sb, cb * sg, cb * cg], axis=1).reshape(B, 3, 3)
+        coords = np.einsum("bij,b...j->b...i", R, coords)
+    kernel = np.ones((B, *psf_size), np.float32)
+    for d in range(dim):
+        sd = sig[:, d].reshape(B, *(1,) * dim)
         kernel = kernel * np.exp(-0.5 * coords[..., d] ** 2 / sd ** 2) / (
             math.sqrt(2 * math.pi) * sd)
-    kernel = kernel / kernel.sum()
-    return torch.from_numpy(np.ascontiguousarray(kernel, np.float32))[None, None]
+    kernel = kernel / np.sum(kernel, axis=tuple(range(1, dim + 1)), keepdims=True)
+    return torch.from_numpy(np.ascontiguousarray(kernel[:, None], np.float32))
 
 
 def bilinear_filter(factor: int = 2) -> torch.Tensor:

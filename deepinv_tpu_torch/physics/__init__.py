@@ -2,14 +2,15 @@
 
 from .base import (ComposedLinearPhysics, ComposedPhysics, DecomposablePhysics, Denoising,
                    LinearPhysics, Physics, StackedLinearPhysics, StackedPhysics, compose, stack)
-from .blur import Blur, BlurFFT, Downsampling, Upsampling
+from .blur import Blur, BlurFFT, Downsampling, DownsamplingMatlab, SpaceVaryingBlur, Upsampling
 from .inpainting import Inpainting
 from .mri import MRI, MRIMixin
 from .noise import GaussianNoise, NoiseModel
-from .tomography import Tomography
+from .tomography import Tomography, Tomography3D, TomographyWithAstra
 
 __all__ = ["Physics", "LinearPhysics", "DecomposablePhysics", "Denoising", "ComposedPhysics",
            "ComposedLinearPhysics", "StackedPhysics", "StackedLinearPhysics", "compose", "stack",
            "Inpainting",
-           "Blur", "BlurFFT", "Downsampling", "Upsampling", "MRI", "MRIMixin", "Tomography",
+           "Blur", "BlurFFT", "Downsampling", "Upsampling", "SpaceVaryingBlur", "DownsamplingMatlab",
+           "MRI", "MRIMixin", "Tomography", "TomographyWithAstra", "Tomography3D",
            "NoiseModel", "GaussianNoise"]

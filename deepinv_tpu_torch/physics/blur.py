@@ -11,21 +11,27 @@ blur.py:42) because the TPU lowers rfft to full complex FFTs. Complex inputs
 take the generic SVD path of :class:`DecomposablePhysics`. ``Blur``,
 ``Upsampling``, and ``Downsampling`` outside its FFT closed form, solve
 their ``prox_l2`` by the Krylov solver of :class:`LinearPhysics`.
-``SpaceVaryingBlur``, ``TiledSpaceVaryingBlur``, ``DownsamplingMatlab`` and
-the 5-D (volumetric) Blur wait for ROADMAP queue 1 item 8.
+A 5-D filter makes :class:`Blur` volumetric (``conv3d``).
+:class:`SpaceVaryingBlur` (:366) is a product convolution and
+:class:`DownsamplingMatlab` (:396) MATLAB's ``imresize``, both with the
+autograd transpose as adjoint. ``TiledSpaceVaryingBlur`` (:441) waits for
+ROADMAP queue 1 item 8 (1.8g: ``utils/mixins.py``'s ``TiledMixin2d``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.linalg import linear_transpose
 from ..device import resolve_device
-from ..ops.conv import (bicubic_filter, bilinear_filter, conv2d, conv_transpose2d,
-                        filter_fft_2d, gaussian_blur, sinc_filter)
+from ..ops.conv import (bicubic_filter, bilinear_filter, conv2d, conv3d, conv_transpose2d,
+                        conv_transpose3d, filter_fft_2d, gaussian_blur, sinc_filter)
+from ..ops.imresize import imresize_matlab
+from ..ops.product_convolution import product_convolution2d, product_convolution2d_adjoint
 from .base import (DecomposablePhysics, LinearPhysics, _add_inv_gamma, _inv_gamma_mul,
                    replace)
 
-__all__ = ["Blur", "BlurFFT", "Downsampling", "Upsampling"]
+__all__ = ["Blur", "BlurFFT", "Downsampling", "Upsampling", "SpaceVaryingBlur", "DownsamplingMatlab"]
 
 
 def _resolve_filter(filter, factor: int = 2):
@@ -58,8 +64,9 @@ def _per_sample(gamma, x):
 class Blur(LinearPhysics):
     r"""Blur ``y = h * x`` by spatial convolution (deepinv_tpu/physics/blur.py:63).
 
-    :param filter: PSF ``(b, c, h, w)`` with b in {1, B}, c in {1, C}, or a
-        filter name (``gaussian``, ``bilinear``, ``bicubic``, ``sinc``).
+    :param filter: PSF ``(b, c, h, w)`` with b in {1, B}, c in {1, C}, a
+        volumetric PSF ``(b, c, d, h, w)`` for ``(B, C, D, H, W)`` inputs, or
+        a filter name (``gaussian``, ``bilinear``, ``bicubic``, ``sinc``).
     :param padding: ``valid``, ``circular`` (default), ``replicate``,
         ``reflect`` or ``constant``.
     :param noise_model: e.g. :class:`~deepinv_tpu_torch.physics.GaussianNoise`.
@@ -76,17 +83,17 @@ class Blur(LinearPhysics):
         self.to(resolve_device(device))
 
     def _psf(self, filter, x):
-        f = self.filter if filter is None else _resolve_filter(filter).to(x.device)
-        if f.dim() == 5:
-            raise NotImplementedError("the volumetric (5-D PSF) Blur waits for ROADMAP "
-                                      "queue 1 item 8")
-        return f
+        return self.filter if filter is None else _resolve_filter(filter).to(x.device)
 
     def A(self, x, filter=None, **params):
-        return conv2d(x, self._psf(filter, x), padding=self.padding)
+        f = self._psf(filter, x)
+        conv = conv3d if f.dim() == 5 else conv2d
+        return conv(x, f, padding=self.padding)
 
     def A_adjoint(self, y, filter=None, **params):
-        return conv_transpose2d(y, self._psf(filter, y), padding=self.padding)
+        f = self._psf(filter, y)
+        conv_t = conv_transpose3d if f.dim() == 5 else conv_transpose2d
+        return conv_t(y, f, padding=self.padding)
 
 
 class BlurFFT(DecomposablePhysics):
@@ -281,3 +288,69 @@ class Upsampling(Downsampling):
 
     def prox_l2(self, z, y, gamma, **kwargs):
         return LinearPhysics.prox_l2(self, z, y, gamma, **kwargs)
+
+
+class SpaceVaryingBlur(LinearPhysics):
+    r"""Space-varying blur by product convolution ``y = sum_k h_k * (w_k .
+    x)`` (deepinv_tpu/physics/blur.py:366).
+
+    :param filters: PSF branches ``(b, c, K, h, w)``.
+    :param multipliers: their spatial weights ``(b, c, K, H, W)``.
+    :param padding: the convolutions' padding mode (``valid`` by default).
+    :param device: where the filters and multipliers live; the CUDA device by
+        default.
+    :param kwargs: ``noise_model``, and ``solver``, ``max_iter``, ``tol`` of
+        the Krylov ``prox_l2`` (:class:`LinearPhysics`).
+    """
+
+    def __init__(self, filters=None, multipliers=None, padding: str = "valid", device=None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.register_buffer("filters", None if filters is None else
+                             torch.as_tensor(filters, dtype=torch.float32))
+        self.register_buffer("multipliers", None if multipliers is None else
+                             torch.as_tensor(multipliers, dtype=torch.float32))
+        self.padding = padding
+        self.to(resolve_device(device))
+
+    def A(self, x, filters=None, multipliers=None, **params):
+        h = self.filters if filters is None else filters
+        w = self.multipliers if multipliers is None else multipliers
+        return product_convolution2d(x, w, h, padding=self.padding)
+
+    def A_adjoint(self, y, filters=None, multipliers=None, **params):
+        h = self.filters if filters is None else filters
+        w = self.multipliers if multipliers is None else multipliers
+        return product_convolution2d_adjoint(y, w, h, padding=self.padding)
+
+
+class DownsamplingMatlab(LinearPhysics):
+    r"""Downsampling by MATLAB's antialiased bicubic ``imresize`` by ``1 /
+    factor`` (deepinv_tpu/physics/blur.py:396); the adjoint is the autograd
+    transpose of the resize.
+
+    :param img_size: ``(C, H, W)`` of the high-resolution image (else the
+        adjoint takes ``factor`` times the measurement's size).
+    :param factor: the integer downsampling factor.
+    :param kwargs: ``noise_model``, and ``solver``, ``max_iter``, ``tol`` of
+        the Krylov ``prox_l2`` (:class:`LinearPhysics`).
+    """
+
+    def __init__(self, img_size=None, factor: int = 2, **kwargs):
+        super().__init__(**kwargs)
+        self.factor = self.check_factor(factor)
+        self.imsize = tuple(img_size) if img_size is not None else None
+
+    check_factor = staticmethod(Downsampling.check_factor)
+    get_filter_parameters = staticmethod(Downsampling.get_filter_parameters)
+
+    def A(self, x, **params):
+        return imresize_matlab(x, scale=1.0 / self.factor)
+
+    def A_adjoint(self, y, **params):
+        if self.imsize is not None:
+            H, W = self.imsize[-2:]
+        else:
+            H, W = y.shape[-2] * self.factor, y.shape[-1] * self.factor
+        return linear_transpose(lambda x: imresize_matlab(x, scale=1.0 / self.factor), y,
+                                tuple(y.shape[:2]) + (H, W))

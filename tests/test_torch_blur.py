@@ -15,9 +15,12 @@ import torch
 from deepinv_tpu.ops import conv as jconv
 from deepinv_tpu.physics import Blur as JBlur
 from deepinv_tpu.physics import Downsampling as JDownsampling
+from deepinv_tpu.physics import DownsamplingMatlab as JDownsamplingMatlab
+from deepinv_tpu.physics import SpaceVaryingBlur as JSpaceVaryingBlur
 from deepinv_tpu.physics import Upsampling as JUpsampling
 from deepinv_tpu_torch.ops import conv as tconv
-from deepinv_tpu_torch.physics import Blur, Downsampling, Upsampling
+from deepinv_tpu_torch.physics import (Blur, Downsampling, DownsamplingMatlab, SpaceVaryingBlur,
+                                       Upsampling)
 
 DEV = "cpu"
 PADDINGS = ["valid", "circular", "replicate", "reflect", "constant", "zeros"]
@@ -122,9 +125,24 @@ def test_blur_matches_jax(padding):
         <= 1e-5
 
 
-def test_blur_volumetric_psf_waits():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        Blur(filter=torch.ones((1, 1, 3, 3, 3)), device=DEV).A(torch.zeros((1, 1, 4, 8, 8)))
+@pytest.mark.parametrize("padding", ["valid", "circular", "reflect"])
+def test_blur_volumetric_psf_waits(padding):
+    """The 5-D Blur (a volumetric PSF, ``conv3d``) against JAX: A and
+    A_adjoint of a 3-D ``gaussian_blur`` and of a PSF passed at call time."""
+    rng = np.random.default_rng(7)
+    x = rng.random((2, 1, 6, 10, 9)).astype(np.float32)
+    psf = tconv.gaussian_blur(sigma=(1.0, 0.8, 1.2), psf_size=(3, 5, 5))
+    jb, tb = JBlur(filter=psf.numpy(), padding=padding), Blur(filter=psf, padding=padding,
+                                                              device=DEV)
+    y = jb.A(jnp.asarray(x))
+    assert tuple(tb.A(_t(x)).shape) == y.shape and _rel(tb.A(_t(x)).numpy(), y) <= 1e-5
+    v = rng.standard_normal(y.shape).astype(np.float32)
+    assert _rel(tb.A_adjoint(_t(v)).numpy(), jb.A_adjoint(jnp.asarray(v))) <= 1e-5
+    lhs, rhs = _dot(tb.A(_t(x)), _t(v)), _dot(_t(x), tb.A_adjoint(_t(v)))
+    assert abs(lhs - rhs) <= 1e-4 * abs(lhs)
+    g = rng.random((1, 1, 2, 3, 3)).astype(np.float32)
+    assert _rel(tb.A(_t(x), filter=_t(g)).numpy(), jb.A(jnp.asarray(x), filter=jnp.asarray(g))) \
+        <= 1e-5
 
 
 @pytest.mark.parametrize("factor", [2, 4])
@@ -250,3 +268,50 @@ def test_default_device_is_cuda():
                  lambda: Upsampling((1, 8, 8), "bicubic", 2)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             make()
+
+
+@pytest.mark.parametrize("padding", ["valid", "circular"])
+def test_space_varying_blur_matches_jax(padding):
+    """Four Gaussian PSF branches of growing sigma with smooth multipliers
+    summing to one, on RGB: A, A_adjoint, adjointness, and the Krylov
+    ``prox_l2`` through the transpose."""
+    rng = np.random.default_rng(11)
+    H = W = 16
+    x = rng.random((2, 3, H, W)).astype(np.float32)
+    h = np.concatenate([tconv.gaussian_blur(sigma=s, psf_size=5).numpy() for s in
+                        (0.5, 1.0, 1.5, 2.0)], axis=1)[:, None]       # (1, 1, 4, 5, 5)
+    yy = np.linspace(0, 1, H, dtype=np.float32)[:, None] * np.ones((1, W), np.float32)
+    m = np.stack([(1 - yy) ** 3, 3 * yy * (1 - yy) ** 2, 3 * yy ** 2 * (1 - yy), yy ** 3])[None, None]
+    jb = JSpaceVaryingBlur(filters=jnp.asarray(h), multipliers=jnp.asarray(m), padding=padding)
+    tb = SpaceVaryingBlur(filters=h, multipliers=m, padding=padding, device=DEV)
+    assert torch.allclose(tb.multipliers.sum(2), torch.ones(()))
+    y = jb.A(jnp.asarray(x))
+    got = tb.A(_t(x))
+    assert tuple(got.shape) == y.shape and _rel(got.numpy(), y) <= 1e-5
+    v = rng.standard_normal(y.shape).astype(np.float32)
+    assert _rel(tb.A_adjoint(_t(v)).numpy(), jb.A_adjoint(jnp.asarray(v))) <= 1e-5
+    lhs, rhs = _dot(got, _t(v)), _dot(_t(x), tb.A_adjoint(_t(v)))
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+    if padding == "circular":
+        z = rng.standard_normal(x.shape).astype(np.float32)
+        want = jb.prox_l2(jnp.asarray(z), y, 0.5)
+        assert _rel(tb.prox_l2(_t(z), _t(np.asarray(y)), 0.5).numpy(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("factor", [2, 4])
+def test_downsampling_matlab_matches_jax(factor):
+    rng = np.random.default_rng(factor + 20)
+    x = rng.random((2, 3, 32, 24)).astype(np.float32)
+    jd = JDownsamplingMatlab(img_size=(3, 32, 24), factor=factor)
+    td = DownsamplingMatlab(img_size=(3, 32, 24), factor=factor)
+    y = jd.A(jnp.asarray(x))
+    got = td.A(_t(x))
+    assert tuple(got.shape) == y.shape == (2, 3, 32 // factor, 24 // factor)
+    assert _rel(got.numpy(), y) <= 1e-5
+    v = rng.standard_normal(y.shape).astype(np.float32)
+    assert _rel(td.A_adjoint(_t(v)).numpy(), jd.A_adjoint(jnp.asarray(v))) <= 1e-5
+    assert _rel(DownsamplingMatlab(factor=factor).A_adjoint(_t(v)).numpy(),
+                jd.A_adjoint(jnp.asarray(v))) <= 1e-5
+    lhs, rhs = _dot(got, _t(v)), _dot(_t(x), td.A_adjoint(_t(v)))
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+    assert td.check_factor(np.array([factor, factor])) == factor

@@ -167,8 +167,8 @@ def test_toeplitz_normal_is_close_to_adjoint_of_forward():
 
 def test_tomography_state_and_unported_options():
     """The plan and the spectrum are buffers (``physics.to(device)`` moves
-    them); the other projectors and the fan beam raise, naming the ROADMAP
-    item that ports them."""
+    them); the other projectors (``interp``, the default, and ``fourier``)
+    and the fan beam construct and project as the JAX package's do."""
     physics = Tomography(angles=12, img_width=16, method="slice", device=DEV)
     buffers = dict(physics.named_buffers())
     for name in ("angles", "plan.phase", "plan.spec", "plan.nufft.idx", "plan.nufft.wts",
@@ -176,9 +176,15 @@ def test_tomography_state_and_unported_options():
         assert name in buffers, name
     assert buffers["plan.spec"].dtype == torch.complex64
     assert buffers["plan.nufft.idx"].dtype == torch.int64
+    x = torch.rand((1, 1, 16, 16), generator=torch.Generator().manual_seed(5))
     for kw in (dict(), dict(method="fourier"), dict(method="slice", fan_beam=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Tomography(angles=12, img_width=16, device=DEV, **kw)
+        port = Tomography(angles=12, img_width=16, device=DEV, **kw)
+        ref = JaxTomography(angles=12, img_width=16, **kw)
+        got, want = port.A(x), np.asarray(ref.A(jnp.asarray(x.numpy())))
+        assert tuple(got.shape) == want.shape and port.n_det == ref.n_det
+        # the default fan beam's float32 geometry in JAX (tests/test_torch_ct_projectors.py)
+        bound = 2e-3 if kw.get("fan_beam") else 1e-4
+        assert float(np.abs(got.numpy() - want).max()) <= bound * float(np.abs(want).max())
 
 
 def test_l2_grad_splits_with_fast_normal():

@@ -176,7 +176,36 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    ``examples/demo_conebeam_fdk.py`` (120 views, 128x192 detector):
    adjointness, the FDK and a CG ``A_dagger`` above their floors, with times;
    ``DownsamplingMatlab`` x2 adjointness, the 5-D ``Blur`` (conv3d) against
-   ``conv3d_fft`` on 64x128x128, and the db4 wavelet and DCT round trips.
+   ``conv3d_fft`` on 64x128x128, and the db4 wavelet and DCT round trips;
+14. multi-coil MRI, the noise models and the physics generators
+   (``mri_multicoil_phase``): ``MultiCoilMRI`` at 320² with 15 birdcage coil
+   maps, a ``GaussianMaskGenerator`` (acceleration 4) mask a sample and
+   ``GaussianNoise(0.01)`` on the sampled k-space: adjointness of the
+   Cartesian and of a golden-angle radial (NUFFT) operator within
+   ADJOINT_RTOL, ``||A||² <= 1`` by ``compute_norm``; PnP-PGD with a bf16
+   full-depth ``DnCNN(2, 2)`` (the residual layer scaled as phase 5's) at B=1
+   and B=8, held as phase 5 holds PGD (K5 once an iteration, each denoiser
+   call within DENOISER_RTOL, the recon within RECON_RTOL of the plain and
+   the unrounded chain's runs), again at B=1 from maps that ESPIRiT estimates
+   from ``y`` (24² calibration, 6² kernels; timed, its magnitude PSNR beside
+   the birdcage recon's); ``Trainer`` of ``ArtifactRemoval(DnCNN(2, 2))``
+   with ``physics_generator = GaussianMaskGenerator + SigmaGenerator(0.005,
+   0.05)``, Adam(MC_LR), 8 steps at B=1 and B=16 in both train-step
+   configurations: one K6 launch a step (and L + 2 of the stash backward)
+   with ``fused_chains=True``, none with ``False``, the first step's
+   gradients within GRAD_RTOL (whole) and MC_GRAD_TENSOR_RTOL (each
+   parameter tensor), losses within TRAIN_LOSS_RTOL; then each fault of
+   MC_FAULTS planted in the stash backward's result, in a run of its own,
+   must fail the gradient checks (and the loss check where marked); every
+   noise model drawn on the card at 8x3x256² (``GaussianNoise`` also with a
+   per-sample sigma), its sample mean and variance against the analytic ones
+   (NOISE_MEAN_SE, NOISE_VAR_RTOL); every generator's ``step`` at B=8, timed:
+   PSFs non-negative summing to 1, Random and Gaussian masks of exactly
+   ``n_lines + n_center`` lines, splitting masks inside their input mask at
+   their ratio. Timed and profiled: PGD's it/s at B=1 and image-it/s at B=8
+   with the idle share and the FFTs' and K5's shares of the device time, and
+   the generator-driven train steps/s with an epoch's idle share (``rate:``
+   lines, with the card).
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -412,6 +441,53 @@ CONE_CG_FLOOR_DB = 22.3
 BLUR3D_SHAPE = (1, 1, 64, 128, 128)
 BLUR3D_RTOL = 1e-4
 ROUND_TRIP_RTOL = 1e-5
+# phase 14: 15-coil Cartesian MRI at the fastMRI knee's 320², masks of
+# GaussianMaskGenerator(acceleration=4) a sample, GaussianNoise(0.01); the
+# recon's bounds are phase 5's (DENOISER_RTOL, RECON_RTOL)
+MC_SIZE = 320
+MC_COILS = 15
+MC_ACCEL = 4
+MC_SIGMA = 0.01
+MC_ESPIRIT = dict(calib_size=24, kernel_size=6)
+MC_SPOKES = 64                  # golden-angle spokes of the non-Cartesian adjointness check
+MC_NORM_SLACK = 1e-3            # ||A||² <= 1 + slack (RSS-normalised maps, orthonormal FFT)
+MC_TRAIN_SIGMAS = (0.005, 0.05)
+# Adam's learning rate in phase 14's train steps. Adam's first step moves
+# every weight by lr times the sign of its gradient; where the two
+# configurations' bf16 gradients differ in sign the weights part by 2 lr, and
+# the losses of the 20-layer DnCNN(2, 2) part with them. At phase 9's lr of
+# 1e-4 the two configurations' B=1 losses on this MRI problem lay 1.97e-2
+# apart (bound 2e-2); at 1e-5, 8.2e-3 (H100 runs). At MC_LR the losses see
+# only a gross fault (MC_FAULTS); the first step's gradients, which the lr
+# does not touch, are the check of K6 and the stash backward at these shapes.
+MC_LR = 1e-5
+# phase 14's first-step gradients, fused_chains=True against False: the
+# largest relative L2 error of one parameter tensor's gradient (GRAD_RTOL
+# bounds the whole gradient's relative max error, as in phase 9)
+MC_GRAD_TENSOR_RTOL = 5e-2
+# Faults planted in the stash backward's result (dX, dW, db) at phase 14's
+# shapes, each in a run of its own from fresh weights and Adam state, to show
+# that the checks of the train step can fail: each must miss GRAD_RTOL or
+# MC_GRAD_TENSOR_RTOL, and those marked True must also miss TRAIN_LOSS_RTOL.
+# Adam's step is unchanged by a constant scale of a tensor's gradient, so a
+# scaled dX (it reaches only the first conv's weights) moves no weight
+# differently and no loss can show it. Nor, at MC_LR, does a zero dX: the
+# losses lay 6.2e-3 (B=1) and 5.4e-3 (B=16) from False's, under the sound
+# runs' 8.2e-3 and 8.6e-3, while its first conv's gradient was 1.0 off in
+# relative L2 (sound: at most 4.5e-3). Reversed dW: losses 2.9 and 4.6 off.
+MC_FAULTS = {
+    "dX x 0.5": (lambda dx, dw, db: (0.5 * dx, dw, db), False),
+    "dX = 0": (lambda dx, dw, db: (0 * dx, dw, db), False),
+    "dW of the layers reversed": (lambda dx, dw, db: (dx, dw.flip(0), db), True),
+}
+# every noise model's draws on the card at NOISE_SHAPE of a constant 0.5:
+# the mean within NOISE_MEAN_SE standard errors, the variance within
+# NOISE_VAR_RTOL of the analytic moments
+NOISE_SHAPE = (8, 3, 256, 256)
+NOISE_MEAN_SE = 5.0
+NOISE_VAR_RTOL = 0.03
+GEN_BATCH = 8
+SPLIT_RATIO_TOL = 0.02          # Bernoulli splits drawn alone: kept fraction within this
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for the bounds.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
@@ -931,9 +1007,11 @@ def stash_vs_plain(label: str, h, ws, bs, cot, tile: str = "wgmma"):
     return err, bwd_err
 
 
-def make_trainer(net, physics, xs, batch: int, fused: bool, losses=None):
-    """``Trainer`` of ``ArtifactRemoval(autocast(copy of net))`` with Adam(1e-4)
-    over ``xs`` in batches of ``batch``, online measurements, one epoch."""
+def make_trainer(net, physics, xs, batch: int, fused: bool, losses=None,
+                 physics_generator=None, lr: float = 1e-4):
+    """``Trainer`` of ``ArtifactRemoval(autocast(copy of net))`` with Adam(``lr``)
+    over ``xs`` in batches of ``batch``, online measurements (with the
+    operator's parameters from ``physics_generator``, if given), one epoch."""
     import torch
 
     from deepinv_tpu_torch.datasets import ArrayDataset, DataLoader
@@ -941,17 +1019,18 @@ def make_trainer(net, physics, xs, batch: int, fused: bool, losses=None):
     from deepinv_tpu_torch.training import Trainer
 
     model = ArtifactRemoval(autocast(copy.deepcopy(net)))
-    return Trainer(model, physics, optimizer=torch.optim.Adam(model.parameters(), lr=1e-4),
+    return Trainer(model, physics, optimizer=torch.optim.Adam(model.parameters(), lr=lr),
                    train_dataloader=DataLoader(ArrayDataset(xs), batch_size=batch),
                    losses=losses, epochs=1, online_measurements=True, verbose=False,
-                   fused_chains=fused, seed=SEED)
+                   fused_chains=fused, seed=SEED, physics_generator=physics_generator)
 
 
 def first_batch(trainer):
-    """The trainer's first batch and its first step's measurement draw."""
+    """The trainer's first batch and its first step's measurement draws (and
+    physics parameters, with a physics generator)."""
     trainer.setup_train()
     batch = next(trainer.current_train_iterators[0])
-    return trainer.get_samples(batch, trainer.physics[0], trainer.generator(0, 0, 0, 0))
+    return trainer.get_samples(batch, trainer.physics[0], *trainer._sample_generators(0, 0, 0, 0))
 
 
 def step_fn(trainer, x, y, physics):
@@ -965,17 +1044,50 @@ def step_fn(trainer, x, y, physics):
     return run
 
 
-def first_step_grads(trainer):
-    """The whole parameter gradient of the trainer's loss on its first batch."""
-    import torch
-
+def first_step_grads(trainer) -> list:
+    """The parameter gradients of the trainer's loss on its first batch, one
+    flat f32 vector a parameter tensor."""
     x, y, phys = first_batch(trainer)
     trainer.optimizer.zero_grad(set_to_none=True)
     with trainer._chains():
         trainer.compute_loss(trainer.model, x, y, phys)[0].backward()
-    g = torch.cat([p.grad.reshape(-1).float() for p in trainer.model.parameters()])
+    gs = [p.grad.reshape(-1).float() for p in trainer.model.parameters()]
     trainer.optimizer.zero_grad(set_to_none=True)
-    return g
+    return gs
+
+
+def grad_errors(gs, refs) -> tuple:
+    """The whole gradient's relative max error (phase 9's) and the largest
+    relative L2 error of one parameter tensor's, of ``gs`` against ``refs``."""
+    import torch
+
+    return rel_max(torch.cat(gs), torch.cat(refs)), max(rel_l2(a, b) for a, b in zip(gs, refs))
+
+
+def loss_error(losses, refs) -> float:
+    """The largest relative error of a step's loss."""
+    return max(abs(a - b) / abs(b) for a, b in zip(losses, refs))
+
+
+@contextlib.contextmanager
+def planted_fault(fault):
+    """Inside the block, the chain's autograd backward gets
+    ``fault(dX, dW, db)`` of the stash backward's result: a mutation check of
+    the checks, in this process only (the module's function is restored on
+    exit; launches inside count on the wrapper, not on the kernel's count)."""
+    import deepinv_tpu_torch.ops.kernels.conv_chain as ck
+
+    real = ck.stash_backward
+
+    def faulty(*args, **kwargs):
+        return fault(*real(*args, **kwargs))
+
+    faulty.launches = 0
+    ck.stash_backward = faulty
+    try:
+        yield
+    finally:
+        ck.stash_backward = real
 
 
 def train_epoch(trainer, epoch: int, dev) -> float:
@@ -1183,7 +1295,7 @@ def train_phase(dev, net, gen, size: int = 256, batches=TRAIN_BATCHES, steps: in
     for B in batches:
         xs = torch.rand((B, 1, size, size), generator=gen).to(dev).repeat(steps, 1, 1, 1)
         trainers = {f: make_trainer(net, physics, xs, B, f) for f in (False, True)}
-        g_ref, g_k6 = first_step_grads(trainers[False]), first_step_grads(trainers[True])
+        g_ref, g_k6 = (torch.cat(first_step_grads(trainers[f])) for f in (False, True))
         gerr = rel_max(g_k6, g_ref)
         print(f"train B={B}: first step's gradient, fused_chains=True vs False: relative max "
               f"error {gerr} (bound {GRAD_RTOL}), relative L2 {rel_l2(g_k6, g_ref)}", flush=True)
@@ -1206,7 +1318,7 @@ def train_phase(dev, net, gen, size: int = 256, batches=TRAIN_BATCHES, steps: in
             check(losses[f][-1] < losses[f][0], f"train B={B} fused_chains={f}: loss did not fall")
             k6_launches += n6
             bwd_launches += nb
-        lerr = max(abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False]))
+        lerr = loss_error(losses[True], losses[False])
         print(f"train B={B}: per-step loss, fused_chains=True vs False: max relative error "
               f"{lerr} (bound {TRAIN_LOSS_RTOL})", flush=True)
         check(lerr <= TRAIN_LOSS_RTOL, f"train B={B}: losses of the two configurations disagree")
@@ -2171,6 +2283,505 @@ def ct_breadth_phase(dev, card: str, size: int = 256, depth: int = 20, batch: in
     return out
 
 
+def golden_radial(size: int, spokes: int):
+    """``(2, spokes * 2 size)`` golden-angle radial k-space points in radians,
+    off the Toeplitz grid (no spoke at angle 0)."""
+    import numpy as np
+
+    r = (np.arange(2 * size) - size + 0.5) * (np.pi / size)
+    th = 0.1 + np.arange(spokes) * np.deg2rad(111.246)
+    return np.stack([np.outer(np.cos(th), r).ravel(),
+                     np.outer(np.sin(th), r).ravel()]).astype(np.float32)
+
+
+def noise_moments(name: str, kw: dict, x: float):
+    """The analytic mean and variance of noise model ``name`` (keywords
+    ``kw``) at the constant level ``x``; None for the variance where the
+    level is drawn a sample (``UniformGaussianNoise``: its range instead)."""
+    import torch
+
+    sp = torch.special
+    if name == "ZeroNoise":
+        return x, 0.0
+    if name == "GaussianNoise":
+        return x, kw["sigma"] ** 2
+    if name == "UniformGaussianNoise":
+        return x, (kw["sigma_min"] ** 2, kw["sigma_max"] ** 2)
+    if name == "PoissonNoise":
+        return x, kw["gain"] * x
+    if name == "GammaNoise":
+        return x, x * x / kw["l"]
+    if name == "PoissonGaussianNoise":
+        return x, kw["gain"] * x + kw["sigma"] ** 2
+    if name == "UniformNoise":
+        return x, kw["a"] ** 2 / 3
+    if name == "LogPoissonNoise":
+        lam = kw["N0"] * math.exp(-x * kw["mu"])
+        n = torch.arange(0, int(lam + 40 * lam ** 0.5), dtype=torch.float64)
+        pmf = torch.exp(n * math.log(lam) - lam - torch.lgamma(n + 1))
+        f = -torch.log(n.clamp_min(1e-8) / kw["N0"]) / kw["mu"]
+        m = float((pmf * f).sum())
+        return m, float((pmf * (f - m) ** 2).sum())
+    if name == "SaltPepperNoise":
+        p, s = kw["p"], kw["s"]
+        m = (1 - p - s) * x + s
+        return m, (1 - p - s) * x * x + s - m * m
+    if name == "FisherTippettNoise":
+        l = torch.tensor(kw["l"], dtype=torch.float64)
+        return x + float(sp.digamma(l)) - math.log(kw["l"]), float(sp.polygamma(1, l))
+    if name == "RicianNoise":
+        s, t = kw["sigma"], -x * x / (2 * kw["sigma"] ** 2)
+        z = torch.tensor(-t / 2, dtype=torch.float64)
+        # the Laguerre L_{1/2}(t) by the scaled Bessel functions
+        lag = (1 - t) * float(sp.i0e(z)) - t * float(sp.i1e(z))
+        m = s * math.sqrt(math.pi / 2) * lag
+        return m, 2 * s * s + x * x - m * m
+    if name == "LaplaceNoise":
+        return x, 2 * kw["b"] ** 2
+    raise KeyError(name)
+
+
+# the card's noise models: keywords, as tests/test_torch_noise.py draws them
+NOISE_MODELS = {
+    "ZeroNoise": {}, "GaussianNoise": {"sigma": 0.1},
+    "UniformGaussianNoise": {"sigma_min": 0.05, "sigma_max": 0.3}, "PoissonNoise": {"gain": 0.1},
+    "GammaNoise": {"l": 3.0}, "PoissonGaussianNoise": {"gain": 0.1, "sigma": 0.05},
+    "UniformNoise": {"a": 0.2}, "LogPoissonNoise": {"N0": 512.0, "mu": 0.5},
+    "SaltPepperNoise": {"p": 0.1, "s": 0.15}, "FisherTippettNoise": {"l": 2.0},
+    "RicianNoise": {"sigma": 0.1}, "LaplaceNoise": {"b": 0.1}}
+
+
+def noise_checks(dev, card: str, shape=NOISE_SHAPE) -> dict:
+    """Phase 14.5: every noise model drawn on the card from a CUDA generator
+    on a constant 0.5 of ``shape``: sample mean and variance against the
+    analytic ones (``GaussianNoise`` also with a per-sample ``(B,)`` sigma,
+    held sample by sample), and the time a draw."""
+    import torch
+
+    import deepinv_tpu_torch.physics.noise as noise_mod
+
+    x = torch.full(shape, 0.5, device=dev)
+    B = shape[0]
+    out = {}
+    cases = [(n, kw, None) for n, kw in NOISE_MODELS.items()]
+    cases.append(("GaussianNoise", {"sigma": torch.linspace(0.02, 0.3, B)}, "per-sample"))
+    for name, kw, tag in cases:
+        model = getattr(noise_mod, name)(**kw)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+        with torch.no_grad():
+            y = model(x, generator=gen).double()
+        check(bool(torch.isfinite(y).all()), f"noise {name}: non-finite draw")
+        label = name + (f" ({tag})" if tag else "")
+        if tag:   # one level a sample
+            per = y.reshape(B, -1)
+            sig = model.sigma.double()
+            se = (per.mean(1) - 0.5).abs() / (sig / per.shape[1] ** 0.5)
+            vr = (per.var(1) / sig ** 2 - 1).abs()
+            ok = bool((se <= NOISE_MEAN_SE).all() and (vr <= NOISE_VAR_RTOL).all())
+            stats = {"max_mean_se": float(se.max()), "max_var_rel": float(vr.max())}
+        else:
+            m, v = noise_moments(name, kw, 0.5)
+            mean = float(y.mean())
+            if name == "UniformGaussianNoise":
+                per = y.reshape(B, -1).var(1)
+                ok = bool(((per >= v[0] * (1 - NOISE_VAR_RTOL))
+                           & (per <= v[1] * (1 + NOISE_VAR_RTOL))).all()) and \
+                    abs(mean - m) <= NOISE_MEAN_SE * (v[1] / y.numel()) ** 0.5
+                stats = {"mean": mean, "var_range": [float(per.min()), float(per.max())]}
+            elif v == 0.0:
+                ok = bool((y == m).all())
+                stats = {"mean": mean}
+            else:
+                var = float(y.var())
+                ok = abs(mean - m) <= NOISE_MEAN_SE * (v / y.numel()) ** 0.5 and \
+                    abs(var - v) <= NOISE_VAR_RTOL * v
+                stats = {"mean": mean, "mean_want": m, "var": var, "var_want": v}
+        ms = None
+        if dev.type == "cuda":
+            with torch.no_grad():
+                ms = cuda_ms(lambda: model(x, generator=gen), 10, warmup=2)
+        print(f"noise {label} on {tuple(shape)}: {stats}, draw {ms} ms ({card})", flush=True)
+        check(ok, f"noise {label}: moments {stats} off the analytic ones")
+        out[label] = dict(stats, ms=ms)
+    return out
+
+
+def generator_checks(dev, card: str, size: int = 256, batch: int = GEN_BATCH,
+                     psf: int = 31, pupil: int = 256) -> dict:
+    """Phase 14.6: every physics generator's ``step`` at B=``batch`` on the
+    card, timed and checked: PSFs non-negative and summing to 1; Random and
+    Gaussian masks with exactly ``n_lines + n_center`` lines; splitting masks
+    inside their input mask, at the fraction they keep."""
+    import torch
+
+    import deepinv_tpu_torch.physics.generator as pg
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    out = {}
+
+    def run(label, g, ok_fn, **kw):
+        seed = SEED + 70 + 2 * len(out)     # a stream of its own for each generator
+        p = g.step(batch, generator=gen(seed), **kw)
+        ms = None
+        if dev.type == "cuda":
+            ms = cuda_ms(lambda: g.step(batch, generator=gen(seed + 1), **kw), 3, warmup=1)
+        ok, stats = ok_fn(p)
+        print(f"generator {label} B={batch}: {stats}, {ms} ms a step ({card})", flush=True)
+        check(ok, f"generator {label}: {stats}")
+        out[label] = dict(stats, ms=ms)
+        return p
+
+    def psf_ok(p, key="filter"):
+        f = p[key]
+        s = f.sum(dim=tuple(range(2, f.dim())))
+        err = float((s - 1).abs().max())
+        return float(f.min()) >= 0.0 and err <= 1e-5, {
+            "shape": list(f.shape), "min": float(f.min()), "sum_err": err}
+
+    def tiles_ok(p):
+        f = p["filters"]
+        err = float((f.sum((-2, -1)) - 1).abs().max())
+        return float(f.min()) >= 0.0 and err <= 1e-5, {"shape": list(f.shape), "sum_err": err}
+
+    mask_size = (2, size, size)
+    for name in ("RandomMaskGenerator", "GaussianMaskGenerator"):
+        g = getattr(pg, name)(mask_size, acceleration=MC_ACCEL)
+        want = g.n_lines + g.n_center
+
+        def lines_ok(p, want=want):
+            cols = p["mask"][:, 0, 0]
+            n = cols.sum(-1)
+            return bool((n == want).all()), {"lines": sorted({int(v) for v in n}), "want": want}
+
+        masks = run(name, g, lines_ok)["mask"]
+    run("EquispacedMaskGenerator (k-t)", pg.EquispacedMaskGenerator(
+        (2, 8, size, size), acceleration=MC_ACCEL),
+        lambda p: (tuple(p["mask"].shape) == (batch, 2, 8, size, size),
+                   {"shape": list(p["mask"].shape), "fraction": float(p["mask"].mean())}))
+    run("PolyOrderMaskGenerator", pg.PolyOrderMaskGenerator(mask_size, acceleration=MC_ACCEL),
+        lambda p: (abs(float(p["mask"].mean()) - 1 / MC_ACCEL) <= 0.05,
+                   {"fraction": float(p["mask"].mean()), "want": 1 / MC_ACCEL}))
+    n_in = masks.reshape(batch, 2, -1)[:, 0].sum(1)
+
+    def split_ok(ratio, exact):
+        def ok(p):
+            m = p["mask"]
+            inside = bool((m <= masks).all())
+            kept = m.reshape(batch, 2, -1)[:, 0].sum(1) / n_in
+            err = float((kept - ratio).abs().max())
+            bound = 1.0 / float(n_in.min()) if exact else SPLIT_RATIO_TOL
+            return inside and err <= bound, {"inside": inside, "kept": float(kept.mean()),
+                                             "ratio": ratio, "max_err": err}
+        return ok
+
+    run("BernoulliSplittingMaskGenerator (input mask)", pg.BernoulliSplittingMaskGenerator(
+        mask_size, split_ratio=0.6), split_ok(0.6, True), input_mask=masks)
+    run("BernoulliSplittingMaskGenerator", pg.BernoulliSplittingMaskGenerator(
+        mask_size, split_ratio=0.6),
+        lambda p: (abs(float(p["mask"].mean()) - 0.6) <= SPLIT_RATIO_TOL,
+                   {"kept": float(p["mask"].mean()), "ratio": 0.6}))
+    # Gaussian splitting removes ceil(n (1 - ratio)) points off its centre block
+    run("GaussianSplittingMaskGenerator (input mask)", pg.GaussianSplittingMaskGenerator(
+        mask_size, split_ratio=0.6), split_ok(0.6, True), input_mask=masks)
+    split_gen = pg.GaussianMaskGenerator(mask_size, acceleration=2)
+    run("MultiplicativeSplittingMaskGenerator (input mask)",
+        pg.MultiplicativeSplittingMaskGenerator(mask_size, split_gen),
+        lambda p: (bool((p["mask"] <= masks).all()), {"kept": float(
+            (p["mask"].sum() / masks.sum()))}), input_mask=masks)
+    run("Phase2PhaseSplittingMaskGenerator", pg.Phase2PhaseSplittingMaskGenerator(
+        (2, 8, size // 4, size // 4)),
+        lambda p: (float(p["mask"].mean()) == 0.5, {"kept": float(p["mask"].mean())}))
+    run("Artifact2ArtifactSplittingMaskGenerator", pg.Artifact2ArtifactSplittingMaskGenerator(
+        (2, 8, size // 4, size // 4), split_size=2),
+        lambda p: (float(p["mask"].mean()) == 0.25, {"kept": float(p["mask"].mean())}))
+    run("SigmaGenerator", pg.SigmaGenerator(*MC_TRAIN_SIGMAS),
+        lambda p: (bool(((p["sigma"] >= MC_TRAIN_SIGMAS[0]) & (p["sigma"] < MC_TRAIN_SIGMAS[1]))
+                        .all()), {"sigma": [round(float(v), 5) for v in p["sigma"]]}))
+    run("GainGenerator", pg.GainGenerator(),
+        lambda p: (bool(((p["gain"] >= 0.1) & (p["gain"] < 0.4)).all()), {}))
+    # the bicubic filter has negative lobes: each filter sums to 1, one factor a batch
+    run("DownsamplingGenerator", pg.DownsamplingGenerator(psf_size=(31, 31)),
+        lambda p: (float((p["filter"].sum((-2, -1)) - 1).abs().max()) <= 1e-5
+                   and len(set(p["factor"].tolist())) == 1,
+                   {"factor": int(p["factor"][0]), "sum_err": float(
+                       (p["filter"].sum((-2, -1)) - 1).abs().max())}))
+    run("MotionBlurGenerator", pg.MotionBlurGenerator((psf, psf)), psf_ok)
+    run("GaussianBlurGenerator", pg.GaussianBlurGenerator((psf, psf), isotropic=False), psf_ok)
+    diff = pg.DiffractionBlurGenerator((psf, psf), pupil_size=pupil)
+    run("DiffractionBlurGenerator", diff, psf_ok)
+    run("DiffractionBlurGenerator (3 channels)", pg.DiffractionBlurGenerator(
+        (psf, psf), fc=(0.18, 0.2, 0.22), zernike_perturbation_amplitude=0.05,
+        pupil_size=pupil), psf_ok)
+    run("DiffractionBlurGenerator3D", pg.DiffractionBlurGenerator3D(
+        (9, psf, psf), pupil_size=pupil), psf_ok)
+    run("ConfocalBlurGenerator3D", pg.ConfocalBlurGenerator3D((9, psf, psf), pupil_size=pupil),
+        psf_ok)
+    small = pg.DiffractionBlurGenerator((15, 15), pupil_size=pupil // 2)
+    run("ProductConvolutionBlurGenerator", pg.ProductConvolutionBlurGenerator(
+        small, img_size=(size, size), n_eigen_psf=8),
+        lambda p: (bool(torch.isfinite(p["multipliers"]).all()), {
+            "filters": list(p["filters"].shape), "multipliers": list(p["multipliers"].shape)}))
+    run("TiledBlurGenerator", pg.TiledBlurGenerator(small, patch_size=64, stride=32), tiles_ok,
+        img_size=(size, size))
+    return out
+
+
+def mri_multicoil_phase(dev, card: str, size: int = MC_SIZE, coils: int = MC_COILS,
+                        depth: int = 20, batch: int = HQS_BATCH, train_batches=TRAIN_BATCHES,
+                        steps: int = TRAIN_STEPS, noise_shape=NOISE_SHAPE,
+                        gen_size: int = 256, pupil: int = 256,
+                        espirit: dict = MC_ESPIRIT) -> dict:
+    """Phase 14: multi-coil MRI, the noise models and the physics generators
+    through the entry points with the default device.
+
+    14.1 ``MultiCoilMRI`` with ``birdcage_maps(coils, (size, size))``, a
+    ``GaussianMaskGenerator`` mask a sample and ``GaussianNoise(0.01)`` on the
+    sampled k-space: adjointness of the Cartesian and of a golden-angle
+    radial (NUFFT) operator, and ``||A||² <= 1`` by ``compute_norm``.
+    14.2 PnP-PGD with a bf16 ``DnCNN(2, 2)`` of ``depth`` layers (the
+    residual layer scaled as phase 5's) at B=1 and B=``batch``, held as phase
+    5 holds PGD (``drive``: K5 once an iteration, every denoiser call, the
+    plain and the unrounded chain's runs); rates in turns and profiled (the
+    FFTs' and K5's shares of the device time, the idle share). 14.3 the same
+    recon from maps that ESPIRiT estimates from ``y``, timed, its magnitude's
+    PSNR beside the birdcage recon's. 14.4 ``Trainer`` of
+    ``ArtifactRemoval(DnCNN(2, 2))`` on the same physics with
+    ``physics_generator = GaussianMaskGenerator + SigmaGenerator``, ``steps``
+    steps at each of ``train_batches`` in both train-step configurations: K6
+    once a step with ``fused_chains=True`` and never with ``False``, the
+    first step's gradients within GRAD_RTOL and MC_GRAD_TENSOR_RTOL, losses
+    within TRAIN_LOSS_RTOL, each of MC_FAULTS caught (``planted_fault``),
+    steps/s and the idle share of an epoch.
+    14.5 ``noise_checks``; 14.6 ``generator_checks``. Returns the numbers of
+    the kernels line. On the CPU, at small sizes, it rehearses the checks
+    (count the plain K5 calls as launches by wrapping
+    ``deepinv_tpu_torch.models.dncnn.conv_chain``; the K6 counts are checked
+    on the card only) and skips the times and profiles."""
+    import numpy as np
+    import torch
+
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    from deepinv_tpu_torch.datasets import shepp_logan
+    from deepinv_tpu_torch.models import DnCNN, autocast
+    from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain, conv_chain_stash,
+                                                          stash_backward)
+    from deepinv_tpu_torch.optim import L2, PnP, optim_builder
+    from deepinv_tpu_torch.physics import GaussianNoise, MultiCoilMRI, birdcage_maps
+    from deepinv_tpu_torch.physics.generator import GaussianMaskGenerator, SigmaGenerator
+
+    cuda = dev.type == "cuda"
+    g = torch.Generator().manual_seed(SEED + 80)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def mag(v):
+        return v.pow(2).sum(1, keepdim=True).sqrt()
+
+    out = {"launches": {"K5": {}}}
+    rng = np.random.default_rng(SEED + 81)
+    sl = torch.from_numpy(shepp_logan(size))
+    x1 = torch.stack([sl, 0.2 * sl.flip(-1)])[None].to(dev)
+    x8 = torch.cat([x1] + [torch.from_numpy(discs(rng, 2, size))[None].to(dev)
+                           for _ in range(batch - 1)])
+    maps = birdcage_maps(coils, (size, size))[None]
+    masks = GaussianMaskGenerator((2, size, size), acceleration=MC_ACCEL)
+    t0 = time.perf_counter()
+    physics = MultiCoilMRI(coil_maps=maps, img_size=(size, size),
+                           noise_model=GaussianNoise(MC_SIGMA))
+    sync(dev)
+    t_phys = time.perf_counter() - t0
+
+    # 14.1 the operators
+    phys1 = physics.update(**masks.step(1, generator=gen(SEED + 82)))
+    v = torch.randn((1, 2, coils, size, size), generator=g).to(dev)
+    with torch.no_grad():
+        adj_c = adjointness(phys1.A, phys1.A_adjoint, x1, v)
+        lip = float(phys1.compute_norm(torch.randn(x1.shape, generator=g).to(dev), max_iter=30))
+    t0 = time.perf_counter()
+    radial = MultiCoilMRI(coil_maps=maps, img_size=(size, size),
+                          kspace_trajectory=golden_radial(size, MC_SPOKES))
+    sync(dev)
+    t_plan = time.perf_counter() - t0
+    with torch.no_grad():
+        yr = radial.A(x1)
+        adj_r = adjointness(radial.A, radial.A_adjoint, x1,
+                            torch.randn(yr.shape, generator=g).to(dev))
+        normal_err = rel_l2(radial.A_adjoint_A(x1), radial.A_adjoint(radial.A(x1)))
+    print(f"multi-coil MRI {size}², {coils} coils: adjointness Cartesian {adj_c:.3e}, radial "
+          f"({MC_SPOKES} spokes, {yr.shape[-1]} points) {adj_r:.3e} (bound {ADJOINT_RTOL}); "
+          f"||A||² {lip:.6f} (bound 1 + {MC_NORM_SLACK}); the radial Toeplitz normal vs "
+          f"A^H A relative L2 {normal_err:.3e}; set-up {t_phys:.3f} s, NUFFT plan and Toeplitz "
+          f"spectrum {t_plan:.3f} s ({card})", flush=True)
+    check(adj_c <= ADJOINT_RTOL and adj_r <= ADJOINT_RTOL,
+          f"multi-coil MRI: adjointness {adj_c}, {adj_r}")
+    check(lip <= 1.0 + MC_NORM_SLACK, f"multi-coil MRI: ||A||² = {lip} > 1")
+    out["operators"] = {"adjointness_cartesian": adj_c, "adjointness_radial": adj_r,
+                        "norm_sq": lip, "radial_normal_rel_l2": normal_err}
+
+    # 14.2 PnP-PGD over K5 at B=1 and B=batch
+    net = DnCNN(2, 2, depth=depth, nf=64, generator=g)
+    with torch.no_grad():
+        net.out_conv.weight.mul_(DNCNN_RESIDUAL_SCALE)
+    model = optim_builder("PGD", data_fidelity=L2(), prior=PnP(autocast(net)),
+                          params_algo=PGD_PARAMS, max_iter=MAX_ITER)
+    phys8 = physics.update(**masks.step(batch, generator=gen(SEED + 83)))
+    y1 = phys1(x1, generator=gen(SEED + 84))
+    y8 = phys8(x8, generator=gen(SEED + 85))
+    out["pgd"] = {}
+    recons = {}
+    for y, x, phys in ((y1, x1, phys1), (y8, x8, phys8)):
+        label = f"PnP-PGD {coils}-coil MRI B={y.shape[0]}"
+        res, res_plain, n = drive(label, model, y, phys, net, dncnn_mod.conv_chain,
+                                  plain_conv_chain, tuple(x.shape), exact_conv_chain)
+        with torch.no_grad():
+            zf = phys.A_adjoint(y)
+        p_rec, p_zf = psnr(mag(res[:1]), mag(x[:1])), psnr(mag(zf[:1]), mag(x[:1]))
+        print(f"{label}: magnitude PSNR recon {p_rec:.4f} dB, plain "
+              f"{psnr(mag(res_plain[:1]), mag(x[:1])):.4f} dB, zero-filled {p_zf:.4f} dB",
+              flush=True)
+        out["launches"]["K5"][label] = n
+        out["pgd"][label] = {"rel_l2_plain": rel_l2(res, res_plain), "psnr_db": p_rec,
+                             "zero_filled_psnr_db": p_zf}
+        recons[y.shape[0]] = res
+
+    # 14.3 the recon from ESPIRiT's maps
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        est = MultiCoilMRI.estimate_coil_maps(y1, **espirit)
+    sync(dev)
+    t_esp = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    kept = float((est.abs().sum(1) > 0).float().mean())
+    phys_e = phys1.update(coil_maps=est)
+    label = f"PnP-PGD {coils}-coil MRI B=1 from ESPIRiT maps"
+    res_e, _, n = drive(label, model, y1, phys_e, net, dncnn_mod.conv_chain, plain_conv_chain,
+                        tuple(x1.shape))
+    out["launches"]["K5"][label] = n
+    p_e, p_b = psnr(mag(res_e), mag(x1)), psnr(mag(recons[1]), mag(x1))
+    print(f"ESPIRiT {espirit} on y {tuple(y1.shape)}: {t_esp:.3f} s (host clock, first call), "
+          f"maps kept on {kept:.4f} of the pixels, peak memory {peak:.3f} GiB; recon magnitude "
+          f"PSNR from ESPIRiT maps {p_e:.4f} dB, from birdcage maps {p_b:.4f} dB ({card})",
+          flush=True)
+    check(bool(torch.isfinite(est).all()) and kept > 0.2, "ESPIRiT: maps non-finite or empty")
+    out["espirit"] = {"s": t_esp, "kept": kept, "psnr_db": p_e, "birdcage_psnr_db": p_b,
+                      "peak_gib": peak}
+
+    # 14.4 generator-driven training
+    pgen = GaussianMaskGenerator((2, size, size), acceleration=MC_ACCEL) + \
+        SigmaGenerator(*MC_TRAIN_SIGMAS)
+    tnet = DnCNN(2, 2, depth=depth, nf=64, generator=g)
+    out["train"] = {}
+    k6 = 0
+    for B in train_batches:
+        xs = torch.cat([x1] + [torch.from_numpy(discs(rng, 2, size))[None].to(dev)
+                               for _ in range(B * steps - 1)])
+        def trainer(f):
+            return make_trainer(tnet, physics, xs, B, f, physics_generator=pgen, lr=MC_LR)
+
+        trainers = {f: trainer(f) for f in (False, True)}
+        g_ref = first_step_grads(trainers[False])
+        gerr, terr = grad_errors(first_step_grads(trainers[True]), g_ref)
+        print(f"generator train B={B}: first step's gradient, fused_chains=True vs False: "
+              f"relative max error {gerr} (bound {GRAD_RTOL}), largest relative L2 error of a "
+              f"parameter tensor's {terr} (bound {MC_GRAD_TENSOR_RTOL})", flush=True)
+        check(gerr <= GRAD_RTOL and terr <= MC_GRAD_TENSOR_RTOL,
+              f"generator train B={B}: first-step gradients disagree")
+        losses = {}
+        for f, t in trainers.items():
+            conv_chain.launches = conv_chain_stash.launches = stash_backward.launches = 0
+            secs = train_epoch(t, 0, dev)
+            n6, n5, nb = conv_chain_stash.launches, conv_chain.launches, stash_backward.launches
+            losses[f] = t.logs_total_loss_train.vals
+            print(f"generator train B={B} fused_chains={f}: {steps} steps in {secs:.3f} s (first "
+                  f"epoch), K6 launches {n6}, K5 {n5}, stash backward {nb}, losses {losses[f]}",
+                  flush=True)
+            check(len(losses[f]) == steps and all(math.isfinite(l) for l in losses[f]),
+                  f"generator train B={B} fused_chains={f}: non-finite loss")
+            if cuda:   # a step: the head, the depth - 2 dX tiles and the fold
+                want_b = steps * depth if f else 0
+                check((n6, n5, nb) == ((steps if f else 0), 0, want_b),
+                      f"generator train B={B} fused_chains={f}: launches K6 {n6}, K5 {n5}, "
+                      f"stash backward {nb} (expected {want_b})")
+            if f:
+                k6 += n6
+        lerr = loss_error(losses[True], losses[False])
+        print(f"generator train B={B}: per-step loss, fused_chains=True vs False: max relative "
+              f"error {lerr} (bound {TRAIN_LOSS_RTOL})", flush=True)
+        check(lerr <= TRAIN_LOSS_RTOL, f"generator train B={B}: the configurations disagree")
+        entry = {"loss_rel_err": lerr, "losses": losses[True], "grad_rel_max": gerr,
+                 "grad_tensor_rel_l2": terr, "faults": {}}
+        for name, (fault, loss_sees) in MC_FAULTS.items():
+            t = trainer(True)
+            with planted_fault(fault):
+                ferr = grad_errors(first_step_grads(t), g_ref)
+                train_epoch(t, 0, dev)
+            fl = loss_error(t.logs_total_loss_train.vals, losses[False])
+            print(f"generator train B={B}, planted fault '{name}': first step's gradient "
+                  f"relative max error {ferr[0]}, largest tensor relative L2 {ferr[1]}; per-step "
+                  f"loss max relative error {fl} (bounds {GRAD_RTOL}, {MC_GRAD_TENSOR_RTOL}, "
+                  f"{TRAIN_LOSS_RTOL}; the loss check must see it: {loss_sees})", flush=True)
+            entry["faults"][name] = {"grad_rel_max": ferr[0], "grad_tensor_rel_l2": ferr[1],
+                                     "loss_rel_err": fl}
+        for name, (fault, loss_sees) in MC_FAULTS.items():
+            e = entry["faults"][name]
+            check(e["grad_rel_max"] > GRAD_RTOL or e["grad_tensor_rel_l2"] > MC_GRAD_TENSOR_RTOL,
+                  f"generator train B={B}: the gradient checks miss the planted fault '{name}'")
+            check(not loss_sees or e["loss_rel_err"] > TRAIN_LOSS_RTOL,
+                  f"generator train B={B}: the loss check misses the planted fault '{name}'")
+        if cuda:
+            times, epoch = {False: [], True: []}, {False: 1, True: 1}
+            for f in (False, True, True, False):
+                times[f].append(train_epoch(trainers[f], epoch[f], dev))
+                epoch[f] += 1
+            for f in (False, True):
+                rate = steps * len(times[f]) / sum(times[f])
+                e = epoch[f]
+                prof = device_profile(f"generator train epoch B={B} fused_chains={f}",
+                                      lambda t=trainers[f], e=e: train_epoch(t, e, dev), 1, top=8)
+                idle = None if prof is None else 1 - prof[4] / prof[0]
+                print(f"rate: generator-driven train B={B} fused_chains={f} {rate:.2f} steps/s, "
+                      f"{B * rate:.2f} images/s, idle share {idle} ({card})", flush=True)
+                entry[f"fused={f}"] = {"steps_per_s": rate, "idle_share": idle,
+                                       "epoch_s": times[f]}
+        out["train"][f"B={B}"] = entry
+    out["k6_launches"] = k6
+
+    # 14.5 and 14.6
+    out["noise"] = noise_checks(dev, card, noise_shape)
+    out["generators"] = generator_checks(dev, card, gen_size, pupil=pupil)
+    if not cuda:
+        return out
+
+    # 14.2, timed and profiled
+    def recon(y, phys):
+        def run():
+            with torch.no_grad():
+                return model(y, phys)
+        return run
+
+    out["rates"] = {}
+    for nb, y, phys in ((1, y1, phys1), (batch, y8, phys8)):
+        r = rates_in_turns(f"PGD {coils}-coil MRI, B={nb}", {"mc": recon(y, phys)},
+                           nb * MAX_ITER, reps=5)["mc"]
+        out["rates"][f"B={nb}"] = r
+        prof = device_profile(f"PnP-PGD {coils}-coil MRI B={nb} recon", recon(y, phys), 3, top=8)
+        entry = {"image_it_per_s": r}
+        if prof is not None:
+            fft = sum(k[0] for k in prof[3] if "fft" in k[2].lower())
+            k5 = sum(k[0] for k in prof[3] if "conv3x3_wgmma" in k[2])
+            entry.update(idle_share=1 - prof[4] / prof[0], device_busy_ms=prof[4],
+                         fft_share=fft / prof[1], k5_share=k5 / prof[1], kernels=prof[2])
+        print(f"rate: PGD {coils}-coil MRI {size}² B={nb} {r / nb:.2f} it/s, {r:.2f} image-it/s; "
+              f"idle share {entry.get('idle_share')}, device time FFTs "
+              f"{entry.get('fft_share')}, K5 {entry.get('k5_share')} ({card})", flush=True)
+        out["rates"][f"B={nb}"] = entry
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2921,6 +3532,10 @@ def main() -> int:
     # over K7, cone-beam CT
     ctb = ct_breadth_phase(dev, card)
 
+    # 14. multi-coil MRI: PnP-PGD on 15-coil 320² over K5 (birdcage and ESPIRiT
+    # maps), generator-driven training over K6, every noise model and generator
+    mc = mri_multicoil_phase(dev, card)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -3034,6 +3649,11 @@ def main() -> int:
         "launches_ct_breadth": ctb["launches"]["K5"],
         "fan_pgd_rates": ctb["rates"],
         "fan_pgd_profile": ctb["profile"],
+        # phase 14: K5's launches in PnP-PGD on 15-coil 320² MRI (one an
+        # iteration; birdcage maps at B=1 and B=8, ESPIRiT maps at B=1), its
+        # rates and where a recon's device time goes (FFTs against K5)
+        "launches_mri_multicoil": mc["launches"]["K5"],
+        "mri_multicoil_rates": mc["rates"],
     }, {
         "name": "tv_prox",
         "route": "cuda",
@@ -3133,6 +3753,10 @@ def main() -> int:
         "device_ms": k6_b1[1]["wgmma"],
         "device_ms_b16": k6_b16[1]["wgmma"],
         "k5_ms": s_k5,
+        # phase 14: K6's launches in the generator-driven train steps on
+        # 15-coil MRI (one a step with fused_chains=True), steps/s and idle shares
+        "launches_generator_train": mc["k6_launches"],
+        "generator_train": mc["train"],
     }, {
         "name": "stash_backward",
         "route": "cuda",

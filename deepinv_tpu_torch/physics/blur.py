@@ -14,13 +14,16 @@ their ``prox_l2`` by the Krylov solver of :class:`LinearPhysics`.
 A 5-D filter makes :class:`Blur` volumetric (``conv3d``).
 :class:`SpaceVaryingBlur` (:366) is a product convolution and
 :class:`DownsamplingMatlab` (:396) MATLAB's ``imresize``, both with the
-autograd transpose as adjoint. ``TiledSpaceVaryingBlur`` (:441) waits for
-ROADMAP queue 1 item 8 (1.8g: ``utils/mixins.py``'s ``TiledMixin2d``).
+autograd transpose as adjoint, and so is :class:`TiledSpaceVaryingBlur`
+(:441), a blur of one PSF a tile blended by a partition of unity, on
+:class:`~deepinv_tpu_torch.utils.mixins.TiledMixin2d`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.linalg import linear_transpose
 from ..device import resolve_device
@@ -28,10 +31,12 @@ from ..ops.conv import (bicubic_filter, bilinear_filter, conv2d, conv3d, conv_tr
                         conv_transpose3d, filter_fft_2d, gaussian_blur, sinc_filter)
 from ..ops.imresize import imresize_matlab
 from ..ops.product_convolution import product_convolution2d, product_convolution2d_adjoint
+from ..utils.mixins import TiledMixin2d
 from .base import (DecomposablePhysics, LinearPhysics, _add_inv_gamma, _inv_gamma_mul,
                    replace)
 
-__all__ = ["Blur", "BlurFFT", "Downsampling", "Upsampling", "SpaceVaryingBlur", "DownsamplingMatlab"]
+__all__ = ["Blur", "BlurFFT", "Downsampling", "Upsampling", "SpaceVaryingBlur",
+           "DownsamplingMatlab", "TiledSpaceVaryingBlur"]
 
 
 def _resolve_filter(filter, factor: int = 2):
@@ -354,3 +359,84 @@ class DownsamplingMatlab(LinearPhysics):
             H, W = y.shape[-2] * self.factor, y.shape[-1] * self.factor
         return linear_transpose(lambda x: imresize_matlab(x, scale=1.0 / self.factor), y,
                                 tuple(y.shape[:2]) + (H, W))
+
+
+class TiledSpaceVaryingBlur(TiledMixin2d, LinearPhysics):
+    r"""Space-varying blur by tiles (deepinv_tpu/physics/blur.py:441):
+    ``y = sum_k h_k * (m_k . x)``, with ``m_k`` the blending windows of
+    overlapping tiles (a partition of unity) and ``*`` the 'valid' true
+    convolution. The adjoint is the autograd transpose.
+
+    :param filters: the tiles' PSFs ``(B, C, K, h, w)``, K tiles in row-major
+        order (or pass them at call time).
+    :param patch_size: the tile's size.
+    :param stride: the stride between tiles (the overlap is ``patch_size -
+        stride``).
+    :param blending_mode: ``"bump"`` (smooth) or ``"linear"`` (triangular)
+        windows.
+    :param device: where the filters live; the CUDA device by default.
+    """
+
+    def __init__(self, filters=None, patch_size=None, stride=None, blending_mode: str = "bump",
+                 device=None, **kwargs):
+        super().__init__(patch_size=patch_size, stride=stride, **kwargs)
+        self.register_buffer("filters", None if filters is None else
+                             torch.as_tensor(filters, dtype=torch.float32))
+        if blending_mode not in ("bump", "linear"):
+            raise ValueError("blending_mode must be 'bump' or 'linear'")
+        self.blending_mode = blending_mode
+        self.to(resolve_device(device))
+
+    @staticmethod
+    def num_filters(img_size, patch_size, stride):
+        """The number of tiles K of an image size (blur.py:466)."""
+        H, W = img_size[-2:]
+        ph, pw = (patch_size, patch_size) if isinstance(patch_size, int) else patch_size
+        sh, sw = (stride, stride) if isinstance(stride, int) else stride
+        return (-(-max(H - ph, 0) // sh) + 1) * (-(-max(W - pw, 0) // sw) + 1)
+
+    def _masks(self, H, W, dtype, device):
+        """The windows ``(K, Hp, Wp)``, a partition of unity over the padded
+        image ``(Hp, Wp)`` (blur.py:475), made on the host."""
+        (ph, pw), (sh, sw) = self.patch_size, self.stride
+
+        def wins(L, p, s):
+            n = -(-max(L - p, 0) // s) + 1
+            Lp = (n - 1) * s + p
+            t = np.linspace(-1, 1, p)
+            w = 1.0 - np.abs(t) if self.blending_mode == "linear" else \
+                np.exp(-1.0 / np.clip(1 - t ** 2, 1e-9, None))
+            w = np.clip(w, 1e-12, None)
+            Wn = np.zeros((n, Lp))
+            for i in range(n):
+                Wn[i, i * s:i * s + p] = w
+            return Wn / Wn.sum(0, keepdims=True), Lp
+
+        Wy, Hp = wins(H, ph, sh)
+        Wx, Wp = wins(W, pw, sw)
+        masks = (Wy[:, None, :, None] * Wx[None, :, None, :]).reshape(-1, Hp, Wp)
+        return torch.as_tensor(masks, dtype=dtype, device=device), Hp, Wp
+
+    def A(self, x, filters=None, **params):
+        h = self.filters if filters is None else filters
+        if h is None:
+            raise ValueError("filters must be provided")
+        B, C, H, W = x.shape
+        masks, Hp, Wp = self._masks(H, W, x.dtype, x.device)
+        K = masks.shape[0]
+        if h.shape[2] != K:
+            raise ValueError(f"expected {K} filters for this image size, got {h.shape[2]}")
+        kh, kw = h.shape[-2:]
+        z = F.pad(x, (0, Wp - W, 0, Hp - H))[:, :, None] * masks       # (B, C, K, Hp, Wp)
+        # one depthwise valid convolution of every (b, c, k); flipped, as
+        # conv2d correlates and the blur convolves
+        filt = h.expand(B, C, K, kh, kw).reshape(B * C * K, 1, kh, kw).flip(-2, -1)
+        y = F.conv2d(z.reshape(1, B * C * K, Hp, Wp), filt, groups=B * C * K)
+        y = y.reshape(B, C, K, Hp - kh + 1, Wp - kw + 1).sum(2)
+        return y[..., :H - kh + 1, :W - kw + 1]
+
+    def A_adjoint(self, y, filters=None, **params):
+        h = self.filters if filters is None else filters
+        kh, kw = h.shape[-2:]
+        shape = tuple(y.shape[:2]) + (y.shape[-2] + kh - 1, y.shape[-1] + kw - 1)
+        return linear_transpose(lambda x: self.A(x, filters=h), y, shape)

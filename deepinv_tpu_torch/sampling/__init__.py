@@ -9,7 +9,7 @@ from .iterators import DiffusionIterator, SamplingIterator, SKRockIterator, ULAI
 from .sde import (BaseSDE, BaseSDESolver, DiffusionSDE, DPSDataFidelity, EDMDiffusionSDE,
                   EulerSolver, FlowMatching, HeunSolver, NoisyDataFidelity, PosteriorDiffusion,
                   SongDiffusionSDE, VarianceExplodingDiffusion, VariancePreservingDiffusion)
-from .utils import Normals, SDEOutput, Welford, projbox
+from .utils import SDEOutput, Welford, projbox
 
 SKROCKIterator = SKRockIterator  # the reference's spelling
 
@@ -19,4 +19,4 @@ __all__ = ["SamplingIterator", "ULAIterator", "SKRockIterator", "SKROCKIterator"
            "EDMDiffusionSDE", "SongDiffusionSDE", "NoisyDataFidelity", "DiffusionSDE",
            "VarianceExplodingDiffusion", "VariancePreservingDiffusion", "FlowMatching",
            "EulerSolver", "HeunSolver", "PosteriorDiffusion", "DPSDataFidelity", "Welford",
-           "SDEOutput", "projbox", "Normals"]
+           "SDEOutput", "projbox"]

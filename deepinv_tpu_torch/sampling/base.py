@@ -15,9 +15,9 @@ import collections
 import torch
 from torch import nn
 
+from ..core.rng import Draws
 from ..optim.data_fidelity import L2
 from .iterators import DiffusionIterator, SamplingIterator, SKRockIterator, ULAIterator
-from .utils import normals
 
 __all__ = ["BaseSampling", "sampling_builder", "ULA", "SKRock", "DiffusionSampler"]
 
@@ -66,9 +66,9 @@ class BaseSampling(nn.Module):
 
         :param generator: ``torch.Generator`` on ``y``'s device (seeded from
             ``seed`` if None). :param draws: the draws in the chain's order
-            (:class:`~deepinv_tpu_torch.sampling.utils.Normals`).
+            (:class:`~deepinv_tpu_torch.core.rng.Draws`).
         """
-        normal = normals(generator, seed, draws)
+        normal = Draws.of(generator, seed, draws)
         if x_init is None:
             x_init = physics.A_adjoint(y)
         X = self.iterator.initialize(x_init)

@@ -4,7 +4,7 @@ deepinv_tpu/sampling/diffusion.py).
 The JAX samplers run their timestep loop as one ``lax.scan``; the port runs
 a Python loop whose schedule scalars are Python floats made before it, so a
 step reads nothing back from the device. Each sampler draws its normals from
-a :class:`~deepinv_tpu_torch.sampling.utils.Normals` source in the JAX
+a :class:`~deepinv_tpu_torch.core.rng.Draws` source in the JAX
 sampler's order (``generator=`` or, in the parity tests, ``draws=``).
 """
 
@@ -15,9 +15,10 @@ import math
 import numpy as np
 import torch
 
+from ..core.rng import Draws
 from ..models.base import Reconstructor
 from ..optim.data_fidelity import L2
-from .utils import frozen, normals
+from .utils import frozen
 
 __all__ = ["DDRM", "DiffPIR", "DPS"]
 
@@ -55,8 +56,8 @@ class DDRM(Reconstructor):
     def forward(self, y, physics, generator=None, seed: int = 0, draws=None, **kwargs):
         """:param generator: ``torch.Generator`` on ``y``'s device (seeded
         from ``seed`` if None). :param draws: the draws in the sampler's
-        order, in place of the generator's (:class:`Normals`)."""
-        normal = normals(generator, seed, draws)
+        order, in place of the generator's (:class:`~deepinv_tpu_torch.core.rng.Draws`)."""
+        normal = Draws.of(generator, seed, draws)
         eps, eta, etab = self.eps, self.eta, self.etab
         sigma_noise = _noise_sigma(physics, 0.01)
         y_bar = physics.U_adjoint(y)
@@ -191,8 +192,8 @@ class DiffPIR(Reconstructor):
                 **kwargs):
         """:param generator: ``torch.Generator`` on ``y``'s device (seeded
         from ``seed`` if None). :param draws: the draws in the sampler's
-        order (:class:`Normals`)."""
-        normal = normals(generator, seed, draws)
+        order (:class:`~deepinv_tpu_torch.core.rng.Draws`)."""
+        normal = Draws.of(generator, seed, draws)
         sigma_n = _noise_sigma(physics, self.sigma)
         # one read of the noise level, before the loop
         sigma_n = float(torch.as_tensor(sigma_n).reshape(-1)[0])
@@ -258,11 +259,11 @@ class DPS(Reconstructor):
                 **kwargs):
         """:param generator: ``torch.Generator`` on ``y``'s device (seeded
         from ``seed`` if None). :param draws: the draws in the sampler's
-        order (:class:`Normals`)."""
-        normal = normals(generator, seed, draws)
+        order (:class:`~deepinv_tpu_torch.core.rng.Draws`)."""
+        normal = Draws.of(generator, seed, draws)
         if x_init is None:
             shape = physics.A_adjoint(y).shape
-            x = normal(shape, torch.float32 if y.is_complex() else y.dtype, y.device)
+            x = normal.normal(shape, torch.float32 if y.is_complex() else y.dtype, y.device)
         else:
             x = 2 * x_init - 1
         x0 = None

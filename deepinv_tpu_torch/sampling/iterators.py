@@ -2,7 +2,7 @@
 
 Each iterator maps the chain state ``X = {"x": x}`` to the next one. Where
 the JAX iterators take a key, the port's take ``normal``, the run's
-:class:`~deepinv_tpu_torch.sampling.utils.Normals` source.
+:class:`~deepinv_tpu_torch.core.rng.Draws` source.
 """
 
 from __future__ import annotations

@@ -24,10 +24,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.rng import Draws
 from ..device import resolve_device
 from ..models.base import Reconstructor
 from ..optim.data_fidelity import DataFidelity
-from .utils import frozen, normals
+from .utils import frozen
 
 __all__ = ["BaseSDE", "BaseSDESolver", "EulerSolver", "HeunSolver", "DiffusionSDE",
            "VarianceExplodingDiffusion", "VariancePreservingDiffusion", "EDMDiffusionSDE",
@@ -139,9 +140,9 @@ class BaseSDESolver(nn.Module):
 
         :param generator: ``torch.Generator`` on ``x_init``'s device (seeded
             from ``seed`` if None). :param draws: the draws in order
-            (:class:`~deepinv_tpu_torch.sampling.utils.Normals`).
+            (:class:`~deepinv_tpu_torch.core.rng.Draws`).
         """
-        normal = normals(generator, seed, draws)
+        normal = Draws.of(generator, seed, draws)
         ts = self.timesteps
         x = x_init
         for t, dt in zip(ts[:-1], ts[1:] - ts[:-1]):  # dt in float32, as the JAX grid
@@ -213,7 +214,7 @@ class DiffusionSDE(BaseSDE):
 
 def _prior_normal(shape, generator, seed, device, draws):
     device = resolve_device(device)
-    return normals(generator, seed, draws)(tuple(shape), torch.float32, device)
+    return Draws.of(generator, seed, draws).normal(tuple(shape), torch.float32, device)
 
 
 class VarianceExplodingDiffusion(DiffusionSDE):
@@ -470,9 +471,9 @@ class PosteriorDiffusion(Reconstructor):
 
         :param generator: ``torch.Generator`` on ``y``'s device (seeded from
             ``seed`` if None). :param draws: the draws in order
-            (:class:`~deepinv_tpu_torch.sampling.utils.Normals`).
+            (:class:`~deepinv_tpu_torch.core.rng.Draws`).
         """
-        normal = normals(generator, seed, draws)
+        normal = Draws.of(generator, seed, draws)
         if x_init is None:
             shape = physics.A_adjoint(y).shape
             x_init = self.sde.prior_sample(shape, device=y.device, draws=normal)

@@ -1,6 +1,5 @@
 """Sampling utilities (port of deepinv_tpu/sampling/utils.py): ``Welford``
-(:11), ``SDEOutput`` (:37) and ``projbox`` (:47); and, new in the port, the
-source of normal draws that every sampler takes (:class:`Normals`) and
+(:11), ``SDEOutput`` (:37) and ``projbox`` (:47); and, new in the port,
 :func:`frozen`, which keeps a denoiser's weights out of a guidance gradient.
 """
 
@@ -8,11 +7,10 @@ from __future__ import annotations
 
 import contextlib
 
-import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["Welford", "SDEOutput", "projbox", "Normals", "normals", "frozen"]
+__all__ = ["Welford", "SDEOutput", "projbox", "frozen"]
 
 
 class Welford:
@@ -51,50 +49,6 @@ class SDEOutput(dict):
 def projbox(x, lo, hi):
     """``x`` clipped to ``[lo, hi]`` (utils.py:47)."""
     return torch.clamp(x, lo, hi)
-
-
-class Normals:
-    """The standard normal draws of one sampler run, in the order it takes
-    them (new in the port).
-
-    The JAX samplers take ``key=`` and split it; the port's take
-    ``generator=``, a ``torch.Generator`` on the data's device (seeded from
-    ``seed`` where it is None, as ``ensure_key(key, seed)`` does). Keys and
-    generators cannot give the same numbers, so ``draws`` hands a sampler the
-    draws themselves, one array a draw in the order it takes them: the
-    parity tests pass the JAX sampler's draws through it, and nothing else
-    uses it.
-    """
-
-    def __init__(self, generator=None, seed: int = 0, draws=None):
-        self.generator = generator
-        self.seed = seed
-        self._draws = None if draws is None else iter(draws)
-
-    def __call__(self, shape, dtype=torch.float32, device=None) -> torch.Tensor:
-        """A standard normal tensor (complex dtypes: a variance of 1/2 in the
-        real and in the imaginary part, as ``jax.random.normal`` draws)."""
-        if self._draws is not None:
-            try:
-                d = next(self._draws)
-            except StopIteration:
-                raise ValueError("the sampler takes more draws than it was given") from None
-            return torch.tensor(np.asarray(d)).reshape(shape).to(device=device, dtype=dtype)
-        if self.generator is None:
-            self.generator = torch.Generator(device=device).manual_seed(self.seed)
-        return torch.randn(shape, generator=self.generator, dtype=dtype, device=device)
-
-    def like(self, x: torch.Tensor) -> torch.Tensor:
-        """A draw of ``x``'s shape, dtype and device."""
-        return self(x.shape, x.dtype, x.device)
-
-
-def normals(generator=None, seed: int = 0, draws=None) -> Normals:
-    """The :class:`Normals` of a sampler call: ``draws`` itself where it is
-    one already (a sampler that runs another passes its own on)."""
-    if isinstance(draws, Normals):
-        return draws
-    return Normals(generator, seed, draws)
 
 
 @contextlib.contextmanager

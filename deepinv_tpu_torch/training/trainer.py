@@ -12,8 +12,9 @@ keeps of the JAX Trainer:
 - online measurements ``y = physics(x, generator)`` from a generator seeded
   per epoch and step, the counterpart of the key folding at
   trainer.py:517-519 and 622-629, including ``loop_random_online_physics``
-  (the draws differ from JAX's, the semantics do not), and offline
-  ``(x, y[, params])`` batches;
+  (the draws differ from JAX's, the semantics do not), with the operator's
+  parameters drawn first by a ``physics_generator`` from a generator of its
+  own path (trainer.py:458-466), and offline ``(x, y[, params])`` batches;
 - the per-loss meters, train and eval metrics, ``compare_no_learning``,
   ``eval_interval``, the best model, early stopping (:meth:`stop_criterion`),
   gradient clipping with the pre-clip norm recorded by ``check_grad``,
@@ -31,8 +32,8 @@ gates stay open, so a bf16 DnCNN's hidden chain trains on the stash kernel
 does in the JAX package.
 
 Batches go to the model's device. Waiting (ROADMAP queue 1): wandb/mlflow,
-the orbax checkpoint backend, ``data_parallel``, plotting, physics generators
-and adversarial training.
+the orbax checkpoint backend, ``data_parallel``, plotting and adversarial
+training.
 """
 
 from __future__ import annotations
@@ -73,6 +74,10 @@ class Trainer:
     :param losses: loss or list (default supervised).
     :param metrics: metric or list (default PSNR).
     :param online_measurements: measure ``y = physics(x)`` at each step.
+    :param physics_generator: with online measurements, a
+        :class:`~deepinv_tpu_torch.physics.generator.PhysicsGenerator` whose
+        ``step(B)`` parameters update the physics before each measurement
+        (a fresh mask, noise level, ... a sample).
     :param loop_random_online_physics: draw the same measurements every
         epoch (trainer.py:626).
     :param grad_clip: clip the gradient's global norm (``clip_grad_norm_``).
@@ -112,9 +117,6 @@ class Trainer:
                  eval_interval: int = 1, save_path: Optional[str] = None, ckpt_interval: int = 1,
                  compare_no_learning: bool = False, no_learning_method="A_adjoint",
                  verbose: bool = True, seed: int = 0, fused_chains: bool = False):
-        if physics_generator is not None:
-            raise NotImplementedError("physics generators wait for deepinv_tpu/physics/"
-                                      "generator/ to be ported (ROADMAP queue 1)")
         self.model = model
         self.physics = _to_list(physics)
         self.losses = _to_list(losses) if losses is not None else [SupLoss()]
@@ -129,6 +131,7 @@ class Trainer:
         self.metrics = _to_list(metrics) if metrics is not None else [PSNR()]
         self.epochs = epochs
         self.online_measurements = online_measurements
+        self.physics_generator = physics_generator
         self.loop_random_online_physics = loop_random_online_physics
         self.grad_clip = grad_clip
         if isinstance(early_stop, bool):
@@ -277,9 +280,14 @@ class Trainer:
         self.optimizer.step()
 
     # -- samples (trainer.py:458-488) ------------------------------------
-    def get_samples_online(self, batch, physics, generator):
-        """Measure ``y = physics(x)`` with ``generator`` (trainer.py:458)."""
+    def get_samples_online(self, batch, physics, generator, param_generator=None):
+        """Measure ``y = physics(x)`` with ``generator`` (trainer.py:458),
+        after updating the physics with ``physics_generator.step(B)`` drawn
+        from ``param_generator``."""
         x = self._to_device(batch[0] if isinstance(batch, (tuple, list)) else batch)
+        if self.physics_generator is not None:
+            params = self.physics_generator.step(x.shape[0], generator=param_generator)
+            physics = physics.update(**params)
         with torch.no_grad():
             y = physics(x, generator=generator)
         return x, y, physics
@@ -293,11 +301,18 @@ class Trainer:
             physics = physics.update(**{k: self._to_device(v) for k, v in batch[2].items()})
         return x, y, physics
 
-    def get_samples(self, batch, physics, generator):
+    def get_samples(self, batch, physics, generator, param_generator=None):
         """A batch as ``(x, y, physics)`` (trainer.py:484)."""
         if self.online_measurements:
-            return self.get_samples_online(batch, physics, generator)
+            return self.get_samples_online(batch, physics, generator, param_generator)
         return self.get_samples_offline(batch, physics)
+
+    def _sample_generators(self, *path):
+        """The generators of a batch's measurement and of its physics
+        parameters, ``path`` and ``(*path, 1)``: the split of the JAX key
+        into ``kn`` and ``kg`` (trainer.py:462)."""
+        return self.generator(*path), (self.generator(*path, 1)
+                                       if self.physics_generator is not None else None)
 
     # -- one train or eval iteration (trainer.py:491) --------------------
     def step(self, epoch, train_ite=None, train: bool = True, last_batch: bool = False):
@@ -316,7 +331,7 @@ class Trainer:
             batch = next(iterators[g])
             physics = self.physics[g % len(self.physics)]
             path = (self._epoch_seed, self._ite_in_epoch, int(g))
-            x, y, physics = self.get_samples(batch, physics, self.generator(*path, 0))
+            x, y, physics = self.get_samples(batch, physics, *self._sample_generators(*path, 0))
             n = x.shape[0]
             if train:
                 if not multi:
@@ -416,7 +431,8 @@ class Trainer:
             for g, dl in enumerate(loaders):
                 physics = self.physics[g % len(self.physics)]
                 for step, batch in enumerate(dl):
-                    x, y, cur = self.get_samples(batch, physics, self.generator(10_000, step))
+                    x, y, cur = self.get_samples(batch, physics,
+                                                 *self._sample_generators(10_000, step))
                     x_net = self.model_inference(y, cur)
                     for m in self.metrics:
                         meters[type(m).__name__].update(self._metric_value(m, x_net, x),
@@ -497,9 +513,11 @@ class Trainer:
         raise ValueError("no best model tracked (train with eval_dataloader)")
 
 
-def test(model, test_dataloader, physics, metrics=None, online_measurements=False, **kwargs):
+def test(model, test_dataloader, physics, metrics=None, online_measurements=False,
+         physics_generator=None, **kwargs):
     """Standalone evaluation (trainer.py:853)."""
     trainer = Trainer(model, physics, train_dataloader=None, metrics=metrics,
                       online_measurements=online_measurements,
+                      physics_generator=physics_generator,
                       verbose=kwargs.pop("verbose", False), **kwargs)
     return trainer.test(_to_list(test_dataloader))

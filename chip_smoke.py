@@ -205,7 +205,32 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    their ratio. Timed and profiled: PGD's it/s at B=1 and image-it/s at B=8
    with the idle share and the FFTs' and K5's shares of the device time, and
    the generator-driven train steps/s with an epoch's idle share (``rate:``
-   lines, with the card).
+   lines, with the card);
+15. the rest of ``physics/`` (``operators_phase``): PnP-HQS on the
+   ``SinglePixelCamera`` (16384 of the 256² Hadamard patterns, cake-cutting,
+   noise 0.01) and PnP-PGD on fast ``CompressedSensing`` (16384
+   measurements of 256², stepsize 1 / ||A||²) with phase 5's full-depth bf16
+   DnCNN at B=1 and B=8, each held as phase 5 holds PGD (K5 once an
+   iteration, every denoiser call, the plain and the unrounded chain's
+   runs); the Hadamard round trip ``V(V_adjoint(x))`` within HADAMARD_RTOL
+   with TF32 on and under a bf16 autocast; the DST-I of the flattened 256²
+   image (an FFT of 2 x 65537) self-inverse and adjoint within DST_RTOL, its
+   ms beside a power-of-two cuFFT; PnP-FISTA with ``TVDenoiser(20)`` on
+   ``RadioInterferometry`` (512², 2 x 10^5 visibilities, stepsize 1 /
+   ||A||², 40 iterations) and PnP-PGD with ``TVDenoiser(15)`` on
+   ``Pansharpen((3, 512, 512), factor=4)`` from ``brovey`` (30 iterations),
+   each held as phase 6 holds its TV runs (K7 once an iteration on its
+   resident variant, within 1e-4 of the plain prox, within 0.5 dB of the
+   naive estimate), with ``tv_plan``'s cluster; every other new operator
+   once, adjoint within ADJOINT_RTOL with ``A``/``A_adjoint`` ms (PET's
+   michelogram with ``osem``, ``StructuredRandom``, the phase-retrieval
+   operators, the multiscalers, ``Decolorize``, ``HyperSpectralUnmixing``,
+   ``CompressiveSpectralImaging``), the spectral method's seconds and cosine
+   similarity at 64² with m = 4n, and the Lippmann-Schwinger solve against
+   ``mie_theory`` at 96² and 192² (MIE_RTOL, MIE_REFINE). Timed and
+   profiled: it/s at B=1, image-it/s at B=8, idle shares, and the
+   device-time shares of K5, K7, the Hadamard products, the DST's and the
+   Toeplitz NUFFT normal's FFTs (``rate:`` lines, with the card).
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -488,6 +513,55 @@ NOISE_MEAN_SE = 5.0
 NOISE_VAR_RTOL = 0.03
 GEN_BATCH = 8
 SPLIT_RATIO_TOL = 0.02          # Bernoulli splits drawn alone: kept fraction within this
+# phase 15, the rest of physics/: (a) PnP-HQS on the single-pixel camera
+# (SPC_M of the 256² Hadamard patterns, cake-cutting, noise 0.01: the 4x
+# undersampling of examples/demo_single_pixel.py) and (b) PnP-PGD on fast
+# compressed sensing (CS_M measurements of 256², stepsize 1 / ||A||²), each
+# over K5 with phase 5's DnCNN at B=1 and B=HQS_BATCH and held as phase 5
+# holds PGD; (c) PnP-FISTA with TVDenoiser(20) on radio interferometry
+# (RADIO_SIZE², RADIO_VIS visibilities drawn as
+# examples/demo_radio_interferometry.py:36-37 draws them, noise 0.01,
+# RADIO_ITERS iterations) and (d) PnP-PGD with TVDenoiser(15) on
+# pansharpening (3 x PAN_SIZE², factor 4, from the Brovey estimate, PAN_ITERS
+# iterations), each over K7 and held as phase 6 holds its TV runs
+OPS_SIZE = 256
+SPC_M = 16384
+CS_M = 16384
+OPS_NOISE = 0.01
+SPC_PARAMS = {"stepsize": 1.0, "g_param": 0.02}       # demo_single_pixel.py:55-61
+RADIO_SIZE = 512
+RADIO_VIS = 200_000
+RADIO_ITERS = 40
+RADIO_TV = (20, 0.002)          # TVDenoiser(n_it_max)(u, ths) of the radio demo
+PAN_SIZE = 512
+PAN_ITERS = 30
+PAN_TV = (15, 0.001)            # demo_pansharpening.py:39-43
+# V(V_adjoint(x)) = x on the card, with TF32 on and under a bf16 autocast:
+# the Hadamard products are pinned to f32
+HADAMARD_RTOL = 1e-5
+# the DST-I of the fast form at 256² (an FFT of 2 x 65537, Bluestein's path in
+# cuFFT): self-inverse and adjoint within these (max error over the max)
+DST_RTOL = 1e-5
+# the other operators once on the card: PET's michelogram (PET_SIZE, three
+# segments) with osem at PET_OSEM_ITERS; RandomPhaseRetrieval at
+# PR_SIZE² with m = 4n (a 512 MB complex matrix at 64²) and the spectral
+# method's start; Ptychography at PTYCHO_SIZE² with 25 probes; the Mie check
+# at MIE_SIZES and k = MIE_K (tests/test_physics.py:763-792), its relative
+# error below MIE_RTOL and below MIE_REFINE times it on the 2x grid
+# the spectral method's 50 default power steps on B^H diag(T(y)) B + 10 I do
+# not converge at these sizes (cosine 0.20-0.41 on the CPU at 16²-48²; 200
+# steps: 0.82-0.85): the check runs SPECTRAL_ITERS and holds the cosine
+# similarity above SPECTRAL_COS
+SPECTRAL_ITERS = 200
+SPECTRAL_COS = 0.5
+PET_SIZE = (16, 128, 128)
+PET_OSEM_ITERS = 4
+PR_SIZE = 64
+PTYCHO_SIZE = 128
+MIE_SIZES = (96, 192)
+MIE_K = 20.0
+MIE_RTOL = 0.08
+MIE_REFINE = 0.62
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for the bounds.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
@@ -747,7 +821,8 @@ def kernel_vs_plain(label: str, run, plain, x, bound: float, by_range: bool = Fa
     return err
 
 
-def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain=None):
+def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain=None,
+          residual_of=None):
     """One reconstruction on the kernel path (the ``launches`` of ``op``, one
     kernel op or a tuple of them, set to 0 just before it and read just
     after), checked: finite output of ``shape``, one launch of each op and one
@@ -757,7 +832,11 @@ def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain
 
     With ``exact_chain`` (a context that runs the chain in f32 with no
     rounding inside it; DnCNN), each call's residual is held too, and the
-    whole run against the run on that unrounded chain."""
+    whole run against the run on that unrounded chain. The residual is the
+    output minus the input, or, with ``residual_of``, the output of that
+    submodule (DnCNN's ``out_conv``): the residual before it is added to the
+    input and rounded at the image's scale, where one bf16 ulp of an image
+    near 1 is a large share of a small residual (phase 15)."""
     import torch
 
     calls = []  # every denoiser input of the run, to replay on the plain chain
@@ -787,6 +866,9 @@ def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain
           f"{name}: bad output shape/dtype")
     check(bool(torch.isfinite(out).all()), f"{name}: non-finite reconstruction")
     check(len(calls) == MAX_ITER, f"{name}: expected {MAX_ITER} denoiser calls, got {len(calls)}")
+    res = []
+    res_hook = None if residual_of is None else residual_of.register_forward_hook(
+        lambda mod, args, out: res.append(out.float()))
     for i, (xin, sigma) in enumerate(calls):
         with torch.no_grad():
             d_k = net(xin, sigma).float()
@@ -797,12 +879,14 @@ def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain
                 f"(scale {dscale}, rel {derr / dscale}, bound {DENOISER_RTOL})")
         ok = derr <= DENOISER_RTOL * dscale
         if exact_chain is not None:
-            r_k, r_p = d_k - xin, d_p - xin
+            r_k, r_p = (res[-2], res[-1]) if res_hook is not None else (d_k - xin, d_p - xin)
             rl2 = float((r_k - r_p).norm() / r_p.norm())
             line += f"; residual relative L2 {rl2}"
             ok = ok and rl2 <= DENOISER_RTOL
         print(line, flush=True)
         check(ok, f"{name}: denoiser call {i} disagrees with the plain chain")
+    if res_hook is not None:
+        res_hook.remove()
     launches_after = [o.launches for o in ops]
     with plain_chain(), torch.no_grad():
         out_plain = model(y, physics)
@@ -1196,7 +1280,7 @@ def tv_drive(name: str, model, y, physics, priors, x, naive, iters: int, op) -> 
     t0 = time.perf_counter()
     with torch.no_grad():
         out = model(y, physics)
-    sync(y.device)
+    sync(x.device)
     first_s = time.perf_counter() - t0
     launches, by_variant = op.launches, dict(op.launches_by_variant)
     print(f"{name} {iters} it: first run {first_s:.3f} s, prox launches {launches} "
@@ -1209,7 +1293,7 @@ def tv_drive(name: str, model, y, physics, priors, x, naive, iters: int, op) -> 
     check(bool(torch.isfinite(out).all()), f"{name}: non-finite reconstruction")
     with plain_tv(priors), torch.no_grad():
         out_plain = model(y, physics)
-    sync(y.device)
+    sync(x.device)
     check(op.launches == launches, f"{name}: the plain run launched the kernel")
     rerr = float((out - out_plain).norm() / out_plain.norm())
     p_k, p_p, p_n = psnr(out, x), psnr(out_plain, x), psnr(naive, x)
@@ -2782,6 +2866,412 @@ def mri_multicoil_phase(dev, card: str, size: int = MC_SIZE, coils: int = MC_COI
     return out
 
 
+def adjointness_c(A, At, x, y) -> float:
+    """``|<Ax, y> - <x, A^H y>| / (||Ax|| ||y||)`` in complex128; the real
+    part of the pairing where ``x`` is real (a real image under complex
+    measurements)."""
+    import torch
+
+    Ax = A(x).to(torch.complex128)
+    d = (torch.vdot(Ax.flatten(), y.flatten().to(torch.complex128))
+         - torch.vdot(x.flatten().to(torch.complex128), At(y).flatten().to(torch.complex128)))
+    d = d if x.is_complex() else d.real
+    return float(d.abs()) / float(Ax.abs().norm() * y.abs().to(torch.float64).norm())
+
+
+def shares(prof, groups: dict) -> dict:
+    """Each group's share of a profile's summed kernel time: ``groups`` maps
+    a name to a predicate on the kernel's name."""
+    if prof is None:
+        return {}
+    return {g: sum(k[0] for k in prof[3] if fn(k[2])) / prof[1] for g, fn in groups.items()}
+
+
+def operators_phase(dev, card: str, size: int = OPS_SIZE, depth: int = 20,
+                    batch: int = HQS_BATCH, radio_size: int = RADIO_SIZE,
+                    n_vis: int = RADIO_VIS, pan_size: int = PAN_SIZE, pet_size=PET_SIZE,
+                    pr_size: int = PR_SIZE, ptycho_size: int = PTYCHO_SIZE,
+                    mie_sizes=MIE_SIZES, mie_k: float = MIE_K) -> dict:
+    """Phase 15: the rest of ``physics/`` through the entry points with the
+    default device.
+
+    15.1 PnP-HQS on ``SinglePixelCamera(SPC_M, (1, size, size),
+    "cake_cutting")`` and 15.2 PnP-PGD on ``CompressedSensing(CS_M, (1, size,
+    size), fast=True)`` at stepsize 1 / ||A||², each with a bf16 ``DnCNN(1,
+    1)`` of ``depth`` layers (the residual layer scaled as phase 5's) at B=1
+    and B=``batch``, held as phase 5 holds PGD (``drive``: K5 once an
+    iteration, every denoiser call, the plain and the unrounded chain's
+    runs); the Hadamard round trip ``V(V_adjoint(x))`` with TF32 on and under
+    a bf16 autocast; the DST-I of the flattened image (self-inverse,
+    adjointness, its ms beside a power-of-two cuFFT). 15.3 PnP-FISTA with
+    ``TVDenoiser(20)`` on ``RadioInterferometry`` (``n_vis`` visibilities,
+    ``radio_size``²) and 15.4 PnP-PGD with ``TVDenoiser(15)`` on
+    ``Pansharpen((3, pan_size, pan_size), factor=4)`` from ``brovey``, each
+    held as phase 6 holds its TV runs (``tv_drive``: K7 once an iteration on
+    its resident variant, within 1e-4 of the plain prox, within 0.5 dB of
+    the naive estimate). 15.5 every other new operator once: adjointness and
+    ``A``/``A_adjoint`` ms, ``osem``, the spectral method's seconds and cosine
+    similarity, the Lippmann-Schwinger solve against ``mie_theory``.
+    Returns the numbers of the kernels line. On the CPU, at small sizes, it
+    rehearses the checks (count the plain K5 and K7 calls as launches by
+    wrapping ``deepinv_tpu_torch.models.dncnn.conv_chain`` and
+    ``deepinv_tpu_torch.optim.prior.chambolle_prox``) and skips the times,
+    the profiles and the full-size bounds."""
+    import numpy as np
+    import torch
+
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    import deepinv_tpu_torch.optim.prior as prior_mod
+    from deepinv_tpu_torch.datasets import shepp_logan
+    from deepinv_tpu_torch.models import DnCNN, TVDenoiser, autocast
+    from deepinv_tpu_torch.ops import dst1, gaussian_blur
+    from deepinv_tpu_torch.ops.kernels.tv import _launch as tv_launch
+    from deepinv_tpu_torch.ops.kernels.tv import tv_plan
+    from deepinv_tpu_torch.optim import L2, PnP, optim_builder
+    from deepinv_tpu_torch.physics import (PET, BlurFFT, CompressedSensing,
+                                           CompressiveSpectralImaging, Decolorize,
+                                           GaussianNoise, HyperSpectralUnmixing, Inpainting,
+                                           Pansharpen, Ptychography, RadioInterferometry,
+                                           RandomPhaseRetrieval, Scattering, SinglePixelCamera,
+                                           StructuredRandom, StructuredRandomPhaseRetrieval,
+                                           to_multiscale)
+    from deepinv_tpu_torch.physics.phase_retrieval import (correct_global_phase,
+                                                           cosine_similarity, spectral_methods)
+    from deepinv_tpu_torch.physics.scattering import circular_sensors, mie_theory
+    from deepinv_tpu_torch.physics.singlepixel import _hadamard
+
+    cuda = dev.type == "cuda"
+    g = torch.Generator().manual_seed(SEED + 90)
+    rng = np.random.default_rng(SEED + 91)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def ms_of(fns: dict, reps: int = 10) -> dict:
+        """CUDA-event ms a call of each of ``fns``, in turns (a, b, b, a)."""
+        if not cuda:
+            return {}
+        t = {}
+        with torch.no_grad():
+            for k in list(fns) + list(fns)[::-1]:
+                t.setdefault(k, []).append(cuda_ms(fns[k], reps, warmup=2))
+        return {k: sum(v) / len(v) for k, v in t.items()}
+
+    def recon(model, y, phys):
+        def run():
+            with torch.no_grad():
+                return model(y, phys)
+        return run
+
+    out = {"launches": {"K5": {}, "K7": {}}, "operators": {}}
+    x1 = torch.from_numpy(shepp_logan(size))[None, None].to(dev)
+    x8 = torch.cat([x1] + [torch.from_numpy(discs(rng, 1, size))[None].to(dev)
+                           for _ in range(batch - 1)])
+    net = DnCNN(1, 1, depth=depth, nf=64, generator=g)
+    with torch.no_grad():
+        net.out_conv.weight.mul_(DNCNN_RESIDUAL_SCALE)
+    k5_runs = {}
+
+    # 15.1 PnP-HQS on the single-pixel camera over K5
+    spc = SinglePixelCamera(m=SPC_M * size * size // OPS_SIZE ** 2, img_size=(1, size, size),
+                            ordering="cake_cutting", noise_model=GaussianNoise(OPS_NOISE))
+    Hn = _hadamard(size, dev) / math.sqrt(size)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad(), torch.autocast(dev.type, dtype=torch.bfloat16):
+            back = spc.V(spc.V_adjoint(x8))
+            raw = Hn @ (Hn @ x8 @ Hn) @ Hn        # the same products, not pinned
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    had_err, raw_err = rel_max(back, x8), rel_max(raw, x8)
+    print(f"single-pixel camera {size}², m {spc.m}: V(V_adjoint(x)) with TF32 on and a bf16 "
+          f"autocast, pinned to f32: max error {had_err:.3e} (bound {HADAMARD_RTOL}); the same "
+          f"products unpinned: {raw_err:.3e}", flush=True)
+    check(back.dtype == torch.float32 and had_err <= HADAMARD_RTOL,
+          f"single-pixel camera: V(V_adjoint(x)) error {had_err}")
+    out["hadamard_round_trip"] = {"pinned": had_err, "unpinned": raw_err}
+    model_spc = optim_builder("HQS", data_fidelity=L2(), prior=PnP(autocast(net)),
+                              params_algo=SPC_PARAMS, max_iter=MAX_ITER)
+    out["spc"] = {}
+    for x in (x1, x8):
+        y = spc(x, generator=gen(SEED + 92 + x.shape[0]))
+        label = f"PnP-HQS single-pixel camera B={x.shape[0]}"
+        res, res_plain, n = drive(label, model_spc, y, spc, net, dncnn_mod.conv_chain,
+                                  plain_conv_chain, tuple(x.shape), exact_conv_chain,
+                                  residual_of=net.out_conv)
+        with torch.no_grad():
+            p_dag = psnr(spc.A_dagger(y)[:1], x[:1])
+        print(f"{label}: PSNR {psnr(res[:1], x[:1]):.4f} dB (random weights), A_dagger "
+              f"{p_dag:.4f} dB", flush=True)
+        out["launches"]["K5"][label] = n
+        out["spc"][label] = {"rel_l2_plain": rel_l2(res, res_plain)}
+        k5_runs[("spc", x.shape[0])] = recon(model_spc, y, spc)
+
+    # 15.2 PnP-PGD on fast compressed sensing over K5
+    cs = CompressedSensing(m=CS_M * size * size // OPS_SIZE ** 2, img_size=(1, size, size),
+                           fast=True, generator=g, noise_model=GaussianNoise(OPS_NOISE))
+    n_cs = size * size
+    v1 = torch.randn((batch, n_cs), generator=g).to(dev)
+    v2 = torch.randn((batch, 2 * n_cs), generator=g).to(dev)
+    with torch.no_grad():
+        dst_inv = rel_max(dst1(dst1(v1, axes=(-1,)), axes=(-1,)), v1)
+        w1 = torch.randn((batch, n_cs), generator=g).to(dev)
+        dst_adj = abs(float((dst1(v1, axes=(-1,)).double() * w1.double()).sum()
+                            - (v1.double() * dst1(w1, axes=(-1,)).double()).sum())) / float(
+            v1.double().norm() * w1.double().norm())
+        ycs = cs.A(x8)
+        cs_adj = adjointness(cs.A, cs.A_adjoint, x8, torch.randn(ycs.shape, generator=g).to(dev))
+        lip = float(cs.compute_norm(torch.randn(x1.shape, generator=g).to(dev), max_iter=30))
+    dst_ms = ms_of({f"DST-I n={n_cs} B={b}": (lambda b=b: dst1(v1[:b], axes=(-1,)))
+                    for b in (1, batch)}
+                   | {f"cuFFT n={2 * n_cs} B={b}": (lambda b=b: torch.fft.fft(v2[:b]))
+                      for b in (1, batch)}, reps=20)
+    print(f"compressed sensing (fast) {size}², m {cs.m}: the DST-I of n = {n_cs} (an FFT of "
+          f"{2 * (n_cs + 1)} = 2 x {n_cs + 1}): self-inverse {dst_inv:.3e}, adjointness "
+          f"{dst_adj:.3e} (bound {DST_RTOL}); A adjointness {cs_adj:.3e} (bound {ADJOINT_RTOL}); "
+          f"||A||² {lip:.6f}; ms a call in turns: "
+          + ", ".join(f"{k} {t:.4f}" for k, t in dst_ms.items()) + f" ({card})", flush=True)
+    check(dst_inv <= DST_RTOL and dst_adj <= DST_RTOL, f"DST-I: {dst_inv}, {dst_adj}")
+    check(cs_adj <= ADJOINT_RTOL, f"compressed sensing: adjointness {cs_adj}")
+    out["cs"] = {"dst_self_inverse": dst_inv, "dst_adjointness": dst_adj, "adjointness": cs_adj,
+                 "norm_sq": lip, "dst_ms": dst_ms}
+    model_cs = optim_builder("PGD", data_fidelity=L2(), prior=PnP(autocast(net)),
+                             params_algo={"stepsize": 1.0 / lip,
+                                          "g_param": PGD_PARAMS["g_param"]},
+                             max_iter=MAX_ITER)
+    for x in (x1, x8):
+        y = cs(x, generator=gen(SEED + 102 + x.shape[0]))
+        label = f"PnP-PGD compressed sensing B={x.shape[0]}"
+        res, res_plain, n = drive(label, model_cs, y, cs, net, dncnn_mod.conv_chain,
+                                  plain_conv_chain, tuple(x.shape), exact_conv_chain,
+                                  residual_of=net.out_conv)
+        with torch.no_grad():
+            p_adj = psnr(cs.A_adjoint(y)[:1], x[:1])
+        print(f"{label}: PSNR {psnr(res[:1], x[:1]):.4f} dB (random weights), A^T y "
+              f"{p_adj:.4f} dB", flush=True)
+        out["launches"]["K5"][label] = n
+        out["cs"][label] = {"rel_l2_plain": rel_l2(res, res_plain)}
+        k5_runs[("cs", x.shape[0])] = recon(model_cs, y, cs)
+
+    # 15.3 PnP-FISTA on radio interferometry over K7
+    tv_op = prior_mod.chambolle_prox
+    xr = torch.from_numpy(shepp_logan(radio_size))[None, None].to(dev)
+    uv = np.clip(np.random.default_rng(SEED).normal(size=(2, n_vis)) * (np.pi / 3),
+                 -np.pi * 0.95, np.pi * 0.95).astype(np.float32)
+    t0 = time.perf_counter()
+    radio = RadioInterferometry((radio_size, radio_size), uv, noise_model=GaussianNoise(OPS_NOISE))
+    sync(dev)
+    t_plan = time.perf_counter() - t0
+    yr = radio(xr, generator=gen(SEED + 110))
+    with torch.no_grad():
+        nrm = float(radio.compute_norm(xr, max_iter=20))
+        radio_adj = adjointness_c(radio.A, radio.A_adjoint, xr, yr)
+        dirty = radio.A_adjoint(yr) / nrm
+        normal_err = rel_l2(radio.A_adjoint_A(xr), radio.A_adjoint(radio.A(xr)))
+    plan = tv_plan(radio_size, radio_size, planes=1)
+    print(f"radio interferometry {radio_size}², {n_vis} visibilities: plan and Toeplitz "
+          f"spectrum {t_plan:.3f} s (host clock), ||A||² {nrm:.4f}, adjointness "
+          f"{radio_adj:.3e} (bound {ADJOINT_RTOL}), Toeplitz normal vs A^H A relative L2 "
+          f"{normal_err:.3e}; K7's plan at {radio_size}²: {plan} ({card})", flush=True)
+    check(radio_adj <= ADJOINT_RTOL, f"radio: adjointness {radio_adj}")
+    den_r = TVDenoiser(n_it_max=RADIO_TV[0])
+    model_r = optim_builder("FISTA", data_fidelity=L2(),
+                            prior=PnP(lambda u, s: den_r(u, RADIO_TV[1])),
+                            params_algo={"stepsize": 1.0 / nrm, "g_param": 0.05},
+                            max_iter=RADIO_ITERS, custom_init=lambda v, p: p.A_adjoint(v) / nrm)
+    name = f"PnP-FISTA radio {radio_size}² B=1"
+    out["launches"]["K7"][name] = tv_drive(name, model_r, yr, radio, [den_r.prior], xr, dirty,
+                                           RADIO_ITERS, tv_op)
+    out["radio"] = {"plan_s": t_plan, "norm_sq": nrm, "adjointness": radio_adj,
+                    "normal_rel_l2": normal_err, "tv_plan": str(plan)}
+
+    # 15.4 PnP-PGD on pansharpening over K7
+    base = shepp_logan(pan_size)
+    xp = torch.from_numpy(np.stack([base, np.roll(base, 3, 0), np.roll(base, -3, 1)]))[None]
+    xp = xp.to(dev)
+    pan = Pansharpen((3, pan_size, pan_size), factor=4)
+    with torch.no_grad():
+        yp = pan.A(xp)
+        brovey = pan.brovey(yp)
+        vp = type(yp)([torch.randn(t.shape, generator=g).to(dev) for t in yp])
+        pan_adj = abs(float(sum((a.double() * b.double()).sum() for a, b in zip(pan.A(xp), vp))
+                            - (xp.double() * pan.A_adjoint(vp).double()).sum())) / float(
+            math.sqrt(sum(float(a.norm()) ** 2 for a in pan.A(xp)))
+            * math.sqrt(sum(float(b.norm()) ** 2 for b in vp)))
+    plan_p = tv_plan(pan_size, pan_size, planes=3)
+    print(f"pansharpening 3x{pan_size}², factor 4: adjointness {pan_adj:.3e} (bound "
+          f"{ADJOINT_RTOL}); K7's plan: {plan_p}", flush=True)
+    check(pan_adj <= ADJOINT_RTOL, f"pansharpening: adjointness {pan_adj}")
+    den_p = TVDenoiser(n_it_max=PAN_TV[0])
+    model_p = optim_builder("PGD", data_fidelity=L2(),
+                            prior=PnP(lambda u, s: den_p(u, PAN_TV[1])),
+                            params_algo={"stepsize": 0.9, "g_param": 0.05}, max_iter=PAN_ITERS,
+                            custom_init=lambda v, p: p.brovey(v))
+    name = f"PnP-PGD pansharpening 3x{pan_size}² B=1"
+    out["launches"]["K7"][name] = tv_drive(name, model_p, yp, pan, [den_p.prior], xp, brovey,
+                                           PAN_ITERS, tv_op)
+    out["pansharpen"] = {"adjointness": pan_adj, "tv_plan": str(plan_p)}
+
+    # 15.5 every other new operator once
+    ops = out["operators"]
+
+    def linear(name, phys, x):
+        with torch.no_grad():
+            y = phys.A(x)
+            v = (torch.randn(y.shape, generator=g, dtype=y.dtype) if y.is_complex() else
+                 torch.randn(y.shape, generator=g)).to(dev)
+            adj = adjointness_c(phys.A, phys.A_adjoint, x, v)
+        t = ms_of({"A": lambda: phys.A(x), "A_adjoint": lambda: phys.A_adjoint(v)})
+        print(f"{name}: x {tuple(x.shape)}, y {tuple(y.shape)}, adjointness {adj:.3e} (bound "
+              f"{ADJOINT_RTOL}); ms a call: "
+              + ", ".join(f"{k} {u:.4f}" for k, u in t.items()) + f" ({card})", flush=True)
+        check(adj <= ADJOINT_RTOL, f"{name}: adjointness {adj}")
+        ops[name] = {"adjointness": adj, "ms": t}
+        return y
+
+    D = pet_size[0]
+    xv = torch.from_numpy(np.stack([shepp_logan(pet_size[-1])] * D))[None, None].to(dev) * 4
+    t0 = time.perf_counter()
+    pet = PET(pet_size, ring_differences=(0, -1, 1), normalize=True)
+    sync(dev)
+    t_pet = time.perf_counter() - t0
+    yv = linear(f"PET michelogram {pet_size}", pet, xv)
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rec = pet.osem(yv, n_iter=PET_OSEM_ITERS)
+    sync(dev)
+    t_osem = time.perf_counter() - t0
+    p_osem = psnr(rec / 4, xv / 4)
+    print(f"PET: set-up and norm {t_pet:.3f} s, ||A|| {float(pet.operator_norm):.4f}; osem "
+          f"{PET_OSEM_ITERS} it {t_osem:.3f} s (host clock, first call), PSNR {p_osem:.4f} dB "
+          f"({card})", flush=True)
+    check(bool(torch.isfinite(rec).all()), "PET: non-finite osem")
+    ops["PET osem"] = {"s": t_osem, "psnr_db": p_osem, "setup_s": t_pet}
+    xs = x8[:2]
+    linear(f"StructuredRandom {size}²", StructuredRandom((1, size, size), n_layers=2,
+                                                         generator=g), xs)
+    xc = xs.to(torch.complex64)
+    srpr = StructuredRandomPhaseRetrieval((1, size, size), n_layers=2, generator=g)
+    linear(f"StructuredRandomPhaseRetrieval's B {size}²", srpr.B, xc)
+    xpt = torch.from_numpy(shepp_logan(ptycho_size))[None, None].to(dev)
+    linear(f"Ptychography's B {ptycho_size}², 25 probes", Ptychography(
+        (1, ptycho_size, ptycho_size), n_img=25).B, xpt.to(torch.complex64))
+    for kind, base_p in (("BlurFFT", BlurFFT((1, size, size), filter=gaussian_blur(sigma=2.0))),
+                         ("Inpainting", Inpainting((1, size, size), mask=0.5, generator=g))):
+        ms_p = to_multiscale(base_p, img_size=(1, size, size), factors=(2, 4))
+        for s in (1, 2):
+            linear(f"{kind} multiscaler scale {s}", ms_p.with_scale(s), x8[:2, :, ::2 ** s,
+                                                                          ::2 ** s].contiguous())
+    xrgb = x8[:2].expand(2, 3, size, size).contiguous()
+    linear(f"Decolorize {size}²", Decolorize(), xrgb)
+    hsu = HyperSpectralUnmixing(E=4, C=8, generator=g)
+    linear(f"HyperSpectralUnmixing {size}²", hsu, x8[:2].expand(2, 4, size, size).contiguous())
+    cassi = CompressiveSpectralImaging((8, size, size), generator=g)
+    linear(f"CompressiveSpectralImaging {size}²", cassi,
+           x8[:2].expand(2, 8, size, size).contiguous())
+    # RandomPhaseRetrieval at m = 4n, the spectral method
+    xpr = torch.from_numpy(shepp_logan(pr_size))[None, None].to(dev).to(torch.complex64)
+    t0 = time.perf_counter()
+    rpr = RandomPhaseRetrieval(m=4 * pr_size ** 2, img_size=(1, pr_size, pr_size), generator=g)
+    sync(dev)
+    t_mat = time.perf_counter() - t0
+    linear(f"RandomPhaseRetrieval's B {pr_size}², m = 4n", rpr.B, xpr)
+    cos, t_spec = {}, {}
+    with torch.no_grad():
+        ypr = rpr.A(xpr)
+        for it in (50, SPECTRAL_ITERS):
+            sync(dev)
+            t0 = time.perf_counter()
+            x0 = spectral_methods(ypr, rpr, n_iter=it, generator=gen(SEED + 120))
+            sync(dev)
+            t_spec[it] = time.perf_counter() - t0
+            cos[it] = float(cosine_similarity(correct_global_phase(x0, xpr), xpr))
+    print(f"RandomPhaseRetrieval {pr_size}², m {rpr.m}: matrix {rpr.B.mat.numel() * 8 / 2 ** 20:.0f}"
+          f" MiB made in {t_mat:.3f} s; spectral method, seconds (host clock, the first call "
+          f"first) by power steps {t_spec}, cosine similarity {cos} ({card})", flush=True)
+    check(math.isfinite(cos[SPECTRAL_ITERS]) and cos[SPECTRAL_ITERS] > SPECTRAL_COS,
+          f"spectral method: cosine similarity {cos}")
+    ops["spectral_methods"] = {"s": t_spec, "cosine": cos, "matrix_s": t_mat}
+    # the Lippmann-Schwinger solve against the Mie series
+    L, a, contrast = 1.0, 0.2, 0.6
+    tx, rx = circular_sensors(3, radius=1.0)
+    ang = np.arctan2(tx[1], tx[0])
+    rels, secs = [], []
+    for n in mie_sizes:
+        phys = Scattering(img_width=n, transmitters=tx, receivers=rx, background_wavenumber=mie_k,
+                          box_length=L, wave_type="plane_wave")
+        grid = np.linspace(-L / 2, L / 2, n)
+        yy, xx = np.meshgrid(-grid, grid, indexing="ij")
+        c = torch.from_numpy(((xx ** 2 + yy ** 2) < a ** 2).astype(np.float32) * contrast)
+        c = c[None, None].to(dev)
+        with torch.no_grad():
+            phys.compute_total_field(c)      # warm-up: cuFFT plans
+            sync(dev)
+            t0 = time.perf_counter()
+            u = phys.compute_total_field(c)
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
+        u_mie, _ = mie_theory(mie_k, a, contrast, n, ang, box_length=L, device=dev)
+        rels.append(float((u - u_mie).norm() / u_mie.norm()))
+    print(f"Lippmann-Schwinger field vs Mie (k {mie_k}, radius {a}, contrast {contrast}, 3 "
+          f"plane waves): relative error {dict(zip(mie_sizes, rels))} (bound {MIE_RTOL}, then "
+          f"{MIE_REFINE}x on refinement); solve seconds {dict(zip(mie_sizes, secs))} (host "
+          f"clock, CG on the normal equations to tol 1e-5) ({card})", flush=True)
+    check(all(math.isfinite(r) for r in rels), "Mie: non-finite field")
+    if tuple(mie_sizes) == MIE_SIZES:
+        check(rels[0] < MIE_RTOL and rels[1] < MIE_REFINE * rels[0], f"Mie: errors {rels}")
+    ops["mie"] = {"rel_err": dict(zip(mie_sizes, rels)), "solve_s": dict(zip(mie_sizes, secs))}
+    if not cuda:
+        return out
+
+    # 15.1-15.4 timed in turns and profiled
+    out["rates"] = {}
+    for key, label in (("spc", "PnP-HQS single-pixel camera"),
+                       ("cs", "PnP-PGD compressed sensing")):
+        for nb in (1, batch):
+            run = k5_runs[key, nb]
+            r = rates_in_turns(f"{label}, B={nb}", {key: run}, nb * MAX_ITER, reps=5)[key]
+            prof = device_profile(f"{label} B={nb} recon", run, 3, top=8)
+            sh = shares(prof, {"K5": lambda k: "conv3x3_wgmma" in k,
+                               "gemm (Hadamard)": lambda k: "gemm" in k.lower(),
+                               "FFT (DST-I)": lambda k: "fft" in k.lower()})
+            idle = None if prof is None else 1 - prof[4] / prof[0]
+            print(f"rate: {label} {size}² B={nb} {r / nb:.2f} it/s, {r:.2f} image-it/s; idle "
+                  f"share {idle}; device-time shares {sh} ({card})", flush=True)
+            out["rates"][f"{label} B={nb}"] = {"image_it_per_s": r, "idle_share": idle,
+                                               "shares": sh}
+    for label, model, y, phys, iters in (
+            (f"PnP-FISTA radio {radio_size}²", model_r, yr, radio, RADIO_ITERS),
+            (f"PnP-PGD pansharpening 3x{pan_size}²", model_p, yp, pan, PAN_ITERS)):
+        run = recon(model, y, phys)
+        r = rates_in_turns(f"{label}, B=1", {"tv": run}, iters, reps=3)["tv"]
+        prof = device_profile(f"{label} B=1 recon", run, 3, top=8)
+        sh = shares(prof, {"K7": lambda k: "tv_resident" in k,
+                           "FFT (Toeplitz NUFFT normal)": lambda k: "fft" in k.lower()})
+        idle = None if prof is None else 1 - prof[4] / prof[0]
+        print(f"rate: {label} B=1 {r:.2f} it/s; idle share {idle}; device-time shares {sh} "
+              f"({card})", flush=True)
+        out["rates"][label] = {"it_per_s": r, "idle_share": idle, "shares": sh}
+    # K7 at the TV denoisers' size: the plan's resident layout (a plane a
+    # cluster of 16, the only cluster that holds a 512² plane: 16 of the SMs
+    # for one plane) against the global variant (every SM, a launch a step),
+    # in turns
+    gam = torch.full((1, 1, 1, 1), RADIO_TV[1], device=dev)
+    k7 = {}
+    for planes in (1, 3):
+        xt = torch.rand((1, planes, radio_size, radio_size), generator=g).to(dev)
+        k7.update(ms_of({f"{planes}x{radio_size}² {v}" + (f" cluster {c}" if c else ""):
+                         (lambda t=xt, v=v, c=c: tv_launch(t, gam, RADIO_TV[0], v, c))
+                         for v, c in (("resident", 16), ("global", None))},
+                        reps=20))
+    print(f"K7 at {radio_size}², {RADIO_TV[0]} steps, ms a prox in turns: "
+          + ", ".join(f"{k} {t:.4f}" for k, t in k7.items()) + f" ({card})", flush=True)
+    out["k7_512_ms"] = k7
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3536,6 +4026,11 @@ def main() -> int:
     # maps), generator-driven training over K6, every noise model and generator
     mc = mri_multicoil_phase(dev, card)
 
+    # 15. the rest of physics/: PnP-HQS on the single-pixel camera and PnP-PGD
+    # on fast compressed sensing over K5, PnP-FISTA on radio interferometry and
+    # PnP-PGD on pansharpening over K7 at 512², every other new operator once
+    ops15 = operators_phase(dev, card)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -3654,6 +4149,13 @@ def main() -> int:
         # rates and where a recon's device time goes (FFTs against K5)
         "launches_mri_multicoil": mc["launches"]["K5"],
         "mri_multicoil_rates": mc["rates"],
+        # phase 15: K5's launches in PnP-HQS on the 256² single-pixel camera and
+        # PnP-PGD on 256² fast compressed sensing (one an iteration, B=1 and
+        # B=8), their rates and device-time shares (K5, the Hadamard products,
+        # the DST-I's FFTs)
+        "launches_operators": ops15["launches"]["K5"],
+        "operators_rates": {k: v for k, v in ops15["rates"].items() if "radio" not in k
+                            and "pansharpening" not in k},
     }, {
         "name": "tv_prox",
         "route": "cuda",
@@ -3679,6 +4181,13 @@ def main() -> int:
         # phase 13: one resident launch an iteration of TV-PGD on the interp
         # and fourier CT projectors and on SpaceVaryingBlur
         "launches_ct_breadth": ctb["launches"]["K7"],
+        # phase 15: one resident launch an iteration at 512² (a cluster of 16
+        # a plane) of PnP-FISTA on radio interferometry and PnP-PGD on
+        # pansharpening, their rates and K7's and the FFTs' device-time shares
+        "launches_operators": ops15["launches"]["K7"],
+        "operators_rates": {k: v for k, v in ops15["rates"].items() if "radio" in k
+                            or "pansharpening" in k},
+        "layout_ms_512": ops15["k7_512_ms"],
     }, {
         "name": "up_resblock_chain",
         "route": "cuda",

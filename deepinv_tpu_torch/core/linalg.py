@@ -18,6 +18,8 @@ whose results are discarded, so the result is the same bits for every
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .tensorlist import TensorList
@@ -25,7 +27,7 @@ from .tensorlist import TensorList
 __all__ = ["tree_map", "tree_add", "tree_sub", "tree_scale", "tree_axpy", "tree_vdot",
            "tree_real_vdot", "tree_norm", "tree_zeros_like", "tree_conj", "tree_where",
            "power_method", "device_while", "LoopStats", "loop_stats", "CHECK_EVERY",
-           "linear_transpose"]
+           "linear_transpose", "exact_f32"]
 
 # iterations between two host reads of a loop's stop flag. The CT prox of the
 # ADMM bench problem stops after 2-3 CG iterations (PERF.md, "ADMM on CT"): a
@@ -156,14 +158,30 @@ def device_while(cond, body, state, max_iter: int, check_every: int = CHECK_EVER
     return state, count
 
 
-def linear_transpose(fwd, y, x_shape, create_graph: bool = False):
+@contextlib.contextmanager
+def exact_f32(device_type: str):
+    """f32 products without TF32 and outside any autocast region: the
+    closed forms that rely on an exact orthogonal transform (a Hadamard
+    ``V(V_adjoint(x)) = x``), the dense sensing matrices and Anderson's small
+    solve run in it whatever precision the caller set."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.autocast(device_type, enabled=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def linear_transpose(fwd, y, x_shape, create_graph: bool = False, dtype=None):
     """The transpose of the linear map ``fwd`` applied to ``y``: the autograd
     vector-Jacobian product of ``fwd`` at a zero primal of ``x_shape`` (and
     ``y``'s dtype), the JAX package's ``jax.linear_transpose`` of a forward
     map. ``y`` may be a tuple when ``fwd`` returns one. The graph is kept when
     ``y`` or ``create_graph`` asks for it, so a gradient reaches the
     cotangent and the forward's parameters (the implicit Krylov backward
-    differentiates through an adjoint).
+    differentiates through an adjoint). ``dtype`` sets the primal's where it
+    differs from ``y``'s (a real image under a complex measurement).
 
     The JAX package's ``transpose_primal`` (linalg.py:116), the primal's shape
     and dtype for ``jax.linear_transpose`` under ``shard_map``, has no
@@ -172,7 +190,7 @@ def linear_transpose(fwd, y, x_shape, create_graph: bool = False):
     ys = y if isinstance(y, tuple) else (y,)
     create_graph = create_graph or any(v.requires_grad for v in ys)
     with torch.enable_grad():
-        x = ys[0].new_zeros(x_shape).requires_grad_()
+        x = ys[0].new_zeros(x_shape, dtype=dtype).requires_grad_()
         out = fwd(x)
         outs = out if isinstance(out, tuple) else (out,)
         (xt,) = torch.autograd.grad(outs, x, ys, create_graph=create_graph)

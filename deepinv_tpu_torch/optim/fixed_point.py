@@ -20,14 +20,12 @@ Three runs, as in the JAX package (fixed_point.py:97-111):
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core import CHECK_EVERY, TensorList, device_while
-from ..core.linalg import leaves
+from ..core.linalg import exact_f32, leaves
 from .iterators import objective_function
 
 __all__ = ["FixedPoint"]
@@ -39,18 +37,6 @@ def _residual(x_new, x_old):
     num = sum(((a - b).abs() ** 2).sum() for a, b in zip(leaves(x_new), leaves(x_old)))
     den = sum((a.abs() ** 2).sum() for a in leaves(x_new))
     return torch.sqrt(num) / torch.sqrt(den).clamp_min(1e-12)
-
-
-@contextlib.contextmanager
-def _exact_f32(device_type: str):
-    """f32 products without TF32 and outside any autocast region."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.autocast(device_type, enabled=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 class FixedPoint(nn.Module):
@@ -173,7 +159,7 @@ class FixedPoint(nn.Module):
         m = self.history_size
         B = x_prev_flat.shape[0]
         slot = k % m
-        with _exact_f32(x_prev_flat.device.type):
+        with exact_f32(x_prev_flat.device.type):
             x_prev_flat, gx_flat = x_prev_flat.float(), gx_flat.float()
             f = gx_flat - x_prev_flat
             X_hist = torch.cat([X_hist[:, :slot], x_prev_flat[:, None], X_hist[:, slot + 1:]], 1)

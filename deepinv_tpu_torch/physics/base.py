@@ -19,12 +19,12 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-from ..core import CHECK_EVERY, TensorList, device_while, power_method, tree_map, tree_norm
-from ..core import tree_real_vdot, tree_sub
+from ..core import (CHECK_EVERY, TensorList, device_while, linear_transpose, power_method,
+                    tree_map, tree_norm, tree_real_vdot, tree_sub)
 
 __all__ = ["Physics", "LinearPhysics", "DecomposablePhysics", "Denoising", "ComposedPhysics",
            "ComposedLinearPhysics", "StackedPhysics", "StackedLinearPhysics", "compose", "stack",
-           "replace", "update"]
+           "replace", "update", "adjoint_function"]
 
 
 def replace(module: nn.Module, **changes) -> nn.Module:
@@ -156,6 +156,21 @@ class Physics(nn.Module):
     def stack(self, other: "Physics") -> "StackedPhysics":
         """``stack(self, other)`` (base.py:211)."""
         return stack(self, other)
+
+
+def adjoint_function(A: Callable, input_shape, dtype=torch.float32) -> Callable:
+    """The exact adjoint of a linear callable ``A`` on inputs of
+    ``input_shape`` and ``dtype`` (deepinv_tpu/physics/base.py:215): the
+    autograd transpose (:func:`~deepinv_tpu_torch.core.linear_transpose`), a
+    vector-Jacobian product at a zero primal. For a complex ``A`` autograd
+    gives ``A^H y``, the adjoint, where ``jax.linear_transpose`` gives the
+    transpose; the two agree on real maps."""
+    shape = tuple(int(s) for s in input_shape)
+
+    def A_adj(y):
+        return linear_transpose(A, y, shape, dtype=dtype)
+
+    return A_adj
 
 
 class LinearPhysics(Physics):

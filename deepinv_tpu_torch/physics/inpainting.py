@@ -1,4 +1,4 @@
-"""Inpainting (port of deepinv_tpu/physics/inpainting.py).
+"""Inpainting and demosaicing (port of deepinv_tpu/physics/inpainting.py).
 
 A :class:`~deepinv_tpu_torch.physics.base.DecomposablePhysics` whose mask is
 the singular-value diagonal: closed-form ``prox_l2`` and ``A_dagger``.
@@ -6,12 +6,13 @@ the singular-value diagonal: closed-form ``prox_l2`` and ``A_dagger``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from .base import DecomposablePhysics
 
-__all__ = ["Inpainting"]
+__all__ = ["Inpainting", "Demosaicing"]
 
 
 class Inpainting(DecomposablePhysics):
@@ -50,3 +51,24 @@ class Inpainting(DecomposablePhysics):
         if self.noise_model is None:
             return y
         return self.noise_model(y, generator=generator) * (self.mask.abs() > 0)
+
+
+class Demosaicing(Inpainting):
+    r"""Bayer-pattern demosaicing (inpainting.py:63): the RGGB mask keeps one
+    colour a pixel.
+
+    :param img_size: ``(3, H, W)`` or ``(H, W)``.
+    :param pattern: ``"RGGB"``, the one pattern of the JAX package.
+    :param device: where the mask lives; the CUDA device by default.
+    """
+
+    def __init__(self, img_size, pattern: str = "RGGB", device=None, **kwargs):
+        _, H, W = img_size if len(img_size) == 3 else (3,) + tuple(img_size)
+        if pattern.upper() != "RGGB":
+            raise ValueError(f"unsupported Bayer pattern {pattern!r}")
+        mask = np.zeros((3, H, W), np.float32)
+        mask[0, 0::2, 0::2] = 1   # R
+        mask[1, 0::2, 1::2] = 1   # G
+        mask[1, 1::2, 0::2] = 1   # G
+        mask[2, 1::2, 1::2] = 1   # B
+        super().__init__((3, H, W), mask=torch.from_numpy(mask), device=device, **kwargs)

@@ -231,6 +231,26 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    profiled: it/s at B=1, image-it/s at B=8, idle shares, and the
    device-time shares of K5, K7, the Hadamard products, the DST's and the
    Toeplitz NUFFT normal's FFTs (``rate:`` lines, with the card).
+16. the rest of ``optim/`` and ``unfolded/`` (``optim_breadth_phase``):
+   ``DPIR`` with the bf16 full-width DRUNet on the HQS bench problem at B=1
+   and B=8, held as phase 4 holds HQS (K1 once a denoiser call, 8 a recon);
+   PnP mirror descent (``optim_builder("MD", PoissonLikelihood, RED(DnCNN),
+   bregman_potential=BurgEntropy())``, examples/demo_pnp_mirror_descent.py
+   with phase 5's full-depth bf16 DnCNN) on 256² Poisson denoising at B=1
+   and B=8, held as phase 5 holds PGD (K5 once an iteration), its iterate
+   positive; MLEM (examples/demo_poisson_mlem.py) on 256² CT, non-negative
+   with a rising likelihood; an unfolded PGD (``unfolded_builder``, 5
+   iterations, the DnCNN) trained by ``Trainer`` on 256² inpainting at B=1
+   and B=8 in both train-step configurations: K6 5 times and the stash
+   backward 5 (L + 2) launches a step with ``fused_chains=True``, none with
+   ``False``, the schedule's and the DnCNN's first-step gradients within
+   GRAD_RTOL of each other; a DEQ (``DEQ_builder``, PGD with the contractive
+   DnCNN of examples/demo_deq.py, 30 forward maps, 20 adjoint products) one
+   train step at B=1 and B=8: K5 once a forward map, K6 once, L + 2
+   stash-backward launches an adjoint product, its gradient within GRAD_RTOL
+   of the step under ``fused_chains_disabled()``. Timed and profiled:
+   recons/s, image-it/s, steps/s and idle shares (``rate:`` lines, with the
+   card).
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -562,6 +582,24 @@ MIE_SIZES = (96, 192)
 MIE_K = 20.0
 MIE_RTOL = 0.08
 MIE_REFINE = 0.62
+# phase 16 (optim_breadth_phase): DPIR on the HQS bench problem (BlurFFT +
+# GaussianNoise(0.01), phase 4); PnP mirror descent and MLEM as
+# examples/demo_pnp_mirror_descent.py and demo_poisson_mlem.py set them; the
+# unfolded network and the DEQ on the inpainting problem of
+# demo_custom_prior_unfolded.py (mask, noise) and demo_deq.py (schedule, depth
+# of the loops)
+DPIR_SIGMA = 0.01
+MD_GAIN = 0.01
+MD_PARAMS = {"stepsize": 0.01, "g_param": 0.05, "lambda": 1.0}
+MLEM_GAIN = 0.01
+MLEM_ITERS = (1, 10, 30)
+UNFOLD_ITERS = 5
+UNFOLD_STEPS = 3
+UNFOLD_MASK = 0.5
+UNFOLD_NOISE = 0.03
+DEQ_PARAMS = {"stepsize": 0.5, "g_param": 0.05}
+DEQ_ITERS = 30
+DEQ_BACKWARD = 20
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for the bounds.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
@@ -3272,6 +3310,296 @@ def operators_phase(dev, card: str, size: int = OPS_SIZE, depth: int = 20,
     return out
 
 
+def optim_breadth_phase(dev, card: str, size: int = 256, depth: int = 20, batch: int = HQS_BATCH,
+                        nc=(64, 128, 256, 512), nb: int = R_MAIN, steps: int = UNFOLD_STEPS,
+                        deq_iters: int = DEQ_ITERS, deq_backward: int = DEQ_BACKWARD) -> dict:
+    """Phase 16: the rest of ``optim/`` and ``unfolded/`` through the entry
+    points with the default device.
+
+    16.1 ``DPIR(DPIR_SIGMA, denoiser=autocast(DRUNet(nc, nb)))`` on the HQS
+    bench problem (phase 4's BlurFFT and noise, 3 channels) at B=1 and
+    B=``batch``, held as phase 4 holds HQS (``drive``: K1 once a denoiser call,
+    8 a recon, every call and the run against the plain chain). 16.2
+    ``optim_builder("MD", PoissonLikelihood(MD_GAIN), RED(autocast(DnCNN)),
+    bregman_potential=BurgEntropy())`` on ``Denoising(PoissonNoise(MD_GAIN))``
+    at B=1 and B=``batch``, held as phase 5 holds PGD (K5 once an iteration);
+    MLEM on ``Tomography`` (CT_ANGLES views, ``PoissonNoise(MLEM_GAIN)``) of the
+    Shepp-Logan phantom: non-negative, its negative log-likelihood falling
+    over MLEM_ITERS. 16.3 ``unfolded_builder("PGD", L2(), PnP(autocast(DnCNN)),
+    max_iter=UNFOLD_ITERS)`` trained by ``Trainer`` on ``Inpainting`` (a mask
+    from a generator) at B=1 and B=``batch``, ``steps`` steps in each
+    train-step configuration from the same weights: K6 UNFOLD_ITERS times a
+    step and the stash backward UNFOLD_ITERS (L + 2) launches a step with
+    ``fused_chains=True``, none with ``False``; the first step's gradients of
+    the schedule and of the DnCNN within GRAD_RTOL (relative L2) of each
+    other. 16.4 ``DEQ_builder("PGD", L2(), PnP(contractive DnCNN),
+    max_iter=deq_iters, max_iter_backward=deq_backward)``, one train step at
+    B=1 and B=``batch``: K5 once a forward map, K6 once (the graph step at the
+    equilibrium), L + 2 stash-backward launches a vector-Jacobian product,
+    and the parameter gradient within GRAD_RTOL of the same step under
+    ``fused_chains_disabled()``. Timed (``rate:`` lines, with the card):
+    recons/s and image-it/s with idle shares (16.1, 16.2), steps/s (16.3,
+    16.4). Returns the numbers of the kernels line. On the CPU, at small
+    sizes, it rehearses the checks (count the plain K1 and K5 calls as
+    launches by wrapping ``deepinv_tpu_torch.models.drunet.resblock_chain`` and
+    ``deepinv_tpu_torch.models.dncnn.conv_chain``; the K6 and stash-backward
+    counts are checked on the card only) and skips the times and profiles."""
+    import numpy as np
+    import torch
+
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    import deepinv_tpu_torch.models.drunet as drunet_mod
+    from deepinv_tpu_torch.core import loop_stats
+    from deepinv_tpu_torch.datasets import ArrayDataset, DataLoader, shepp_logan
+    from deepinv_tpu_torch.models import DnCNN, DRUNet, autocast
+    from deepinv_tpu_torch.models.base import Denoiser
+    from deepinv_tpu_torch.ops import gaussian_blur
+    from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain_stash, fused_chains_disabled,
+                                                          stash_backward)
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import resblock_chain_plain
+    from deepinv_tpu_torch.optim import (DPIR, L2, RED, BurgEntropy, PnP, PoissonLikelihood,
+                                         Zero, optim_builder)
+    from deepinv_tpu_torch.physics import (BlurFFT, Denoising, GaussianNoise, Inpainting,
+                                           PoissonNoise, Tomography)
+    from deepinv_tpu_torch.training import Trainer
+    from deepinv_tpu_torch.unfolded import DEQ_builder, unfolded_builder
+
+    cuda = dev.type == "cuda"
+    g = torch.Generator().manual_seed(SEED + 160)
+    rng = np.random.default_rng(SEED + 161)
+    L = depth - 2
+    out = {"launches": {"K1": {}, "K5": {}, "K6": {}, "stash_backward": {}}, "rates": {}}
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def recon(model, y, phys):
+        def run():
+            with torch.no_grad():
+                return model(y, phys)
+        return run
+
+    def plain_resblocks():
+        return swapped(drunet_mod, "resblock_chain",
+                       lambda h, w1s, w2s, packed=None: resblock_chain_plain(h, w1s, w2s))
+
+    def timed(label, runs: dict, n_img_its: int, nb_: int, iters: int):
+        if not cuda:
+            return
+        r = rates_in_turns(f"{label}, B={nb_}", runs, n_img_its, reps=3)["kernel"]
+        prof = device_profile(f"{label} B={nb_} recon", runs["kernel"], 3, top=8)
+        idle = None if prof is None else 1 - prof[4] / prof[0]
+        print(f"rate: {label} {size}² B={nb_} {r / (nb_ * iters):.3f} recons/s, {r:.2f} "
+              f"image-it/s; idle share {idle} ({card})", flush=True)
+        out["rates"][f"{label} B={nb_}"] = {"image_it_per_s": r,
+                                            "recons_per_s": r / (nb_ * iters), "idle_share": idle}
+
+    # 16.1 DPIR over K1
+    shape1 = (1, 3, size, size)
+    blur = BlurFFT(shape1[1:], filter=gaussian_blur(sigma=1.5),
+                   noise_model=GaussianNoise(DPIR_SIGMA))
+    den = autocast(DRUNet(nc=nc, nb=nb, generator=g))
+    model_dpir = DPIR(DPIR_SIGMA, denoiser=den, max_iter=MAX_ITER)
+    for B in (1, batch):
+        x = torch.from_numpy(np.stack([discs(rng, 3, size) for _ in range(B)])).to(dev)
+        y = blur(x, generator=gen(SEED + 162 + B))
+        label = f"DPIR B={B}"
+        res, res_plain, n = drive(label, model_dpir, y, blur, den.denoiser,
+                                  drunet_mod.resblock_chain, plain_resblocks, tuple(x.shape))
+        print(f"{label}: PSNR {psnr(res[:1], x[:1]):.4f} dB (random weights), y "
+              f"{psnr(y[:1], x[:1]):.4f} dB", flush=True)
+        out["launches"]["K1"][label] = n
+        out[label] = {"rel_l2_plain": rel_l2(res, res_plain)}
+        timed("DPIR", {"kernel": recon(model_dpir, y, blur)}, B * MAX_ITER, B, MAX_ITER)
+
+    # 16.2 PnP mirror descent over K5, and MLEM
+    net = DnCNN(1, 1, depth=depth, nf=64, generator=g)
+    with torch.no_grad():
+        net.out_conv.weight.mul_(DNCNN_RESIDUAL_SCALE)
+    pois = Denoising(PoissonNoise(gain=MD_GAIN))
+    fid = PoissonLikelihood(gain=MD_GAIN)
+    model_md = optim_builder("MD", data_fidelity=fid, prior=RED(autocast(net)),
+                             bregman_potential=BurgEntropy(), params_algo=MD_PARAMS,
+                             max_iter=MAX_ITER)
+    for B in (1, batch):
+        x = torch.from_numpy(np.stack([discs(rng, 1, size) for _ in range(B)]) * 0.7 + 0.2).to(dev)
+        y = pois(x, generator=gen(SEED + 170 + B))
+        label = f"PnP-MD B={B}"
+        res, res_plain, n = drive(label, model_md, y, pois, net, dncnn_mod.conv_chain,
+                                  plain_conv_chain, tuple(x.shape), exact_conv_chain,
+                                  residual_of=net.out_conv)
+        with torch.no_grad():
+            nll = [float(fid.fn(v, y, pois).sum()) for v in (y, res)]
+        print(f"{label}: PSNR {psnr(res[:1], x[:1]):.4f} dB, y {psnr(y[:1], x[:1]):.4f} dB; min "
+              f"{float(res.min()):.4f}; negative log-likelihood y {nll[0]:.6g}, recon "
+              f"{nll[1]:.6g}", flush=True)
+        check(bool((res > 0).all()), f"{label}: the Burg-entropy iterate left the positive orthant")
+        out["launches"]["K5"][label] = n
+        out[label] = {"rel_l2_plain": rel_l2(res, res_plain), "nll": nll}
+        timed("PnP-MD", {"kernel": recon(model_md, y, pois)}, B * MAX_ITER, B, MAX_ITER)
+    xct = torch.from_numpy(shepp_logan(size))[None, None].to(dev) + 0.05
+    ct = Tomography(img_width=size, angles=CT_ANGLES, normalize=True,
+                    noise_model=PoissonNoise(gain=MLEM_GAIN))
+    yct = ct(xct, generator=gen(SEED + 180))
+    # bkg 1e-6: a ray that misses the phantom has y = 0 and A x = 0
+    nll_of = PoissonLikelihood(gain=MLEM_GAIN, bkg=1e-6)
+    nlls, t_mlem = [], {}
+    for n_it in MLEM_ITERS:
+        mlem = optim_builder("MLEM", data_fidelity=PoissonLikelihood(gain=MLEM_GAIN), prior=Zero(),
+                             params_algo={"stepsize": 1.0}, max_iter=n_it)
+        sync(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            xm = mlem(yct, ct)
+        sync(dev)
+        t_mlem[n_it] = time.perf_counter() - t0
+        with torch.no_grad():
+            nlls.append(float(nll_of.fn(xm, yct, ct).sum()))
+        check(bool(torch.isfinite(xm).all()) and float(xm.min()) >= 0,
+              f"MLEM {n_it} it: non-finite or negative")
+    with torch.no_grad():
+        p_fbp = psnr(ct.A_dagger(yct), xct)
+    print(f"MLEM {size}², {CT_ANGLES} views, Poisson gain {MLEM_GAIN}: negative log-likelihood by "
+          f"iterations {dict(zip(MLEM_ITERS, nlls))}, PSNR {psnr(xm, xct):.4f} dB (FBP "
+          f"{p_fbp:.4f} dB), seconds (host clock, first calls) {t_mlem} ({card})", flush=True)
+    check(all(a > b for a, b in zip(nlls, nlls[1:])), f"MLEM: the likelihood did not rise: {nlls}")
+    out["mlem"] = {"nll": dict(zip(MLEM_ITERS, nlls)), "s": t_mlem}
+
+    # 16.3 unfolded PGD trained on K6 and its stash backward
+    inp = Inpainting((1, size, size), mask=UNFOLD_MASK, generator=g,
+                     noise_model=GaussianNoise(UNFOLD_NOISE))
+    net_c = DnCNN(1, 1, depth=depth, nf=64, generator=g)
+    with torch.no_grad():
+        net_c.out_conv.weight.mul_(DNCNN_RESIDUAL_SCALE)
+
+    def trainer_of(model, xs, B, fused):
+        return Trainer(model, inp, optimizer=torch.optim.Adam(model.parameters(), lr=1e-4),
+                       train_dataloader=DataLoader(ArrayDataset(xs), batch_size=B), epochs=1,
+                       online_measurements=True, verbose=False, fused_chains=fused, seed=SEED)
+
+    def grads_of(trainer, x, y, phys, chains):
+        """Named gradients of one loss on a fixed batch, in ``chains``."""
+        model = trainer.model
+        model.zero_grad(set_to_none=True)
+        with chains:
+            trainer.compute_loss(model, x, y, phys)[0].backward()
+        gs = {n: p.grad.reshape(-1).float().clone() for n, p in model.named_parameters()
+              if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return gs
+
+    def grad_gaps(label, a, b):
+        check(set(a) == set(b), f"{label}: the gradients' parameters differ: {set(a) ^ set(b)}")
+        groups = {"schedule": [k for k in a if k.startswith("param_")],
+                  "DnCNN": [k for k in a if not k.startswith("param_")]}
+        gaps = {}
+        for name, keys in groups.items():
+            ga, gb = torch.cat([a[k] for k in keys]), torch.cat([b[k] for k in keys])
+            gaps[name] = rel_l2(ga, gb)
+        whole = rel_max(torch.cat(list(a.values())), torch.cat([b[k] for k in a]))
+        print(f"{label}: first step's gradients, kernels vs layers: relative L2 {gaps} (bound "
+              f"{GRAD_RTOL}), whole relative max {whole}; entries "
+              f"{sorted(k for k in a if k.startswith('param_'))}", flush=True)
+        check(all(v <= GRAD_RTOL for v in gaps.values()), f"{label}: gradients disagree: {gaps}")
+        return gaps
+
+    class Contractive(Denoiser):
+        """``0.9 x + 0.1 net(x)``, the contraction of examples/demo_deq.py:26-40."""
+
+        def __init__(self, inner):
+            super().__init__()
+            self.net = inner
+
+        def forward(self, x, sigma=None, **kwargs):
+            return 0.9 * x + 0.1 * self.net(x, sigma)
+
+    out["unfolded"], out["deq"] = {}, {}
+    for B in (1, batch):
+        xs = torch.from_numpy(np.stack([discs(rng, 1, size) for _ in range(B * steps)])).to(dev)
+        trainers = {f: trainer_of(unfolded_builder(
+            "PGD", data_fidelity=L2(), prior=PnP(autocast(copy.deepcopy(net_c))),
+            params_algo=PGD_PARAMS, max_iter=UNFOLD_ITERS), xs, B, f) for f in (True, False)}
+        x0, y0, p0 = first_batch(trainers[True])
+        label = f"unfolded PGD train B={B}"
+        gaps = grad_gaps(label, grads_of(trainers[True], x0, y0, p0, contextlib.nullcontext()),
+                         grads_of(trainers[False], x0, y0, p0, fused_chains_disabled()))
+        secs = {}
+        for f, t in trainers.items():
+            dncnn_mod.conv_chain.launches = conv_chain_stash.launches = 0
+            stash_backward.launches = 0
+            secs[f] = [train_epoch(t, 0, dev)]
+            n5, n6, nb_ = (dncnn_mod.conv_chain.launches, conv_chain_stash.launches,
+                           stash_backward.launches)
+            losses = t.logs_total_loss_train.vals
+            print(f"{label} fused_chains={f}: {steps} steps, K6 launches {n6}, K5 {n5}, stash "
+                  f"backward {nb_}, losses {losses}", flush=True)
+            check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+                  f"{label} fused_chains={f}: non-finite loss")
+            if cuda:
+                want = ((UNFOLD_ITERS * steps, 0, UNFOLD_ITERS * (L + 2) * steps) if f
+                        else (0, 0, 0))
+                check((n6, n5, nb_) == want, f"{label} fused_chains={f}: launches K6 {n6}, K5 "
+                      f"{n5}, stash backward {nb_} (expected {want})")
+            if f:
+                out["launches"]["K6"][label] = n6
+                out["launches"]["stash_backward"][label] = nb_
+        if cuda:
+            for f in (False, True, True, False):
+                secs[f].append(train_epoch(trainers[f], len(secs[f]), dev))
+            prof = device_profile(f"{label} step fused_chains=True",
+                                  step_fn(trainers[True], x0, y0, p0), 2, top=8)
+            idle = None if prof is None else 1 - prof[4] / prof[0]
+            rates = {f: steps * (len(v) - 1) / sum(v[1:]) for f, v in secs.items()}
+            print(f"rate: {label} {size}² {rates[True]:.3f} steps/s fused_chains=True, "
+                  f"{rates[False]:.3f} steps/s False; idle share (True) {idle} ({card})",
+                  flush=True)
+            out["rates"][label] = {"steps_per_s": rates, "idle_share": idle}
+        out["unfolded"][label] = {"grad_gaps": gaps}
+
+        # 16.4 DEQ: the forward on K5, the backward's graph step on K6 and its
+        # products on the stash backward
+        model = DEQ_builder("PGD", data_fidelity=L2(),
+                            prior=PnP(Contractive(autocast(copy.deepcopy(net_c)))),
+                            params_algo=DEQ_PARAMS, max_iter=deq_iters,
+                            max_iter_backward=deq_backward)
+        t_deq = trainer_of(model, xs[:B], B, True)
+        label = f"DEQ train B={B}"
+        gaps = grad_gaps(label, grads_of(t_deq, x0, y0, p0, contextlib.nullcontext()),
+                         grads_of(t_deq, x0, y0, p0, fused_chains_disabled()))
+        dncnn_mod.conv_chain.launches = conv_chain_stash.launches = stash_backward.launches = 0
+        secs = train_epoch(t_deq, 0, dev)
+        n5, n6, nb_ = (dncnn_mod.conv_chain.launches, conv_chain_stash.launches,
+                       stash_backward.launches)
+        st = model.last_run
+        fwd, bwd = int(st["forward_iterations"]), int(st["backward_iterations"])
+        print(f"{label}: forward {fwd} maps of {deq_iters} ({st['forward_maps']} evaluated), "
+              f"adjoint {bwd} products of {deq_backward} ({st['backward_products']} evaluated, "
+              f"the parameters' cotangents included); launches K5 {n5}, K6 {n6}, stash backward "
+              f"{nb_}; loss {t_deq.logs_total_loss_train.vals}; {secs:.3f} s a step (first, "
+              f"host clock)", flush=True)
+        if cuda:
+            want = (st["forward_maps"], 1, st["backward_products"] * (L + 2))
+            check((n5, n6, nb_) == want, f"{label}: launches K5 {n5}, K6 {n6}, stash backward "
+                  f"{nb_} (expected {want})")
+            run = step_fn(t_deq, x0, y0, p0)
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(2):
+                run()
+            sync(dev)
+            rate = 2 / (time.perf_counter() - t0)
+            prof = device_profile(f"{label} step", run, 1, top=8)
+            idle = None if prof is None else 1 - prof[4] / prof[0]
+            print(f"rate: {label} {size}² {rate:.3f} steps/s; idle share {idle} ({card})",
+                  flush=True)
+            out["rates"][label] = {"steps_per_s": rate, "idle_share": idle}
+        out["launches"]["K5"][label] = n5
+        out["launches"]["K6"][label] = n6
+        out["launches"]["stash_backward"][label] = nb_
+        out["deq"][label] = {"grad_gaps": gaps, "forward": fwd, "backward": bwd}
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4031,6 +4359,11 @@ def main() -> int:
     # PnP-PGD on pansharpening over K7 at 512², every other new operator once
     ops15 = operators_phase(dev, card)
 
+    # 16. the rest of optim/ and unfolded/: DPIR over K1, PnP mirror descent
+    # over K5 and MLEM, an unfolded PGD trained over K6 and its stash backward,
+    # a DEQ (forward over K5, backward over K6 and the stash backward)
+    opt16 = optim_breadth_phase(dev, card)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -4099,6 +4432,10 @@ def main() -> int:
         # autograd), the DPS guidance gradient's error against the plain
         # path, and the sampling rates
         "launches_sampling": smp["launches"],
+        # phase 16: K1's launches in each DPIR recon (one a denoiser call, 8 a
+        # recon at B=1 and B=8) and DPIR's rates and idle shares
+        "launches_optim_breadth": opt16["launches"]["K1"],
+        "optim_breadth_rates": {k: v for k, v in opt16["rates"].items() if "DPIR" in k},
         "backward_ms": smp["k1_bwd"]["ms"]["TF32 (the op)"],
         "backward_ms_tf32_off": smp["k1_bwd"]["ms"]["TF32 off"],
         "backward_library_ms": smp["k1_bwd"]["ms"]["cuDNN f32 layers under autograd"],
@@ -4156,6 +4493,10 @@ def main() -> int:
         "launches_operators": ops15["launches"]["K5"],
         "operators_rates": {k: v for k, v in ops15["rates"].items() if "radio" not in k
                             and "pansharpening" not in k},
+        # phase 16: K5's launches in PnP mirror descent (one an iteration, B=1
+        # and B=8) and in a DEQ train step's forward (one a map), their rates
+        "launches_optim_breadth": opt16["launches"]["K5"],
+        "optim_breadth_rates": {k: v for k, v in opt16["rates"].items() if "MD" in k},
     }, {
         "name": "tv_prox",
         "route": "cuda",
@@ -4266,6 +4607,11 @@ def main() -> int:
         # 15-coil MRI (one a step with fused_chains=True), steps/s and idle shares
         "launches_generator_train": mc["k6_launches"],
         "generator_train": mc["train"],
+        # phase 16: K6's launches in the unfolded PGD's train steps (UNFOLD_ITERS
+        # a step) and a DEQ train step (one, the graph step at the equilibrium),
+        # with their steps/s and idle shares
+        "launches_optim_breadth": opt16["launches"]["K6"],
+        "optim_breadth_rates": {k: v for k, v in opt16["rates"].items() if "train" in k},
     }, {
         "name": "stash_backward",
         "route": "cuda",
@@ -4291,6 +4637,10 @@ def main() -> int:
         "bound_ms_b16": bwd_bound_b16[0],
         "device_ms": bwd_b1[1]["kernels"],
         "device_ms_b16": bwd_b16[1]["kernels"],
+        # phase 16: the launches in the unfolded PGD's train steps (L + 2 a
+        # backward, UNFOLD_ITERS backwards a step) and a DEQ train step (L + 2 a
+        # vector-Jacobian product of the adjoint and the parameters' cotangents)
+        "launches_optim_breadth": opt16["launches"]["stash_backward"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

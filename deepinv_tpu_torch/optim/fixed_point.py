@@ -100,6 +100,12 @@ class FixedPoint(nn.Module):
                               use_reentrant=False)
         return self.iterator(X, data_fidelity, prior, cur, y, physics)
 
+    def single_iteration(self, X, cur_data_fidelity, cur_prior, cur_params, y, physics,
+                         **kwargs):
+        """One step of the iterator at this iteration's parameters
+        (fixed_point.py:115)."""
+        return self._step(X, cur_params, cur_data_fidelity, cur_prior, y, physics)
+
     def _run_scan(self, X0, data_fidelity, prior, params_iter, y, physics):
         """``max_iter`` iterations; with backtracking, an iteration that
         raises the objective is taken again at the stepsize times

@@ -2,17 +2,21 @@
 
 An iterator maps the state ``X = {"est": (x, z), "it": k}`` to the next one,
 given the data fidelity, the prior, this iteration's parameters
-(``stepsize``, ``g_param``, ``lambda``, ``beta``), ``y`` and the physics.
-GD, PGD, FISTA, HQS, ADMM, DRS and Chambolle-Pock are ported; MD, PMD, SM,
-SIRT and MLEM wait for ROADMAP queue 1 item 8.
+(``stepsize``, ``g_param``, ``lambda``, ``beta``), ``y`` and the physics:
+GD, PGD, FISTA, HQS, ADMM, DRS, Chambolle-Pock, mirror descent (MD), proximal
+mirror descent (PMD), the spectral method (SM), SIRT and MLEM.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
+from ..core.linalg import tree_map
+
 __all__ = ["OptimIterator", "GDIteration", "HQSIteration", "PGDIteration", "FISTAIteration",
-           "ADMMIteration", "DRSIteration", "CPIteration", "objective_function"]
+           "ADMMIteration", "DRSIteration", "CPIteration", "MDIteration", "PMDIteration",
+           "SMIteration", "SIRTIteration", "MLEMIteration", "objective_function"]
 
 
 def objective_function(x, data_fidelity, prior, params, y, physics):
@@ -198,3 +202,115 @@ class CPIteration(OptimIterator):
             x_new = prior.prox(x - tau * Kt(u), params.get("g_param"), gamma=tau * lam)
         xbar = x_new + params.get("beta", 1.0) * (x_new - x)
         return {"est": (x_new, xbar, u), "it": X["it"] + 1}
+
+
+class MDIteration(OptimIterator):
+    r"""Mirror descent in the geometry of a Bregman potential ``h``
+    (iterators.py:305): ``x = grad h^*(grad h(x) - stepsize (grad f(x) +
+    lambda grad g(x)))``.
+
+    :param bregman_potential: ``h``; :class:`~deepinv_tpu_torch.optim.BregmanL2`
+        (gradient descent) by default.
+    """
+
+    def __init__(self, bregman_potential=None, g_first: bool = False):
+        super().__init__(g_first=g_first)
+        if bregman_potential is None:
+            from .bregman import BregmanL2
+
+            bregman_potential = BregmanL2()
+        self.bregman_potential = bregman_potential
+
+    def forward(self, X, data_fidelity, prior, params, y, physics):
+        x = X["est"][0]
+        v = data_fidelity.grad(x, y, physics) + params["lambda"] * prior.grad(
+            x, params.get("g_param"))
+        xi = self.bregman_potential.grad(x) - params["stepsize"] * v
+        x_new = self.bregman_potential.grad_conj(xi)
+        return {"est": (x_new, x_new), "it": X["it"] + 1}
+
+
+class PMDIteration(MDIteration):
+    r"""Proximal mirror descent (iterators.py:371): ``u = grad h^*(grad h(x) -
+    stepsize grad f(x))``, then ``x`` the Bregman prox of ``stepsize lambda g``
+    at ``u``. With the default ``BregmanL2`` it is PGD."""
+
+    def forward(self, X, data_fidelity, prior, params, y, physics):
+        x = X["est"][0]
+        grad = params["stepsize"] * data_fidelity.grad(x, y, physics)
+        u = self.bregman_potential.grad_conj(self.bregman_potential.grad(x) - grad)
+        x_new = prior.bregman_prox(u, self.bregman_potential, params.get("g_param"),
+                                   gamma=params["stepsize"] * params.get("lambda", 1.0))
+        return {"est": (x_new, x_new), "it": X["it"] + 1}
+
+
+class SMIteration(OptimIterator):
+    r"""One step of the spectral method of phase retrieval (iterators.py:392):
+    a power-iteration step on ``B^H diag(T(y / mean y)) B + lamb I``, the
+    prior's prox, and a normalization per sample. ``physics`` is a phase
+    retrieval operator (its ``B``).
+
+    :param lamb: the shift ``lamb I``.
+    :param preprocessing: ``T``; ``max(1 - 1 / max(u, 1e-6), -5)`` by default.
+    """
+
+    def __init__(self, lamb: float = 10.0, preprocessing=None, g_first: bool = False):
+        super().__init__(g_first=g_first)
+        self.lamb = lamb
+        self.preprocessing = preprocessing if preprocessing is not None else (
+            lambda u: torch.clamp(1 - 1 / u.clamp_min(1e-6), min=-5.0))
+
+    def forward(self, X, data_fidelity, prior, params, y, physics):
+        x = X["est"][0]
+        dims = tuple(range(1, y.dim()))
+        diag = self.preprocessing(y / y.mean(dim=dims, keepdim=True))
+        v = physics.B.A_adjoint(diag * physics.B.A(x)) + self.lamb * x
+        v = prior.prox(v, params.get("g_param"), gamma=params.get("stepsize", 1.0))
+        norm = torch.sqrt((v.abs() ** 2).sum(dim=tuple(range(1, v.dim())), keepdim=True))
+        x_new = v / norm.clamp_min(1e-12)
+        return {"est": (x_new, x_new), "it": X["it"] + 1}
+
+
+class SIRTIteration(OptimIterator):
+    r"""The Simultaneous Iterative Reconstruction Technique (iterators.py:328):
+    ``x = x + stepsize V A^T W (y - A x)``, ``W`` and ``V`` the inverse row
+    and column sums of ``A`` (``A 1`` and ``A^T 1``, clamped at ``eps``). The
+    sums are loop invariants, made once a reconstruction
+    (:meth:`~deepinv_tpu_torch.optim.DataFidelity.loop_invariant`)."""
+
+    def forward(self, X, data_fidelity, prior, params, y, physics, eps: float = 1e-10):
+        x = X["est"][0]
+        W = data_fidelity.loop_invariant(
+            "SIRT row sums", y, physics,
+            lambda: tree_map(lambda r: 1.0 / r.clamp_min(eps),
+                             physics.A(tree_map(torch.ones_like, x))))
+        col_sum = data_fidelity.loop_invariant(
+            "SIRT column sums", y, physics,
+            lambda: physics.A_adjoint(tree_map(torch.ones_like, y)).clamp_min(eps))
+        resid = tree_map(torch.sub, y, physics.A(x))
+        upd = physics.A_adjoint(tree_map(torch.mul, W, resid))
+        x_new = x + params["stepsize"] * upd / col_sum
+        return {"est": (x_new, x_new), "it": X["it"] + 1}
+
+
+class MLEMIteration(OptimIterator):
+    r"""Maximum-likelihood expectation maximization for Poisson data
+    (iterators.py:345): ``x = x A^T(y / A x) / (A^T 1 + lambda grad g(x'))``,
+    ``x'`` the numerator, ``g`` left out for the ``Zero`` prior. The
+    sensitivity ``A^T 1`` is a loop invariant, made once a reconstruction
+    (:meth:`~deepinv_tpu_torch.optim.DataFidelity.loop_invariant`)."""
+
+    def forward(self, X, data_fidelity, prior, params, y, physics, eps: float = 1e-15):
+        from .prior import Zero
+
+        x = X["est"][0]
+        sensitivity = data_fidelity.loop_invariant(
+            "MLEM sensitivity", y, physics,
+            lambda: physics.A_adjoint(tree_map(torch.ones_like, y)))
+        ratio = tree_map(lambda yi, ai: yi / ai.clamp_min(eps), y, physics.A(x))
+        x_new = x * physics.A_adjoint(ratio)
+        denom = sensitivity
+        if prior is not None and not isinstance(prior, Zero):
+            denom = sensitivity + params["lambda"] * prior.grad(x_new, params.get("g_param"))
+        x_new = x_new / denom.clamp_min(eps)
+        return {"est": (x_new, x_new), "it": X["it"] + 1}

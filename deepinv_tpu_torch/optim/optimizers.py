@@ -3,12 +3,15 @@
 ``optim_builder("PGD", data_fidelity, prior, params_algo, max_iter)`` returns a
 :class:`BaseOptim`, a reconstructor ``model(y, physics) -> x``. Each entry of
 ``params_algo`` is a scalar (the same every iteration) or a list/tensor with
-one value per iteration; it is stored as a ``(max_iter, ...)`` buffer. The
-reconstructor, with its prior and denoiser, is put on ``device``: the CUDA
-device unless the caller passes another. The named builders (``PGD``,
-``FISTA``, ``ADMM``, ``DRS``, ``CP``, ``GD``, ``HQS``) and ``PDCP`` are
-``optim_builder`` with the iteration fixed. Early stop, Anderson
-acceleration, backtracking and ``remat`` are :class:`FixedPoint`'s.
+one value per iteration; it is stored as a ``(max_iter, ...)`` buffer, or, with
+``unfold=True``, as an ``nn.Parameter``, so that an unfolded network trains its
+schedule as the JAX package trains the schedule's pytree leaves
+(optimizers.py:11-15). The reconstructor, with its prior and denoiser, is put
+on ``device``: the CUDA device unless the caller passes another. The named
+builders (``PGD``, ``FISTA``, ``ADMM``, ``DRS``, ``CP``, ``GD``, ``HQS``,
+``MD``, ``PMD``, ``SIRT``, ``MLEM``) and ``PDCP`` are ``optim_builder`` with the
+iteration fixed. Early stop, Anderson acceleration, backtracking and ``remat``
+are :class:`FixedPoint`'s.
 """
 
 from __future__ import annotations
@@ -16,24 +19,24 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch import nn
 
 from ..device import resolve_device
 from ..models.base import Reconstructor
 from .data_fidelity import L2
 from .fixed_point import FixedPoint
 from .iterators import (ADMMIteration, CPIteration, DRSIteration, FISTAIteration, GDIteration,
-                        HQSIteration, OptimIterator, PGDIteration, objective_function)
+                        HQSIteration, MDIteration, MLEMIteration, OptimIterator, PGDIteration,
+                        PMDIteration, SIRTIteration, SMIteration, objective_function)
 from .prior import Zero
 
 __all__ = ["BaseOptim", "optim_builder", "create_iterator", "PGD", "FISTA", "ADMM", "DRS", "CP",
-           "GD", "HQS", "PDCP"]
+           "GD", "HQS", "MD", "PMD", "SIRT", "MLEM", "PDCP"]
 
 _ITERATORS = {"GD": GDIteration, "PGD": PGDIteration, "FISTA": FISTAIteration,
-              "HQS": HQSIteration, "ADMM": ADMMIteration, "DRS": DRSIteration, "CP": CPIteration}
-
-# The JAX package's other iterators (iterators.py) and the ROADMAP item that ports each.
-_WAITING = {name: "ROADMAP queue 1 item 8"
-            for name in ("MD", "PMD", "SM", "SIRT", "MLEM")}
+              "HQS": HQSIteration, "ADMM": ADMMIteration, "DRS": DRSIteration, "CP": CPIteration,
+              "MD": MDIteration, "PMD": PMDIteration, "SM": SMIteration, "SIRT": SIRTIteration,
+              "MLEM": MLEMIteration}
 
 _DEFAULT_PARAMS = {
     "stepsize": 1.0,
@@ -45,22 +48,28 @@ _DEFAULT_PARAMS = {
 }
 
 
-def create_iterator(iteration, g_first: bool = False, K=None, K_adjoint=None) -> OptimIterator:
+def create_iterator(iteration, g_first: bool = False, K=None, K_adjoint=None,
+                    bregman_potential=None, lamb: float = 10.0,
+                    preprocessing=None) -> OptimIterator:
     """Map an iteration name to an iterator (optimizers.py:89). ``K`` and
     ``K_adjoint`` are Chambolle-Pock's explicit splitting operator
-    (optimizers.py:107-114)."""
+    (:107-114), ``bregman_potential`` the geometry of MD and PMD (:98-99),
+    ``lamb`` and ``preprocessing`` the spectral method's (:100-105)."""
     if isinstance(iteration, OptimIterator):
         return iteration
     name = str(iteration).upper()
-    if name in _WAITING:
-        raise NotImplementedError(f"the {name} iterator waits for {_WAITING[name]}")
     if name not in _ITERATORS:
-        raise ValueError(f"unknown iteration {iteration!r}; choose from "
-                         f"{sorted(set(_ITERATORS) | set(_WAITING))}")
+        raise ValueError(f"unknown iteration {iteration!r}; choose from {sorted(_ITERATORS)}")
+    if (K is not None or K_adjoint is not None) and name != "CP":
+        raise ValueError(f"K and K_adjoint belong to the CP iteration, not {name}")
+    if bregman_potential is not None and name not in ("MD", "PMD"):
+        raise ValueError(f"bregman_potential belongs to the MD and PMD iterations, not {name}")
     if name == "CP":
         return CPIteration(g_first=g_first, K=K, K_adjoint=K_adjoint)
-    if K is not None or K_adjoint is not None:
-        raise ValueError(f"K and K_adjoint belong to the CP iteration, not {name}")
+    if name in ("MD", "PMD"):
+        return _ITERATORS[name](bregman_potential=bregman_potential, g_first=g_first)
+    if name == "SM":
+        return SMIteration(lamb=lamb, preprocessing=preprocessing, g_first=g_first)
     return _ITERATORS[name](g_first=g_first)
 
 
@@ -80,9 +89,14 @@ class BaseOptim(Reconstructor):
         iterates.
     :param backtracking: Armijo backtracking on the stepsize.
     :param remat: recompute each iteration in the backward.
+    :param unfold: the schedule as ``nn.Parameter``s (``param_<name>``), each
+        of them trainable, as JAX trains every schedule leaf; buffers
+        otherwise.
     :param device: where the schedule, the prior and the data fidelity (and
         a denoiser in them) live; the CUDA device by default.
-    :param kwargs: ``K``, ``K_adjoint`` for the CP iteration.
+    :param kwargs: ``K``, ``K_adjoint`` for the CP iteration,
+        ``bregman_potential`` for MD and PMD, ``lamb`` and ``preprocessing``
+        for SM (:func:`create_iterator`).
     """
 
     def __init__(self, iterator, data_fidelity=None, prior=None, params_algo: dict = None,
@@ -90,7 +104,7 @@ class BaseOptim(Reconstructor):
                  g_first: bool = False, early_stop: bool = False, crit_conv: str = "residual",
                  thres_conv: float = 1e-5, anderson_acceleration: bool = False,
                  history_size: int = 5, backtracking: bool = False, remat: bool = False,
-                 verbose: bool = False, device=None, **kwargs):
+                 unfold: bool = False, verbose: bool = False, device=None, **kwargs):
         device = resolve_device(device)
         super().__init__()
         self.verbose = verbose
@@ -99,11 +113,15 @@ class BaseOptim(Reconstructor):
         self.prior = prior if prior is not None else Zero()
         self.max_iter = max_iter
         self.custom_init = custom_init
+        self.unfold = unfold
         pa = dict(_DEFAULT_PARAMS)
         pa.update(params_algo or {})
         self._param_names = tuple(pa)
         for k, v in pa.items():
-            self.register_buffer(f"param_{k}", self._stack_param(v, max_iter))
+            if unfold:
+                self.register_parameter(f"param_{k}", nn.Parameter(self._stack_param(v, max_iter)))
+            else:
+                self.register_buffer(f"param_{k}", self._stack_param(v, max_iter))
         self.fixed_point = FixedPoint(
             self.iterator, max_iter=max_iter, early_stop=early_stop, crit_conv=crit_conv,
             thres_conv=thres_conv, anderson_acceleration=anderson_acceleration,
@@ -150,6 +168,17 @@ class BaseOptim(Reconstructor):
                                  physics)
         return self.iterator.get_output(X)
 
+    def update_params_fn(self, it: int) -> dict:
+        """The parameters of iteration ``it`` (optimizers.py:222)."""
+        return {k: v[it] for k, v in self.params_algo.items()}
+
+    def DEQ_additional_step(self, X, y, physics, **kwargs):
+        """One more iteration at the last iteration's parameters
+        (optimizers.py:307), the step a DEQ differentiates at its
+        equilibrium."""
+        return self.fixed_point.single_iteration(X, self.data_fidelity, self.prior,
+                                                 self.update_params_fn(-1), y, physics, **kwargs)
+
     def check_conv_fn(self, it: int, X_prev, X) -> bool:
         """Host-side convergence test (optimizers.py:280): the batch mean of
         each sample's ``||x_prev - x|| / (||x|| + 1e-6)`` below ``thres_conv``."""
@@ -187,7 +216,7 @@ def _named(iteration: str):
                          params_algo=params_algo, max_iter=max_iter, **kwargs)
 
     build.__name__ = build.__qualname__ = iteration
-    build.__doc__ = f"{iteration} reconstructor (optimizers.py:367-393)."
+    build.__doc__ = f"{iteration} reconstructor (optimizers.py:367-393, 47-62)."
     return build
 
 
@@ -198,6 +227,10 @@ DRS = _named("DRS")
 CP = _named("CP")
 GD = _named("GD")
 HQS = _named("HQS")
+MD = _named("MD")
+PMD = _named("PMD")
+SIRT = _named("SIRT")
+MLEM = _named("MLEM")
 
 
 def PDCP(data_fidelity=None, prior=None, K=None, K_adjoint=None, params_algo=None,

@@ -1,7 +1,7 @@
 """Priors ``g(x)`` (port of deepinv_tpu/optim/prior.py): the base, ``Zero``,
-the Plug-and-Play prior, the score prior of the Langevin samplers,
-Tikhonov and isotropic total variation. RED, ``TVL1Prior`` and the sparsity
-priors wait for ROADMAP queue 1 item 8."""
+the Plug-and-Play and RED priors, the score prior of the Langevin samplers,
+Tikhonov, the l1, group l1-l2 and wavelet sparsity priors, isotropic total
+variation and TV-L1."""
 
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ from ..ops.kernels.tv import div_op as _div_op
 from ..ops.kernels.tv import grad_op as _grad_op
 from .potential import Potential
 
-__all__ = ["Prior", "Zero", "PnP", "ScorePrior", "Tikhonov", "TVPrior"]
+__all__ = ["Prior", "Zero", "PnP", "RED", "ScorePrior", "Tikhonov", "L1Prior", "L12Prior",
+           "TVPrior", "TVL1Prior", "WaveletPrior"]
 
 
 def _batch_sum(v):
@@ -53,6 +54,20 @@ class PnP(Prior):
 
     def prox(self, x, sigma_denoiser, *args, gamma=None, **kwargs):
         return self.denoiser(x, sigma_denoiser)
+
+
+class RED(Prior):
+    r"""Regularization by denoising: ``grad g(x) = x - D(x, sigma)`` for a
+    denoiser ``D`` (prior.py:91)."""
+
+    explicit_prior = False
+
+    def __init__(self, denoiser):
+        super().__init__()
+        self.denoiser = denoiser
+
+    def grad(self, x, sigma_denoiser, *args, **kwargs):
+        return x - self.denoiser(x, sigma_denoiser)
 
 
 class ScorePrior(Prior):
@@ -97,6 +112,34 @@ class Tikhonov(Prior):
         return x / (1 + gamma)
 
 
+class L1Prior(Prior):
+    r"""``g(x) = ||x||_1`` with the soft-threshold prox (prior.py:143)."""
+
+    def fn(self, x, *args, **kwargs):
+        return _batch_sum(x.abs())
+
+    def prox(self, x, *args, gamma=1.0, **kwargs):
+        return torch.sign(x) * torch.clamp(x.abs() - gamma, min=0.0)
+
+
+class L12Prior(Prior):
+    r"""The group l1-l2 norm, the l2 norm over ``l2_axis`` summed
+    (prior.py:153); its prox scales each group by ``relu(n - gamma) / (n +
+    1e-12)``."""
+
+    def __init__(self, l2_axis: int = -1):
+        super().__init__()
+        self.l2_axis = l2_axis
+
+    def fn(self, x, *args, **kwargs):
+        n = torch.sqrt((x ** 2).sum(self.l2_axis))
+        return n.abs().reshape(n.shape[0], -1).sum(-1)
+
+    def prox(self, x, *args, gamma=1.0, **kwargs):
+        n = torch.sqrt((x ** 2).sum(self.l2_axis, keepdim=True))
+        return x * (torch.clamp(n - gamma, min=0.0) / (n + 1e-12))
+
+
 class TVPrior(Prior):
     r"""Isotropic total variation (deepinv_tpu/optim/prior.py:187), with the
     prox by Chambolle's dual projection.
@@ -139,3 +182,51 @@ class TVPrior(Prior):
         if self.use_pallas is False:
             return chambolle_prox_plain(x, gamma, self.n_it_max)
         return chambolle_prox(x, gamma, self.n_it_max)
+
+
+class WaveletPrior(Prior):
+    r"""``g(x) = ||W x||_1`` over the detail coefficients of an orthonormal
+    DWT (prior.py:248), on :class:`~deepinv_tpu_torch.ops.wavelets.WaveletTransform`;
+    the prox soft-thresholds the details, ``W^T soft(W x)``."""
+
+    def __init__(self, wv: str = "db4", level: int = 3, p: int = 1, wvdim: int = 2):
+        from ..ops.wavelets import WaveletTransform
+
+        super().__init__()
+        self.wt = WaveletTransform(wavelet=wv, level=level, ndim=wvdim)
+        self.p = p
+
+    def fn(self, x, *args, **kwargs):
+        return _batch_sum(self.wt.flat_coeffs(self.wt.dwt2(x)).abs())
+
+    def prox(self, x, *args, gamma=1.0, **kwargs):
+        coeffs = self.wt.map_detail(
+            self.wt.dwt2(x), lambda c: torch.sign(c) * torch.clamp(c.abs() - gamma, min=0.0))
+        return self.wt.idwt2(coeffs)
+
+    def psi(self, x, *args, **kwargs):
+        """The coefficient arrays, approximation first (prior.py:272)."""
+        dec = self.wt.dwt2(x)
+        return [dec["coeffs"][0]] + [c for d in dec["coeffs"][1:] for c in d]
+
+
+class TVL1Prior(Prior):
+    r"""Anisotropic TV, ``sum |grad x|_1`` (prior.py:282), with the prox by
+    the TV-L1 primal-dual denoiser
+    (:class:`~deepinv_tpu_torch.models.TVL1Denoiser`) at threshold ``gamma``,
+    as in the JAX package; not Chambolle's prox (no K7)."""
+
+    def __init__(self, n_it_max: int = 100):
+        super().__init__()
+        self.n_it_max = n_it_max
+
+    nabla = staticmethod(TVPrior.nabla)
+    nabla_adjoint = staticmethod(TVPrior.nabla_adjoint)
+
+    def fn(self, x, *args, **kwargs):
+        return _batch_sum(_grad_op(x).abs().sum(-1))
+
+    def prox(self, x, *args, gamma=1.0, **kwargs):
+        from ..models.classic import TVL1Denoiser
+
+        return TVL1Denoiser(self.n_it_max)(x, ths=gamma)

@@ -1,7 +1,6 @@
 """Optimization utilities (port of deepinv_tpu/optim/utils.py): gradient
 descent, the convergence test, and the configuration records of Anderson
-acceleration and backtracking. ``DEQConfig`` waits for ROADMAP queue 1 item 8
-(with ``deq.py``)."""
+acceleration, backtracking and deep equilibrium."""
 
 from __future__ import annotations
 
@@ -13,7 +12,7 @@ from ..core import CHECK_EVERY, device_while, tree_map, tree_norm
 from .iterators import objective_function
 
 __all__ = ["gradient_descent", "check_conv", "objective_function",
-           "AndersonAccelerationConfig", "BacktrackingConfig"]
+           "AndersonAccelerationConfig", "BacktrackingConfig", "DEQConfig"]
 
 
 def gradient_descent(grad_f, x0, step_size: float = 1.0, max_iter: int = 100, tol: float = 1e-5,
@@ -67,3 +66,13 @@ class BacktrackingConfig:
 
     eta: float = 0.5
     gamma: float = 0.1
+
+
+@dataclass
+class DEQConfig:
+    """Deep equilibrium's settings (utils.py:78): ``max_iter_backward`` is
+    :func:`~deepinv_tpu_torch.unfolded.DEQ_builder`'s argument of that name."""
+
+    max_iter_backward: int = 50
+    anderson_acceleration: bool = False
+    history_size: int = 5

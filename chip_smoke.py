@@ -251,6 +251,23 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    of the step under ``fused_chains_disabled()``. Timed and profiled:
    recons/s, image-it/s, steps/s and idle shares (``rate:`` lines, with the
    card).
+17. the models the unrolled, PnP and 3D demos build on (``models_phase``):
+   ``MoDL`` (examples/demo_unfolded_mri.py: 3 HQS iterations over a bf16
+   DnCNN(2, 2, depth 7)) on 320² single-coil MRI with a RandomMaskGenerator
+   mask at B=1 and B=8, held as phase 5 holds PGD (K5 once a denoiser call, 3
+   a recon, 5 tile launches a call in the profile); MoDL trained by
+   ``Trainer`` at B=1 and B=8 in both train-step configurations: K6 3 times
+   and the stash backward 3 (L + 2) launches a step with
+   ``fused_chains=True``, none with ``False``, first-step gradients within
+   GRAD_RTOL; the 3D DnCNN (depth 20) and full-width DRUNet on a 64³ volume
+   with no kernel launch, bf16 within DENOISER_RTOL of f32, and a 3D DnCNN
+   inflated axially from a 2D one equal to it slice by slice
+   (INFLATE_RTOL); a 2D DnCNN and DRUNet rebuilt with ``pretrained=`` from
+   upstream-named ``.pth`` files: the same output bits, K5 / K1 once a call,
+   weights loaded after the first call used; ``VarNet`` (8 cascades) and
+   ``PDNet`` on cuDNN with no kernel launch. Timed and profiled: recons/s,
+   image-it/s, steps/s, idle shares and the phase's seconds (``rate:``
+   lines, with the card).
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -600,6 +617,21 @@ UNFOLD_NOISE = 0.03
 DEQ_PARAMS = {"stepsize": 0.5, "g_param": 0.05}
 DEQ_ITERS = 30
 DEQ_BACKWARD = 20
+# phase 17 (models_phase): MoDL on single-coil MRI as examples/demo_unfolded_mri.py
+# sets it (a RandomMaskGenerator acceleration-4 mask, GaussianNoise(0.01),
+# MoDL(num_iter=3) over DnCNN(2, 2, depth 7)) at 320², the fastMRI knee
+# width of phase 14; the 3D models of examples/demo_3d_cnn_denoisers.py at full
+# width on a 64³ volume; VarNet's default 8 cascades on the same MRI problem
+# and PDNet as examples/demo_learned_primal_dual.py builds it (5 iterations)
+MODL_SIZE = 320
+MODL_ACCEL = 4
+MODL_SIGMA = 0.01
+MODL_ITERS = 3
+MODL_DEPTH = 7
+MODL_STEPS = 3
+MODL_LR = 1e-4
+VOL_SIZE = 64
+INFLATE_RTOL = 1e-5             # the axially inflated 3D DnCNN against the 2D one, f32
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for the bounds.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
@@ -860,13 +892,14 @@ def kernel_vs_plain(label: str, run, plain, x, bound: float, by_range: bool = Fa
 
 
 def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain=None,
-          residual_of=None):
+          residual_of=None, iters: int = MAX_ITER):
     """One reconstruction on the kernel path (the ``launches`` of ``op``, one
     kernel op or a tuple of them, set to 0 just before it and read just
     after), checked: finite output of ``shape``, one launch of each op and one
     denoiser call per iteration, each call of ``net`` against the same call
-    on the plain chain, and the whole run against the plain chain's run.
-    Returns ``(out, out_plain, launches)``, the launches of the first op.
+    on the plain chain, and the whole run against the plain chain's run, of
+    ``iters`` iterations. Returns ``(out, out_plain, launches)``, the
+    launches of the first op.
 
     With ``exact_chain`` (a context that runs the chain in f32 with no
     rounding inside it; DnCNN), each call's residual is held too, and the
@@ -895,15 +928,15 @@ def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain
     launches = counts[0]
     hook.remove()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
-    print(f"{name} {MAX_ITER} it: first run {first_s:.3f} s, kernel launches "
+    print(f"{name} {iters} it: first run {first_s:.3f} s, kernel launches "
           f"{dict(zip((o.__name__ for o in ops), counts))}, peak memory {peak_gib:.3f} GiB",
           flush=True)
     for o, n in zip(ops, counts):
-        check(n == MAX_ITER, f"{name}: expected {MAX_ITER} launches of {o.__name__}, got {n}")
+        check(n == iters, f"{name}: expected {iters} launches of {o.__name__}, got {n}")
     check(tuple(out.shape) == shape and out.dtype == torch.float32,
           f"{name}: bad output shape/dtype")
     check(bool(torch.isfinite(out).all()), f"{name}: non-finite reconstruction")
-    check(len(calls) == MAX_ITER, f"{name}: expected {MAX_ITER} denoiser calls, got {len(calls)}")
+    check(len(calls) == iters, f"{name}: expected {iters} denoiser calls, got {len(calls)}")
     res = []
     res_hook = None if residual_of is None else residual_of.register_forward_hook(
         lambda mod, args, out: res.append(out.float()))
@@ -3310,6 +3343,101 @@ def operators_phase(dev, card: str, size: int = OPS_SIZE, depth: int = 20,
     return out
 
 
+def grads_of(trainer, x, y, phys, chains):
+    """Named gradients of one loss on a fixed batch, in ``chains``."""
+    model = trainer.model
+    model.zero_grad(set_to_none=True)
+    with chains:
+        trainer.compute_loss(model, x, y, phys)[0].backward()
+    gs = {n: p.grad.reshape(-1).float().clone() for n, p in model.named_parameters()
+          if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return gs
+
+
+def grad_gaps(label, a, b):
+    """The relative L2 gaps of the schedule's (``param_*``) and the
+    network's gradients between two configurations; fails past GRAD_RTOL."""
+    import torch
+
+    check(set(a) == set(b), f"{label}: the gradients' parameters differ: {set(a) ^ set(b)}")
+    groups = {"schedule": [k for k in a if k.startswith("param_")],
+              "DnCNN": [k for k in a if not k.startswith("param_")]}
+    gaps = {}
+    for name, keys in groups.items():
+        ga, gb = torch.cat([a[k] for k in keys]), torch.cat([b[k] for k in keys])
+        gaps[name] = rel_l2(ga, gb)
+    whole = rel_max(torch.cat(list(a.values())), torch.cat([b[k] for k in a]))
+    print(f"{label}: first step's gradients, kernels vs layers: relative L2 {gaps} (bound "
+          f"{GRAD_RTOL}), whole relative max {whole}; entries "
+          f"{sorted(k for k in a if k.startswith('param_'))}", flush=True)
+    check(all(v <= GRAD_RTOL for v in gaps.values()), f"{label}: gradients disagree: {gaps}")
+    return gaps
+
+
+def train_in_both(label: str, trainers: dict, steps: int, iters: int, L: int, dev, card: str,
+                  size, out: dict):
+    """``steps`` train steps of ``trainers[True]`` and ``trainers[False]`` (the
+    two ``fused_chains`` configurations of one model on one loader), checked:
+    the first step's gradients within GRAD_RTOL of each other, finite losses,
+    and on the card K6 ``iters`` times and the stash backward ``iters`` (L +
+    2) launches a step with ``True``, none with ``False``. Their launches go
+    to ``out["launches"]``; on the card the steps/s of both in turns and the
+    idle share of a ``True`` step to ``out["rates"]``. Returns the gradient
+    gaps and the first batch ``(x, y, physics)``."""
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain_stash, fused_chains_disabled,
+                                                          stash_backward)
+
+    cuda = dev.type == "cuda"
+    x0, y0, p0 = first_batch(trainers[True])
+    gaps = grad_gaps(label, grads_of(trainers[True], x0, y0, p0, contextlib.nullcontext()),
+                     grads_of(trainers[False], x0, y0, p0, fused_chains_disabled()))
+    secs = {}
+    for f, t in trainers.items():
+        dncnn_mod.conv_chain.launches = conv_chain_stash.launches = 0
+        stash_backward.launches = 0
+        secs[f] = [train_epoch(t, 0, dev)]
+        n5, n6, nb_ = (dncnn_mod.conv_chain.launches, conv_chain_stash.launches,
+                       stash_backward.launches)
+        losses = t.logs_total_loss_train.vals
+        print(f"{label} fused_chains={f}: {steps} steps, K6 launches {n6}, K5 {n5}, stash "
+              f"backward {nb_}, losses {losses}", flush=True)
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+              f"{label} fused_chains={f}: non-finite loss")
+        if cuda:
+            want = (iters * steps, 0, iters * (L + 2) * steps) if f else (0, 0, 0)
+            check((n6, n5, nb_) == want, f"{label} fused_chains={f}: launches K6 {n6}, K5 "
+                  f"{n5}, stash backward {nb_} (expected {want})")
+        if f:
+            out["launches"]["K6"][label] = n6
+            out["launches"]["stash_backward"][label] = nb_
+    if cuda:
+        for f in (False, True, True, False):
+            secs[f].append(train_epoch(trainers[f], len(secs[f]), dev))
+        prof = device_profile(f"{label} step fused_chains=True",
+                              step_fn(trainers[True], x0, y0, p0), 2, top=8)
+        idle = None if prof is None else 1 - prof[4] / prof[0]
+        rates = {f: steps * (len(v) - 1) / sum(v[1:]) for f, v in secs.items()}
+        print(f"rate: {label} {size}² {rates[True]:.3f} steps/s fused_chains=True, "
+              f"{rates[False]:.3f} steps/s False; idle share (True) {idle} ({card})", flush=True)
+        out["rates"][label] = {"steps_per_s": rates, "idle_share": idle}
+    return gaps, (x0, y0, p0)
+
+
+def rate_of(label: str, run, image_its: int, B: int, iters: int, size, card: str,
+            rates: dict) -> None:
+    """A ``rate:`` line of one recon ``run`` (recons/s, image-it/s and the
+    idle share from a profile of three recons), kept in ``rates``."""
+    r = rates_in_turns(f"{label}, B={B}", {"kernel": run}, image_its, reps=3)["kernel"]
+    prof = device_profile(f"{label} B={B} recon", run, 3, top=8)
+    idle = None if prof is None else 1 - prof[4] / prof[0]
+    print(f"rate: {label} {size} B={B} {r / (B * iters):.3f} recons/s, {r:.2f} image-it/s; "
+          f"idle share {idle} ({card})", flush=True)
+    rates[f"{label} B={B}"] = {"image_it_per_s": r, "recons_per_s": r / (B * iters),
+                               "idle_share": idle}
+
+
 def optim_breadth_phase(dev, card: str, size: int = 256, depth: int = 20, batch: int = HQS_BATCH,
                         nc=(64, 128, 256, 512), nb: int = R_MAIN, steps: int = UNFOLD_STEPS,
                         deq_iters: int = DEQ_ITERS, deq_backward: int = DEQ_BACKWARD) -> dict:
@@ -3383,17 +3511,6 @@ def optim_breadth_phase(dev, card: str, size: int = 256, depth: int = 20, batch:
         return swapped(drunet_mod, "resblock_chain",
                        lambda h, w1s, w2s, packed=None: resblock_chain_plain(h, w1s, w2s))
 
-    def timed(label, runs: dict, n_img_its: int, nb_: int, iters: int):
-        if not cuda:
-            return
-        r = rates_in_turns(f"{label}, B={nb_}", runs, n_img_its, reps=3)["kernel"]
-        prof = device_profile(f"{label} B={nb_} recon", runs["kernel"], 3, top=8)
-        idle = None if prof is None else 1 - prof[4] / prof[0]
-        print(f"rate: {label} {size}² B={nb_} {r / (nb_ * iters):.3f} recons/s, {r:.2f} "
-              f"image-it/s; idle share {idle} ({card})", flush=True)
-        out["rates"][f"{label} B={nb_}"] = {"image_it_per_s": r,
-                                            "recons_per_s": r / (nb_ * iters), "idle_share": idle}
-
     # 16.1 DPIR over K1
     shape1 = (1, 3, size, size)
     blur = BlurFFT(shape1[1:], filter=gaussian_blur(sigma=1.5),
@@ -3410,7 +3527,9 @@ def optim_breadth_phase(dev, card: str, size: int = 256, depth: int = 20, batch:
               f"{psnr(y[:1], x[:1]):.4f} dB", flush=True)
         out["launches"]["K1"][label] = n
         out[label] = {"rel_l2_plain": rel_l2(res, res_plain)}
-        timed("DPIR", {"kernel": recon(model_dpir, y, blur)}, B * MAX_ITER, B, MAX_ITER)
+        if cuda:
+            rate_of("DPIR", recon(model_dpir, y, blur), B * MAX_ITER, B, MAX_ITER, f"{size}²",
+                    card, out["rates"])
 
     # 16.2 PnP mirror descent over K5, and MLEM
     net = DnCNN(1, 1, depth=depth, nf=64, generator=g)
@@ -3436,7 +3555,9 @@ def optim_breadth_phase(dev, card: str, size: int = 256, depth: int = 20, batch:
         check(bool((res > 0).all()), f"{label}: the Burg-entropy iterate left the positive orthant")
         out["launches"]["K5"][label] = n
         out[label] = {"rel_l2_plain": rel_l2(res, res_plain), "nll": nll}
-        timed("PnP-MD", {"kernel": recon(model_md, y, pois)}, B * MAX_ITER, B, MAX_ITER)
+        if cuda:
+            rate_of("PnP-MD", recon(model_md, y, pois), B * MAX_ITER, B, MAX_ITER, f"{size}²",
+                    card, out["rates"])
     xct = torch.from_numpy(shepp_logan(size))[None, None].to(dev) + 0.05
     ct = Tomography(img_width=size, angles=CT_ANGLES, normalize=True,
                     noise_model=PoissonNoise(gain=MLEM_GAIN))
@@ -3477,32 +3598,6 @@ def optim_breadth_phase(dev, card: str, size: int = 256, depth: int = 20, batch:
                        train_dataloader=DataLoader(ArrayDataset(xs), batch_size=B), epochs=1,
                        online_measurements=True, verbose=False, fused_chains=fused, seed=SEED)
 
-    def grads_of(trainer, x, y, phys, chains):
-        """Named gradients of one loss on a fixed batch, in ``chains``."""
-        model = trainer.model
-        model.zero_grad(set_to_none=True)
-        with chains:
-            trainer.compute_loss(model, x, y, phys)[0].backward()
-        gs = {n: p.grad.reshape(-1).float().clone() for n, p in model.named_parameters()
-              if p.grad is not None}
-        model.zero_grad(set_to_none=True)
-        return gs
-
-    def grad_gaps(label, a, b):
-        check(set(a) == set(b), f"{label}: the gradients' parameters differ: {set(a) ^ set(b)}")
-        groups = {"schedule": [k for k in a if k.startswith("param_")],
-                  "DnCNN": [k for k in a if not k.startswith("param_")]}
-        gaps = {}
-        for name, keys in groups.items():
-            ga, gb = torch.cat([a[k] for k in keys]), torch.cat([b[k] for k in keys])
-            gaps[name] = rel_l2(ga, gb)
-        whole = rel_max(torch.cat(list(a.values())), torch.cat([b[k] for k in a]))
-        print(f"{label}: first step's gradients, kernels vs layers: relative L2 {gaps} (bound "
-              f"{GRAD_RTOL}), whole relative max {whole}; entries "
-              f"{sorted(k for k in a if k.startswith('param_'))}", flush=True)
-        check(all(v <= GRAD_RTOL for v in gaps.values()), f"{label}: gradients disagree: {gaps}")
-        return gaps
-
     class Contractive(Denoiser):
         """``0.9 x + 0.1 net(x)``, the contraction of examples/demo_deq.py:26-40."""
 
@@ -3519,41 +3614,9 @@ def optim_breadth_phase(dev, card: str, size: int = 256, depth: int = 20, batch:
         trainers = {f: trainer_of(unfolded_builder(
             "PGD", data_fidelity=L2(), prior=PnP(autocast(copy.deepcopy(net_c))),
             params_algo=PGD_PARAMS, max_iter=UNFOLD_ITERS), xs, B, f) for f in (True, False)}
-        x0, y0, p0 = first_batch(trainers[True])
         label = f"unfolded PGD train B={B}"
-        gaps = grad_gaps(label, grads_of(trainers[True], x0, y0, p0, contextlib.nullcontext()),
-                         grads_of(trainers[False], x0, y0, p0, fused_chains_disabled()))
-        secs = {}
-        for f, t in trainers.items():
-            dncnn_mod.conv_chain.launches = conv_chain_stash.launches = 0
-            stash_backward.launches = 0
-            secs[f] = [train_epoch(t, 0, dev)]
-            n5, n6, nb_ = (dncnn_mod.conv_chain.launches, conv_chain_stash.launches,
-                           stash_backward.launches)
-            losses = t.logs_total_loss_train.vals
-            print(f"{label} fused_chains={f}: {steps} steps, K6 launches {n6}, K5 {n5}, stash "
-                  f"backward {nb_}, losses {losses}", flush=True)
-            check(len(losses) == steps and all(math.isfinite(v) for v in losses),
-                  f"{label} fused_chains={f}: non-finite loss")
-            if cuda:
-                want = ((UNFOLD_ITERS * steps, 0, UNFOLD_ITERS * (L + 2) * steps) if f
-                        else (0, 0, 0))
-                check((n6, n5, nb_) == want, f"{label} fused_chains={f}: launches K6 {n6}, K5 "
-                      f"{n5}, stash backward {nb_} (expected {want})")
-            if f:
-                out["launches"]["K6"][label] = n6
-                out["launches"]["stash_backward"][label] = nb_
-        if cuda:
-            for f in (False, True, True, False):
-                secs[f].append(train_epoch(trainers[f], len(secs[f]), dev))
-            prof = device_profile(f"{label} step fused_chains=True",
-                                  step_fn(trainers[True], x0, y0, p0), 2, top=8)
-            idle = None if prof is None else 1 - prof[4] / prof[0]
-            rates = {f: steps * (len(v) - 1) / sum(v[1:]) for f, v in secs.items()}
-            print(f"rate: {label} {size}² {rates[True]:.3f} steps/s fused_chains=True, "
-                  f"{rates[False]:.3f} steps/s False; idle share (True) {idle} ({card})",
-                  flush=True)
-            out["rates"][label] = {"steps_per_s": rates, "idle_share": idle}
+        gaps, (x0, y0, p0) = train_in_both(label, trainers, steps, UNFOLD_ITERS, L, dev, card,
+                                           size, out)
         out["unfolded"][label] = {"grad_gaps": gaps}
 
         # 16.4 DEQ: the forward on K5, the backward's graph step on K6 and its
@@ -3597,6 +3660,258 @@ def optim_breadth_phase(dev, card: str, size: int = 256, depth: int = 20, batch:
         out["launches"]["K6"][label] = n6
         out["launches"]["stash_backward"][label] = nb_
         out["deq"][label] = {"grad_gaps": gaps, "forward": fwd, "backward": bwd}
+    return out
+
+
+def models_phase(dev, card: str, size: int = MODL_SIZE, batch: int = HQS_BATCH,
+                 depth: int = MODL_DEPTH, steps: int = MODL_STEPS, vol: int = VOL_SIZE,
+                 depth_3d: int = 20, nc=(64, 128, 256, 512), nb: int = R_MAIN,
+                 cascades: int = 8, ct_size: int = 256, image: int = 256) -> dict:
+    """Phase 17: the models the unrolled, PnP and 3D demos build on, through
+    the entry points with the default device.
+
+    17.1 ``MoDL(autocast(DnCNN(2, 2, depth)), num_iter=MODL_ITERS)`` (its
+    residual conv scaled by DNCNN_RESIDUAL_SCALE, as phase 5's) on ``size``²
+    single-coil ``MRI`` with a ``RandomMaskGenerator`` mask, under
+    ``torch.no_grad()`` at B=1 and B=``batch``, held as phase 5 holds PGD
+    (``drive``: K5 once a denoiser call, MODL_ITERS a recon, each call within
+    DENOISER_RTOL and the recon within RECON_RTOL of the plain chain's); the
+    B=1 profile holds ``depth - 2`` tile launches a call. 17.2 the same MoDL
+    trained by ``Trainer`` at B=1 and B=``batch``, ``steps`` steps in each
+    train-step configuration from the same weights: K6 MODL_ITERS times and
+    the stash backward MODL_ITERS (L + 2) launches a step with
+    ``fused_chains=True``, none with ``False``; the first step's gradients of
+    the schedule and of the DnCNN within GRAD_RTOL of each other. 17.3 a 3D
+    ``DnCNN(1, 1, depth_3d, dim=3)`` and a full-width ``DRUNet(1, 1, dim=3)``,
+    one forward each on a 1x1x``vol``³ volume in bf16 and f32: no kernel
+    launch (the gates refuse 5D activations), finite, bf16 within
+    DENOISER_RTOL of f32; a 3D DnCNN inflated axially from a 2D one
+    (``pretrained=`` its state dict) equal to it slice by slice on a
+    depth-constant volume within INFLATE_RTOL in f32. 17.4 that 2D DnCNN and
+    a full-width 2D DRUNet written to ``.pth`` files under upstream's names
+    and rebuilt with ``pretrained=``: the same weights and, in bf16, the same
+    output bits, K5 / K1 launched once a call; a model loaded after its first
+    call gives the new weights' output bits. 17.5 ``VarNet(num_cascades)`` on
+    the MRI problem at B=1 and B=``batch`` and ``PDNet()`` on ``ct_size``²
+    ``Tomography``, f32 on cuDNN with no kernel launch. Timed (``rate:`` lines,
+    with the card): recons/s, image-it/s, steps/s and idle shares, and the
+    phase's seconds. Returns the numbers of the kernels line. On the CPU, at
+    small sizes, it rehearses the checks (count the plain K5 and K1 calls as
+    launches by wrapping ``deepinv_tpu_torch.models.dncnn.conv_chain`` and
+    ``deepinv_tpu_torch.models.drunet.resblock_chain``; the K6 and
+    stash-backward counts are checked on the card only) and skips the times
+    and profiles."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    import deepinv_tpu_torch.models.drunet as drunet_mod
+    from deepinv_tpu_torch.datasets import ArrayDataset, DataLoader, shepp_logan
+    from deepinv_tpu_torch.models import DnCNN, DRUNet, MoDL, PDNet, VarNet, autocast
+    from deepinv_tpu_torch.models.convert import (dncnn_names, drunet_names, port_dncnn,
+                                                  port_drunet, upstream_state_dict)
+    from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain, conv_chain_stash,
+                                                          stash_backward)
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import resblock_chain
+    from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox
+    from deepinv_tpu_torch.ops.kernels.up_resblock_chain import up_resblock_chain
+    from deepinv_tpu_torch.ops.kernels.up_sandwich import up_sandwich
+    from deepinv_tpu_torch.physics import MRI, GaussianNoise, Tomography
+    from deepinv_tpu_torch.physics.generator import RandomMaskGenerator
+    from deepinv_tpu_torch.training import Trainer
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    g = torch.Generator().manual_seed(SEED + 190)
+    rng = np.random.default_rng(SEED + 191)
+    L = depth - 2
+    out = {"launches": {"K1": {}, "K5": {}, "K6": {}, "stash_backward": {}}, "rates": {}}
+    kernel_ops = (conv_chain, conv_chain_stash, stash_backward, resblock_chain,
+                  up_resblock_chain, up_sandwich, chambolle_prox)
+
+    def launched():
+        return sum(o.launches for o in kernel_ops)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def recon(model, y, phys):
+        def run():
+            with torch.no_grad():
+                return model(y, phys)
+        return run
+
+    sl = torch.from_numpy(shepp_logan(size))
+
+    def images(n):
+        xs = [torch.stack([sl, 0.2 * sl.flip(-1)])]
+        xs += [torch.from_numpy(discs(rng, 2, size)) for _ in range(n - 1)]
+        return torch.stack(xs).to(dev)
+
+    # 17.1 MoDL's reconstruction over K5
+    mask = RandomMaskGenerator((size, size), acceleration=MODL_ACCEL).step(
+        1, generator=gen(SEED + 192))["mask"][0]
+    mri = MRI(mask=mask, img_size=(size, size), noise_model=GaussianNoise(MODL_SIGMA))
+    net = DnCNN(2, 2, depth=depth, nf=64, generator=g)
+    with torch.no_grad():
+        net.out_conv.weight.mul_(DNCNN_RESIDUAL_SCALE)
+    modl = MoDL(denoiser=autocast(net), num_iter=MODL_ITERS)
+    for B in (1, batch):
+        x = images(B)
+        y = mri(x, generator=gen(SEED + 193 + B))
+        label = f"MoDL B={B}"
+        res, res_plain, n = drive(label, modl, y, mri, net, dncnn_mod.conv_chain,
+                                  plain_conv_chain, tuple(x.shape), exact_conv_chain,
+                                  residual_of=net.out_conv, iters=MODL_ITERS)
+        with torch.no_grad():
+            zf = mri.A_adjoint(y)
+        print(f"{label}: PSNR {psnr(res[:1], x[:1]):.4f} dB (random weights), zero-filled "
+              f"{psnr(zf[:1], x[:1]):.4f} dB", flush=True)
+        out["launches"]["K5"][label] = n
+        out[label] = {"rel_l2_plain": rel_l2(res, res_plain)}
+        if cuda:
+            run = recon(modl, y, mri)
+            if B == 1:
+                out["tile"] = tile_in_profile(f"{label} recon", run,
+                                              {"conv3x3_wgmma": MODL_ITERS * L})
+            rate_of("MoDL", run, B * MODL_ITERS, B, MODL_ITERS, f"{size}²", card, out["rates"])
+
+    # 17.2 MoDL trained on K6 and its stash backward
+    def trainer_of(model, xs, B, fused):
+        return Trainer(model, mri, optimizer=torch.optim.Adam(model.parameters(), lr=MODL_LR),
+                       train_dataloader=DataLoader(ArrayDataset(xs), batch_size=B), epochs=1,
+                       online_measurements=True, verbose=False, fused_chains=fused, seed=SEED)
+
+    out["train"] = {}
+    for B in (1, batch):
+        xs = torch.cat([images(B) for _ in range(steps)])
+        trainers = {f: trainer_of(MoDL(denoiser=autocast(copy.deepcopy(net)),
+                                       num_iter=MODL_ITERS), xs, B, f) for f in (True, False)}
+        label = f"MoDL train B={B}"
+        gaps, _ = train_in_both(label, trainers, steps, MODL_ITERS, L, dev, card, size, out)
+        out["train"][label] = {"grad_gaps": gaps}
+
+    # 17.3 the 3D models: their layers, no kernel
+    x3 = torch.rand((1, 1, vol, vol, vol), generator=g).to(dev)
+    dn2 = DnCNN(1, 1, depth=depth_3d, nf=64, generator=g)
+    for name, model, call in (
+            ("DnCNN 3D", DnCNN(1, 1, depth=depth_3d, dim=3, generator=g), lambda m, v: m(v)),
+            ("DRUNet 3D", DRUNet(1, 1, nc=nc, nb=nb, dim=3, generator=g),
+             lambda m, v: m(v, 0.05))):
+        before = launched()
+        sync(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            f32 = call(model, x3)
+            bf16 = call(autocast(model), x3)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        err = rel_max(bf16, f32)
+        print(f"{name} 1x1x{vol}³: kernel launches {launched() - before}, bf16 vs f32 relative "
+              f"max error {err} (bound {DENOISER_RTOL}), output max {float(f32.abs().max())}; "
+              f"{secs:.3f} s for both (first calls, host clock)", flush=True)
+        check(launched() == before, f"{name}: a kernel was launched on 5D activations")
+        check(tuple(f32.shape) == tuple(x3.shape) and bool(torch.isfinite(f32).all())
+              and bool(torch.isfinite(bf16).all()), f"{name}: bad or non-finite output")
+        check(err <= DENOISER_RTOL, f"{name}: bf16 disagrees with f32")
+        out[name] = {"bf16_vs_f32": err, "s": secs}
+    inflated = DnCNN(1, 1, depth=depth_3d, dim=3, pretrained=dn2.state_dict())
+    x2 = torch.rand((1, 1, vol, vol), generator=g).to(dev)
+    with torch.no_grad():
+        slices = inflated(x2[:, :, None].expand(1, 1, vol, vol, vol).contiguous())
+        want = dn2(x2)
+    # each 3x3x3 conv reaches one slice further from a face
+    inner = slices[:, :, depth_3d:vol - depth_3d]
+    err = rel_max(inner, want[:, :, None].expand_as(inner))
+    print(f"DnCNN 3D inflated axially from 2D, depth-constant {vol}³: the {inner.shape[2]} "
+          f"inner slices against the 2D output, relative max error {err} (bound "
+          f"{INFLATE_RTOL})", flush=True)
+    check(err <= INFLATE_RTOL, "the inflated 3D DnCNN disagrees with the 2D one")
+    out["inflated_rel_max"] = err
+
+    # 17.4 pretrained= from upstream-named checkpoints, on K5 and K1
+    dr2 = DRUNet(1, 1, nc=nc, nb=nb, generator=g)
+    img = torch.rand((1, 1, image, image), generator=g).to(dev)
+    tmp = tempfile.mkdtemp()
+    # output bits are compared: cuDNN's split-K dgrad (DRUNet's transposed
+    # convs) sums in a varying order unless deterministic algorithms are asked for
+    def cudnn():
+        return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                          allow_tf32=torch.backends.cudnn.allow_tf32)
+
+    try:
+        for name, src, names, make, port, op, call in (
+                ("DnCNN", dn2, dncnn_names,
+                 lambda p: DnCNN(1, 1, depth=depth_3d, pretrained=p, generator=g),
+                 port_dncnn, dncnn_mod.conv_chain, lambda m: m(img)),
+                ("DRUNet", dr2, drunet_names,
+                 lambda p: DRUNet(1, 1, nc=nc, nb=nb, pretrained=p, generator=g),
+                 port_drunet, drunet_mod.resblock_chain, lambda m: m(img, 0.05))):
+            path = os.path.join(tmp, f"{name}.pth")
+            torch.save(upstream_state_dict(src, names(src)), path)
+            rebuilt = make(path)
+            same_w = all(torch.equal(a, b) for a, b in zip(src.state_dict().values(),
+                                                           rebuilt.state_dict().values()))
+            with torch.no_grad(), cudnn():
+                a = call(autocast(src))
+                op.launches = 0
+                b = call(autocast(rebuilt))
+                n = op.launches
+                # another model's weights loaded after the rebuilt one's first call
+                other = make(None)
+                port(rebuilt, upstream_state_dict(other, names(other)))
+                c = call(autocast(rebuilt))
+                d = call(autocast(other))
+            print(f"{name} pretrained= from {os.path.basename(path)} ({len(names(src))} "
+                  f"upstream names): weights equal {same_w}, bf16 output bits equal "
+                  f"{torch.equal(a, b)}, {op.__name__} launches a call {n}; loaded after the "
+                  f"first call: new weights' bits {torch.equal(c, d)}, changed "
+                  f"{not torch.equal(b, c)}", flush=True)
+            check(same_w and torch.equal(a, b), f"{name}: pretrained= changed the model")
+            check(torch.equal(c, d) and not torch.equal(b, c),
+                  f"{name}: weights loaded after the first call were not used")
+            if cuda:
+                check(n == 1, f"{name}: expected one {op.__name__} launch a call, got {n}")
+            out["launches"]["K5" if name == "DnCNN" else "K1"][f"{name} pretrained="] = n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 17.5 VarNet and PDNet on cuDNN
+    varnet = VarNet(num_cascades=cascades, generator=g)
+    for B in (1, batch):
+        x = images(B)
+        y = mri(x, generator=gen(SEED + 195 + B))
+        before = launched()
+        with torch.no_grad():
+            res = varnet(y, mri)
+        check(launched() == before and tuple(res.shape) == tuple(x.shape)
+              and bool(torch.isfinite(res).all()), f"VarNet B={B}: a kernel launch or a bad output")
+        print(f"VarNet ({cascades} cascades) B={B}: PSNR {psnr(res[:1], x[:1]):.4f} dB (random "
+              f"weights)", flush=True)
+        if cuda:
+            rate_of("VarNet", recon(varnet, y, mri), B * cascades, B, cascades, f"{size}²", card,
+                    out["rates"])
+    ct = Tomography(img_width=ct_size, angles=CT_ANGLES, normalize=True,
+                    noise_model=GaussianNoise(MODL_SIGMA))
+    pdnet = PDNet(generator=g)
+    xct = torch.from_numpy(shepp_logan(ct_size))[None, None].to(dev)
+    yct = ct(xct, generator=gen(SEED + 197))
+    before = launched()
+    with torch.no_grad():
+        res = pdnet(yct, ct)
+    check(launched() == before and tuple(res.shape) == tuple(xct.shape)
+          and bool(torch.isfinite(res).all()), "PDNet: a kernel launch or a bad output")
+    n_pd = len(pdnet.primal_blocks)
+    print(f"PDNet ({n_pd} iterations) {ct_size}², {CT_ANGLES} views: PSNR "
+          f"{psnr(res, xct):.4f} dB (random weights)", flush=True)
+    if cuda:
+        rate_of("PDNet", recon(pdnet, yct, ct), n_pd, 1, n_pd, f"{ct_size}²", card, out["rates"])
+    out["s"] = time.perf_counter() - t_phase
+    print(f"phase 17: {out['s']:.3f} s ({card})", flush=True)
     return out
 
 
@@ -4364,6 +4679,11 @@ def main() -> int:
     # a DEQ (forward over K5, backward over K6 and the stash backward)
     opt16 = optim_breadth_phase(dev, card)
 
+    # 17. the models of the unrolled, PnP and 3D demos: MoDL's recon over K5
+    # and its training over K6 and the stash backward, the 3D DnCNN and DRUNet
+    # on their layers, pretrained= checkpoints over K5 and K1, VarNet and PDNet
+    m17 = models_phase(dev, card)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -4436,6 +4756,9 @@ def main() -> int:
         # recon at B=1 and B=8) and DPIR's rates and idle shares
         "launches_optim_breadth": opt16["launches"]["K1"],
         "optim_breadth_rates": {k: v for k, v in opt16["rates"].items() if "DPIR" in k},
+        # phase 17: K1's launch in the DRUNet rebuilt from an upstream-named
+        # checkpoint (pretrained=), one a call
+        "launches_models": m17["launches"]["K1"],
         "backward_ms": smp["k1_bwd"]["ms"]["TF32 (the op)"],
         "backward_ms_tf32_off": smp["k1_bwd"]["ms"]["TF32 off"],
         "backward_library_ms": smp["k1_bwd"]["ms"]["cuDNN f32 layers under autograd"],
@@ -4497,6 +4820,12 @@ def main() -> int:
         # and B=8) and in a DEQ train step's forward (one a map), their rates
         "launches_optim_breadth": opt16["launches"]["K5"],
         "optim_breadth_rates": {k: v for k, v in opt16["rates"].items() if "MD" in k},
+        # phase 17: K5's launches in MoDL's recon on 320² MRI (one a denoiser
+        # call, 3 a recon, B=1 and B=8) and in the DnCNN rebuilt from a
+        # checkpoint, MoDL's rates and its tile launches in a recon's profile
+        "launches_models": m17["launches"]["K5"],
+        "models_rates": {k: v for k, v in m17["rates"].items() if k.startswith("MoDL B")},
+        "models_tile": m17.get("tile"),
     }, {
         "name": "tv_prox",
         "route": "cuda",
@@ -4612,6 +4941,10 @@ def main() -> int:
         # with their steps/s and idle shares
         "launches_optim_breadth": opt16["launches"]["K6"],
         "optim_breadth_rates": {k: v for k, v in opt16["rates"].items() if "train" in k},
+        # phase 17: K6's launches in MoDL's train steps (MODL_ITERS a step),
+        # with their steps/s and idle shares
+        "launches_models": m17["launches"]["K6"],
+        "models_rates": {k: v for k, v in m17["rates"].items() if "train" in k},
     }, {
         "name": "stash_backward",
         "route": "cuda",
@@ -4641,6 +4974,9 @@ def main() -> int:
         # backward, UNFOLD_ITERS backwards a step) and a DEQ train step (L + 2 a
         # vector-Jacobian product of the adjoint and the parameters' cotangents)
         "launches_optim_breadth": opt16["launches"]["stash_backward"],
+        # phase 17: the launches in MoDL's train steps (L + 2 a backward,
+        # MODL_ITERS backwards a step)
+        "launches_models": m17["launches"]["stash_backward"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

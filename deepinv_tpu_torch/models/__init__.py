@@ -5,15 +5,39 @@ from .base import Denoiser, Reconstructor, handle_sigma
 from .classic import (AnscombeDenoiser, BilateralFilter, MedianFilter, TGVDenoiser, TVDenoiser,
                       TVL1Denoiser, WaveletDenoiser, WaveletDictDenoiser,
                       generalized_anscombe_transform, inverse_generalized_anscombe_transform)
-from .convert import load_jax_params
+from .cnns import DScCP, AutoEncoder, FFDNet, SRResNet
+from .convert import load_jax_params, load_torch_checkpoint
 from .dncnn import DnCNN
 from .drunet import DRUNet, ResBlock
+from .layers import (GELU, AvgPool2d, BatchNorm2d, Conv2d, Conv3d, ConvTranspose2d,
+                     ConvTranspose3d, Identity, LeakyReLU, Linear, MaxPool2d, MaxPool3d,
+                     PixelShuffle, ReLU, Sequential, UpsampleNearest, conv_nd, conv_transpose_nd,
+                     fix_dim)
+from .misc_models import Client, EPLLDenoiser, MinusOneOneDenoiserWrapper, ScoreModelWrapper
 from .precision import AutocastDenoiser, autocast
-from .utils import test_pad
-from .wrappers_models import ICNN
+from .unet import UNet
+from .unrolled import PDNet, MoDL, PanNet, PDNet_DualBlock, PDNet_PrimalBlock, VarNet, VarNetBlock
+from .utils import test_onesplit, test_pad
+from .utils3d import initialize_3d_from_2d
+from .wrappers_models import (ICNN, MMSE, ComplexDenoiser, ComplexDenoiserWrapper,
+                              DiffusersDenoiserWrapper, EquivariantDenoiser,
+                              EquivariantReconstructor, GSDRUNet, GSPnP,
+                              PatchCovarianceNoiseEstimator, TimeAgnosticNet, TimeAveragingNet,
+                              WaveletNoiseEstimator, to_complex_denoiser)
 
 __all__ = ["ArtifactRemoval", "Denoiser", "Reconstructor", "handle_sigma", "load_jax_params",
-           "DnCNN", "DRUNet", "ResBlock", "AutocastDenoiser", "autocast", "test_pad", "TVDenoiser",
-           "TVL1Denoiser", "TGVDenoiser", "WaveletDenoiser", "WaveletDictDenoiser",
-           "MedianFilter", "BilateralFilter", "AnscombeDenoiser",
-           "generalized_anscombe_transform", "inverse_generalized_anscombe_transform", "ICNN"]
+           "load_torch_checkpoint", "DnCNN", "DRUNet", "ResBlock", "AutocastDenoiser", "autocast",
+           "test_pad", "test_onesplit", "TVDenoiser", "TVL1Denoiser", "TGVDenoiser",
+           "WaveletDenoiser", "WaveletDictDenoiser", "MedianFilter", "BilateralFilter",
+           "AnscombeDenoiser", "generalized_anscombe_transform",
+           "inverse_generalized_anscombe_transform", "ICNN",
+           "Conv2d", "Conv3d", "ConvTranspose2d", "ConvTranspose3d", "Linear", "Sequential", "ReLU",
+           "LeakyReLU", "GELU", "Identity", "AvgPool2d", "MaxPool2d", "MaxPool3d",
+           "UpsampleNearest", "PixelShuffle", "BatchNorm2d", "conv_nd", "conv_transpose_nd",
+           "fix_dim", "initialize_3d_from_2d", "UNet", "FFDNet", "SRResNet", "AutoEncoder",
+           "DScCP", "GSDRUNet", "EquivariantDenoiser", "TimeAgnosticNet", "TimeAveragingNet",
+           "ComplexDenoiser", "to_complex_denoiser", "MMSE", "WaveletNoiseEstimator",
+           "PatchCovarianceNoiseEstimator", "GSPnP", "EquivariantReconstructor",
+           "DiffusersDenoiserWrapper", "ComplexDenoiserWrapper", "MoDL", "VarNet", "VarNetBlock",
+           "PDNet", "PDNet_PrimalBlock", "PDNet_DualBlock", "PanNet", "MinusOneOneDenoiserWrapper",
+           "ScoreModelWrapper", "EPLLDenoiser", "Client"]

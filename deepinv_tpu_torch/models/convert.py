@@ -1,10 +1,18 @@
-"""Weights from the JAX package (new in the port; the JAX package's
-models/convert.py ports upstream torch checkpoints the other way).
+"""Weights from elsewhere: from the JAX package (:func:`load_jax_params`, new
+in the port) and from upstream torch checkpoints (port of
+deepinv_tpu/models/convert.py).
 
 The port's modules use the JAX modules' attribute names, so a JAX leaf at
 tree path ``m_down1.layers.0.conv1.weight`` is the port's state-dict entry of
 the same name. Flattening a JAX module into that ``{path: numpy array}``
 dictionary needs JAX and is left to the caller.
+
+Upstream checkpoints name the same tensors otherwise (DRUNet's
+``m_down1.0.res.0.weight``, SRResNet's ``blocks.0.layers.0.weight``): each
+``*_names`` function maps the port's names of a model to upstream's, and
+:func:`port_weights` copies a checkpoint through such a map. Conv weights
+are OIHW on both sides and transposed-conv weights IOHW, so porting is a
+renaming.
 """
 
 from __future__ import annotations
@@ -13,7 +21,9 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "load_torch_checkpoint", "port_weights", "upstream_state_dict",
+           "dncnn_names", "drunet_names", "srresnet_names", "dsccp_names", "port_dncnn",
+           "port_drunet", "port_srresnet", "port_dsccp"]
 
 
 def load_jax_params(module: nn.Module, arrays: dict) -> nn.Module:
@@ -40,3 +50,153 @@ def load_jax_params(module: nn.Module, arrays: dict) -> nn.Module:
         for k, t in state.items():
             t.copy_(torch.from_numpy(np.array(arrays[k], dtype=np.float32)))
     return module
+
+
+def load_torch_checkpoint(path) -> dict:
+    """A state dict as ``{name: np.ndarray}`` from a ``.pth`` (read by
+    ``torch.load(weights_only=True)`` on the CPU), an ``.npz`` or a dict,
+    unwrapped from ``params_ema``, ``params`` or ``state_dict``
+    (convert.py:20)."""
+    if isinstance(path, dict):
+        sd = path
+    elif str(path).endswith(".npz"):
+        with np.load(path) as f:
+            sd = dict(f)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    for wrap in ("params_ema", "params", "state_dict"):
+        if wrap in sd and isinstance(sd[wrap], dict):
+            sd = sd[wrap]
+            break
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+            for k, v in sd.items()}
+
+
+def _conv(names: dict, ours: str, theirs: str, bias: bool = True):
+    names[f"{ours}.weight"] = f"{theirs}.weight"
+    if bias:
+        names[f"{ours}.bias"] = f"{theirs}.bias"
+
+
+def dncnn_names(model) -> dict:
+    """DnCNN: upstream's names are the port's (convert.py:48)."""
+    return {k: k for k in model.state_dict()}
+
+
+def drunet_names(model) -> dict:
+    """DRUNet (convert.py:347): a ResBlock's convs are upstream's ``res.0``
+    and ``res.2``, and the stages are indexed without ``layers``."""
+    names = {}
+    for k in ("m_head", "m_tail"):
+        _conv(names, k, k, bias=False)
+    nb = model.nb
+    for stage in ("m_down1", "m_down2", "m_down3", "m_body", "m_up3", "m_up2", "m_up1"):
+        first = 1 if stage.startswith("m_up") else 0
+        for i in range(first, first + nb):
+            _conv(names, f"{stage}.layers.{i}.conv1", f"{stage}.{i}.res.0", bias=False)
+            _conv(names, f"{stage}.layers.{i}.conv2", f"{stage}.{i}.res.2", bias=False)
+        if stage.startswith("m_down"):
+            _conv(names, f"{stage}.layers.{nb}", f"{stage}.{nb}", bias=False)
+        elif stage != "m_body":
+            _conv(names, f"{stage}.layers.0", f"{stage}.0", bias=False)
+    return names
+
+
+def _norm(names: dict, ours: str, theirs: str):
+    for attr in ("weight", "bias", "running_mean", "running_var"):
+        names[f"{ours}.{attr}"] = f"{theirs}.{attr}"
+
+
+def srresnet_names(model) -> dict:
+    """SRResNet (convert.py:233): ``fe.0``/``fe.1``, each block's
+    ``layers.0``-``layers.4``, ``block.0``/``block.1``, ``upsampling.s.0`` and
+    ``.2``, ``final_conv.0``."""
+    names = {}
+    _conv(names, "fe_conv", "fe.0")
+    names["fe_act.weight"] = "fe.1.weight"
+    for i in range(len(model.blocks)):
+        p = f"blocks.{i}.layers"
+        _conv(names, f"blocks.{i}.conv1", f"{p}.0")
+        _norm(names, f"blocks.{i}.n1", f"{p}.1")
+        names[f"blocks.{i}.act.weight"] = f"{p}.2.weight"
+        _conv(names, f"blocks.{i}.conv2", f"{p}.3")
+        _norm(names, f"blocks.{i}.n2", f"{p}.4")
+    _conv(names, "block_conv", "block.0")
+    _norm(names, "block_norm", "block.1")
+    for s in range(len(model.up_convs)):
+        _conv(names, f"up_convs.{s}", f"upsampling.{s}.0")
+        names[f"up_acts.{s}.weight"] = f"upsampling.{s}.2.weight"
+    _conv(names, "final_conv", "final_conv.0")
+    state = model.state_dict()
+    return {k: v for k, v in names.items() if k in state}
+
+
+def dsccp_names(model) -> dict:
+    """DScCP (convert.py:266): the tied kernels are upstream's even convs
+    ``conv.{2k}``, and ``mu``."""
+    names = {f"weights.{k}": f"conv.{2 * k}.weight" for k in range(model.depth)}
+    names["mu"] = "mu"
+    return names
+
+
+def _optional(model, name: str) -> bool:
+    """Whether a checkpoint may lack ``name``: a bias, a norm's tensors or a
+    PReLU slope (convert.py:41-45, 236-247)."""
+    owner, _, leaf = name.rpartition(".")
+    if leaf in ("bias", "running_mean", "running_var"):
+        return True
+    return type(model.get_submodule(owner)).__name__ in ("BatchNorm2d", "_LayerNorm2d", "PReLU")
+
+
+def port_weights(model: nn.Module, sd: dict, names: dict) -> nn.Module:
+    """Copy the upstream state dict ``sd`` into ``model`` through ``names``
+    (``{port name: upstream name}``), in place, each tensor keeping its
+    dtype, device and memory format. Weights must be there; biases, norm
+    statistics and PReLU slopes that ``sd`` lacks keep their values, as in
+    the JAX ``port_*`` functions.
+
+    :raises KeyError: if a weight of ``names`` is missing from ``sd``.
+    :raises ValueError: if a shape differs.
+    """
+    state = model.state_dict(keep_vars=True)
+    with torch.no_grad():
+        for ours, theirs in names.items():
+            if theirs not in sd:
+                if _optional(model, ours):
+                    continue
+                raise KeyError(f"port_weights: the checkpoint has no {theirs!r} (for {ours!r})")
+            t, a = state[ours], np.asarray(sd[theirs])
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"port_weights: {theirs} has shape {tuple(a.shape)}, "
+                                 f"{ours} expects {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+    return model
+
+
+def port_dncnn(model, sd):
+    """Upstream DnCNN weights into ``model`` (convert.py:48)."""
+    return port_weights(model, sd, dncnn_names(model))
+
+
+def port_drunet(model, sd):
+    """Upstream DRUNet weights into ``model`` (convert.py:347)."""
+    return port_weights(model, sd, drunet_names(model))
+
+
+def port_srresnet(model, sd):
+    """Upstream SRResNet weights into ``model`` (convert.py:233)."""
+    return port_weights(model, sd, srresnet_names(model))
+
+
+def port_dsccp(model, sd):
+    """Upstream DScCP weights into ``model`` (convert.py:266)."""
+    return port_weights(model, sd, dsccp_names(model))
+
+
+def upstream_state_dict(model, names: dict) -> dict:
+    """``model``'s tensors under upstream's names (the inverse of
+    :func:`port_weights`), on the CPU: what an upstream checkpoint of it
+    holds."""
+    state = model.state_dict()
+    return {theirs: state[ours].detach().float().cpu().contiguous()
+            for ours, theirs in names.items()}

@@ -26,7 +26,15 @@ A stage fuses only with bf16 activations, ReLU blocks and bias-free convs
 scale 0 and 128 at scale 1, as the JAX gates ask, resblock_chain.py:292,
 :554; projection inputs a multiple of 16 channels);
 anywhere else its modules run one by one. Every other conv is plain
-``torch.nn.functional``. The JAX package's W-folded forward (drunet_fold.py)
+``torch.nn.functional``. With ``dim=3`` every conv is 3D and no stage fuses:
+the kernels take 4D activations only.
+
+``pretrained`` (a ``.pth``/``.npz`` path or a state dict) loads upstream
+weights (drunet.py:138-153): into a 2D model through the upstream names
+(:func:`~deepinv_tpu_torch.models.convert.drunet_names`), into a 3D one
+inflated from 2D kernels stored under the port's names
+(:func:`~deepinv_tpu_torch.models.utils3d.initialize_3d_from_2d`, isotropically
+with ``pretrained_2d_isotropic``), as the JAX package does. The JAX package's W-folded forward (drunet_fold.py)
 is a TPU lane-layout permutation of the same math and is not ported.
 """
 
@@ -42,8 +50,10 @@ from ..ops.kernels.resblock_chain import pack_weights, resblock_chain
 from ..ops.kernels.up_resblock_chain import pack_up_chain, up_resblock_chain
 from ..ops.kernels.up_sandwich import pack_sandwich, up_sandwich
 from .base import Denoiser, handle_sigma
-from .layers import Conv2d, ConvTranspose2d, Sequential
+from .convert import load_torch_checkpoint, port_drunet
+from .layers import Sequential, conv_nd, conv_transpose_nd, fix_dim, memory_format
 from .utils import stacked_weights, test_pad
+from .utils3d import initialize_3d_from_2d
 
 __all__ = ["DRUNet", "ResBlock"]
 
@@ -65,12 +75,14 @@ def _convs(blocks):
 
 class ResBlock(torch.nn.Module):
     """``x + conv2(act(conv1(x)))`` (deepinv_tpu/models/drunet.py:56), with
-    the reference's 0.2 init gain (drunet.py:69-72)."""
+    the reference's 0.2 init gain (drunet.py:69-72); 3D convs with ``dim=3``."""
 
-    def __init__(self, nc: int, bias: bool = False, act_mode: str = "R", generator=None):
+    def __init__(self, nc: int, bias: bool = False, act_mode: str = "R", dim=2,
+                 generator=None):
         super().__init__()
-        self.conv1 = Conv2d(nc, nc, 3, 1, 1, bias=bias, generator=generator)
-        self.conv2 = Conv2d(nc, nc, 3, 1, 1, bias=bias, generator=generator)
+        Conv = conv_nd(dim)
+        self.conv1 = Conv(nc, nc, 3, 1, 1, bias=bias, generator=generator)
+        self.conv2 = Conv(nc, nc, 3, 1, 1, bias=bias, generator=generator)
         self.act_mode = act_mode
         with torch.no_grad():
             self.conv1.weight.mul_(0.2)
@@ -88,6 +100,11 @@ class DRUNet(Denoiser):
     :param nc: widths of the four scales.
     :param nb: residual blocks per stage.
     :param act_mode: R (ReLU), L, E or S.
+    :param pretrained: upstream weights: a ``.pth`` or ``.npz`` path, or a
+        state dict.
+    :param pretrained_2d_isotropic: inflate 2D weights into a 3D model
+        isotropically instead of axially.
+    :param dim: 2 or 3 spatial dimensions.
     :param generator: CPU ``torch.Generator`` for the random initialization.
     :param device: where the weights are moved after they are drawn on the
         CPU; the CUDA device by default.
@@ -97,39 +114,50 @@ class DRUNet(Denoiser):
     """
 
     def __init__(self, in_channels: int = 3, out_channels: int = 3, nc=(64, 128, 256, 512),
-                 nb: int = 4, act_mode: str = "R", generator=None, device=None,
+                 nb: int = 4, act_mode: str = "R", pretrained=None,
+                 pretrained_2d_isotropic: bool = False, dim=2, generator=None, device=None,
                  fused: str = "down"):
         device = resolve_device(device)
         super().__init__()
         nc = tuple(nc)
         self.nb = nb
         self.fused = fused
+        self.dim = dim = fix_dim(dim)
         g = generator
-        self.m_head = Conv2d(in_channels + 1, nc[0], 3, 1, 1, bias=False, generator=g)
+        Conv, ConvT = conv_nd(dim), conv_transpose_nd(dim)
+        self.m_head = Conv(in_channels + 1, nc[0], 3, 1, 1, bias=False, generator=g)
+
+        def block(c):
+            return ResBlock(c, act_mode=act_mode, dim=dim, generator=g)
 
         def down_stage(cin, cout):
-            blocks = [ResBlock(cin, act_mode=act_mode, generator=g) for _ in range(nb)]
-            return Sequential(*blocks, Conv2d(cin, cout, 2, 2, 0, bias=False, generator=g))
+            return Sequential(*[block(cin) for _ in range(nb)],
+                              Conv(cin, cout, 2, 2, 0, bias=False, generator=g))
 
         def up_stage(cin, cout):
-            up = ConvTranspose2d(cin, cout, 2, 2, 0, bias=False, generator=g)
-            return Sequential(up, *[ResBlock(cout, act_mode=act_mode, generator=g)
-                                    for _ in range(nb)])
+            up = ConvT(cin, cout, 2, 2, 0, bias=False, generator=g)
+            return Sequential(up, *[block(cout) for _ in range(nb)])
 
         self.m_down1 = down_stage(nc[0], nc[1])
         self.m_down2 = down_stage(nc[1], nc[2])
         self.m_down3 = down_stage(nc[2], nc[3])
-        self.m_body = Sequential(*[ResBlock(nc[3], act_mode=act_mode, generator=g)
-                                   for _ in range(nb)])
+        self.m_body = Sequential(*[block(nc[3]) for _ in range(nb)])
         self.m_up3 = up_stage(nc[3], nc[2])
         self.m_up2 = up_stage(nc[2], nc[1])
         self.m_up1 = up_stage(nc[1], nc[0])
-        self.m_tail = Conv2d(nc[0], out_channels, 3, 1, 1, bias=False, generator=g)
+        self.m_tail = Conv(nc[0], out_channels, 3, 1, 1, bias=False, generator=g)
+        if pretrained is not None:
+            ckpt = load_torch_checkpoint(pretrained)
+            if dim == 3:
+                initialize_3d_from_2d(self, ckpt, isotropic=pretrained_2d_isotropic)
+            else:
+                port_drunet(self, ckpt)
         # channels_last is cuDNN's native layout for bf16 tensor-core convs on
         # the H100 and the resblock-chain kernel's: on NCHW activations cuDNN
         # transposes around every conv, on NCHW weights with NHWC activations
         # it converts the weight each call (measured on an H100: PERF.md).
-        self.to(device=device, memory_format=torch.channels_last)
+        # channels_last_3d in 3D.
+        self.to(device=device, memory_format=memory_format(dim))
 
     @property
     def fused(self) -> str:
@@ -145,13 +173,13 @@ class DRUNet(Denoiser):
         """Whether stage ``tag`` ("down", "up" or "sandwich") runs through its
         kernel op: the mode selects it (``"sandwich"`` implies the down
         chain), no ``fused_chains_disabled()`` context is active
-        (resblock_chain.py:159, 286, 546), the activations are bf16 and the
+        (resblock_chain.py:159, 286, 546), the activations are bf16 and 4D and the
         blocks ReLU and bias-free (drunet_fold.py:160-178)."""
         mode = self.fused
         ok_mode = (mode in ("1", "both", tag)
                    or (mode == "sandwich" and tag in ("down", "sandwich")))
         return (ok_mode and not fused_disabled() and v.dtype == torch.bfloat16
-                and len(blocks) > 0
+                and v.dim() == 4 and len(blocks) > 0
                 and all(b.act_mode == "R" and b.conv1.bias is None and b.conv2.bias is None
                         for b in blocks))
 
@@ -202,7 +230,7 @@ class DRUNet(Denoiser):
     def forward_unet(self, x0):
         """UNet on the image + noise-map input (drunet.py:163-171), with the
         stages ``fused`` selects on the kernel ops (drunet_fold.py:229-288)."""
-        x1 = self.m_head(x0.contiguous(memory_format=torch.channels_last))
+        x1 = self.m_head(x0.contiguous(memory_format=memory_format(x0.dim() - 2)))
         d0 = self._down_chain0(x1)
         x2 = self.m_down1[-1](d0)
         x3 = self.m_down2(x2)

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from .base import Denoiser
+from .utils import same_tensors, tensors_key
 
 __all__ = ["AutocastDenoiser", "autocast"]
 
@@ -32,10 +33,9 @@ class AutocastDenoiser(Denoiser):
         the casts are made at each call and are differentiable, so the
         gradient reaches the float32 parameters through the cast (rounded to
         ``dtype`` on the way, as JAX's ``astype`` cotangent is). Otherwise a
-        cached cast is used, made once per weight version (storage, version
-        counter, dtype, device, as
-        :func:`~deepinv_tpu_torch.models.utils.stacked_weights` keys its
-        cache). ``False`` runs the denoiser with its parameters as they are.
+        cached cast is used, made once per weight version (the same tensors,
+        storage, version counter, dtype, device:
+        :func:`~deepinv_tpu_torch.models.utils.tensors_key`). ``False`` runs the denoiser with its parameters as they are.
     """
 
     def __init__(self, denoiser: nn.Module, dtype=torch.bfloat16, cast_params: bool = True):
@@ -59,10 +59,9 @@ class AutocastDenoiser(Denoiser):
     def _casts(self, tensors):
         if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
             return [t.to(self.dtype) for t in tensors]
-        key = tuple((t.data_ptr(), t._version, t.device) for t in tensors)
-        if self._cast_cache is None or self._cast_cache[0] != key:
+        if self._cast_cache is None or not same_tensors(self._cast_cache[0], tensors):
             with torch.no_grad():
-                self._cast_cache = (key, [t.to(self.dtype) for t in tensors])
+                self._cast_cache = (tensors_key(tensors), [t.to(self.dtype) for t in tensors])
         return self._cast_cache[1]
 
     @contextlib.contextmanager

@@ -4,18 +4,61 @@ port)."""
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.nn.functional as F
 
-__all__ = ["test_pad", "stacked_weights"]
+__all__ = ["test_pad", "test_onesplit", "stacked_weights", "tensors_key", "same_tensors"]
 
 
 def test_pad(model, x, modulo: int = 16):
-    """Edge-pad the two spatial dims of ``x`` to multiples of ``modulo``, run
-    ``model``, crop back (deepinv_tpu/models/utils.py:10)."""
+    """Edge-pad every spatial dim of ``x`` (2D or 3D) to a multiple of
+    ``modulo``, run ``model``, crop back (deepinv_tpu/models/utils.py:10)."""
+    spatial = tuple(x.shape[2:])
+    pads = []
+    for s in reversed(spatial):
+        pads += [0, (-s) % modulo]
+    xp = F.pad(x, pads, mode="replicate")
+    return model(xp)[(Ellipsis,) + tuple(slice(0, s) for s in spatial)]
+
+
+def test_onesplit(model, x, refield: int = 64, sf: int = 1):
+    """Run ``model`` on four overlapping quadrants of ``x`` and reassemble the
+    output, ``sf`` times larger (deepinv_tpu/models/utils.py:20). The JAX
+    function writes each right-hand quadrant's full height into half the
+    output and raises for every input (ROADMAP queue 3); this one crops it,
+    as the upstream ``test_onesplit`` does."""
     H, W = x.shape[-2:]
-    xp = F.pad(x, (0, (-W) % modulo, 0, (-H) % modulo), mode="replicate")
-    return model(xp)[..., :H, :W]
+    th = (H // 2 // refield + 1) * refield
+    tw = (W // 2 // refield + 1) * refield
+    top, bottom = slice(0, th), slice(H - th, H)
+    left, right = slice(0, tw), slice(W - tw, W)
+    outs = [model(x[..., top, left]), model(x[..., top, right]),
+            model(x[..., bottom, left]), model(x[..., bottom, right])]
+    h, w = H // 2, W // 2
+    dh, dw = (h - H + th) * sf, (w - W + tw) * sf
+    out = outs[0].new_zeros(tuple(outs[0].shape[:-2]) + (H * sf, W * sf))
+    out[..., :h * sf, :w * sf] = outs[0][..., :h * sf, :w * sf]
+    out[..., :h * sf, w * sf:] = outs[1][..., :h * sf, dw:]
+    out[..., h * sf:, :w * sf] = outs[2][..., dh:, :w * sf]
+    out[..., h * sf:, w * sf:] = outs[3][..., dh:, dw:]
+    return out
+
+
+def tensors_key(tensors) -> tuple:
+    """What identifies ``tensors`` for a cache of values made from them: a weak
+    reference to each (a tensor made later at a freed one's address, such as
+    a fresh bf16 cast, is another tensor) and its storage, version counter,
+    dtype and device."""
+    return tuple((weakref.ref(t), t.data_ptr(), t._version, t.dtype, t.device) for t in tensors)
+
+
+def same_tensors(key: tuple, tensors) -> bool:
+    """Whether ``tensors`` are the ones :func:`tensors_key` saw, unchanged."""
+    return len(key) == len(tensors) and all(
+        k[0]() is t and k[1:] == (t.data_ptr(), t._version, t.dtype, t.device)
+        for k, t in zip(key, tensors))
 
 
 def stacked_weights(owner, groups, pack, name: str = "chain"):
@@ -23,8 +66,9 @@ def stacked_weights(owner, groups, pack, name: str = "chain"):
     pack the stacks for a kernel, once per weight version.
 
     The result is kept on ``owner`` (in ``owner._packed[name]``, one entry per
-    kernel call site) until one of the tensors changes: its storage, its
-    version counter, its dtype or its device. Under autograd the stacks are
+    kernel call site) until one of the tensors changes (:func:`tensors_key`):
+    it is another tensor, or its storage, version counter, dtype or device
+    changed. Under autograd the stacks are
     rebuilt on every call, so gradients reach each layer, and nothing is
     packed.
 
@@ -41,11 +85,10 @@ def stacked_weights(owner, groups, pack, name: str = "chain"):
     flat = [t for g in groups for t in ([g] if isinstance(g, torch.Tensor) else g)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
         return (*(stack(g) for g in groups), None)
-    key = tuple((t.data_ptr(), t._version, t.dtype, t.device) for t in flat)
     cache = owner.__dict__.setdefault("_packed", {})
     cached = cache.get(name)
-    if cached is None or cached[0] != key:
+    if cached is None or not same_tensors(cached[0], flat):
         stacks = tuple(stack(g).detach() for g in groups)
-        cached = (key, (*stacks, pack(*stacks) if stacks[0].is_cuda else None))
+        cached = (tensors_key(flat), (*stacks, pack(*stacks) if stacks[0].is_cuda else None))
         cache[name] = cached
     return cached[1]

@@ -47,7 +47,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .resblock_chain import (C, _tf32_convs, check_activations, pack_weights,
+from .resblock_chain import (C, _tf32_convs, check_activations, first_order_only, pack_weights,
                              pack_weights_transposed, tile_args)
 
 __all__ = ["conv_chain", "conv_chain_plain", "conv_chain_stash", "conv_chain_stash_plain",
@@ -345,9 +345,14 @@ class _ConvChain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """The stash backward; no second derivative (:func:`first_order_only`:
+        the kernels' results carry no graph, and the plain version's detach
+        the weights)."""
         h, ws, bs, acts = ctx.saved_tensors
-        dh, dw, db = stash_backward(h, ws, acts, g)
-        return dh.to(h.dtype), dw.to(ws.dtype), db.to(bs.dtype), None, None, None
+        with torch.no_grad():
+            dh, dw, db = stash_backward(h, ws, acts, g)
+        results = (dh.to(h.dtype), dw.to(ws.dtype), db.to(bs.dtype))
+        return (*first_order_only("conv_chain", results, (g, h, ws, bs)), None, None, None)
 
     @staticmethod
     def jvp(ctx, *tangents):

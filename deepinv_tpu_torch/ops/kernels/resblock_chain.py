@@ -82,6 +82,39 @@ def resblock_chain_plain(h, w1s, w2s):
     return h
 
 
+class _FirstOrderOnly(torch.autograd.Function):
+    """The identity on a kernel op's first derivative, joined to the op's
+    inputs and cotangent, whose own derivative raises."""
+
+    @staticmethod
+    def forward(ctx, name, n, *tensors):
+        ctx.name = name
+        return tuple(t.clone() for t in tensors[:n])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            f"the {ctx.name} kernel op has no second derivative (its backward is a kernel "
+            "launch or a recompute on detached copies): differentiate twice inside "
+            "fused_chains_disabled(), which takes the layers")
+
+
+def first_order_only(name: str, results, inputs) -> tuple:
+    """``results`` (a kernel op's backward, None where no gradient is asked)
+    as they are outside grad mode; inside it (``create_graph``) joined to
+    ``inputs`` through a node whose derivative raises, so that a second
+    derivative through the op raises instead of silently dropping the terms
+    of the inputs' dependence, which the backward does not record."""
+    if not torch.is_grad_enabled():
+        return tuple(results)
+    inputs = [t for t in inputs if isinstance(t, torch.Tensor) and t.requires_grad]
+    kept = [r for r in results if r is not None]
+    if not inputs or not kept:
+        return tuple(results)
+    joined = iter(_FirstOrderOnly.apply(name, len(kept), *kept, *inputs))
+    return tuple(None if r is None else next(joined) for r in results)
+
+
 def check_activations(h, op: str, channels: int = C):
     """Raise unless ``h`` is what the port's chain kernels take:
     ``(B, channels, H, W)`` bf16, contiguous NCHW or channels_last."""
@@ -187,16 +220,17 @@ class _ResblockChain(torch.autograd.Function):
         only: a DPS step asks for dh alone, which skips the dW convs, a third
         of the backward's arithmetic. TF32 convs: the recompute's inputs and
         weights are bf16 values, which TF32 holds exactly; the hidden
-        activations and the cotangent round to TF32's 10-bit mantissa."""
+        activations and the cotangent round to TF32's 10-bit mantissa. No
+        second derivative (:func:`first_order_only`)."""
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
         with torch.enable_grad(), _tf32_convs():
             args = [v.detach().float().requires_grad_(n) for v, n in zip(saved, need)]
             out = resblocks_f32(*args)
             grads = iter(torch.autograd.grad(out, [a for a, n in zip(args, need) if n],
-                                             g.float()))
-        return (*(next(grads).to(v.dtype) if n else None for v, n in zip(saved, need)),
-                None, None)
+                                             g.detach().float()))
+        results = [next(grads).to(v.dtype) if n else None for v, n in zip(saved, need)]
+        return (*first_order_only("resblock_chain", results, (g, *saved)), None, None)
 
 
 def resblock_chain(h, w1s, w2s, packed=None):

@@ -43,6 +43,8 @@ from dataclasses import dataclass
 
 import torch
 
+from .resblock_chain import first_order_only
+
 __all__ = ["chambolle_prox", "chambolle_prox_plain", "grad_op", "div_op", "fwd_diff_nd",
            "fwd_diff_nd_adjoint", "TAU", "TVPlan", "tv_plan"]
 
@@ -305,12 +307,14 @@ class _ChambolleProx(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
+        """Autodiff of the plain prox on detached copies; no second derivative
+        (:func:`~.resblock_chain.first_order_only`)."""
         x, g = ctx.saved_tensors
         with torch.enable_grad():
             xv, gv = x.detach().requires_grad_(), g.detach().requires_grad_()
             out = chambolle_prox_plain(xv, gv, ctx.n_iter)
-            gx, gg = torch.autograd.grad(out, (xv, gv), ct)
-        return gx, gg, None
+            gx, gg = torch.autograd.grad(out, (xv, gv), ct.detach())
+        return (*first_order_only("chambolle_prox", (gx, gg), (ct, x, g)), None)
 
 
 def chambolle_prox(x: torch.Tensor, gamma, n_iter: int = 100) -> torch.Tensor:

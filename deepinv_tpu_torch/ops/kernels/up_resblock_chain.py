@@ -36,8 +36,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .resblock_chain import (C, _sms, check_activations, check_packed, int_array,
-                             pack_weights, resblock_chain_plain, resblocks_f32)
+from .resblock_chain import (C, _sms, check_activations, check_packed, first_order_only,
+                             int_array, pack_weights, resblock_chain_plain, resblocks_f32)
 
 __all__ = ["up_resblock_chain", "up_resblock_chain_plain", "up_resblocks_f32",
            "pack_up_weights", "pack_up_chain", "up_plain"]
@@ -133,11 +133,15 @@ class _UpResblockChain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """Autodiff of the f32 version on detached copies; no second
+        derivative (:func:`~.resblock_chain.first_order_only`)."""
         saved = ctx.saved_tensors
         with torch.enable_grad():
             args = [x.detach().float().requires_grad_() for x in saved]
-            grads = torch.autograd.grad(up_resblocks_f32(*args), args, g.float())
-        return (*(d.to(x.dtype) for d, x in zip(grads, saved)), None, None, None)
+            grads = torch.autograd.grad(up_resblocks_f32(*args), args, g.detach().float())
+        grads = first_order_only("up_resblock_chain",
+                                 [d.to(x.dtype) for d, x in zip(grads, saved)], (g, *saved))
+        return (*grads, None, None, None)
 
 
 def up_resblock_chain(v, w_up, w1s, w2s, packed=None):

@@ -42,8 +42,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .resblock_chain import (C, _sms, check_activations, check_packed, int_array,
-                             pack_weights, resblock_chain_plain, resblocks_f32)
+from .resblock_chain import (C, _sms, check_activations, check_packed, first_order_only,
+                             int_array, pack_weights, resblock_chain_plain, resblocks_f32)
 from .up_resblock_chain import pack_up_weights, up_plain
 
 __all__ = ["up_sandwich", "up_sandwich_plain", "sandwich_f32", "pack_down_weights",
@@ -206,11 +206,15 @@ class _UpSandwich(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """Autodiff of the f32 version on detached copies; no second
+        derivative (:func:`~.resblock_chain.first_order_only`)."""
         saved = ctx.saved_tensors
         with torch.enable_grad():
             args = [x.detach().float().requires_grad_() for x in saved]
-            grads = torch.autograd.grad(sandwich_f32(*args), args, g.float())
-        return (*(d.to(x.dtype) for d, x in zip(grads, saved)), *([None] * 7))
+            grads = torch.autograd.grad(sandwich_f32(*args), args, g.detach().float())
+        grads = first_order_only("up_sandwich", [d.to(x.dtype) for d, x in zip(grads, saved)],
+                                 (g, *saved))
+        return (*grads, *([None] * 7))
 
 
 def up_sandwich(s2, d0, w_up2, w1s1, w2s1, w_down, w_up1, w1s, w2s, packed=None):

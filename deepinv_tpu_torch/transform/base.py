@@ -7,6 +7,10 @@ invert it (``inverse``): the machinery of the equivariant-imaging loss.
 
 from __future__ import annotations
 
+from itertools import product
+
+import torch
+
 __all__ = ["Transform"]
 
 
@@ -14,10 +18,13 @@ class Transform:
     """Base class of random group-action transforms (base.py:73).
 
     :param n_trans: number of transformed versions per call.
+    :param seed: the seed of the generator :meth:`symmetrize` makes when the
+        caller gives none.
     """
 
-    def __init__(self, n_trans: int = 1):
+    def __init__(self, n_trans: int = 1, seed: int = 0):
         self.n_trans = n_trans
+        self.seed = seed
 
     def get_params(self, x, generator=None) -> dict:
         raise NotImplementedError
@@ -38,6 +45,32 @@ class Transform:
         if not params:
             params = self.get_params(x, generator)
         return self.transform(x, **self.invert_params(params))
+
+    def iterate_params(self, params: dict) -> list:
+        """Every combination of single parameter values, one dict each, each
+        value a 1-element tensor (base.py:124): full-group averaging
+        enumerates each element once instead of sampling."""
+        keys = list(params)
+        values = [torch.as_tensor(params[k]).reshape(-1) for k in keys]
+        return [{k: v[i:i + 1] for k, v, i in zip(keys, values, idx)}
+                for idx in product(*(range(len(v)) for v in values))]
+
+    def symmetrize(self, f, average: bool = True):
+        """``x -> mean_t t^-1(f(t(x)))`` over ``n_trans`` drawn transforms
+        (base.py:144); without ``average`` the ``n_trans`` versions stay
+        stacked in the batch. The parameters come from the call's
+        ``generator``, or one seeded from :attr:`seed` on ``x``'s device."""
+
+        def sym(x, *args, generator=None, **kwargs):
+            if generator is None:
+                generator = torch.Generator(device=x.device).manual_seed(int(self.seed))
+            params = self.get_params(x, generator)
+            out = self.inverse(f(self.transform(x, **params), *args, **kwargs), **params)
+            if average and self.n_trans > 1:
+                out = out.reshape((self.n_trans, x.shape[0]) + tuple(out.shape[1:])).mean(0)
+            return out
+
+        return sym
 
     def _repeat(self, x):
         """The batch tiled ``n_trans`` times (base.py:172)."""

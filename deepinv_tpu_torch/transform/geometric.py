@@ -54,8 +54,9 @@ class Rotate(Transform):
     ported: each sample is rotated by ``torch.rot90`` (``jnp.rot90``'s
     direction)."""
 
-    def __init__(self, multiples: float = 90.0, limits: float = 360.0, n_trans: int = 1):
-        super().__init__(n_trans)
+    def __init__(self, multiples: float = 90.0, limits: float = 360.0, n_trans: int = 1,
+                 seed: int = 0):
+        super().__init__(n_trans, seed)
         if multiples % 90 or limits % 90:
             raise NotImplementedError("Rotate by angles other than multiples of 90 degrees "
                                       "(the bilinear warp) waits for ROADMAP queue 1")

@@ -138,11 +138,13 @@ def test_chain_weights_are_packed_once_per_weight_version(monkeypatch):
 
 
 def test_random_init_follows_the_jax_scheme():
-    """He-normal weights (fan-in), zero biases, channels_last weights."""
+    """He-normal weights (fan-in), zero biases, channels_last weights;
+    ``pretrained`` is a local checkpoint, as in the JAX package (nothing is
+    downloaded)."""
     port = DnCNN(2, 2, generator=torch.Generator().manual_seed(0), device=DEV)
     w = port.conv_list[5].weight
     assert abs(float(w.detach().std()) / (2 / (64 * 9)) ** 0.5 - 1) < 0.02
     assert float(port.out_conv.bias.detach().abs().max()) == 0.0
     assert w.is_contiguous(memory_format=torch.channels_last)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         DnCNN(pretrained="download", device=DEV)

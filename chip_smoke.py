@@ -268,6 +268,29 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    ``PDNet`` on cuDNN with no kernel launch. Timed and profiled: recons/s,
    image-it/s, steps/s, idle shares and the phase's seconds (``rate:``
    lines, with the card).
+18. the diffusion backbones and the attention models (``backbones_phase``),
+   at their published widths with seeded random weights, none reaching a
+   K1-K8 kernel (every count 0 through the phase): ``ADMUNet()`` (the FFHQ
+   checkpoint's architecture, f32) as the network of phase 11's DDRM (B=1
+   and B=8), DPS and DiffPIR problems at 256² RGB, with the JAX samplers'
+   call counts, the first calls' noise prediction under a bf16 autocast
+   within DENOISER_RTOL of f32, DPS's guidance gradient in bf16 (the
+   network's part within SAMPLE_GRAD_RTOL of f32's, the last step's whole
+   gradient within BB_GUIDANCE_RTOL) and ``pretrained=`` from a
+   guided-diffusion-named ``.pt`` file giving the same output bits (ADM's
+   zero modules redrawn by ``wake``); ``NCSNpp()`` (EDM's 64² configuration,
+   its 1e-5 convs woken) under ``PosteriorDiffusion`` over a
+   variance-exploding ``EDMDiffusionSDE`` with ``DPSDataFidelity`` on 64²
+   inpainting at B=1 and B=8, held alike (bf16 bound BB_BF16_RTOL);
+   ``EDMPrecond(DiffUNet())``, ``Restormer()``, ``SwinIR()``, ``SCUNet()``
+   and ``PromptIR()`` as denoisers of 256² RGB at B=1 and B=8, bf16 within
+   its bound of f32 (DENOISER_RTOL or BB_BF16_RTOL), their ``pretrained=``
+   round trips; ``RAM()`` (its residual branches scaled by
+   RAM_RESIDUAL_SCALE) on the denoising, inpainting and deblurring tasks of
+   examples/demo_foundation_model.py at 256² RGB, B=1 and B=8, bf16 within
+   DENOISER_RTOL of f32 and its round trip. Timed: the samplers' steps/s by
+   the slope between n and 4n steps with idle shares, ms a call in f32 and
+   bf16, recons/s and idle shares (``rate:`` lines, with the card).
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -633,6 +656,39 @@ MODL_LR = 1e-4
 VOL_SIZE = 64
 INFLATE_RTOL = 1e-5             # the axially inflated 3D DnCNN against the 2D one, f32
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W) for the bounds.
+# phase 18 (backbones_phase): the diffusion backbones under the samplers of
+# phase 11 and the attention models as denoisers, all at their published
+# widths with seeded random weights; none reaches a K1-K8 kernel
+BB_RATE_STEPS = (3, 1)          # the slope's n at B=1 and at B=SAMPLE_BATCH
+BB_PD_STEPS = 4                 # PosteriorDiffusion steps over the NCSN++ (two calls a step)
+BB_SIGMA_MAX = 2.0              # the EDM SDE's sigma(t) = BB_SIGMA_MAX * t
+# bf16 bounds of the phase's own, where a model's bf16 output (relative max
+# error against f32) sits past DENOISER_RTOL, each 1.5x the largest gap
+# measured on an H100 (PERF.md, phase 18), with its reason: these deep
+# networks at random weights grow their activations block by block
+# (Restormer's output ~5e2, SCUNet's ~7e13; NCSN++'s residual convs woken
+# from their 1e-5 start), and each of their 28-44 residual blocks adds its
+# bf16 rounding (2^-9 of its branch) to what the later ones amplify
+BB_BF16_RTOL = {
+    "NCSN++": (7e-2, ": 4 blocks a level and attention at 16², the first call at sigma "
+                     "2 passes 0.70 of F's error to D; 2.7e-2 at B=1, 4.8e-2 at B=8"),
+    "Restormer": (7e-2, ": 44 transformer blocks, output ~5e2; 4.0e-2 / 4.2e-2"),
+    "SCUNet": (7e-2, ": 28 Swin-conv blocks, output ~7e13; 3.4e-2 / 4.3e-2"),
+}
+# the whole DPS guidance gradient over ADM at the last step, bf16 against
+# f32: its loss ||A(x0) - y|| takes x0 rounded to bf16 at the autocast's
+# output, and the residual cancels most of A(x0): a network predicting a
+# noise of exactly 0 sits 5.0e-2-5.8e-2 apart on the CPU at 32² (3.3e-2 on
+# an H100 with the network woken, PERF.md); the network's own
+# part of the gradient is held to SAMPLE_GRAD_RTOL
+BB_GUIDANCE_RTOL = 0.1
+# RAM's random residual branches (conv2 and the conditioning's gain of each of
+# its 28 blocks) scaled as phase 5 scales DnCNN's out_conv: at He-normal
+# weights they grow the output to ~1e15 (7.3e15 on a 64² CPU probe, ~50
+# scaled), and the bf16 check would compare the rounding of that
+RAM_RESIDUAL_SCALE = 0.1
+
+
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
@@ -3426,11 +3482,11 @@ def train_in_both(label: str, trainers: dict, steps: int, iters: int, L: int, de
 
 
 def rate_of(label: str, run, image_its: int, B: int, iters: int, size, card: str,
-            rates: dict) -> None:
+            rates: dict, calls: int = 3) -> None:
     """A ``rate:`` line of one recon ``run`` (recons/s, image-it/s and the
-    idle share from a profile of three recons), kept in ``rates``."""
-    r = rates_in_turns(f"{label}, B={B}", {"kernel": run}, image_its, reps=3)["kernel"]
-    prof = device_profile(f"{label} B={B} recon", run, 3, top=8)
+    idle share from a profile of ``calls`` recons), kept in ``rates``."""
+    r = rates_in_turns(f"{label}, B={B}", {"kernel": run}, image_its, reps=calls)["kernel"]
+    prof = device_profile(f"{label} B={B} recon", run, calls, top=8)
     idle = None if prof is None else 1 - prof[4] / prof[0]
     print(f"rate: {label} {size} B={B} {r / (B * iters):.3f} recons/s, {r:.2f} image-it/s; "
           f"idle share {idle} ({card})", flush=True)
@@ -3912,6 +3968,431 @@ def models_phase(dev, card: str, size: int = MODL_SIZE, batch: int = HQS_BATCH,
         rate_of("PDNet", recon(pdnet, yct, ct), n_pd, 1, n_pd, f"{ct_size}²", card, out["rates"])
     out["s"] = time.perf_counter() - t_phase
     print(f"phase 17: {out['s']:.3f} s ({card})", flush=True)
+    return out
+
+
+def wake(model, gen) -> int:
+    """Redraw, normal over ``sqrt(fan_in)``, every weight tensor that the
+    initialization leaves at zero or near it (ADM's and DiffUNet's zero
+    modules, NCSN++'s 1e-5 output convs): a fresh ADMUNet predicts a noise of
+    exactly 0, and a bf16 check of it would compare nothing. Returns how
+    many tensors were redrawn."""
+    import torch
+
+    n = 0
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() > 1 and float(p.abs().max()) < 1e-3:
+                p.copy_(torch.randn(p.shape, generator=gen).to(p.device) / p[0].numel() ** 0.5)
+                n += 1
+    return n
+
+
+def backbone_drive(name: str, run, net, calls: int, kernel_ops, dev, at_network=None,
+                   rtol: float = None) -> dict:
+    """One sampler run over ``net`` in f32 (the kernels' launch counts set to
+    0 just before it and read just after), checked: no kernel launched,
+    ``calls`` network calls, a finite sample, and each of the first
+    SAMPLE_CHECKED_CALLS calls of ``net`` under a bf16 ``autocast`` within
+    ``rtol`` (DENOISER_RTOL by default) of the f32 call on the same input.
+    ``at_network(x, sigma)``
+    gives ``(x', sigma', kwargs)``, where the two are compared instead (ADM:
+    its noise prediction at the call's timestep). ``run()`` makes its own
+    generator. Returns the bf16 gaps and the sample's largest magnitude."""
+    import torch
+
+    from deepinv_tpu_torch.models import autocast
+
+    seen, kept = [], []
+
+    def keep(mod, args, kwargs):
+        seen.append(1)
+        if len(kept) < SAMPLE_CHECKED_CALLS:
+            sigma = args[1] if len(args) > 1 else kwargs.get("sigma")
+            kept.append((args[0].detach().clone(), sigma))
+
+    hook = net.register_forward_pre_hook(keep, with_kwargs=True)
+    for op in kernel_ops:
+        op.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            out = run()
+        sync(dev)
+    finally:
+        hook.remove()
+    first_s = time.perf_counter() - t0
+    launches = sum(op.launches for op in kernel_ops)
+    big = float(out.abs().max())
+    print(f"{name}: first run {first_s:.3f} s, kernel launches {launches}, network calls "
+          f"{len(seen)} (expected {calls}), max |x| {big}", flush=True)
+    check(launches == 0, f"{name}: a K1-K8 kernel was launched ({launches})")
+    check(len(seen) == calls, f"{name}: {len(seen)} network calls, expected {calls}")
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite sample")
+    gaps = []
+    half = autocast(net)
+    rtol = DENOISER_RTOL if rtol is None else rtol
+    for i, (xin, sigma) in enumerate(kept):
+        with torch.no_grad():
+            d32, d16 = net(xin, sigma).float(), half(xin, sigma).float()
+            whole = rel_max(d16, d32)
+            if at_network is not None:
+                xin, sigma, kw = at_network(xin, sigma)
+                d32, d16 = net(xin, sigma, **kw).float(), half(xin, sigma, **kw).float()
+        err, scale = float((d16 - d32).abs().max()), float(d32.abs().max())
+        gaps.append(err / scale)
+        print(f"{name} network call {i}: bf16 vs f32 max_abs_err {err} (scale {scale}, rel "
+              f"{err / scale}, bound {rtol})"
+              + ("" if at_network is None else f"; the whole call's output {whole}"), flush=True)
+        check(err <= rtol * scale, f"{name}: bf16 call {i} disagrees with f32")
+    return {"bf16_vs_f32": gaps, "max_abs": big, "first_s": first_s}
+
+
+def bits_round_trip(name: str, src, names, make, call, tmp: str) -> bool:
+    """``src`` written to a ``.pt`` file under upstream's ``names`` and rebuilt
+    by ``make(path)`` (its ``pretrained=``): checked to give the same output
+    bits as ``src`` from ``call(model)`` (cuDNN asked for deterministic
+    algorithms)."""
+    import os
+
+    import torch
+
+    from deepinv_tpu_torch.models.convert import upstream_state_dict
+
+    path = os.path.join(tmp, f"{name}.pt")
+    torch.save(upstream_state_dict(src, names(src)), path)
+    rebuilt = make(path)
+    with torch.no_grad(), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True,
+            allow_tf32=torch.backends.cudnn.allow_tf32):
+        a, b = call(src), call(rebuilt)
+    same = torch.equal(a, b)
+    print(f"{name} pretrained= from {os.path.basename(path)} ({len(names(src))} upstream names):"
+          f" output bits equal {same}", flush=True)
+    check(same, f"{name}: pretrained= changed the output")
+    return same
+
+
+def backbones_phase(dev, card: str, size: int = 256, batch: int = SAMPLE_BATCH,
+                    steps: int = SAMPLE_STEPS, ncsn_size: int = 64, ncsn: dict = None,
+                    nets: dict = None, ram: dict = None, rate_steps=BB_RATE_STEPS) -> dict:
+    """Phase 18: the diffusion backbones under the samplers and the attention
+    models, through the entry points with the default device; no K1-K8
+    kernel is launched anywhere in it.
+
+    18.1 ``ADMUNet()`` (the FFHQ checkpoint's architecture, f32, seeded random
+    weights, its zero modules redrawn by ``wake``) as the network of DDRM on
+    ``Inpainting(mask=0.7)`` with noise 0.05 at B=1 (``steps``) and
+    B=``batch`` (``steps // 2``), DiffPIR and DPS on 4x bicubic
+    super-resolution at B=1, on ``size``² RGB (phase 11's problems): the JAX
+    samplers' call counts, each sampler's first calls' noise prediction under
+    a bf16 ``autocast`` within DENOISER_RTOL of f32 (``backbone_drive``), DPS's
+    guidance gradient in bf16 against f32 (the network's part within
+    SAMPLE_GRAD_RTOL, the last step's whole gradient within
+    BB_GUIDANCE_RTOL), an ``ADMUNet`` rebuilt with ``pretrained=`` from a
+    guided-diffusion-named ``.pt`` file the same output bits. 18.2
+    ``NCSNpp()`` (EDM's 64² configuration, its 1e-5 convs woken) as the
+    denoiser of ``PosteriorDiffusion`` over a variance-exploding
+    ``EDMDiffusionSDE`` with ``DPSDataFidelity`` on ``ncsn_size``² RGB
+    inpainting at B=1 and B=``batch``, BB_PD_STEPS steps (two network calls
+    a step), with the same checks (bf16 bound BB_BF16_RTOL). 18.3
+    ``EDMPrecond(DiffUNet())``, ``Restormer()``, ``SwinIR()``, ``SCUNet()``
+    and ``PromptIR()`` at their published widths as denoisers of ``size``²
+    RGB at B=1 and B=``batch``: bf16 within its bound of f32 (DENOISER_RTOL,
+    or BB_BF16_RTOL where stated), ms a call in each, the ``pretrained=``
+    round trips. 18.4 ``RAM()`` at full width (its residual branches scaled
+    by RAM_RESIDUAL_SCALE) on the three tasks of
+    examples/demo_foundation_model.py at ``size``² RGB, B=1 and B=``batch``:
+    finite, bf16 (``torch.autocast``: the physics' FFTs have no bf16 path)
+    within DENOISER_RTOL of f32, recons/s and idle shares, the ``pretrained=``
+    round trip. Timed (``rate:`` lines, with the card): the samplers' steps/s
+    by the slope between ``rate_steps`` and 4 ``rate_steps`` steps, idle
+    shares, ms a call, recons/s, and the phase's seconds. On the CPU (``dev``),
+    at small sizes and widths (``ncsn``, ``nets``, ``ram``), it rehearses the
+    checks and skips the times."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepinv_tpu_torch.models import (ADMUNet, RAM, DiffUNet, EDMPrecond, NCSNpp, PromptIR,
+                                          Restormer, SCUNet, SwinIR, autocast)
+    from deepinv_tpu_torch.models.convert import (adm_names, ncsnpp_names, ram_names,
+                                                  restormer_names, scunet_names, swinir_names)
+    from deepinv_tpu_torch.models.ram import RAMResBlock
+    from deepinv_tpu_torch.ops import gaussian_blur
+    from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain, conv_chain_stash,
+                                                          stash_backward)
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import resblock_chain
+    from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox
+    from deepinv_tpu_torch.ops.kernels.up_resblock_chain import up_resblock_chain
+    from deepinv_tpu_torch.ops.kernels.up_sandwich import up_sandwich
+    from deepinv_tpu_torch.physics import (BlurFFT, Denoising, Downsampling, GaussianNoise,
+                                           Inpainting)
+    from deepinv_tpu_torch.sampling import (DDRM, DPS, DiffPIR, DPSDataFidelity,
+                                            EDMDiffusionSDE, PosteriorDiffusion)
+    from deepinv_tpu_torch.sampling.utils import frozen
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    g = torch.Generator().manual_seed(SEED + 200)
+    kernel_ops = (conv_chain, conv_chain_stash, stash_backward, resblock_chain,
+                  up_resblock_chain, up_sandwich, chambolle_prox)
+    for op in kernel_ops:
+        op.launches = 0
+    out = {"rates": {}, "bf16": {}, "ms": {}}
+    tmp = tempfile.mkdtemp()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def sample(m, *args, seed):
+        def run():
+            with torch.no_grad():
+                return m(*args, generator=gen(seed))
+        return run
+
+    try:
+        # 18.1 ADMUNet under DDRM, DiffPIR and DPS
+        shape = (1, 3, size, size)
+        adm = ADMUNet(generator=g)
+        print(f"ADMUNet: {wake(adm, g)} zero-initialized tensors redrawn", flush=True)
+
+        def at_timestep(x, sigma):
+            xs, _, t = adm.diffusion_inputs(x, sigma)
+            return xs, t, {"type_t": "timestep"}
+        inp = Inpainting(shape[1:], mask=0.7, generator=torch.Generator().manual_seed(SEED + 201),
+                         noise_model=GaussianNoise(0.05))
+        sr = Downsampling(img_size=shape[1:], filter="bicubic", factor=4,
+                          noise_model=GaussianNoise(0.05))
+        x1 = torch.rand(shape, generator=g).to(dev)
+        x8 = torch.rand((batch,) + shape[1:], generator=g).to(dev)
+        y1, y8 = inp(x1, generator=gen(SEED + 202)), inp(x8, generator=gen(SEED + 203))
+        ys = sr(x1, generator=gen(SEED + 204))
+
+        def ddrm(n, y):
+            return sample(DDRM(adm, sigmas=np.linspace(1, 0, n + 1)), y, inp, seed=SEED + 205)
+
+        def dps(n):
+            return sample(DPS(adm, max_iter=n), ys, sr, seed=SEED + 206)
+
+        def diffpir(n):
+            return sample(DiffPIR(adm, sigma=0.05, max_iter=n), ys, sr, seed=SEED + 207)
+
+        n1, n8 = steps, steps // 2
+        for label, run, calls in ((f"ADM DDRM B=1 n={n1}", ddrm(n1, y1), n1 + 1),
+                                  (f"ADM DDRM B={batch} n={n8}", ddrm(n8, y8), n8 + 1),
+                                  (f"ADM DPS B=1 n={n1}", dps(n1), n1),
+                                  (f"ADM DiffPIR B=1 max_iter={n1}", diffpir(n1), n1 - 1)):
+            out["bf16"][label] = backbone_drive(label, run, adm, calls, kernel_ops, dev,
+                                                at_network=at_timestep)
+        # DPS's guidance gradient in bf16 against f32: at the last step, where
+        # the x0 estimate's division by sqrt(ac) is near 1, the whole gradient;
+        # at the middle step the network's part of it, the input gradient of its
+        # noise prediction for a seeded cotangent (the x0 estimate there divides
+        # the network's error by sqrt(ac) and clips: that gap is printed)
+        m, m16 = DPS(adm, max_iter=n1), DPS(autocast(adm), max_iter=n1)
+        xg = torch.randn(shape, generator=gen(SEED + 208), device=dev)
+        gaps = {}
+        for k in (n1 - 1, n1 // 2):
+            at = m._sched[k][0]
+            g32, _, _ = m.guidance(xg, ys, sr, at)
+            g16, _, _ = m16.guidance(xg, ys, sr, at)
+            check(bool(torch.isfinite(g32).all()), "ADM DPS guidance: non-finite gradient")
+            gaps[f"step {k}"] = rel_l2(g16, g32)
+        xs, _, t = adm.diffusion_inputs((xg / math.sqrt(at) + 1) / 2,
+                                        math.sqrt(1 - at) / math.sqrt(at) / 2)
+        cot = torch.randn((1, adm.out_channels, size, size), generator=gen(SEED + 216),
+                          device=dev)
+        vjp = {}
+        with frozen(adm):
+            for dt, model in ((torch.float32, adm), (torch.bfloat16, autocast(adm))):
+                xv = xs.to(dt).requires_grad_()
+                with torch.enable_grad():
+                    e = model(xv, t, type_t="timestep")
+                    (vjp[dt],) = torch.autograd.grad(e, xv, cot.to(e.dtype))
+        gaps["network at the middle step"] = rel_l2(vjp[torch.bfloat16], vjp[torch.float32])
+        print(f"ADM DPS guidance gradient, bf16 vs f32 relative L2: {gaps} (bounds: the "
+              f"network's {SAMPLE_GRAD_RTOL}, the last step's whole gradient "
+              f"{BB_GUIDANCE_RTOL}; the middle step's whole gradient is not held: its x0 "
+              f"estimate divides the network's error by sqrt(alpha_bar) = {math.sqrt(at):.4f} "
+              f"and clips)", flush=True)
+        check(gaps[f"step {n1 - 1}"] <= BB_GUIDANCE_RTOL
+              and gaps["network at the middle step"] <= SAMPLE_GRAD_RTOL,
+              "ADM DPS guidance: bf16 gradient disagrees with f32")
+        check(all(p.grad is None for p in adm.parameters()), "DPS gave the ADMUNet a gradient")
+        out["adm_grad_bf16_vs_f32"] = gaps
+        bits_round_trip("ADMUNet", adm, adm_names,
+                        lambda p: ADMUNet(pretrained=p), lambda net: net(x1, 0.1), tmp)
+        if cuda:
+            for metric, b, make, n in (
+                    ("ddrm_adm_inpainting_256px_steps_per_sec_chip", 1,
+                     lambda n: ddrm(n, y1), rate_steps[0]),
+                    (f"ddrm_adm_inpainting_256px_steps_per_sec_chip_b{batch}", batch,
+                     lambda n: ddrm(n, y8), rate_steps[1]),
+                    ("dps_adm_sr4_256px_steps_per_sec_chip", 1, dps, rate_steps[0])):
+                v = slope_rate(f"{metric} (B={b})", make, n, reps=1)
+                prof = device_profile(f"{metric} sample n={n}", make(n), 1, top=8)
+                idle = None if prof is None else 1 - prof[4] / prof[0]
+                row = {"metric": metric, "value": v, "unit": "step/s", "idle_share": idle,
+                       "card": card}
+                if b > 1:
+                    row.update(batch=b, images_per_sec=v * b)
+                print(f"rate: {json.dumps(row)}", flush=True)
+                out["rates"][metric] = row
+        del adm
+
+        print(f"phase 18.1: {time.perf_counter() - t_phase:.3f} s into the phase", flush=True)
+        # 18.2 NCSN++ under PosteriorDiffusion over the EDM SDE
+        net = NCSNpp(generator=g, **(ncsn or {}))
+        print(f"NCSNpp: {wake(net, g)} near-zero-initialized tensors redrawn", flush=True)
+        nshape = (3, ncsn_size, ncsn_size)
+        ninp = Inpainting(nshape, mask=0.7, generator=torch.Generator().manual_seed(SEED + 209))
+        ts = np.linspace(1.0, 0.05, BB_PD_STEPS + 1)
+
+        def posterior(den):
+            sde = EDMDiffusionSDE(sigma_t=lambda t: BB_SIGMA_MAX * t,
+                                  sigma_prime_t=lambda t: BB_SIGMA_MAX, variance_exploding=True,
+                                  denoiser=den)
+            return PosteriorDiffusion(sde, DPSDataFidelity(den), timesteps=ts)
+
+        for B in (1, batch):
+            xn = torch.rand((B,) + nshape, generator=g).to(dev)
+            yn = ninp(xn)
+            label = f"NCSN++ PosteriorDiffusion B={B} {BB_PD_STEPS} steps"
+            out["bf16"][label] = backbone_drive(label, sample(posterior(net), yn, ninp,
+                                                              seed=SEED + 210 + B),
+                                                net, 2 * BB_PD_STEPS, kernel_ops, dev,
+                                                rtol=BB_BF16_RTOL["NCSN++"][0])
+            check(all(p.grad is None for p in net.parameters()),
+                  "PosteriorDiffusion gave the NCSN++ a gradient")
+            if cuda:
+                # CUDA events only: a profile of one B=8 run holds ~15000 kernels
+                # and takes longer to read than the runs
+                r = rates_in_turns(f"NCSN++ PosteriorDiffusion B={B}",
+                                   {"f32": sample(posterior(net), yn, ninp, seed=SEED + 212)},
+                                   B * BB_PD_STEPS, reps=1)["f32"]
+                print(f"rate: NCSN++ PosteriorDiffusion {ncsn_size}² B={B} "
+                      f"{r / (B * BB_PD_STEPS):.3f} recons/s, {r:.2f} image-it/s ({card})",
+                      flush=True)
+                out["rates"][f"NCSN++ PosteriorDiffusion B={B}"] = r
+        xn = torch.rand((1,) + nshape, generator=g).to(dev)
+        cn = torch.full((1,), -0.5, device=dev)
+        bits_round_trip("NCSNpp", net, ncsnpp_names, lambda p: NCSNpp(pretrained=p, **(ncsn or {})),
+                        lambda m: m.forward_unet(xn, cn), tmp)
+        del net
+
+        print(f"phase 18.2: {time.perf_counter() - t_phase:.3f} s into the phase", flush=True)
+        # 18.3 the denoisers at their published widths
+        nets = nets or {}
+        builds = {
+            "EDMPrecond(DiffUNet)": (lambda p=None: EDMPrecond(DiffUNet(
+                generator=g, **nets.get("DiffUNet", {}))), None),
+            "Restormer": (lambda p=None: Restormer(pretrained=p, generator=g,
+                                                   **nets.get("Restormer", {})), restormer_names),
+            "SwinIR": (lambda p=None: SwinIR(pretrained=p, generator=g, **nets.get("SwinIR", {})),
+                       swinir_names),
+            "SCUNet": (lambda p=None: SCUNet(pretrained=p, generator=g, **nets.get("SCUNet", {})),
+                       scunet_names),
+            "PromptIR": (lambda p=None: PromptIR(generator=g, **nets.get("PromptIR", {})), None),
+        }
+        for name, (make, names) in builds.items():
+            model = make()
+            woken = wake(model, g)
+            bound = BB_BF16_RTOL.get(name, (DENOISER_RTOL, ""))
+            for B in (1, batch):
+                x = torch.rand((B, 3, size, size), generator=g).to(dev)
+                before = sum(op.launches for op in kernel_ops)
+                with torch.no_grad():
+                    f32 = model(x, 0.1)
+                    bf16 = autocast(model)(x, 0.1)
+                err = rel_max(bf16, f32)
+                print(f"{name} B={B} {size}²: bf16 vs f32 relative max error {err} (bound "
+                      f"{bound[0]}{bound[1]}), output max {float(f32.abs().max())}; "
+                      f"{woken} zero-initialized tensors redrawn", flush=True)
+                check(sum(op.launches for op in kernel_ops) == before,
+                      f"{name}: a K1-K8 kernel was launched")
+                check(tuple(f32.shape) == tuple(x.shape) and bool(torch.isfinite(f32).all())
+                      and bool(torch.isfinite(bf16).all()), f"{name} B={B}: bad output")
+                check(err <= bound[0], f"{name} B={B}: bf16 disagrees with f32")
+                out["bf16"][f"{name} B={B}"] = err
+                if cuda:
+                    half = autocast(model)
+                    with torch.no_grad():
+                        ms32 = cuda_ms(lambda: model(x, 0.1), 2, warmup=1)
+                        ms16 = cuda_ms(lambda: half(x, 0.1), 3, warmup=1)
+                    row = {"model": name, "batch": B, "size": size, "f32_ms": ms32,
+                           "bf16_ms": ms16, "images_per_sec_bf16": B * 1e3 / ms16, "card": card}
+                    print(f"rate: {json.dumps(row)}", flush=True)
+                    out["ms"][f"{name} B={B}"] = row
+            xs = torch.rand((1, 3, size, size), generator=g).to(dev)
+            if names is not None:
+                bits_round_trip(name, model, names, make, lambda m: m(xs, 0.1), tmp)
+            elif name == "PromptIR":
+                import os
+
+                path = os.path.join(tmp, "promptir.sd")
+                torch.save(model.state_dict(), path)
+                rebuilt = make().load_pretrained(path)
+                with torch.no_grad():
+                    same = torch.equal(model(xs), rebuilt(xs))
+                print(f"PromptIR load_pretrained from its state dict: output bits equal {same}",
+                      flush=True)
+                check(same, "PromptIR: load_pretrained changed the output")
+            del model
+
+        print(f"phase 18.3: {time.perf_counter() - t_phase:.3f} s into the phase", flush=True)
+        # 18.4 RAM on the foundation-model demo's three tasks
+        rnet = RAM(generator=g, **(ram or {}))
+        with torch.no_grad():
+            for blk in rnet.modules():
+                if isinstance(blk, RAMResBlock):
+                    blk.conv2.weight.mul_(RAM_RESIDUAL_SCALE)
+                    blk.gain.mul_(RAM_RESIDUAL_SCALE)
+        rshape = (3, size, size)
+        tasks = {
+            "Denoising": Denoising(noise_model=GaussianNoise(0.1)),
+            "Inpainting": Inpainting(rshape, mask=0.5, noise_model=GaussianNoise(0.05),
+                                     generator=torch.Generator().manual_seed(SEED + 213)),
+            "BlurFFT": BlurFFT(rshape, filter=gaussian_blur(sigma=1.5),
+                               noise_model=GaussianNoise(0.02)),
+        }
+        for task, phys in tasks.items():
+            for B in (1, batch):
+                x = torch.rand((B,) + rshape, generator=g).to(dev)
+                y = phys(x, generator=gen(SEED + 214))
+                before = sum(op.launches for op in kernel_ops)
+                with torch.no_grad():
+                    f32 = rnet(y, phys)
+                    with torch.autocast(dev.type, dtype=torch.bfloat16):
+                        bf16 = rnet(y, phys)
+                err = rel_max(bf16, f32)
+                print(f"RAM {task} B={B} {size}²: bf16 vs f32 relative max error {err} (bound "
+                      f"{DENOISER_RTOL}), PSNR {psnr(f32[:1], x[:1]):.4f} dB (random weights)",
+                      flush=True)
+                check(sum(op.launches for op in kernel_ops) == before,
+                      "RAM: a K1-K8 kernel was launched")
+                check(tuple(f32.shape) == tuple(x.shape) and bool(torch.isfinite(f32).all()),
+                      f"RAM {task} B={B}: bad output")
+                check(err <= DENOISER_RTOL, f"RAM {task} B={B}: bf16 disagrees with f32")
+                out["bf16"][f"RAM {task} B={B}"] = err
+                if cuda:
+                    def recon(y=y, phys=phys):
+                        with torch.no_grad():
+                            return rnet(y, phys)
+                    rate_of(f"RAM {task}", recon, B, B, 1, f"{size}²", card, out["rates"],
+                            calls=1)
+        yr = tasks["Denoising"](torch.rand((1,) + rshape, generator=g).to(dev),
+                                generator=gen(SEED + 215))
+        bits_round_trip("RAM", rnet, ram_names, lambda p: RAM(pretrained=p, **(ram or {})),
+                        lambda m: m(yr, tasks["Denoising"]), tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = sum(op.launches for op in kernel_ops)
+    check(total == 0, f"phase 18 launched K1-K8 kernels ({total})")
+    out["s"] = time.perf_counter() - t_phase
+    print(f"phase 18: {out['s']:.3f} s, no K1-K8 launch ({card})", flush=True)
     return out
 
 
@@ -4683,6 +5164,12 @@ def main() -> int:
     # and its training over K6 and the stash backward, the 3D DnCNN and DRUNet
     # on their layers, pretrained= checkpoints over K5 and K1, VarNet and PDNet
     m17 = models_phase(dev, card)
+
+    # 18. the diffusion backbones (ADMUNet under DDRM, DiffPIR and DPS; NCSN++
+    # under PosteriorDiffusion) and the attention models (EDMPrecond(DiffUNet),
+    # Restormer, SwinIR, SCUNet, PromptIR, RAM) at their published widths: no
+    # K1-K8 launch, bf16 against f32, pretrained= round trips
+    backbones_phase(dev, card)
 
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])

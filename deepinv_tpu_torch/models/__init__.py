@@ -1,5 +1,6 @@
 """Models of the port (deepinv_tpu/models/)."""
 
+from .adm import ADMUNet
 from .artifactremoval import ArtifactRemoval
 from .base import Denoiser, Reconstructor, handle_sigma
 from .classic import (AnscombeDenoiser, BilateralFilter, MedianFilter, TGVDenoiser, TVDenoiser,
@@ -7,14 +8,21 @@ from .classic import (AnscombeDenoiser, BilateralFilter, MedianFilter, TGVDenois
                       generalized_anscombe_transform, inverse_generalized_anscombe_transform)
 from .cnns import DScCP, AutoEncoder, FFDNet, SRResNet
 from .convert import load_jax_params, load_torch_checkpoint
+from .diffunet import DiffUNet, EDMPrecond, GroupNorm
 from .dncnn import DnCNN
 from .drunet import DRUNet, ResBlock
 from .layers import (GELU, AvgPool2d, BatchNorm2d, Conv2d, Conv3d, ConvTranspose2d,
                      ConvTranspose3d, Identity, LeakyReLU, Linear, MaxPool2d, MaxPool3d,
                      PixelShuffle, ReLU, Sequential, UpsampleNearest, conv_nd, conv_transpose_nd,
                      fix_dim)
+from .ncsnpp import NCSNpp
 from .misc_models import Client, EPLLDenoiser, MinusOneOneDenoiserWrapper, ScoreModelWrapper
 from .precision import AutocastDenoiser, autocast
+from .promptir import PromptIR
+from .ram import RAM
+from .restormer import Restormer
+from .scunet import SCUNet
+from .swinir import SwinIR
 from .unet import UNet
 from .unrolled import PDNet, MoDL, PanNet, PDNet_DualBlock, PDNet_PrimalBlock, VarNet, VarNetBlock
 from .utils import test_onesplit, test_pad
@@ -40,4 +48,5 @@ __all__ = ["ArtifactRemoval", "Denoiser", "Reconstructor", "handle_sigma", "load
            "PatchCovarianceNoiseEstimator", "GSPnP", "EquivariantReconstructor",
            "DiffusersDenoiserWrapper", "ComplexDenoiserWrapper", "MoDL", "VarNet", "VarNetBlock",
            "PDNet", "PDNet_PrimalBlock", "PDNet_DualBlock", "PanNet", "MinusOneOneDenoiserWrapper",
-           "ScoreModelWrapper", "EPLLDenoiser", "Client"]
+           "ScoreModelWrapper", "EPLLDenoiser", "Client", "DiffUNet", "EDMPrecond", "GroupNorm",
+           "ADMUNet", "NCSNpp", "Restormer", "PromptIR", "SwinIR", "SCUNet", "RAM"]

@@ -4,7 +4,9 @@ deepinv_tpu/models/convert.py).
 
 The port's modules use the JAX modules' attribute names, so a JAX leaf at
 tree path ``m_down1.layers.0.conv1.weight`` is the port's state-dict entry of
-the same name. Flattening a JAX module into that ``{path: numpy array}``
+the same name. A module whose names differ (``ADMUNet``'s flat dict ``p``,
+``NCSNpp``'s ``enc`` / ``dec`` dictionaries) maps them by a ``jax_names()``
+method. Flattening a JAX module into that ``{path: numpy array}``
 dictionary needs JAX and is left to the caller.
 
 Upstream checkpoints name the same tensors otherwise (DRUNet's
@@ -17,18 +19,25 @@ renaming.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
 
 __all__ = ["load_jax_params", "load_torch_checkpoint", "port_weights", "upstream_state_dict",
-           "dncnn_names", "drunet_names", "srresnet_names", "dsccp_names", "port_dncnn",
-           "port_drunet", "port_srresnet", "port_dsccp"]
+           "dncnn_names", "drunet_names", "srresnet_names", "dsccp_names", "adm_names",
+           "ncsnpp_names", "restormer_names", "swinir_names", "scunet_names", "ram_names",
+           "port_dncnn", "port_drunet", "port_srresnet", "port_dsccp", "port_ncsnpp",
+           "port_restormer", "port_swinir", "port_scunet", "port_ram"]
 
 
 def load_jax_params(module: nn.Module, arrays: dict) -> nn.Module:
     """Copy ``arrays`` (``{dotted path: np.ndarray}``) into ``module``'s
     parameters and buffers, in place, keeping each tensor's dtype and device.
+    Where ``module`` has ``jax_names()`` (``{state-dict name: JAX tree
+    path}``), each tensor is read from its path; leaves the JAX module derives
+    from its configuration (``ADMUNet``'s alpha tables) are then not read.
 
     :raises KeyError: if a key of the module is missing from ``arrays`` or
         ``arrays`` has a key the module does not.
@@ -36,6 +45,12 @@ def load_jax_params(module: nn.Module, arrays: dict) -> nn.Module:
     :return: ``module``.
     """
     state = module.state_dict(keep_vars=True)
+    if hasattr(module, "jax_names"):
+        names = module.jax_names()
+        missing = sorted(k for k, path in names.items() if path not in arrays)
+        if missing:
+            raise KeyError(f"load_jax_params: missing {missing[:8]} ({len(missing)} missing)")
+        arrays = {k: arrays[path] for k, path in names.items()}
     missing = sorted(set(state) - set(arrays))
     extra = sorted(set(arrays) - set(state))
     if missing or extra:
@@ -140,10 +155,13 @@ def dsccp_names(model) -> dict:
 
 
 def _optional(model, name: str) -> bool:
-    """Whether a checkpoint may lack ``name``: a bias, a norm's tensors or a
-    PReLU slope (convert.py:41-45, 236-247)."""
+    """Whether a checkpoint may lack ``name``: a bias, a norm's tensors, a
+    PReLU slope (convert.py:41-45, 236-247), NCSN++'s Fourier frequencies and
+    augmentation weights (:182-204) or a RAM head's zero skip (:331)."""
     owner, _, leaf = name.rpartition(".")
-    if leaf in ("bias", "running_mean", "running_var"):
+    if leaf in ("bias", "running_mean", "running_var", "freqs", "map_augment_w"):
+        return True
+    if owner.endswith("zero_conv_skip"):
         return True
     return type(model.get_submodule(owner)).__name__ in ("BatchNorm2d", "_LayerNorm2d", "PReLU")
 
@@ -173,6 +191,83 @@ def port_weights(model: nn.Module, sd: dict, names: dict) -> nn.Module:
     return model
 
 
+def _renamed(model, rules, skip=()) -> dict:
+    """``{port name: upstream name}`` of every state-dict entry of ``model``
+    but those ending in one of ``skip``, each renamed by the ``(pattern,
+    replacement)`` regular expressions ``rules`` in turn."""
+    names = {}
+    for k in model.state_dict():
+        if k.endswith(tuple(skip)):
+            continue
+        v = k
+        for pat, rep in rules:
+            v = re.sub(pat, rep, v)
+        names[k] = v
+    return names
+
+
+def adm_names(model) -> dict:
+    """ADMUNet: its names are guided-diffusion's (adm.py:1-17)."""
+    return {k: k for k in model.state_dict()}
+
+
+def ncsnpp_names(model) -> dict:
+    """NCSN++ (convert.py:180): the mapping and affine layers are upstream's
+    ``map_layer0.weight``, ``enc.{name}.affine.bias``; the FIR filters are
+    constants and left out."""
+    return _renamed(model, [(r"(map_\w+)_w$", r"\1.weight"), (r"(map_\w+)_b$", r"\1.bias"),
+                            (r"affine_w$", "affine.weight"), (r"affine_b$", "affine.bias")],
+                    skip=("resample_filter",))
+
+
+def restormer_names(model) -> dict:
+    """Restormer (convert.py:141): upstream's level, layer and conv names."""
+    levels = {"enc": ("encoder_level1", "encoder_level2", "encoder_level3", "latent"),
+              "dec": ("decoder_level3", "decoder_level2", "decoder_level1")}
+    rules = [(rf"^{top}\.{i}\.", f"{name}.") for top, names in levels.items()
+             for i, name in enumerate(names)]
+    rules += [(rf"^downs\.{i}\.conv\.", f"{n}.body.0.")
+              for i, n in enumerate(("down1_2", "down2_3", "down3_4"))]
+    rules += [(rf"^ups\.{i}\.conv\.", f"{n}.body.0.")
+              for i, n in enumerate(("up4_3", "up3_2", "up2_1"))]
+    rules += [(r"^reduce\.0\.", "reduce_chan_level3."), (r"^reduce\.1\.", "reduce_chan_level2."),
+              (r"^refine\.", "refinement."), (r"^patch_embed\.", "patch_embed.proj."),
+              (r"^out_conv\.", "output."), (r"\.(norm[12])\.", r".\1.body."),
+              (r"\.attn\.qkv_dw\.", ".attn.qkv_dwconv."), (r"\.attn\.proj\.", ".attn.project_out."),
+              (r"\.ffn\.inp\.", ".ffn.project_in."), (r"\.ffn\.dw\.", ".ffn.dwconv."),
+              (r"\.ffn\.out\.", ".ffn.project_out.")]
+    return _renamed(model, rules)
+
+
+def swinir_names(model) -> dict:
+    """SwinIR (convert.py:64): ``patch_embed.norm``, each block under
+    ``residual_group`` with ``mlp.fc1``/``mlp.fc2``, the pixel-shuffle
+    convs at even indices; the image mean is a constant and left out."""
+    rules = [(r"^patch_norm\.", "patch_embed.norm."),
+             (r"^layers\.(\d+)\.blocks\.", r"layers.\1.residual_group.blocks."),
+             (r"\.(fc[12])\.", r".mlp.\1."),
+             (r"^conv_before_upsample\.", "conv_before_upsample.0.")]
+    if model.upsampler == "pixelshuffle":
+        rules.append((r"^upsample\.(\d+)\.", lambda m: f"upsample.{2 * int(m.group(1))}."))
+    return _renamed(model, rules, skip=("mean",))
+
+
+def scunet_names(model) -> dict:
+    """SCUNet (convert.py:103): the head and tail under ``.0``, a block's
+    ``conv_block.0``/``.2`` and ``mlp.0``/``.2``."""
+    return _renamed(model, [(r"^m_(head|tail)\.", r"m_\1.0."), (r"\.conv_a\.", ".conv_block.0."),
+                            (r"\.conv_b\.", ".conv_block.2."), (r"\.mlp_fc1\.", ".mlp.0."),
+                            (r"\.mlp_fc2\.", ".mlp.2.")])
+
+
+def ram_names(model) -> dict:
+    """RAM (convert.py:306): ``m_head.conv{i}``, ``tail{i}``/``head{i}``,
+    a head block's ``conv1{k}``/``conv2{k}``/``skipconv{k}``."""
+    return _renamed(model, [(r"\.convs\.(\d+)\.", r".conv\1."), (r"\.tails\.(\d+)\.", r".tail\1."),
+                            (r"\.heads\.(\d+)\.", r".head\1."), (r"\.convs([12])\.(\d+)\.", r".conv\1\2."),
+                            (r"\.skipconvs\.(\d+)\.", r".skipconv\1.")])
+
+
 def port_dncnn(model, sd):
     """Upstream DnCNN weights into ``model`` (convert.py:48)."""
     return port_weights(model, sd, dncnn_names(model))
@@ -191,6 +286,31 @@ def port_srresnet(model, sd):
 def port_dsccp(model, sd):
     """Upstream DScCP weights into ``model`` (convert.py:266)."""
     return port_weights(model, sd, dsccp_names(model))
+
+
+def port_ncsnpp(model, sd):
+    """Upstream NCSN++ / DDPM++ (EDM) weights into ``model`` (convert.py:180)."""
+    return port_weights(model, sd, ncsnpp_names(model))
+
+
+def port_restormer(model, sd):
+    """Upstream Restormer weights into ``model`` (convert.py:141)."""
+    return port_weights(model, sd, restormer_names(model))
+
+
+def port_swinir(model, sd):
+    """Upstream SwinIR weights into ``model`` (convert.py:64)."""
+    return port_weights(model, sd, swinir_names(model))
+
+
+def port_scunet(model, sd):
+    """Upstream SCUNet weights into ``model`` (convert.py:103)."""
+    return port_weights(model, sd, scunet_names(model))
+
+
+def port_ram(model, sd):
+    """Upstream RAM weights into ``model`` (convert.py:306)."""
+    return port_weights(model, sd, ram_names(model))
 
 
 def upstream_state_dict(model, names: dict) -> dict:

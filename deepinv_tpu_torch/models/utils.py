@@ -9,7 +9,8 @@ import weakref
 import torch
 import torch.nn.functional as F
 
-__all__ = ["test_pad", "test_onesplit", "stacked_weights", "tensors_key", "same_tensors"]
+__all__ = ["test_pad", "test_onesplit", "stacked_weights", "tensors_key", "same_tensors",
+           "pad_hw", "resize_bilinear"]
 
 
 def test_pad(model, x, modulo: int = 16):
@@ -21,6 +22,64 @@ def test_pad(model, x, modulo: int = 16):
         pads += [0, (-s) % modulo]
     xp = F.pad(x, pads, mode="replicate")
     return model(xp)[(Ellipsis,) + tuple(slice(0, s) for s in spatial)]
+
+
+def _pad_index(n: int, before: int, after: int, mode: str, device) -> torch.Tensor:
+    """Source indices of ``numpy.pad``'s ``wrap`` / ``reflect`` / ``edge`` modes
+    along an axis of ``n``, for any pad widths (torch's circular and reflect
+    pads refuse widths past the axis)."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "wrap":
+        return i % n
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    if mode == "reflect":
+        if n == 1:
+            return torch.zeros_like(i)
+        period = 2 * (n - 1)
+        i = i % period
+        return torch.where(i >= n, period - i, i)
+    raise ValueError(f"unknown pad mode {mode!r}")
+
+
+def pad_hw(x, top: int, bottom: int, left: int, right: int, mode: str):
+    """Pad the last two axes of ``x`` as ``jnp.pad`` does in ``mode``
+    (``"wrap"``, ``"reflect"`` or ``"edge"``), for any widths."""
+    H, W = x.shape[-2:]
+    if top or bottom:
+        x = x.index_select(-2, _pad_index(H, top, bottom, mode, x.device))
+    if left or right:
+        x = x.index_select(-1, _pad_index(W, left, right, mode, x.device))
+    return x
+
+
+def _resize_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``jax.image.resize``'s ``(n_in, n_out)`` weights along one axis
+    (``compute_weight_mat`` with the triangle kernel, antialiased): half-pixel
+    centres, the kernel widened by the shrink factor, each column normalised."""
+    scale = torch.tensor(n_out, dtype=torch.float32) / torch.tensor(n_in, dtype=torch.float32)
+    inv = 1.0 / scale
+    kernel_scale = torch.clamp(inv, min=1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    d = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs() / kernel_scale
+    w = torch.clamp(1.0 - d, min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+
+
+def resize_bilinear(x, size) -> torch.Tensor:
+    """``jax.image.resize(x, (..., H, W), "bilinear")`` of the last two axes:
+    antialiased when shrinking, as the JAX package's resizes are (torch's
+    ``interpolate`` weighs the edges otherwise)."""
+    H, W = x.shape[-2:]
+    if (H, W) != tuple(size):
+        x = torch.einsum("...hw,hH,wW->...HW", x, _resize_matrix(H, size[0], x.device).to(x.dtype),
+                         _resize_matrix(W, size[1], x.device).to(x.dtype))
+    return x
 
 
 def test_onesplit(model, x, refield: int = 64, sf: int = 1):

@@ -265,9 +265,13 @@ def _inv_gamma_mul(gamma, x):
 
 
 def _add_inv_gamma(m2, gamma):
-    """``m2 + 1/gamma`` with gamma broadcast over ``m2`` (base.py:493)."""
-    m2 = torch.as_tensor(m2)
-    g = torch.as_tensor(gamma, device=m2.device)
+    """``m2 + 1/gamma`` with gamma broadcast over ``m2`` (base.py:493), on
+    ``m2``'s device, or on gamma's where ``m2`` is a number."""
+    if isinstance(m2, torch.Tensor):
+        g = torch.as_tensor(gamma, device=m2.device)
+    else:
+        g = torch.as_tensor(gamma)
+        m2 = torch.as_tensor(m2, device=g.device)
     if g.dim() > 0 and m2.dim() > g.dim():
         g = g.reshape(g.shape + (1,) * (m2.dim() - g.dim()))
     return m2 + 1.0 / g

@@ -101,6 +101,14 @@ class Blur(LinearPhysics):
         return conv_t(y, f, padding=self.padding)
 
 
+def _fft_input(x):
+    """``x``, or its float32 copy where it is bf16 or fp16: cuFFT (and the
+    JAX package's FFT) take no half-precision input of these sizes, and a
+    network run under ``torch.autocast`` hands the physics bf16 tensors. The
+    result is then float32, as a promoted op's."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
 class BlurFFT(DecomposablePhysics):
     r"""Circular blur ``A = F^* diag(Fh) F`` (deepinv_tpu/physics/blur.py:88).
 
@@ -133,7 +141,7 @@ class BlurFFT(DecomposablePhysics):
         return super().update(**params)
 
     def V_adjoint(self, x):
-        return torch.fft.fft2(x, norm="ortho")
+        return torch.fft.fft2(_fft_input(x), norm="ortho")
 
     def V(self, x):
         return torch.fft.ifft2(x, norm="ortho").real
@@ -142,7 +150,7 @@ class BlurFFT(DecomposablePhysics):
         return torch.fft.ifft2(x, norm="ortho").real
 
     def U_adjoint(self, x):
-        return torch.fft.fft2(x, norm="ortho")
+        return torch.fft.fft2(_fft_input(x), norm="ortho")
 
     # -- rfft paths (blur.py:155-211) ----------------------------------------
     # The PSF is real, so its transfer function is Hermitian: the first
@@ -158,13 +166,14 @@ class BlurFFT(DecomposablePhysics):
         phys = self.update(**params) if params else self
         if not phys._rfft_ok(x):
             return super(BlurFFT, phys).A(x)
-        return torch.fft.irfft2(torch.fft.rfft2(x) * phys._mask_r(), s=phys.img_size[-2:])
+        return torch.fft.irfft2(torch.fft.rfft2(_fft_input(x)) * phys._mask_r(),
+                                s=phys.img_size[-2:])
 
     def A_adjoint(self, y, **params):
         phys = self.update(**params) if params else self
         if not phys._rfft_ok(y):
             return super(BlurFFT, phys).A_adjoint(y)
-        return torch.fft.irfft2(torch.fft.rfft2(y) * phys._mask_r().conj(),
+        return torch.fft.irfft2(torch.fft.rfft2(_fft_input(y)) * phys._mask_r().conj(),
                                 s=phys.img_size[-2:])
 
     def prox_l2(self, z, y, gamma, **kwargs):
@@ -173,7 +182,8 @@ class BlurFFT(DecomposablePhysics):
         if z is None or isinstance(z, (int, float)) or not self._rfft_ok(z, y):
             return super().prox_l2(z, y, gamma, **kwargs)
         mr = self._mask_r()
-        bf = mr.conj() * torch.fft.rfft2(y) + _inv_gamma_mul(gamma, torch.fft.rfft2(z))
+        bf = mr.conj() * torch.fft.rfft2(_fft_input(y)) \
+            + _inv_gamma_mul(gamma, torch.fft.rfft2(_fft_input(z)))
         scaling = _add_inv_gamma((mr.conj() * mr).real, gamma)
         return torch.fft.irfft2(bf / scaling, s=self.img_size[-2:])
 

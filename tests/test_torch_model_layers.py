@@ -169,6 +169,25 @@ def test_models_exports_every_jax_name_of_this_slice():
     assert sorted(n for n in names if not hasattr(TM, n) and n != "he_init") == []
 
 
+def test_models_exports_the_diffusion_backbones_and_attention_models():
+    """``deepinv_tpu_torch.models`` exports the ten names of the diffusion
+    backbones and the attention models, and the JAX ``models`` names it
+    still lacks are exactly the thirteen of ``gan``, ``dip``, ``bm3d``,
+    ``poisson2sparse``, ``deal``, ``kernel_network`` and ``vgg``."""
+    import types
+
+    new = {"DiffUNet", "EDMPrecond", "GroupNorm", "ADMUNet", "NCSNpp", "Restormer", "PromptIR",
+           "SwinIR", "SCUNet", "RAM"}
+    assert new <= set(TM.__all__) and all(hasattr(JM, n) for n in new)
+    public = [n for n in dir(JM) if not n.startswith("_")
+              and not isinstance(getattr(JM, n), types.ModuleType)]
+    assert sorted(n for n in public if not hasattr(TM, n)) == [
+        "BM3D", "CSGMGenerator", "ConvDecoder", "ConvLista", "DCGANDiscriminator",
+        "DCGANGenerator", "DEAL", "DeepImagePrior", "ESRGANDiscriminator",
+        "KernelIdentificationNetwork", "PatchGANDiscriminator", "Poisson2Sparse",
+        "VGG16Features"]
+
+
 # -- the repair: no kernel op gives a second derivative without raising ----------
 
 def _bf16(*shape, seed=0, scale=1.0):

@@ -291,6 +291,28 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    DENOISER_RTOL of f32 and its round trip. Timed: the samplers' steps/s by
    the slope between n and 4n steps with idle shares, ms a call in f32 and
    bf16, recons/s and idle shares (``rate:`` lines, with the card).
+19. adversarial training, the rest of ``models/`` and the metrics
+   (``generative_phase``): examples/demo_adversarial_training.py at phase 9's
+   width, an ``AdversarialTrainer`` of the bf16 DnCNN(1, 1) (depth 20)
+   against a full-width f32 ``PatchGANDiscriminator(input_nc=1)`` on 256²
+   denoising, ``SupLoss`` + ``SupAdversarialGeneratorLoss(0.01)``, at B=1 and
+   B=16 in both train-step configurations: with ``fused_chains=True`` K6 once,
+   the stash backward L + 2 and K5 once a step (the discriminator step's
+   generator pass), none with ``False``, the first step's generator and
+   discriminator gradients within GRAD_RTOL of the same step under
+   ``fused_chains_disabled()``, D unchanged by a generator step; a B=1 run of
+   ``UAIRGeneratorLoss`` (K6 twice a step); the trained generator scored by
+   ``PSNR``, ``SSIM`` and ``LPIPS`` at B=16 (K5 once a batch), LPIPS's VGG16
+   in bf16 within DENOISER_RTOL of f32; examples/demo_blind_deblur.py: a
+   ``KernelIdentificationNetwork()`` (25 kernels of 33²) estimating a
+   ``SpaceVaryingBlur`` from a 256² RGB image and PnP-PGD with a bf16
+   DnCNN(3, 3) on it, held as phase 5 holds PGD (K5 8 a recon); DIP, CSGM,
+   Poisson2Sparse, DEAL, BM3D, the ESRGAN and DCGAN discriminators and NIQE
+   in f32 on the card against the same seeded calls on the CPU;
+   ``pretrained=`` round trips of VGG16, the kernel network and DEAL; no
+   K1-K4 or K7 launch. Timed: steps/s and idle shares of each
+   configuration, the fused step's generator and discriminator halves,
+   recons/s, ms a call (``rate:`` and ``time`` lines, with the card).
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -687,6 +709,33 @@ BB_GUIDANCE_RTOL = 0.1
 # weights they grow the output to ~1e15 (7.3e15 on a 64² CPU probe, ~50
 # scaled), and the bf16 check would compare the rounding of that
 RAM_RESIDUAL_SCALE = 0.1
+# phase 19 (generative_phase): examples/demo_adversarial_training.py at phase
+# 9's width, the blind deblurring demo, the rest of models/ and the metrics
+ADV_STEPS = 4                   # train steps of each configuration at each batch
+ADV_WEIGHT = 0.01               # SupAdversarialGeneratorLoss's weight (the demo's, the paper's)
+ADV_LR = 1e-4                   # both optimizers (AdversarialOptimizer's default)
+ADV_EVAL_BATCHES = 2            # eval batches of TRAIN_BATCHES[-1] images
+BLIND_PARAMS = {"stepsize": 1.0, "g_param": 0.03}     # examples/demo_blind_deblur.py
+BLIND_SIGMAS = (1.0, 2.5)       # the true blur's two Gaussian PSFs, mixed left to right
+BLIND_PSF = 17
+DIP_ITERS = 100                 # DeepImagePrior's Adam steps on the card
+DIP_MASK = 0.3                  # the share of pixels the inpainting hides
+CSGM_M = 3 * 64 * 64 // 4       # compressed-sensing measurements of the 3x64² image
+PSF_NOISE_GAIN = 0.05           # Poisson2Sparse's data: gain * Poisson(x / gain)
+# NIQE's pristine statistics, fitted on noisy disc phantoms: on flat ones the
+# 36x36 covariance is near singular and its pseudo-inverse amplifies a
+# score's f32 rounding past any bound between the card and the CPU
+NIQE_PHANTOMS = 32
+NIQE_SHARPNESS = 0.0            # create_weights' sharpness threshold: every patch
+NIQE_NOISE = 0.05
+# the card against the same seeded call on the CPU, f32 with TF32 off: the
+# fits are held after a few steps (cuDNN's and oneDNN's sums round apart, and
+# Adam's and CG's steps carry that on), the full runs only on the card
+GEN_CHECK_STEPS = {"DIP": 3, "CSGM": 10, "Poisson2Sparse": 2}
+GEN_FWD_RTOL = 1e-4             # a forward: 8-13 conv layers of f32 sums
+GEN_FIT_RTOL = 1e-3             # a few Adam, heavy-ball or CG steps on top
+NIQE_CPU_RTOL = 1e-3            # features, then a float64 pseudo-inverse
+BM3D_PSNR_DB = 0.05             # BM3D's aggregation adds with atomics on the card
 
 
 PEAK_BF16 = 989e12
@@ -4396,6 +4445,543 @@ def backbones_phase(dev, card: str, size: int = 256, batch: int = SAMPLE_BATCH,
     return out
 
 
+class _HeldOptimizer:
+    """An optimizer's stand-in that clears its parameters' gradients and
+    steps nothing: a train step's gradients are read without a weight
+    changing."""
+
+    def __init__(self, params):
+        self.params = list(params)
+
+    def zero_grad(self, set_to_none: bool = True):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        pass
+
+
+def adversarial_first_grads(trainer, chains) -> tuple:
+    """The generator's and the discriminator's gradients (flat f32) of the
+    trainer's first batch, through its own ``generator_step`` and
+    ``discriminator_step`` inside ``chains``, the weights held."""
+    import torch
+
+    x, y, phys = first_batch(trainer)
+    real = trainer.optimizer, trainer.optimizer_d
+    trainer.optimizer = _HeldOptimizer(trainer.model.parameters())
+    trainer.optimizer_d = _HeldOptimizer(trainer.D.parameters())
+    try:
+        with chains:
+            trainer.generator_step(x, y, phys, (0, 0, 0))
+            gg = torch.cat([p.grad.reshape(-1).float() for p in trainer.model.parameters()])
+            trainer.discriminator_step(x, y, phys, (0, 0, 0))
+            gd = torch.cat([p.grad.reshape(-1).float() for p in trainer.D.parameters()])
+    finally:
+        trainer.optimizer.zero_grad()
+        trainer.optimizer_d.zero_grad()
+        trainer.optimizer, trainer.optimizer_d = real
+    return gg, gd
+
+
+def generative_phase(dev, card: str, size: int = 256, batches=TRAIN_BATCHES,
+                     steps: int = ADV_STEPS, depth: int = 20, ndf: int = 64,
+                     small: int = 64, kin_size: int = None, niqe_patch: int = 96) -> dict:
+    """Phase 19: adversarial training of the DnCNN chain, the blind deblurring
+    demo, the rest of ``models/`` and the metrics, through the entry points
+    with the default device.
+
+    19.1 examples/demo_adversarial_training.py at phase 9's width: an
+    ``AdversarialTrainer`` of ``ArtifactRemoval(autocast(DnCNN(1, 1,
+    depth)))`` (seeded, phase 9's) against ``PatchGANDiscriminator(input_nc=1,
+    ndf)`` in f32 on ``Denoising(GaussianNoise(0.1))`` at ``size``², with
+    ``SupLoss`` + ``SupAdversarialGeneratorLoss(ADV_WEIGHT)`` and the default
+    discriminator loss, Adam(ADV_LR) for both, ``steps`` steps at each of
+    ``batches`` in each train-step configuration from the same weights: the
+    first step's generator and discriminator gradients within GRAD_RTOL of
+    the same step under ``fused_chains_disabled()``; with
+    ``fused_chains=True`` K6 once, the stash backward L + 2 and K5 once a step
+    (the discriminator step's generator pass), with ``False`` none; D's
+    weights unchanged by a generator step; then ``UAIRGeneratorLoss`` with
+    ``UnsupAdversarialDiscriminatorLoss`` at B=1 (K6 twice and the stash
+    backward 2 (L + 2) times a step, K5 once). 19.2 the trained generator
+    evaluated by ``Trainer.test`` with ``PSNR``, ``SSIM`` and
+    ``LPIPS(allow_random_weights=True)`` at the last batch size (K5 once a
+    batch); LPIPS's VGG16 on ``size``² RGB in bf16 within DENOISER_RTOL of
+    f32 (each stage's features). 19.3 examples/demo_blind_deblur.py: a
+    ``KernelIdentificationNetwork()`` (25 kernels of 33²) estimates a
+    ``SpaceVaryingBlur`` from a ``size``² RGB image blurred by two Gaussian
+    PSFs, and PnP-PGD with a bf16 ``DnCNN(3, 3, depth)`` (its residual conv
+    scaled by DNCNN_RESIDUAL_SCALE) reconstructs on it, held as phase 5
+    holds PGD (``drive``: K5 once an iteration). 19.4 the other models in
+    f32 on the card, each against the same seeded call on the CPU
+    (GEN_FWD_RTOL, GEN_FIT_RTOL after GEN_CHECK_STEPS steps, NIQE_CPU_RTOL,
+    BM3D_PSNR_DB) and timed: ``DeepImagePrior`` (``ConvDecoder`` at
+    1x``size``², DIP_ITERS iterations) on inpainting, ``CSGMGenerator(
+    DCGANGenerator())`` on 3x64² ``CompressedSensing`` (its residual falling),
+    ``Poisson2Sparse()`` on ``size``² Poisson noise, ``DEAL()`` denoising
+    ``size``² (the card alone) and ``small``² and on ``small``² inpainting
+    (outer and CG iterations and host reads printed), ``BM3D()`` on
+    1x1x``size``² at sigma 0.1, ``ESRGANDiscriminator()`` and
+    ``DCGANDiscriminator()``, ``NIQE`` fitted by ``create_weights`` on
+    NIQE_PHANTOMS phantoms. 19.5 VGG16, the kernel network and DEAL rebuilt
+    from upstream-named files (``pretrained=``, ``port_deal``): the same
+    output bits. No K1-K4 or K7 launch through the phase. Timed (``rate:``
+    lines, with the card): steps/s and idle shares of each configuration,
+    recons/s, ms a call, and the phase's seconds. On the CPU, at small sizes
+    and widths, it rehearses the checks (count the plain chain calls as
+    launches by wrapping ``deepinv_tpu_torch.models.dncnn.conv_chain``; the
+    K6 and stash-backward counts are checked on the card only) and skips the
+    times and profiles."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    from deepinv_tpu_torch.core.linalg import loop_stats
+    from deepinv_tpu_torch.datasets import ArrayDataset, DataLoader
+    from deepinv_tpu_torch.loss import (LPIPS, NIQE, PSNR, SSIM, SupAdversarialGeneratorLoss,
+                                        SupLoss, UAIRGeneratorLoss,
+                                        UnsupAdversarialDiscriminatorLoss)
+    from deepinv_tpu_torch.models import (BM3D, DEAL, ArtifactRemoval, ConvDecoder,
+                                          CSGMGenerator, DCGANDiscriminator, DCGANGenerator,
+                                          DeepImagePrior, DnCNN, ESRGANDiscriminator,
+                                          KernelIdentificationNetwork, PatchGANDiscriminator,
+                                          Poisson2Sparse, VGG16Features, autocast)
+    from deepinv_tpu_torch.models.convert import (deal_names, kernel_network_names, port_deal,
+                                                  vgg16_names)
+    from deepinv_tpu_torch.ops import gaussian_blur
+    from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain_stash,
+                                                          fused_chains_disabled, stash_backward)
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import resblock_chain
+    from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox
+    from deepinv_tpu_torch.ops.kernels.up_resblock_chain import up_resblock_chain
+    from deepinv_tpu_torch.ops.kernels.up_sandwich import up_sandwich
+    from deepinv_tpu_torch.optim import L2, PnP, optim_builder
+    from deepinv_tpu_torch.physics import (CompressedSensing, Denoising, GaussianNoise,
+                                           Inpainting, PoissonNoise, SpaceVaryingBlur)
+    from deepinv_tpu_torch.training import AdversarialTrainer
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(SEED + 220)
+    rng = np.random.default_rng(SEED + 221)
+    L = depth - 2
+    others = (resblock_chain, up_resblock_chain, up_sandwich, chambolle_prox)
+    for op in others:
+        op.launches = 0
+    out = {"launches": {"K5": {}, "K6": {}, "stash_backward": {}}, "rates": {}, "ms": {},
+           "cpu": {}}
+    tmp = tempfile.mkdtemp()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def cg(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def counts():
+        return (conv_chain_stash.launches, stash_backward.launches,
+                dncnn_mod.conv_chain.launches)
+
+    def zero_counts():
+        conv_chain_stash.launches = stash_backward.launches = dncnn_mod.conv_chain.launches = 0
+
+    def timed(label, fn, reps=3):
+        """ms a call of ``fn`` on the card (CUDA events), kept in out["ms"]."""
+        if cuda:
+            ms = cuda_ms(fn, reps, warmup=1)
+            out["ms"][label] = ms
+            print(f"time {label}: {ms:.3f} ms a call ({card})", flush=True)
+
+    def twin(label, a, b, rtol):
+        """The card's result ``a`` against the CPU's ``b``, within ``rtol``."""
+        err = rel_max(a.detach().to(cpu), b.detach())
+        print(f"{label}: card vs CPU relative max error {err} (bound {rtol})", flush=True)
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite output")
+        check(err <= rtol, f"{label}: the card disagrees with the CPU")
+        out["cpu"][label] = err
+        return err
+
+    try:
+        # 19.1 adversarial training on K6, the stash backward and K5
+        net = DnCNN(1, 1, depth=depth, nf=64, generator=g)
+        D0 = PatchGANDiscriminator(input_nc=1, ndf=ndf, generator=g)
+        physics = Denoising(GaussianNoise(0.1))
+
+        def trainer_of(xs, B, fused, losses, losses_d=None):
+            model = ArtifactRemoval(autocast(copy.deepcopy(net)))
+            D = copy.deepcopy(D0)
+            return AdversarialTrainer(
+                model, physics, D=D, losses=losses, losses_d=losses_d,
+                optimizer=torch.optim.Adam(model.parameters(), lr=ADV_LR),
+                optimizer_d=torch.optim.Adam(D.parameters(), lr=ADV_LR),
+                train_dataloader=DataLoader(ArrayDataset(xs), batch_size=B), epochs=1,
+                online_measurements=True, verbose=False, fused_chains=fused, seed=SEED)
+
+        def adv_step(t):
+            x, y, phys = first_batch(t)
+
+            def run():
+                t.generator_step(x, y, phys, (0, 0, 0))
+                t.discriminator_step(x, y, phys, (0, 0, 0))
+            return run, (x, y, phys)
+
+        sup = [SupLoss(), SupAdversarialGeneratorLoss(ADV_WEIGHT)]
+        trained = None
+        for B in batches:
+            xs = torch.rand((B * steps, 1, size, size), generator=g).to(dev)
+            trainers = {f: trainer_of(xs, B, f, sup) for f in (True, False)}
+            label = f"adversarial B={B}"
+            gg, gd = adversarial_first_grads(trainers[True], contextlib.nullcontext())
+            rg, rd = adversarial_first_grads(trainers[True], fused_chains_disabled())
+            e_g, e_d = rel_max(gg, rg), rel_max(gd, rd)
+            print(f"{label}: first step's gradients, kernels vs layers: generator relative max "
+                  f"{e_g} (L2 {rel_l2(gg, rg)}), discriminator relative max {e_d} (L2 "
+                  f"{rel_l2(gd, rd)}), bound {GRAD_RTOL}", flush=True)
+            check(e_g <= GRAD_RTOL and e_d <= GRAD_RTOL, f"{label}: first-step gradients disagree")
+            secs = {}
+            for f, t in trainers.items():
+                zero_counts()
+                secs[f] = [train_epoch(t, 0, dev)]
+                n6, nb, n5 = counts()
+                lg, ld = t.logs_total_loss_train.vals, t.logs_total_loss_d.vals
+                print(f"{label} fused_chains={f}: {steps} steps, K6 {n6}, stash backward {nb}, K5 "
+                      f"{n5}; generator losses {lg}, discriminator losses {ld}", flush=True)
+                check(len(lg) == steps and all(math.isfinite(v) for v in lg + ld),
+                      f"{label} fused_chains={f}: non-finite loss")
+                want = (steps, steps * (L + 2), steps) if f else (0, 0, 0)
+                if cuda:
+                    check((n6, nb, n5) == want, f"{label} fused_chains={f}: launches K6 {n6}, "
+                          f"stash backward {nb}, K5 {n5} (expected {want})")
+                else:
+                    check(n5 == (2 * steps if f else 0), f"{label}: plain chain calls {n5}")
+                if f:
+                    out["launches"]["K6"][label] = n6
+                    out["launches"]["stash_backward"][label] = nb
+                    out["launches"]["K5"][label] = n5
+            # D's weights do not move in a generator step, and move in its own
+            t = trainers[True]
+            run, (x, y, phys) = adv_step(t)
+            d_before = copy.deepcopy(t.D.state_dict())
+            t.generator_step(x, y, phys, (0, 0, 0))
+            same = all(torch.equal(v, d_before[k]) for k, v in t.D.state_dict().items())
+            t.discriminator_step(x, y, phys, (0, 0, 0))
+            moved = not all(torch.equal(v, d_before[k]) for k, v in t.D.state_dict().items())
+            print(f"{label}: D unchanged by a generator step {same}, changed by its own {moved}",
+                  flush=True)
+            check(same and moved, f"{label}: the generator step moved D, or D's step did not")
+            trained = t
+            if cuda:
+                for f in (False, True, True, False):
+                    secs[f].append(train_epoch(trainers[f], len(secs[f]), dev))
+                rates = {f: steps * (len(v) - 1) / sum(v[1:]) for f, v in secs.items()}
+                idle = {}
+                for f in (True, False):
+                    prof = device_profile(f"{label} step fused_chains={f}",
+                                          adv_step(trainers[f])[0], 2, top=8)
+                    idle[f] = None if prof is None else 1 - prof[4] / prof[0]
+                x, y, phys = first_batch(trainers[True])
+                tg = trainers[True]
+                halves = {"generator step": lambda: tg.generator_step(x, y, phys, (0, 0, 0)),
+                          "discriminator step": lambda: tg.discriminator_step(x, y, phys,
+                                                                               (0, 0, 0))}
+                ms = {k: [] for k in halves}
+                for k in list(halves) + list(halves)[::-1]:
+                    ms[k].append(cuda_ms(halves[k], 3, warmup=1))
+                ms = {k: sum(v) / len(v) for k, v in ms.items()}
+                print(f"rate: {label} {size}² {rates[True]:.3f} steps/s fused_chains=True, "
+                      f"{rates[False]:.3f} steps/s False; idle share {idle}; fused step halves "
+                      f"ms {ms} ({card})", flush=True)
+                out["rates"][label] = {"steps_per_s": rates, "idle_share": idle,
+                                       "halves_ms": ms}
+
+        # UAIR: the model called twice a generator step, K6 twice
+        xs = torch.rand((steps, 1, size, size), generator=g).to(dev)
+        uair = trainer_of(xs, 1, True, [UAIRGeneratorLoss()], [UnsupAdversarialDiscriminatorLoss()])
+        zero_counts()
+        secs = [train_epoch(uair, 0, dev)]
+        n6, nb, n5 = counts()
+        label = "UAIR B=1"
+        print(f"{label} fused_chains=True: {steps} steps, K6 {n6}, stash backward {nb}, K5 {n5}; "
+              f"losses {uair.logs_total_loss_train.vals}, {uair.logs_total_loss_d.vals}",
+              flush=True)
+        check(all(math.isfinite(v) for v in uair.logs_total_loss_train.vals
+                  + uair.logs_total_loss_d.vals), f"{label}: non-finite loss")
+        if cuda:
+            want = (2 * steps, 2 * steps * (L + 2), steps)
+            check((n6, nb, n5) == want, f"{label}: launches {(n6, nb, n5)} (expected {want})")
+            secs += [train_epoch(uair, 1, dev), train_epoch(uair, 2, dev)]
+            prof = device_profile(f"{label} step", adv_step(uair)[0], 2, top=8)
+            idle = None if prof is None else 1 - prof[4] / prof[0]
+            r = steps * 2 / sum(secs[1:])
+            print(f"rate: {label} {size}² {r:.3f} steps/s fused_chains=True; idle share {idle} "
+                  f"({card})", flush=True)
+            out["rates"][label] = {"steps_per_s": r, "idle_share": idle}
+        out["launches"]["K6"][label], out["launches"]["stash_backward"][label] = n6, nb
+        out["launches"]["K5"][label] = n5
+
+        print(f"phase 19.1: {time.perf_counter() - t_phase:.3f} s into the phase", flush=True)
+        # 19.2 the trained generator scored: PSNR, SSIM, LPIPS on K5
+        lpips = LPIPS(allow_random_weights=True, generator=cg(SEED + 222))
+        B = batches[-1]
+        trained.metrics = [PSNR(), SSIM(), lpips]
+        xe = torch.rand((B * ADV_EVAL_BATCHES, 1, size, size), generator=g).to(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        scores = trained.test(DataLoader(ArrayDataset(xe), batch_size=B))
+        sync(dev)
+        n5 = counts()[2]
+        print(f"eval B={B}, {ADV_EVAL_BATCHES} batches: {scores}; K5 {n5}; "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        check(all(math.isfinite(v) for v in scores.values()), "eval: non-finite metric")
+        check(n5 == ADV_EVAL_BATCHES, f"eval: K5 {n5} (expected one a batch)")
+        out["launches"]["K5"][f"eval B={B}"] = n5
+        out["eval"] = scores
+        xa = torch.rand((B, 3, size, size), generator=g).to(dev)
+        xb = (xa + 0.1 * torch.rand((B, 3, size, size), generator=g).to(dev)).clamp(0, 1)
+        with torch.no_grad():
+            f32 = lpips.backbone(xa)
+            f16 = lpips.backbone(xa.to(torch.bfloat16))
+            d32, d16 = lpips(xb, xa), lpips(xb.to(torch.bfloat16), xa.to(torch.bfloat16))
+        errs = [rel_max(a, b) for a, b in zip(f16, f32)]
+        print(f"LPIPS VGG16 B={B} {size}² RGB: bf16 vs f32 features, relative max by stage "
+              f"{errs} (bound {DENOISER_RTOL}); distances f32 {d32[:4].tolist()}, bf16 "
+              f"{d16[:4].tolist()}", flush=True)
+        check(max(errs) <= DENOISER_RTOL, "LPIPS: bf16 VGG16 features disagree with f32")
+        out["lpips_bf16"] = errs
+        with torch.no_grad():
+            timed(f"LPIPS B={B} f32", lambda: lpips(xb, xa))
+            timed(f"LPIPS B={B} bf16", lambda: lpips(xb.to(torch.bfloat16),
+                                                     xa.to(torch.bfloat16)))
+
+        print(f"phase 19.2: {time.perf_counter() - t_phase:.3f} s into the phase", flush=True)
+        # 19.3 blind deblurring: the kernel network's SpaceVaryingBlur, PnP-PGD on K5
+        ks = kin_size or size
+        x = torch.from_numpy(discs(rng, 3, ks))[None].to(dev)
+        ramp = torch.linspace(0, 1, ks, device=dev)[None, :].expand(ks, ks)
+        psfs = torch.cat([gaussian_blur(sigma=s, psf_size=BLIND_PSF) for s in BLIND_SIGMAS])
+        true = SpaceVaryingBlur(filters=psfs.reshape(1, 1, 2, BLIND_PSF, BLIND_PSF),
+                                multipliers=torch.stack([ramp, 1 - ramp])[None, None],
+                                padding="reflect", noise_model=GaussianNoise(0.01))
+        y = true(x, generator=gen(SEED + 223))
+        kin = KernelIdentificationNetwork(generator=g)
+        with torch.no_grad():
+            est = kin(y)
+        kf, km = est["filters"], est["multipliers"]
+        print(f"KernelIdentificationNetwork {ks}² RGB: filters {tuple(kf.shape)} (sums "
+              f"{float(kf.sum((-2, -1)).min()):.6f}-{float(kf.sum((-2, -1)).max()):.6f}), "
+              f"multipliers {tuple(km.shape)}", flush=True)
+        check(tuple(kf.shape) == (1, 1, 25, 33, 33) and tuple(km.shape) == (1, 1, 25, ks, ks),
+              "kernel network: bad output shapes")
+        check(torch.allclose(kf.sum((-2, -1)), torch.ones_like(kf[..., 0, 0]), atol=1e-4)
+              and torch.allclose(km.sum(2), torch.ones_like(km[:, :, 0]), atol=1e-4),
+              "kernel network: kernels or multipliers do not sum to 1")
+        with torch.no_grad():
+            timed(f"KernelIdentificationNetwork {ks}²", lambda: kin(y))
+        blur = SpaceVaryingBlur(padding="reflect").update(**est)
+        net3 = DnCNN(3, 3, depth=depth, nf=64, generator=g)
+        with torch.no_grad():
+            net3.out_conv.weight.mul_(DNCNN_RESIDUAL_SCALE)
+        pgd = optim_builder("PGD", data_fidelity=L2(), prior=PnP(autocast(net3)),
+                            params_algo=BLIND_PARAMS, max_iter=MAX_ITER)
+        label = "blind PnP-PGD B=1"
+        res, _, n5 = drive(label, pgd, y, blur, net3, dncnn_mod.conv_chain, plain_conv_chain,
+                           tuple(x.shape), exact_conv_chain, residual_of=net3.out_conv)
+        print(f"{label}: PSNR {psnr(res, x):.4f} dB (random weights), blurred "
+              f"{psnr(y, x):.4f} dB", flush=True)
+        out["launches"]["K5"][label] = n5
+        if cuda:
+            def recon():
+                with torch.no_grad():
+                    return pgd(y, blur)
+            rate_of("blind PnP-PGD", recon, MAX_ITER, 1, MAX_ITER, f"{ks}²", card, out["rates"])
+
+        print(f"phase 19.3: {time.perf_counter() - t_phase:.3f} s into the phase", flush=True)
+        # 19.4 the other models in f32, the card against the CPU
+        mask = (torch.rand((1, size, size), generator=g) > DIP_MASK).float()
+        xg = torch.from_numpy(discs(rng, 1, size))[None]
+
+        def dip_of(device, iters):
+            dec = ConvDecoder((1, size, size), generator=cg(SEED + 224), device=device)
+            return DeepImagePrior(dec, iterations=iters)
+
+        inp = {d: Inpainting((1, size, size), mask=mask, device=d) for d in (dev, cpu)}
+        z = dip_of(cpu, 1).generator.latent_shape(1)
+        z = torch.randn(z, generator=g) * 0.1
+        yd = xg * mask
+        n = GEN_CHECK_STEPS["DIP"]
+        twin(f"DeepImagePrior {size}² {n} it", dip_of(dev, n)(yd.to(dev), inp[dev], z=z.to(dev)),
+             dip_of(cpu, n)(yd, inp[cpu], z=z), GEN_FIT_RTOL)
+        dip = dip_of(dev, DIP_ITERS)
+        t0 = time.perf_counter()
+        xd = dip(yd.to(dev), inp[dev], z=z.to(dev))
+        sync(dev)
+        s = time.perf_counter() - t0
+        with torch.no_grad():
+            r0 = float((inp[dev].A(dip.generator(z.to(dev))) - yd.to(dev)).norm())
+        r1 = float((inp[dev].A(xd) - yd.to(dev)).norm())
+        print(f"DeepImagePrior {size}², {DIP_ITERS} it: {s:.3f} s ({DIP_ITERS / s:.2f} it/s), "
+              f"data residual {r0:.4f} -> {r1:.4f}, PSNR {psnr(xd.cpu(), xg):.4f} dB ({card})",
+              flush=True)
+        check(r1 < r0, "DeepImagePrior: the data residual did not fall")
+        out["ms"][f"DeepImagePrior {size}² {DIP_ITERS} it"] = s * 1e3
+
+        def csgm_of(device, iters):
+            G = DCGANGenerator(generator=cg(SEED + 225), device=device)
+            return CSGMGenerator(G, inf_max_iter=iters)
+
+        cs = {d: CompressedSensing(m=CSGM_M, img_size=(3, 64, 64), fast=True,
+                                   generator=cg(SEED + 226), device=d) for d in (dev, cpu)}
+        m_cpu = csgm_of(cpu, GEN_CHECK_STEPS["CSGM"])
+        with torch.no_grad():
+            xt = m_cpu.G(torch.randn((1, 100), generator=g))
+        yc = cs[cpu].A(xt)
+        z0 = torch.randn((1, 100), generator=g)
+        twin(f"CSGMGenerator {GEN_CHECK_STEPS['CSGM']} steps",
+             csgm_of(dev, GEN_CHECK_STEPS["CSGM"])(yc.to(dev), cs[dev], z0=z0.to(dev)),
+             m_cpu(yc, cs[cpu], z0=z0), GEN_FIT_RTOL)
+        csgm = csgm_of(dev, 100)
+        t0 = time.perf_counter()
+        zf = csgm.optimize_z(z0.to(dev), yc.to(dev), cs[dev])
+        sync(dev)
+        s = time.perf_counter() - t0
+        with torch.no_grad():
+            r0 = float((cs[dev].A(csgm.G(z0.to(dev))) - yc.to(dev)).norm())
+            r1 = float((cs[dev].A(csgm.G(zf)) - yc.to(dev)).norm())
+        print(f"CSGMGenerator(DCGANGenerator()) 3x64², {CSGM_M} measurements, 100 steps: "
+              f"{s:.3f} s, residual {r0:.4f} -> {r1:.4f} ({card})", flush=True)
+        check(r1 < r0, "CSGM: the residual did not fall")
+        out["ms"]["CSGM 100 steps"] = s * 1e3
+
+        xp = torch.from_numpy(discs(rng, 1, size))[None] * 0.9 + 0.05
+        yp = PoissonNoise(PSF_NOISE_GAIN, device=cpu)(xp, generator=cg(SEED + 227))
+        half = (1, 1, size // 2, size // 2)
+        n = GEN_CHECK_STEPS["Poisson2Sparse"]
+        draws = []
+        for _ in range(n):
+            draws += [torch.randint(0, 4, half, generator=g), torch.randint(1, 4, half, generator=g)]
+
+        def p2s_of(device, steps_):
+            return Poisson2Sparse(train_steps=steps_, generator=cg(SEED + 228), device=device)
+
+        twin(f"Poisson2Sparse {size}² {n} steps",
+             p2s_of(dev, n)(yp.to(dev), draws=[d.numpy() for d in draws]),
+             p2s_of(cpu, n)(yp, draws=[d.numpy() for d in draws]), GEN_FIT_RTOL)
+        p2s = p2s_of(dev, 200)
+        t0 = time.perf_counter()
+        xq = p2s(yp.to(dev), generator=gen(SEED + 229))
+        sync(dev)
+        s = time.perf_counter() - t0
+        print(f"Poisson2Sparse() {size}² gain {PSF_NOISE_GAIN}: 200 steps {s:.3f} s, PSNR "
+              f"{psnr(xq.cpu(), xp):.4f} dB, noisy {psnr(yp, xp):.4f} dB ({card})", flush=True)
+        check(bool(torch.isfinite(xq).all()), "Poisson2Sparse: non-finite output")
+        out["ms"]["Poisson2Sparse 200 steps"] = s * 1e3
+
+        def deal_of(device):
+            return DEAL(generator=cg(SEED + 230), device=device)
+
+        deal = deal_of(dev)
+        xs_ = torch.from_numpy(discs(rng, 1, size))[None]
+        ys_ = xs_ + 0.1 * torch.randn(xs_.shape, generator=g)
+        xm, ym = xs_[..., :small, :small], ys_[..., :small, :small]
+        mask_s = (torch.rand((1, small, small), generator=g) > 0.5).float()
+        inp_s = {d: Inpainting((1, small, small), mask=mask_s, device=d) for d in (dev, cpu)}
+        # the CPU would take minutes for the size² denoise: the card alone there
+        for lbl, call, on_cpu in (
+                (f"DEAL denoise {size}²", lambda m, d: m(ys_.to(d), 0.1), size == small),
+                (f"DEAL denoise {small}²", lambda m, d: m(ym.to(d), 0.1), True),
+                (f"DEAL inpainting {small}²", lambda m, d: m((xm * mask_s).to(d), inp_s[d]),
+                 True)):
+            loop_stats.reset()
+            sync(dev)
+            t0 = time.perf_counter()
+            got = call(deal, dev)
+            sync(dev)
+            s = time.perf_counter() - t0
+            print(f"{lbl}: {s:.3f} s, loops {loop_stats.loops}, iterations "
+                  f"{loop_stats.iterations}, bodies {loop_stats.bodies}, host reads "
+                  f"{loop_stats.host_reads} ({card})", flush=True)
+            check(bool(torch.isfinite(got).all()), f"{lbl}: non-finite output")
+            out["ms"][lbl] = s * 1e3
+            if on_cpu:
+                twin(lbl, got, call(deal_of(cpu), cpu), GEN_FIT_RTOL)
+
+        xb3 = xs_ + 0.1 * torch.randn(xs_.shape, generator=g)
+        bm = BM3D()
+        sync(dev)
+        t0 = time.perf_counter()
+        b_dev = bm(xb3.to(dev), 0.1)
+        sync(dev)
+        s = time.perf_counter() - t0
+        b_cpu = bm(xb3, 0.1)
+        p_dev, p_cpu = psnr(b_dev.cpu(), xs_), psnr(b_cpu, xs_)
+        print(f"BM3D 1x1x{size}² sigma 0.1: PSNR {p_dev:.4f} dB on the card, {p_cpu:.4f} dB on "
+              f"the CPU (noisy {psnr(xb3, xs_):.4f}); {s:.3f} s the first call ({card})",
+              flush=True)
+        check(abs(p_dev - p_cpu) <= BM3D_PSNR_DB, "BM3D: the card's PSNR is off the CPU's")
+        timed(f"BM3D 1x1x{size}²", lambda: bm(xb3.to(dev), 0.1), reps=2)
+
+        Bd = batches[-1]
+        for lbl, make, shape in (
+                ("ESRGANDiscriminator", lambda d: ESRGANDiscriminator(generator=cg(SEED + 231),
+                                                                      device=d), (Bd, 3, 128, 128)),
+                ("DCGANDiscriminator", lambda d: DCGANDiscriminator(generator=cg(SEED + 232),
+                                                                    device=d), (Bd, 3, 64, 64))):
+            xi = torch.rand(shape, generator=g) * 2 - 1
+            md = make(dev)
+            with torch.no_grad():
+                twin(f"{lbl} {tuple(shape)}", md(xi.to(dev)), make(cpu)(xi), GEN_FWD_RTOL)
+                timed(f"{lbl} {tuple(shape)}", lambda: md(xi.to(dev)))
+
+        def noisy_discs():
+            d = discs(rng, 1, size)
+            return np.clip(d + NIQE_NOISE * rng.standard_normal(d.shape), 0, 1).astype(np.float32)
+
+        phantoms = [noisy_discs() for _ in range(NIQE_PHANTOMS)]
+        xn = torch.from_numpy(np.stack([noisy_discs() for _ in range(4)]))
+        scores = {}
+        for d in (dev, cpu):
+            nq = NIQE(patch_size=niqe_patch)
+            t0 = time.perf_counter()
+            nq.create_weights([torch.from_numpy(p).to(d) for p in phantoms],
+                              sharpness_threshold=NIQE_SHARPNESS)
+            s = time.perf_counter() - t0
+            scores[d.type] = nq(xn.to(d))
+            if d == dev:
+                print(f"NIQE create_weights on {NIQE_PHANTOMS} phantoms {size}²: {s:.3f} s; "
+                      f"scores {scores[d.type].tolist()} ({card})", flush=True)
+                timed(f"NIQE 4x1x{size}²", lambda: nq(xn.to(dev)))
+        twin("NIQE", scores[dev.type], scores["cpu"], NIQE_CPU_RTOL)
+
+        print(f"phase 19.4: {time.perf_counter() - t_phase:.3f} s into the phase", flush=True)
+        # 19.5 upstream-named checkpoints: VGG16, the kernel network, DEAL
+        img = torch.rand((1, 3, size, size), generator=g).to(dev)
+        vgg = VGG16Features(generator=g)
+        bits_round_trip("VGG16Features", vgg, vgg16_names,
+                        lambda p: VGG16Features(pretrained=p),
+                        lambda m: torch.cat([f.flatten() for f in m(img)]), tmp)
+        bits_round_trip("KernelIdentificationNetwork", kin, kernel_network_names,
+                        lambda p: KernelIdentificationNetwork(pretrained=p),
+                        lambda m: m(y)["multipliers"], tmp)
+        bits_round_trip("DEAL", deal, deal_names,
+                        lambda p: port_deal(DEAL(), torch.load(p, weights_only=True)),
+                        lambda m: m(ym.to(dev), 0.1), tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    n_other = sum(op.launches for op in others)
+    print(f"phase 19: K1-K4 and K7 launches {n_other}", flush=True)
+    check(n_other == 0, "phase 19: a K1-K4 or K7 kernel was launched")
+    out["s"] = time.perf_counter() - t_phase
+    print(f"phase 19: {out['s']:.3f} s ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5171,6 +5757,11 @@ def main() -> int:
     # K1-K8 launch, bf16 against f32, pretrained= round trips
     backbones_phase(dev, card)
 
+    # 19. adversarial training of the DnCNN chain (K6, the stash backward, K5),
+    # the blind deblurring demo's kernel network and PnP-PGD over K5, the rest
+    # of models/ against the CPU, the metrics, pretrained= round trips
+    gen19 = generative_phase(dev, card)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -5313,6 +5904,11 @@ def main() -> int:
         "launches_models": m17["launches"]["K5"],
         "models_rates": {k: v for k, v in m17["rates"].items() if k.startswith("MoDL B")},
         "models_tile": m17.get("tile"),
+        # phase 19: K5's launches in the adversarial steps (one a discriminator
+        # step), the eval of the trained generator (one a batch) and PnP-PGD on
+        # the kernel network's SpaceVaryingBlur (one an iteration), its rates
+        "launches_generative": gen19["launches"]["K5"],
+        "generative_rates": {k: v for k, v in gen19["rates"].items() if "blind" in k},
     }, {
         "name": "tv_prox",
         "route": "cuda",
@@ -5432,6 +6028,10 @@ def main() -> int:
         # with their steps/s and idle shares
         "launches_models": m17["launches"]["K6"],
         "models_rates": {k: v for k, v in m17["rates"].items() if "train" in k},
+        # phase 19: K6's launches in the adversarial generator steps (one a
+        # step, two under UAIR), their steps/s and idle shares
+        "launches_generative": gen19["launches"]["K6"],
+        "generative_rates": {k: v for k, v in gen19["rates"].items() if "blind" not in k},
     }, {
         "name": "stash_backward",
         "route": "cuda",
@@ -5464,6 +6064,9 @@ def main() -> int:
         # phase 17: the launches in MoDL's train steps (L + 2 a backward,
         # MODL_ITERS backwards a step)
         "launches_models": m17["launches"]["stash_backward"],
+        # phase 19: the launches in the adversarial generator steps (L + 2 a
+        # backward; two backwards a step under UAIR)
+        "launches_generative": gen19["launches"]["stash_backward"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

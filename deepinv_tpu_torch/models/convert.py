@@ -28,8 +28,9 @@ from torch import nn
 __all__ = ["load_jax_params", "load_torch_checkpoint", "port_weights", "upstream_state_dict",
            "dncnn_names", "drunet_names", "srresnet_names", "dsccp_names", "adm_names",
            "ncsnpp_names", "restormer_names", "swinir_names", "scunet_names", "ram_names",
-           "port_dncnn", "port_drunet", "port_srresnet", "port_dsccp", "port_ncsnpp",
-           "port_restormer", "port_swinir", "port_scunet", "port_ram"]
+           "vgg16_names", "kernel_network_names", "deal_names", "port_dncnn", "port_drunet",
+           "port_srresnet", "port_dsccp", "port_ncsnpp", "port_restormer", "port_swinir",
+           "port_scunet", "port_ram", "port_vgg16", "port_kernel_network", "port_deal"]
 
 
 def load_jax_params(module: nn.Module, arrays: dict) -> nn.Module:
@@ -268,6 +269,44 @@ def ram_names(model) -> dict:
                             (r"\.skipconvs\.(\d+)\.", r".skipconv\1.")])
 
 
+def vgg16_names(model) -> dict:
+    """VGG16Features (vgg.py:80): torchvision's ``features.<idx>`` of each
+    conv; the ImageNet mean and deviation are constants and left out."""
+    from .vgg import _TORCH_IDX
+
+    names = {}
+    for i, idx in enumerate(_TORCH_IDX):
+        _conv(names, f"convs.{i}", f"features.{idx}")
+    return names
+
+
+def kernel_network_names(model) -> dict:
+    """KernelIdentificationNetwork (convert.py:276): ``inc_*.0``, ``feat.0``, a
+    block's ``double_conv.0``/``.2`` and ``feat.0``, the heads' convs at even
+    indices."""
+    return _renamed(model, [(r"^(inc_rgb|inc_gray|feat)\.", r"\1.0."),
+                            (r"\.conv1\.", ".double_conv.0."), (r"\.conv2\.", ".double_conv.2."),
+                            (r"^((?:kernel_)?up\d)\.feat\.", r"\1.feat.0."),
+                            (r"^(masks|kernels)_end\.(\d)\.",
+                             lambda m: f"{m.group(1)}_end.{2 * int(m.group(2))}.")])
+
+
+def deal_names(model) -> dict:
+    """DEAL (convert.py:372): ``W1``/``M1`` ``conv_layers.{j}``, the first
+    under its zero-mean parametrization (the original coefficients, as the
+    port applies the zero mean at the call), ``M2.weight``, ``M3.weight`` and
+    each spline's ``coefficients``."""
+    names = {}
+    for mc in ("W1", "M1"):
+        for j in range(len(getattr(model, mc).weights)):
+            leaf = "parametrizations.weight.original" if j == 0 else "weight"
+            names[f"{mc}.weights.{j}"] = f"{mc}.conv_layers.{j}.{leaf}"
+    names["M2"], names["M3"] = "M2.weight", "M3.weight"
+    for spline in ("spline1", "spline2", "spline3", "spline_lambda", "spline_scaling"):
+        names[f"{spline}.coefficients"] = f"{spline}.coefficients"
+    return names
+
+
 def port_dncnn(model, sd):
     """Upstream DnCNN weights into ``model`` (convert.py:48)."""
     return port_weights(model, sd, dncnn_names(model))
@@ -311,6 +350,33 @@ def port_scunet(model, sd):
 def port_ram(model, sd):
     """Upstream RAM weights into ``model`` (convert.py:306)."""
     return port_weights(model, sd, ram_names(model))
+
+
+def port_vgg16(model, sd):
+    """A torchvision ``vgg16`` state dict into ``model`` (vgg.py:80)."""
+    return port_weights(model, sd, vgg16_names(model))
+
+
+def port_kernel_network(model, sd):
+    """The published KernelIdentificationNetwork weights into ``model``
+    (convert.py:276)."""
+    return port_weights(model, sd, kernel_network_names(model))
+
+
+def port_deal(model, sd):
+    """A DEAL state dict into ``model`` (convert.py:372): keys with or
+    without the ``model.`` prefix, each W1/M1 kernel under its zero-mean
+    parametrization's ``original`` or as a plain ``weight``."""
+    sd = {k.removeprefix("model."): v for k, v in sd.items()}
+    names = {}
+    for ours, theirs in deal_names(model).items():
+        if theirs not in sd and ".conv_layers." in theirs:
+            prefix = theirs.removesuffix(".parametrizations.weight.original").removesuffix(
+                ".weight")
+            theirs = next((k for k in (f"{prefix}.parametrizations.weight.original",
+                                       f"{prefix}.weight") if k in sd), theirs)
+        names[ours] = theirs
+    return port_weights(model, sd, names)
 
 
 def upstream_state_dict(model, names: dict) -> dict:

@@ -31,9 +31,9 @@ gates stay open, so a bf16 DnCNN's hidden chain trains on the stash kernel
 (K6) and its stash backward, which is what ``jax.grad`` of a fused DnCNN
 does in the JAX package.
 
-Batches go to the model's device. Waiting (ROADMAP queue 1): wandb/mlflow,
-the orbax checkpoint backend, ``data_parallel``, plotting and adversarial
-training.
+Batches go to the model's device. Adversarial training is
+``training/adversarial.py``. Waiting (ROADMAP queue 1): wandb/mlflow, the
+orbax checkpoint backend, ``data_parallel`` and plotting.
 """
 
 from __future__ import annotations

@@ -171,9 +171,9 @@ def test_models_exports_every_jax_name_of_this_slice():
 
 def test_models_exports_the_diffusion_backbones_and_attention_models():
     """``deepinv_tpu_torch.models`` exports the ten names of the diffusion
-    backbones and the attention models, and the JAX ``models`` names it
-    still lacks are exactly the thirteen of ``gan``, ``dip``, ``bm3d``,
-    ``poisson2sparse``, ``deal``, ``kernel_network`` and ``vgg``."""
+    backbones and the attention models, and lacks no public name of the JAX
+    ``models`` (since the thirteen of ``gan``, ``dip``, ``bm3d``,
+    ``poisson2sparse``, ``deal``, ``kernel_network`` and ``vgg`` came)."""
     import types
 
     new = {"DiffUNet", "EDMPrecond", "GroupNorm", "ADMUNet", "NCSNpp", "Restormer", "PromptIR",
@@ -181,11 +181,11 @@ def test_models_exports_the_diffusion_backbones_and_attention_models():
     assert new <= set(TM.__all__) and all(hasattr(JM, n) for n in new)
     public = [n for n in dir(JM) if not n.startswith("_")
               and not isinstance(getattr(JM, n), types.ModuleType)]
-    assert sorted(n for n in public if not hasattr(TM, n)) == [
-        "BM3D", "CSGMGenerator", "ConvDecoder", "ConvLista", "DCGANDiscriminator",
-        "DCGANGenerator", "DEAL", "DeepImagePrior", "ESRGANDiscriminator",
-        "KernelIdentificationNetwork", "PatchGANDiscriminator", "Poisson2Sparse",
-        "VGG16Features"]
+    assert sorted(n for n in public if not hasattr(TM, n)) == []
+    assert {"BM3D", "CSGMGenerator", "ConvDecoder", "ConvLista", "DCGANDiscriminator",
+            "DCGANGenerator", "DEAL", "DeepImagePrior", "ESRGANDiscriminator",
+            "KernelIdentificationNetwork", "PatchGANDiscriminator", "Poisson2Sparse",
+            "VGG16Features"} <= set(TM.__all__)
 
 
 # -- the repair: no kernel op gives a second derivative without raising ----------

@@ -313,6 +313,23 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    K1-K4 or K7 launch. Timed: steps/s and idle shares of each
    configuration, the fused step's generator and discriminator halves,
    recons/s, ms a call (``rate:`` and ``time`` lines, with the card).
+20. self-supervised training (``selfsup_phase``): phase 9's bf16 DnCNN(1, 1)
+   (depth 20) trained through the ``Trainer`` at B=1 and B=16 in both
+   train-step configurations with ``SplittingLoss`` (256² inpainting, mask
+   0.7, split 0.8, examples/demo_splitting_loss.py), ``R2RLoss`` and
+   ``Neighbor2Neighbor`` (sigma 0.1), ``SurePGLoss(second_derivative=True)``,
+   ``MCLoss`` + ``EILoss(Rotate(multiples=1))``, ``MCLoss`` +
+   ``MOEILoss(PanTiltRotate)``, ``EquivariantSplittingLoss`` over an
+   ``EquivariantReconstructor``, ``Artifact2ArtifactLoss`` on 4-frame 256²
+   ``DynamicMRI`` over a time-agnostic DnCNN(2, 2), and one
+   ``WeightedSplittingLoss`` step on 320² MRI: K6, the stash backward and K5
+   the times each path makes a step (``SSL_LAUNCHES``), none unfused, the
+   first step within TRAIN_LOSS_RTOL / GRAD_RTOL of the cuDNN layers'
+   (SURE-PG's loss alone: its finite differences amplify bf16 rounding),
+   evaluation on K5 (SSL_EVAL_SAMPLES a splitting or R2R batch), SURE-PG's
+   bf16 finite-difference divergences against f32, the warps timed, and a
+   checkpoint saved and restored on the card (the same bits, a resumed epoch
+   equal). Timed: steps/s of both configurations and idle shares.
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -736,6 +753,30 @@ GEN_FWD_RTOL = 1e-4             # a forward: 8-13 conv layers of f32 sums
 GEN_FIT_RTOL = 1e-3             # a few Adam, heavy-ball or CG steps on top
 NIQE_CPU_RTOL = 1e-3            # features, then a float64 pseudo-inverse
 BM3D_PSNR_DB = 0.05             # BM3D's aggregation adds with atomics on the card
+# Phase 20, self-supervised training: train steps of each configuration
+# in each case, Adam's rate, examples/demo_splitting_loss.py's mask and
+# split, the evaluation's splits (K5 launches a batch), the noise levels,
+# the dynamic-MRI frames and the weighted splitting's MRI size and draws
+SSL_TRAIN_STEPS = 2
+SSL_LR = 1e-4
+SSL_MASK = 0.7
+SSL_SPLIT = 0.8
+SSL_EVAL_SAMPLES = 5
+SSL_SIGMA = 0.1
+PG_GAIN, PG_SIGMA = 0.05, 0.05
+A2A_FRAMES = 4
+WSPLIT_SIZE = 320
+WSPLIT_AVERAGE = 2000
+# (K6, K5, stash backwards) a train step with fused_chains=True: the
+# Trainer's reconstruction (one K6, no backward where the loss does not use
+# it) and the loss's own model calls
+SSL_LAUNCHES = {"splitting": (2, 0, 1), "R2R": (2, 0, 1), "Neighbor2Neighbor": (2, 1, 1),
+                "SURE-PG": (5, 0, 4), "EI Rotate": (2, 0, 2), "MOEI PanTiltRotate": (2, 0, 2),
+                "equivariant splitting": (2, 0, 1), "Artifact2Artifact": (2, 0, 1),
+                "WeightedSplitting": (2, 0, 1)}
+# cases whose loss is a finite difference of the network: the first step's
+# loss is held to the layers', its gradient and its gap to f32 printed
+SSL_FD_CASES = ("SURE-PG",)
 
 
 PEAK_BF16 = 989e12
@@ -4982,6 +5023,397 @@ def generative_phase(dev, card: str, size: int = 256, batches=TRAIN_BATCHES,
     return out
 
 
+def ssl_grads(trainer, x, y, phys, chains) -> tuple:
+    """The loss and the parameter gradients (one flat f32 vector a tensor, 0
+    where no gradient reaches) of the trainer's loss on a fixed batch, its
+    losses drawing from the generators of the first step's path, in
+    ``chains``: the same draws in either train-step configuration."""
+    import torch
+
+    model = trainer.model
+    model.zero_grad(set_to_none=True)
+    with chains:
+        loss = trainer._differentiable_loss(x, y, phys, (0, 0, 0))[0]
+        loss.backward()
+    gs = [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float().clone()
+          for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), gs
+
+
+def ssl_step(trainer, x, y, phys):
+    """One train step of ``trainer`` on a fixed batch, in its configuration."""
+    def run():
+        trainer.optimizer.zero_grad(set_to_none=True)
+        with trainer._chains():
+            trainer._differentiable_loss(x, y, phys, (0, 0, 0))[0].backward()
+        trainer.optimizer.step()
+    return run
+
+
+def selfsup_phase(dev, card: str, size: int = 256, batches=TRAIN_BATCHES,
+                  steps: int = SSL_TRAIN_STEPS, depth: int = 20, nf: int = 64,
+                  mri_size: int = WSPLIT_SIZE, frames: int = A2A_FRAMES,
+                  avg_n: int = WSPLIT_AVERAGE) -> dict:
+    """Phase 20: self-supervised training of the DnCNN chain through the
+    ``Trainer``'s entry points with the default device, every case from the
+    same seeded full-width ``DnCNN(1, 1, depth)`` (phase 9's; ``DnCNN(2, 2)``
+    on MRI) in bf16, at each of ``batches`` in both train-step
+    configurations: ``SplittingLoss(split_ratio=SSL_SPLIT,
+    eval_n_samples=SSL_EVAL_SAMPLES)`` on ``size``² inpainting (mask
+    SSL_MASK, examples/demo_splitting_loss.py) over ``ArtifactRemoval``;
+    ``R2RLoss`` and ``Neighbor2Neighbor`` on ``size``² Gaussian denoising
+    (sigma SSL_SIGMA); ``SurePGLoss(second_derivative=True)`` on
+    Poisson-Gaussian denoising; ``MCLoss`` + ``EILoss(Rotate(multiples=1))``
+    and ``MCLoss`` + ``MOEILoss(PanTiltRotate)`` on inpainting
+    (examples/demo_ei_projective.py); ``EquivariantSplittingLoss`` over an
+    ``EquivariantReconstructor`` (examples/demo_equivariant_splitting.py);
+    ``Artifact2ArtifactLoss`` on ``DynamicMRI`` (``frames`` frames of
+    ``size``², examples/demo_artifact2artifact.py) over a time-agnostic
+    ``DnCNN(2, 2)``, at 1 and TRAIN_BATCHES[-1] / ``frames`` clips; one
+    ``WeightedSplittingLoss`` step on ``mri_size``² single-coil MRI, its
+    k-space weight from ``avg_n`` draws of each generator. Each case: the
+    first step's loss within TRAIN_LOSS_RTOL and gradients within GRAD_RTOL
+    of the same step under ``fused_chains_disabled()`` (the cuDNN layers),
+    the same draws in both; ``steps`` steps of each configuration, their
+    losses within TRAIN_LOSS_RTOL of each other (SURE-PG, SSL_FD_CASES: its
+    finite differences make the gradient the two paths' bf16 rounding noise,
+    so its first step's loss alone is held, and the gradient, the later
+    losses and the gaps to the same step in f32 are printed); with
+    ``fused_chains=True``
+    K6, the stash backward (L + 2 a backward) and K5 launched the times the
+    path makes a step (``SSL_LAUNCHES``), with ``False`` none. Evaluation by
+    ``Trainer.test`` (K5 under ``no_grad``): SSL_EVAL_SAMPLES launches a
+    batch for the splitting and R2R models, one for Neighbor2Neighbor's. The
+    bf16 finite-difference divergences of SURE-PG against f32 ones of the
+    same weights (printed), the any-angle rotation's and PanTiltRotate's
+    warps timed alone, and a checkpoint saved and restored on the card
+    (``ckpt_backend="orbax"``, ``torch.save``): the same bits, and a resumed
+    epoch equal to an uninterrupted one (deterministic cuDNN). No K1-K4 or K7
+    launch. Timed (``rate:`` lines, with the card): steps/s of both
+    configurations in turns and the idle share of a ``True`` step, and the
+    phase's seconds. On the CPU, at small sizes, it rehearses the checks (the
+    launch counts on the card only) and skips the times."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    from deepinv_tpu_torch.datasets import ArrayDataset, DataLoader
+    from deepinv_tpu_torch.loss import (PSNR, Artifact2ArtifactLoss, EILoss,
+                                        EquivariantSplittingLoss, MCLoss, MOEILoss,
+                                        Neighbor2Neighbor, R2RLoss, SplittingLoss, SurePGLoss,
+                                        WeightedSplittingLoss)
+    from deepinv_tpu_torch.models import (ArtifactRemoval, DnCNN, EquivariantReconstructor,
+                                          TimeAgnosticNet, autocast)
+    from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain_stash,
+                                                          fused_chains_disabled, stash_backward)
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import resblock_chain
+    from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox
+    from deepinv_tpu_torch.ops.kernels.up_resblock_chain import up_resblock_chain
+    from deepinv_tpu_torch.ops.kernels.up_sandwich import up_sandwich
+    from deepinv_tpu_torch.physics import (MRI, Denoising, DynamicMRI, GaussianNoise,
+                                           Inpainting, PoissonGaussianNoise)
+    from deepinv_tpu_torch.physics.generator import (BernoulliSplittingMaskGenerator,
+                                                     GaussianMaskGenerator, RandomMaskGenerator)
+    from deepinv_tpu_torch.training import Trainer
+    from deepinv_tpu_torch.transform import PanTiltRotate, Rotate
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    g = torch.Generator().manual_seed(SEED + 230)
+    L = depth - 2
+    others = (resblock_chain, up_resblock_chain, up_sandwich, chambolle_prox)
+    for op in others:
+        op.launches = 0
+    out = {"launches": {"K5": {}, "K6": {}, "stash_backward": {}}, "rates": {}, "ms": {}}
+    tmp = tempfile.mkdtemp()
+
+    def counts():
+        return (conv_chain_stash.launches, dncnn_mod.conv_chain.launches,
+                stash_backward.launches)
+
+    def zero_counts():
+        conv_chain_stash.launches = stash_backward.launches = dncnn_mod.conv_chain.launches = 0
+
+    net1 = DnCNN(1, 1, depth=depth, nf=nf, generator=g)
+    net2 = DnCNN(2, 2, depth=depth, nf=nf, generator=g)
+    # each case: (net, wrap the bf16 net into the model, physics, losses, data
+    # shape of a sample, batches, steps, K5 launches a test batch or None)
+    inp_split = Inpainting((1, size, size), mask=SSL_MASK, noise_model=GaussianNoise(0.02),
+                           generator=g)
+    inp_ei = Inpainting((1, size, size), mask=0.5, noise_model=GaussianNoise(0.02), generator=g)
+    inp_ei2 = Inpainting((1, size, size), mask=0.5, noise_model=GaussianNoise(0.02), generator=g)
+    inp_es = Inpainting((1, size, size), mask=0.6, noise_model=GaussianNoise(0.02), generator=g)
+    den = Denoising(GaussianNoise(SSL_SIGMA))
+    den_pg = Denoising(PoissonGaussianNoise(gain=PG_GAIN, sigma=PG_SIGMA))
+    kt = RandomMaskGenerator((frames, size, size), acceleration=2).step(1, generator=gen_on(
+        dev, SEED + 231))["mask"][0]
+    dyn = DynamicMRI(mask=kt.expand((2,) + tuple(kt.shape[-3:])), img_size=(frames, size, size),
+                     noise_model=GaussianNoise(0.01))
+    acc = GaussianMaskGenerator((mri_size, mri_size), acceleration=4)
+    mri = MRI(mask=acc.step(1, generator=gen_on(dev, SEED + 232))["mask"][0],
+              img_size=(mri_size, mri_size), noise_model=GaussianNoise(0.01))
+    artifact = ArtifactRemoval
+    clips = max(batches[-1] // frames, 1)
+    cases = {
+        "splitting": (net1, artifact, inp_split, lambda: [SplittingLoss(
+            split_ratio=SSL_SPLIT, eval_n_samples=SSL_EVAL_SAMPLES)], (1, size, size), batches,
+            steps, SSL_EVAL_SAMPLES),
+        "R2R": (net1, artifact, den, lambda: [R2RLoss()], (1, size, size), batches, steps,
+                SSL_EVAL_SAMPLES),
+        "Neighbor2Neighbor": (net1, artifact, den, lambda: [Neighbor2Neighbor()],
+                              (1, size, size), batches, steps, 1),
+        "SURE-PG": (net1, artifact, den_pg, lambda: [SurePGLoss(
+            PG_SIGMA, PG_GAIN, second_derivative=True)], (1, size, size), batches, steps, None),
+        "EI Rotate": (net1, artifact, inp_ei, lambda: [MCLoss(), EILoss(Rotate(multiples=1.0))],
+                      (1, size, size), batches, steps, None),
+        "MOEI PanTiltRotate": (net1, artifact, inp_ei, lambda: [MCLoss(), MOEILoss(
+            PanTiltRotate(theta_max=3.0, theta_z_max=10.0), physics_list=[inp_ei, inp_ei2])],
+            (1, size, size), batches, steps, None),
+        "equivariant splitting": (
+            net1, lambda n: EquivariantReconstructor(ArtifactRemoval(n),
+                                                     transform=Rotate(multiples=90.0)),
+            inp_es, lambda: [EquivariantSplittingLoss(transform=Rotate(multiples=90.0),
+                                                      split_ratio=SSL_SPLIT)],
+            (1, size, size), batches, steps, None),
+        "Artifact2Artifact": (net2, lambda n: ArtifactRemoval(TimeAgnosticNet(n)), dyn,
+                              lambda: [Artifact2ArtifactLoss((2, frames, size, size),
+                                                             split_size=2, device=dev)],
+                              (2, frames, size, size), (1, clips), steps, None),
+    }
+    try:
+        for name, (net, wrap, physics, losses, shape, bs, n_steps, per_eval) in cases.items():
+            for B in bs:
+                label = f"{name} B={B}"
+                xs = torch.rand((B * n_steps,) + shape, generator=g).to(dev)
+                ssl_case(label, net, wrap, physics, losses, xs, B, n_steps, SSL_LAUNCHES[name],
+                         L, dev, card, size, out, counts, zero_counts, per_eval, tmp)
+            print(f"phase 20 {name}: {time.perf_counter() - t_phase:.3f} s into the phase",
+                  flush=True)
+
+        # one WeightedSplittingLoss step on single-coil MRI (its weight from
+        # avg_n draws of the acceleration and the splitting generators)
+        split_gen = BernoulliSplittingMaskGenerator((2, mri_size, mri_size), split_ratio=0.6)
+        t0 = time.perf_counter()
+        w_loss = WeightedSplittingLoss(split_gen, physics_generator=None)
+        w_loss.weight = WeightedSplittingLoss.compute_weight(
+            split_gen, acc, n=avg_n, generator=gen_on(dev, SEED + 233))
+        sync(dev)
+        print(f"WeightedSplittingLoss: k-space weight of {avg_n} draws each, "
+              f"{time.perf_counter() - t0:.3f} s, range [{float(w_loss.weight.min()):.4f}, "
+              f"{float(w_loss.weight.max()):.4f}]", flush=True)
+        check(bool(torch.isfinite(w_loss.weight).all()), "WeightedSplittingLoss: weight")
+        xs = torch.rand((1, 2, mri_size, mri_size), generator=g).to(dev)
+        ssl_case("WeightedSplitting B=1", net2, ArtifactRemoval, mri, lambda: [w_loss], xs, 1, 1,
+                 SSL_LAUNCHES["WeightedSplitting"], L, dev, card, mri_size, out, counts,
+                 zero_counts, None, tmp)
+
+        # the bf16 finite-difference divergences of SURE-PG against f32
+        x = torch.rand((batches[-1], 1, size, size), generator=g).to(dev)
+        y = den_pg(x, generator=gen_on(dev, SEED + 234))
+        gd = gen_on(dev, SEED + 235)
+        b1 = (torch.rand(y.shape, generator=gd, device=dev) < 0.5).to(y.dtype) * 2 - 1
+        p = 0.7236
+        b2 = torch.where(torch.rand(y.shape, generator=gd, device=dev) < p,
+                         -math.sqrt((1 - p) / p), math.sqrt(p / (1 - p))).to(y.dtype)
+        loss = SurePGLoss(PG_SIGMA, PG_GAIN, second_derivative=True)
+        s2, tau1, tau2 = loss.sigma2, loss.tau1, loss.tau2
+        divs = {}
+        for prec, m in (("bf16", ArtifactRemoval(autocast(copy.deepcopy(net1)))),
+                        ("f32", ArtifactRemoval(copy.deepcopy(net1)))):
+            with torch.no_grad():
+                f0 = m(y, den_pg)
+                d1 = (2.0 / tau1) * ((PG_GAIN * y + s2) * b1 * (m(y + tau1 * b1, den_pg) - f0)
+                                     ).float().mean()
+                d2 = (2 * s2 * PG_GAIN / tau2 ** 2) * (b2 * (
+                    m(y + tau2 * b2, den_pg) + m(y - tau2 * b2, den_pg) - 2 * f0)).float().mean()
+            divs[prec] = (float(d1), float(d2))
+        gap = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(divs["bf16"], divs["f32"])]
+        print(f"SURE-PG B={batches[-1]} {size}²: finite-difference divergences (first order, "
+              f"tau1 {tau1}; second order, tau2 {tau2}) bf16 {divs['bf16']}, f32 {divs['f32']}; "
+              f"relative gap {gap} ({card})", flush=True)
+        out["sure_pg_divergence"] = {"bf16": divs["bf16"], "f32": divs["f32"], "gap": gap}
+
+        # the warps alone: the any-angle rotation and PanTiltRotate at B=16
+        if cuda:
+            xw = torch.rand((batches[-1], 1, size, size), generator=g).to(dev)
+            for wname, tr in (("Rotate(multiples=1)", Rotate(multiples=1.0)),
+                              ("PanTiltRotate", PanTiltRotate(theta_max=3.0, theta_z_max=10.0))):
+                prm = tr.get_params(xw, gen_on(dev, SEED + 236))
+                ms = cuda_ms(lambda: tr.transform(xw, **prm), 10, warmup=2)
+                out["ms"][f"warp {wname}"] = ms
+                print(f"time warp {wname} B={batches[-1]} {size}²: {ms:.4f} ms a call "
+                      f"(CUDA events; {card})", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    n_other = sum(op.launches for op in others)
+    print(f"phase 20: K1-K4 and K7 launches {n_other}", flush=True)
+    check(n_other == 0, "phase 20: a K1-K4 or K7 kernel was launched")
+    out["s"] = time.perf_counter() - t_phase
+    print(f"phase 20: {out['s']:.3f} s ({card})", flush=True)
+    return out
+
+
+def gen_on(dev, seed: int):
+    """A generator on ``dev`` seeded ``seed``."""
+    import torch
+
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def ssl_case(label, net, wrap, physics, losses, xs, B, steps, want, L, dev, card, size, out,
+             counts, zero_counts, per_eval, tmp):
+    """One phase-20 training case in both train-step configurations: a
+    ``Trainer`` of ``wrap(autocast(copy of net))`` with Adam(SSL_LR), online
+    measurements of ``xs`` in batches of ``B``, one epoch of ``steps``
+    steps. ``want`` is (K6, K5, stash backwards) a step with
+    ``fused_chains=True``; the stash backward launches L + 2 a backward. On
+    the splitting case at the largest batch, also the checkpoint round trip
+    and the resumed epoch."""
+    import os
+
+    import torch
+
+    from deepinv_tpu_torch.datasets import ArrayDataset, DataLoader
+    from deepinv_tpu_torch.loss import PSNR
+    from deepinv_tpu_torch.models import autocast
+    from deepinv_tpu_torch.ops.kernels.conv_chain import fused_chains_disabled
+    from deepinv_tpu_torch.training import Trainer
+
+    cuda = dev.type == "cuda"
+
+    def make(fused):
+        model = wrap(autocast(copy.deepcopy(net)))
+        return Trainer(model, physics, optimizer=torch.optim.Adam(model.parameters(), lr=SSL_LR),
+                       train_dataloader=DataLoader(ArrayDataset(xs), batch_size=B),
+                       losses=losses(), metrics=[PSNR()], epochs=1, online_measurements=True,
+                       verbose=False, fused_chains=fused, seed=SEED)
+
+    trainers = {f: make(f) for f in (True, False)}
+    x0, y0, p0 = first_batch(trainers[True])
+    la, ga = ssl_grads(trainers[True], x0, y0, p0, contextlib.nullcontext())
+    lb, gb = ssl_grads(trainers[False], x0, y0, p0, fused_chains_disabled())
+    e_l = abs(la - lb) / max(abs(lb), 1e-30)
+    e_g, e_g2 = rel_max(torch.cat(ga), torch.cat(gb)), rel_l2(torch.cat(ga), torch.cat(gb))
+    print(f"{label}: first step, kernels vs layers: loss {la} vs {lb} (relative {e_l}, bound "
+          f"{TRAIN_LOSS_RTOL}), gradient relative max {e_g} (L2 {e_g2}, bound {GRAD_RTOL})",
+          flush=True)
+    first = {"loss": e_l, "grad_rel_max": e_g, "grad_rel_l2": e_g2}
+    if label.split(" B=")[0] in SSL_FD_CASES:
+        # a finite difference of bf16 outputs divides their rounding by tau
+        # (SURE-PG: 1 / tau1 = 1e3, 1 / tau2² = 1e4): its gradient is the two
+        # paths' rounding noise and its divergence far from f32's, printed
+        # and not held (ROADMAP queue 3); the loss is held to the layers',
+        # and the same step runs in f32 (the layers), finite
+        t32 = Trainer(wrap(copy.deepcopy(net)), physics, losses=losses(), epochs=1,
+                      optimizer=None, online_measurements=True, verbose=False, seed=SEED)
+        l32, g32 = ssl_grads(t32, x0, y0, p0, fused_chains_disabled())
+        e_32 = abs(la - l32) / max(abs(l32), 1e-30)
+        e_g32 = rel_l2(torch.cat(ga), torch.cat(g32))
+        print(f"{label}: the same step in f32: loss {l32}, the kernels' (bf16) loss relative to "
+              f"it {e_32}, gradient relative L2 {e_g32}; neither gap is held", flush=True)
+        check(e_l <= TRAIN_LOSS_RTOL and math.isfinite(l32) and bool(torch.isfinite(
+            torch.cat(g32)).all()), f"{label}: first step's loss disagrees")
+        first.update(loss_f32=e_32, grad_f32_rel_l2=e_g32)
+    else:
+        check(e_l <= TRAIN_LOSS_RTOL and e_g <= GRAD_RTOL, f"{label}: first step disagrees")
+    out.setdefault("first_step", {})[label] = first
+    secs, losses_of = {}, {}
+    for f, t in trainers.items():
+        zero_counts()
+        secs[f] = [train_epoch(t, 0, dev)]
+        n6, n5, nb = counts()
+        losses_of[f] = t.logs_total_loss_train.vals
+        print(f"{label} fused_chains={f}: {steps} steps, K6 {n6}, K5 {n5}, stash backward {nb}; "
+              f"losses {losses_of[f]}", flush=True)
+        check(len(losses_of[f]) == steps and all(math.isfinite(v) for v in losses_of[f]),
+              f"{label} fused_chains={f}: non-finite loss")
+        expect = (want[0] * steps, want[1] * steps, want[2] * (L + 2) * steps) if f else (0, 0, 0)
+        if cuda:
+            check((n6, n5, nb) == expect, f"{label} fused_chains={f}: launches K6 {n6}, K5 {n5}, "
+                  f"stash backward {nb} (expected {expect})")
+        else:  # the plain chain's calls, stashing or not
+            check(n5 == (want[0] + want[1]) * steps * f, f"{label}: plain chain calls {n5}")
+        if f:
+            out["launches"]["K6"][label] = n6
+            out["launches"]["K5"][label] = n5
+            out["launches"]["stash_backward"][label] = nb
+    e_steps = loss_error(losses_of[True], losses_of[False])
+    fd = label.split(" B=")[0] in SSL_FD_CASES
+    held = "not held: the steps follow its gradient" if fd else f"bound {TRAIN_LOSS_RTOL}"
+    print(f"{label}: losses, kernels vs layers, relative max over the steps {e_steps} ({held})",
+          flush=True)
+    check(e_steps <= TRAIN_LOSS_RTOL or fd, f"{label}: the steps' losses disagree")
+    if per_eval is not None:
+        t = trainers[True]
+        xe = xs[:B]
+        zero_counts()
+        scores = t.test(DataLoader(ArrayDataset(xe), batch_size=B))
+        n5 = counts()[1]
+        print(f"{label} eval: {scores}; K5 {n5}", flush=True)
+        check(all(math.isfinite(v) for v in scores.values()), f"{label} eval: non-finite")
+        check(n5 == per_eval, f"{label} eval: K5 {n5} (expected {per_eval})")
+        out["launches"]["K5"][f"{label} eval"] = n5
+    if cuda:
+        for f in (False, True, True, False):
+            secs[f].append(train_epoch(trainers[f], len(secs[f]), dev))
+        prof = device_profile(f"{label} step fused_chains=True",
+                              ssl_step(trainers[True], x0, y0, p0), 2, top=8)
+        idle = None if prof is None else 1 - prof[4] / prof[0]
+        rates = {f: steps * (len(v) - 1) / sum(v[1:]) for f, v in secs.items()}
+        print(f"rate: {label} {size}² {rates[True]:.3f} steps/s fused_chains=True, "
+              f"{rates[False]:.3f} steps/s False; idle share (True) {idle} ({card})", flush=True)
+        out["rates"][label] = {"steps_per_s": rates, "idle_share": idle}
+    if label.startswith("splitting") and B == TRAIN_BATCHES[-1] or (not cuda and label ==
+                                                                     "splitting B=1"):
+        ssl_checkpoint(label, trainers[True], make, dev, tmp, out)
+
+
+def ssl_checkpoint(label, t, make, dev, tmp, out):
+    """The trainer's state saved by the checkpointer (``ckpt_backend=
+    "orbax"``, ``torch.save``) and restored into a fresh trainer: the same
+    bits of every weight and optimizer tensor; then the next epoch of both,
+    with deterministic cuDNN, gives the same weights."""
+    import os
+
+    import torch
+
+    epoch = t.epochs_run
+    t.ckpt_backend, t._orbax = "orbax", None
+    path = os.path.join(tmp, label.replace(" ", "_"), "ckp.pkl")
+    t.save_model(path, epoch=epoch - 1)
+    t._orbax.wait()
+    r = make(True)
+    r.ckpt_backend = "orbax"
+    r.load_model(path)
+    same = all(torch.equal(a, b) for a, b in zip(t.model.state_dict().values(),
+                                                 r.model.state_dict().values()))
+    so, ro = t.optimizer.state_dict()["state"], r.optimizer.state_dict()["state"]
+    same_opt = all(torch.equal(so[k][n].cpu(), ro[k][n].cpu()) for k in so for n in so[k]
+                   if isinstance(so[k][n], torch.Tensor))
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        train_epoch(t, epoch, dev)
+        train_epoch(r, epoch, dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    errs = [rel_max(a, b) for a, b in zip(r.model.state_dict().values(),
+                                          t.model.state_dict().values())]
+    print(f"{label}: checkpoint at epoch {epoch - 1} restored: weights the same bits {same}, "
+          f"optimizer state {same_opt}, start epoch {r.epoch_start}; the next epoch resumed vs "
+          f"uninterrupted: weights relative max {max(errs)}, losses {r.logs_total_loss_train.vals}"
+          f" vs {t.logs_total_loss_train.vals}", flush=True)
+    check(same and same_opt and r.epoch_start == epoch, f"{label}: the checkpoint did not round "
+          "trip")
+    check(max(errs) == 0.0, f"{label}: the resumed epoch differs from the uninterrupted one")
+    out["checkpoint"] = {"same_bits": same, "resumed_rel_max": max(errs)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5762,6 +6194,13 @@ def main() -> int:
     # of models/ against the CPU, the metrics, pretrained= round trips
     gen19 = generative_phase(dev, card)
 
+    # 20. self-supervised training of the DnCNN chain (K6, the stash backward,
+    # K5): splitting, R2R, Neighbor2Neighbor, SURE-PG, EI and MOEI with
+    # any-angle and projective warps, equivariant splitting, Artifact2Artifact
+    # on dynamic MRI, weighted splitting on 320² MRI, evaluation on K5 and a
+    # checkpoint round trip
+    ssl20 = selfsup_phase(dev, card)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -5909,6 +6348,11 @@ def main() -> int:
         # the kernel network's SpaceVaryingBlur (one an iteration), its rates
         "launches_generative": gen19["launches"]["K5"],
         "generative_rates": {k: v for k, v in gen19["rates"].items() if "blind" in k},
+        # phase 20: K5's launches in the self-supervised train steps (one a
+        # Neighbor2Neighbor step, its full image without a gradient) and in
+        # their evaluation (SSL_EVAL_SAMPLES a splitting or R2R batch, one a
+        # Neighbor2Neighbor batch)
+        "launches_selfsup": ssl20["launches"]["K5"],
     }, {
         "name": "tv_prox",
         "route": "cuda",
@@ -6032,6 +6476,11 @@ def main() -> int:
         # step, two under UAIR), their steps/s and idle shares
         "launches_generative": gen19["launches"]["K6"],
         "generative_rates": {k: v for k, v in gen19["rates"].items() if "blind" not in k},
+        # phase 20: K6's launches in the self-supervised train steps (SSL_LAUNCHES
+        # a step), their steps/s and idle shares, the warps' times
+        "launches_selfsup": ssl20["launches"]["K6"],
+        "selfsup_rates": ssl20["rates"],
+        "selfsup_warp_ms": ssl20["ms"],
     }, {
         "name": "stash_backward",
         "route": "cuda",
@@ -6067,6 +6516,9 @@ def main() -> int:
         # phase 19: the launches in the adversarial generator steps (L + 2 a
         # backward; two backwards a step under UAIR)
         "launches_generative": gen19["launches"]["stash_backward"],
+        # phase 20: the launches in the self-supervised train steps (L + 2 a
+        # backward; four backwards a SURE-PG step, two an EI or MOEI step)
+        "launches_selfsup": ssl20["launches"]["stash_backward"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

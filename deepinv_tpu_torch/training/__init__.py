@@ -1,9 +1,11 @@
 """Training of the port (deepinv_tpu/training/)."""
 
 from .adversarial import AdversarialOptimizer, AdversarialTrainer
+from .checkpoint import OrbaxCheckpointer
 from .trainer import Trainer, test
 
-__all__ = ["Trainer", "test", "train", "AdversarialTrainer", "AdversarialOptimizer"]
+__all__ = ["Trainer", "test", "train", "OrbaxCheckpointer", "AdversarialTrainer",
+           "AdversarialOptimizer"]
 
 
 def train(model, physics, train_dataloader, epochs: int = 100, **kwargs):

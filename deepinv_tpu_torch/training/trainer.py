@@ -18,9 +18,16 @@ keeps of the JAX Trainer:
 - the per-loss meters, train and eval metrics, ``compare_no_learning``,
   ``eval_interval``, the best model, early stopping (:meth:`stop_criterion`),
   gradient clipping with the pre-clip norm recorded by ``check_grad``,
-  checkpoints (state dicts in place of numpy trees) and the overridable hooks
-  (:meth:`compute_loss`, :meth:`model_inference`, ``get_samples_*``,
-  :meth:`step`).
+  checkpoints (state dicts in place of numpy trees; ``ckpt_backend="orbax"``
+  keeps them with :class:`~deepinv_tpu_torch.training.OrbaxCheckpointer`,
+  which is ``torch.save`` under the JAX package's name) and the overridable
+  hooks (:meth:`compute_loss`, :meth:`model_inference`, ``get_samples_*``,
+  :meth:`step`);
+- the ``train_aware`` protocol (trainer.py:328): a model that declares it
+  (``SplittingModel``, ``R2RModel``, ``ScoreModel``) gets ``train=True`` and
+  a generator in the train step, and ``train=False`` with a generator of its
+  own in evaluation, so a splitting model sees one split a step and averages
+  its splits in evaluation.
 
 One argument has no JAX counterpart, because the JAX switch is a trace-time
 global: ``fused_chains``. With ``False`` (the default, the reference's) each
@@ -32,8 +39,8 @@ gates stay open, so a bf16 DnCNN's hidden chain trains on the stash kernel
 does in the JAX package.
 
 Batches go to the model's device. Adversarial training is
-``training/adversarial.py``. Waiting (ROADMAP queue 1): wandb/mlflow, the
-orbax checkpoint backend, ``data_parallel`` and plotting.
+``training/adversarial.py``. Waiting (ROADMAP queue 1): wandb/mlflow,
+``data_parallel`` and plotting.
 """
 
 from __future__ import annotations
@@ -88,6 +95,10 @@ class Trainer:
     :param check_grad: record each step's pre-clip gradient norm in
         ``check_grad_val``.
     :param save_path: checkpoint directory.
+    :param ckpt_backend: ``"pickle"`` (one ``torch.save`` file an epoch) or
+        ``"orbax"`` (the numbered steps of an
+        :class:`~deepinv_tpu_torch.training.OrbaxCheckpointer` under
+        ``save_path/orbax``, written in the background).
     :param fused_chains: leave the kernel gates open in the train step (see
         the module docstring); default False, the reference's configuration.
 
@@ -115,7 +126,7 @@ class Trainer:
                  early_stop=False, patience: int = 5, optimizer_step_multi_dataset: bool = True,
                  compute_train_metrics: bool = True, check_grad: bool = False,
                  eval_interval: int = 1, save_path: Optional[str] = None, ckpt_interval: int = 1,
-                 compare_no_learning: bool = False, no_learning_method="A_adjoint",
+                 ckpt_backend: str = "pickle", compare_no_learning: bool = False, no_learning_method="A_adjoint",
                  verbose: bool = True, seed: int = 0, fused_chains: bool = False):
         self.model = model
         self.physics = _to_list(physics)
@@ -144,6 +155,10 @@ class Trainer:
         self.eval_interval = eval_interval
         self.save_path = save_path
         self.ckpt_interval = ckpt_interval
+        if ckpt_backend not in ("pickle", "orbax"):
+            raise ValueError("ckpt_backend must be 'pickle' or 'orbax'")
+        self.ckpt_backend = ckpt_backend
+        self._orbax = None
         self.compare_no_learning = compare_no_learning
         self.no_learning_method = no_learning_method
         self.verbose = verbose
@@ -210,9 +225,21 @@ class Trainer:
 
     # -- overridable hooks (trainer.py:321-385) --------------------------
     def model_inference(self, y, physics, model=None, train: bool = False, generator=None):
-        """Reconstruct ``x_net = model(y, physics)`` (trainer.py:321)."""
+        """Reconstruct ``x_net = model(y, physics)`` (trainer.py:321). A
+        ``train_aware`` model also gets ``train`` and ``generator``
+        (trainer.py:328-330, and the evaluation paths :583, :707)."""
         model = self.model if model is None else model
+        if getattr(model, "train_aware", False):
+            return model(y, physics, train=train, generator=generator)
         return model(y, physics)
+
+    def _aware_generator(self, *path):
+        """A generator of ``path`` for a ``train_aware`` model, else None:
+        in a train step ``(*path, 0x7FFFFFFF)`` (trainer.py:347); in a
+        train-loop evaluation ``(424242,)`` and in :meth:`test` ``(10000,)``,
+        the same at every batch (the keys of ``seed + 424242`` and ``seed +
+        10000``, trainer.py:584, :702)."""
+        return self.generator(*path) if getattr(self.model, "train_aware", False) else None
 
     def compute_loss(self, model, x, y, physics, generator=None):
         """Total training loss and reconstruction ``(loss, x_net)``
@@ -222,13 +249,16 @@ class Trainer:
         total, x_net, _ = self._loss_terms(model, x, y, physics, [generator] * len(self.losses))
         return total, x_net
 
-    def _loss_terms(self, model, x, y, physics, generators):
+    def _loss_terms(self, model, x, y, physics, generators, x_generator=None):
         """``(total, x_net, {loss name: value})``, loss ``i`` drawing from
-        ``generators[i]`` (trainer.py:343-360)."""
-        x_net = self.model_inference(y, physics, model=model, train=True)
+        ``generators[i]`` and a ``train_aware`` model's ``x_net`` from
+        ``x_generator`` (trainer.py:343-360). A scheduler with no loss active
+        gives 0."""
+        x_net = self.model_inference(y, physics, model=model, train=True, generator=x_generator)
         total, terms = 0.0, {}
         for l, gen in zip(self.losses, generators):
-            li = l(x_net=x_net, x=x, y=y, physics=physics, model=model, generator=gen).mean()
+            li = torch.as_tensor(l(x_net=x_net, x=x, y=y, physics=physics, model=model,
+                                   generator=gen), device=x_net.device).mean()
             terms[type(l).__name__] = li
             total = total + li
         return total, x_net, terms
@@ -238,7 +268,8 @@ class Trainer:
         ``(*path, 1 + i)`` (``fold_in(key, i)``)."""
         if type(self).compute_loss is Trainer.compute_loss:
             gens = [self.generator(*path, 1 + i) for i in range(len(self.losses))]
-            return self._loss_terms(self.model, x, y, physics, gens)
+            return self._loss_terms(self.model, x, y, physics, gens,
+                                    self._aware_generator(*path, 0x7FFFFFFF))
         total, x_net = self.compute_loss(self.model, x, y, physics, self.generator(*path, 1))
         return total, x_net, {"TotalLoss": total}
 
@@ -338,7 +369,8 @@ class Trainer:
                     self.optimizer.zero_grad(set_to_none=True)
                 with self._chains():
                     loss, x_net, terms = self._differentiable_loss(x, y, physics, path)
-                    loss.backward()
+                    if loss.requires_grad:
+                        loss.backward()
                 if not multi:
                     self._optimizer_step()
                 x_net = x_net.detach()
@@ -354,7 +386,8 @@ class Trainer:
                                                        epoch=epoch)
             else:
                 with torch.no_grad():
-                    x_net = self.model_inference(y, physics)
+                    x_net = self.model_inference(y, physics,
+                                                 generator=self._aware_generator(424242))
                 x_net, logs = self.compute_metrics(x, x_net, y, physics, logs, train=False,
                                                    epoch=epoch)
         if multi:
@@ -433,7 +466,7 @@ class Trainer:
                 for step, batch in enumerate(dl):
                     x, y, cur = self.get_samples(batch, physics,
                                                  *self._sample_generators(10_000, step))
-                    x_net = self.model_inference(y, cur)
+                    x_net = self.model_inference(y, cur, generator=self._aware_generator(10_000))
                     for m in self.metrics:
                         meters[type(m).__name__].update(self._metric_value(m, x_net, x),
                                                         n=x.shape[0])
@@ -468,9 +501,26 @@ class Trainer:
         raise ValueError(f"no-learning method {m!r} not recognized")
 
     # -- checkpoints (trainer.py:781-850) --------------------------------
+    def _orbax_mgr(self, path):
+        """The checkpointer of ``ckpt_backend="orbax"``: every step in
+        ``<save_path>/orbax``, the epoch as the step (trainer.py:771)."""
+        if self._orbax is None:
+            from .checkpoint import OrbaxCheckpointer
+
+            d = path if os.path.splitext(path)[1] == "" else os.path.dirname(path) or "."
+            self._orbax = OrbaxCheckpointer(os.path.join(d, "orbax"))
+        return self._orbax
+
     def save_model(self, path: str, epoch: int = 0):
         """Save the epoch, the model's and the optimizer's state dicts and
-        the histories (``torch.save``, a pickle; trainer.py:781)."""
+        the histories (``torch.save``, a pickle; trainer.py:781); with
+        ``ckpt_backend="orbax"`` the epoch's step of the checkpointer, written
+        in the background."""
+        if self.ckpt_backend == "orbax":
+            self._orbax_mgr(path).save(
+                epoch, self.model, self.optimizer,
+                extra={"loss_history": torch.tensor(self.loss_history, dtype=torch.float64)})
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         torch.save({"epoch": epoch, "model": self.model.state_dict(),
                     "optimizer": self.optimizer.state_dict(),
@@ -480,6 +530,12 @@ class Trainer:
     def load_model(self, path: str):
         """Restore a checkpoint in place (trainer.py:804); training resumes
         at the next epoch."""
+        if self.ckpt_backend == "orbax":
+            _, _, extra, step = self._orbax_mgr(path).restore(self.model, self.optimizer)
+            self.epoch_start = step + 1
+            if "loss_history" in extra:
+                self.loss_history = [float(v) for v in extra["loss_history"]]
+            return self
         payload = torch.load(path, map_location=self.device, weights_only=True)
         self.model.load_state_dict(payload["model"])
         self.optimizer.load_state_dict(payload["optimizer"])

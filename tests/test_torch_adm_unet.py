@@ -1,9 +1,10 @@
 """The port's ADMUNet against the JAX package's, on the CPU, at full width
 (the FFHQ checkpoint's architecture, 93.6 M parameters): the width is fixed
-by the class. The JAX module is built once for the file (its construction
-and first forward take tens of seconds), its every parameter redrawn at
-random, and carried into the port by ``load_jax_params`` (its flat dict
-``p``) and by ``load_torch_state_dict`` from the same arrays.
+by the class. The JAX module is built once for the file (by numpy's draws:
+eager ``jax.random`` took minutes; its first forward takes tens of
+seconds), its every parameter redrawn at random, and carried into the port
+by ``load_jax_params`` (its flat dict ``p``) and by
+``load_torch_state_dict`` from the same arrays.
 
 Bound: 1e-4 relative max error in f32; the ``pretrained=`` round trip from a
 guided-diffusion-named ``.pt`` file gives its source's output bits.
@@ -22,7 +23,7 @@ import deepinv_tpu_torch.models as TM
 from deepinv_tpu.models.convert import load_torch_checkpoint as jax_load_checkpoint
 from deepinv_tpu_torch.models.convert import adm_names, upstream_state_dict
 from test_torch_attention_models import BOUND, crossed, image, rel, run
-from test_torch_drunet import DEV, jax_params
+from test_torch_drunet import DEV, jax_params, numpy_draws
 
 # sigmas off the midpoints between entries of the timestep table
 SIGMAS = np.array([0.0731], np.float32)
@@ -30,7 +31,9 @@ SIGMAS = np.array([0.0731], np.float32)
 
 @pytest.fixture(scope="module")
 def adms():
-    return crossed(JM.ADMUNet(key=jax.random.key(0)), TM.ADMUNet(device=DEV), 1)
+    with numpy_draws():  # its leaves are redrawn by ``crossed``
+        ref = JM.ADMUNet(key=jax.random.key(0))
+    return crossed(ref, TM.ADMUNet(device=DEV), 1)
 
 
 def test_adm_names_are_guided_diffusions(adms):

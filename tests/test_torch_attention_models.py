@@ -23,12 +23,26 @@ from deepinv_tpu.ops import gaussian_blur as jax_gaussian_blur
 from deepinv_tpu_torch.models.convert import (ram_names, restormer_names, scunet_names,
                                               swinir_names, upstream_state_dict)
 from deepinv_tpu_torch.ops import gaussian_blur
-from test_torch_drunet import DEV, jax_params
+from test_torch_drunet import DEV, jax_params, numpy_draws
 
 BOUND = 1e-4
 # leaves the JAX modules derive from their configuration or draw on purpose
 CONSTANT = ("resample_filter", "sqrt_alphas_cumprod", "sqrt_1m_alphas_cumprod", "mean", "freqs")
 POSITIVE = ("temperature", "gain", "fact_realign")
+
+
+@pytest.fixture(autouse=True)
+def _numpy_draws():
+    """The JAX modules built by numpy's draws (``numpy_draws``): every test
+    here redraws their leaves (``randomized``) or reads a checkpoint."""
+    with numpy_draws():
+        yield
+
+
+def jrun(ref, *args, **kwargs):
+    """The JAX module's forward through ``jax.jit``: one compile, where the
+    eager forward compiles every op for every new shape."""
+    return jax.jit(lambda m, *a: m(*a, **kwargs))(ref, *args)
 
 
 def rel(a, b) -> float:
@@ -97,7 +111,7 @@ def test_restormer_matches_jax(ln, dual, shape):
     x = image(shape, 2)
     got = run(port, x)
     assert got.shape == shape
-    assert rel(got, ref(jnp.asarray(x))) <= BOUND
+    assert rel(got, jrun(ref, jnp.asarray(x))) <= BOUND
 
 
 def test_restormer_validators_and_raw_forward_match_jax():
@@ -133,7 +147,7 @@ def test_promptir_matches_jax(shape):
     ref, port = crossed(JM.PromptIR(dim=8, key=jax.random.key(3)), TM.PromptIR(dim=8, device=DEV),
                         4)
     x = image(shape, 5)
-    assert rel(run(port, x), ref(jnp.asarray(x))) <= BOUND
+    assert rel(run(port, x), jrun(ref, jnp.asarray(x))) <= BOUND
 
 
 def test_promptir_loader_round_trip_and_refusals(tmp_path):
@@ -180,7 +194,7 @@ def test_swinir_matches_jax(img_size, upsampler, upscale, shape):
     x = image(shape, 11)
     got = run(port, x)
     assert got.shape == shape[:2] + (shape[2] * upscale, shape[3] * upscale)
-    assert rel(got, ref(jnp.asarray(x))) <= BOUND
+    assert rel(got, jrun(ref, jnp.asarray(x))) <= BOUND
     assert port.flops() == ref.flops()
 
 
@@ -217,7 +231,7 @@ def test_swinir_pretrained_matches_jax(tmp_path):
     x = image((1, 3, 8, 8), 15)
     want = run(src, x)
     assert np.array_equal(run(port, x), want)
-    assert rel(jref(jnp.asarray(x)), want) <= BOUND
+    assert rel(jrun(jref, jnp.asarray(x)), want) <= BOUND
 
 
 # -- SCUNet ------------------------------------------------------------------
@@ -234,7 +248,7 @@ def test_scunet_matches_jax(shape):
     assert [b.trans_block.msa.type for b in port.m_body] == ["W", "W"]
     assert [b.trans_block.msa.type for b in port.m_down1[:-1]] == ["W", "SW"]
     x = image(shape, 18)
-    assert rel(run(port, x), ref(jnp.asarray(x))) <= BOUND
+    assert rel(run(port, x), jrun(ref, jnp.asarray(x))) <= BOUND
 
 
 def test_scunet_and_restormer_pretrained_match_jax(tmp_path):
@@ -253,7 +267,7 @@ def test_scunet_and_restormer_pretrained_match_jax(tmp_path):
         torch.save(sd, path)
         want = run(src, x)
         assert np.array_equal(run(tcls(pretrained=path, device=DEV, **kw), x), want)
-        assert rel(jcls(pretrained=path, **kw)(jnp.asarray(x)), want) <= BOUND
+        assert rel(jrun(jcls(pretrained=path, **kw), jnp.asarray(x)), want) <= BOUND
 
 
 # -- RAM ---------------------------------------------------------------------
@@ -300,7 +314,7 @@ def test_ram_reconstructs_as_jax(rams, problem, channels, batch):
     with torch.no_grad():
         got = port(torch.from_numpy(y), tp).numpy()
     assert got.shape == x.shape and np.isfinite(got).all()
-    assert rel(got, ref(jnp.asarray(y), jp)) <= BOUND
+    assert rel(got, jrun(ref, jnp.asarray(y), jp)) <= BOUND
 
 
 def test_ram_as_denoiser_and_sigma_map_quirk_match_jax(rams):
@@ -314,12 +328,13 @@ def test_ram_as_denoiser_and_sigma_map_quirk_match_jax(rams):
     with torch.no_grad():
         got = port(torch.from_numpy(y), sigma=torch.from_numpy(sigma),
                    gain=torch.from_numpy(gain)).numpy()
-    assert rel(got, ref(jnp.asarray(y), sigma=jnp.asarray(sigma), gain=jnp.asarray(gain))) <= BOUND
+    assert rel(got, jrun(ref, jnp.asarray(y), sigma=jnp.asarray(sigma),
+                         gain=jnp.asarray(gain))) <= BOUND
     y = image((1, 1, 64, 64), 30)
     smap = (0.02 + 0.1 * image((1, 1, 64, 64), 31)).astype(np.float32)
     with torch.no_grad():
         got = port(torch.from_numpy(y), sigma=torch.from_numpy(smap)).numpy()
-    assert rel(got, ref(jnp.asarray(y), sigma=jnp.asarray(smap))) <= BOUND
+    assert rel(got, jrun(ref, jnp.asarray(y), sigma=jnp.asarray(smap))) <= BOUND
     y, smap = image((1, 1, 56, 64), 32), np.full((1, 1, 56, 64), 0.05, np.float32)
     with pytest.raises(ValueError, match="cannot broadcast sigma"):
         ref(jnp.asarray(y), sigma=jnp.asarray(smap))
@@ -343,7 +358,7 @@ def test_ram_pretrained_matches_jax(rams, tmp_path):
     with torch.no_grad():
         want = src(torch.from_numpy(y), sigma=0.1).numpy()
         assert np.array_equal(port(torch.from_numpy(y), sigma=0.1).numpy(), want)
-    assert rel(jref(jnp.asarray(y), sigma=0.1), want) <= BOUND
+    assert rel(jrun(jref, jnp.asarray(y), sigma=0.1), want) <= BOUND
 
 
 def test_krylov_embeddings_match_jax():

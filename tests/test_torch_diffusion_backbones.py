@@ -21,8 +21,8 @@ from deepinv_tpu import sampling as jsamp
 from deepinv_tpu.core.rng import ensure_key
 from deepinv_tpu_torch import sampling as tsamp
 from deepinv_tpu_torch.models.convert import ncsnpp_names, upstream_state_dict
-from test_torch_attention_models import BOUND, crossed, image, rel, run
-from test_torch_drunet import DEV
+from test_torch_attention_models import BOUND, crossed, image, jrun, rel, run
+from test_torch_drunet import DEV, jax_built
 from test_torch_sampling import SIZE, _first_then_steps, _inpainting, _rel, _solver_draws, _sr, _t
 
 DIFF = dict(nc=(8, 16, 16), num_res_blocks=1)
@@ -30,13 +30,15 @@ DIFF = dict(nc=(8, 16, 16), num_res_blocks=1)
 
 @pytest.fixture(scope="module")
 def diffunets():
-    return crossed(JM.DiffUNet(key=jax.random.key(0), **DIFF), TM.DiffUNet(device=DEV, **DIFF), 1)
+    return crossed(jax_built(JM.DiffUNet, key=jax.random.key(0), **DIFF),
+                   TM.DiffUNet(device=DEV, **DIFF), 1)
 
 
 @pytest.fixture(scope="module")
 def diffunets_gray():
     kw = dict(DIFF, in_channels=1, out_channels=1)
-    return crossed(JM.DiffUNet(key=jax.random.key(2), **kw), TM.DiffUNet(device=DEV, **kw), 3)
+    return crossed(jax_built(JM.DiffUNet, key=jax.random.key(2), **kw),
+                   TM.DiffUNet(device=DEV, **kw), 3)
 
 
 # sigmas off the midpoints between entries of the timestep table
@@ -55,7 +57,7 @@ def test_diffunet_matches_jax(diffunets, mode, shape):
     s = np.array([17.0, 503.0], np.float32) if mode == "timestep" else SIGMAS
     got = run(port, x, torch.from_numpy(s), type_t=mode)
     assert got.shape == shape
-    assert rel(got, ref(jnp.asarray(x), jnp.asarray(s), type_t=mode)) <= BOUND
+    assert rel(got, jrun(ref, jnp.asarray(x), jnp.asarray(s), type_t=mode)) <= BOUND
 
 
 def test_diffunet_defaults_run():
@@ -99,7 +101,7 @@ def test_edm_precond_matches_jax(diffunets):
     x = image((2, 3, 16, 16), 7)
     s = np.array([0.05, 2.5], np.float32)
     got = run(TM.EDMPrecond(port), x, torch.from_numpy(s))
-    assert rel(got, JM.EDMPrecond(ref)(jnp.asarray(x), jnp.asarray(s))) <= BOUND
+    assert rel(got, jrun(JM.EDMPrecond(ref), jnp.asarray(x), jnp.asarray(s))) <= BOUND
     tiny = run(TM.EDMPrecond(port), x, 1e-6)
     assert np.abs(tiny - x).max() <= 1e-3
 
@@ -117,14 +119,16 @@ def test_ncsnpp_matches_jax(model_type, precond):
     embedding) under both preconditionings, attention at 8², with
     augmentation labels in one case."""
     kw = dict(NCSN, model_type=model_type, precondition_type=precond)
-    ref, port = crossed(JM.NCSNpp(key=jax.random.key(8), **kw), TM.NCSNpp(device=DEV, **kw), 9)
+    ref, port = crossed(jax_built(JM.NCSNpp, key=jax.random.key(8), **kw),
+                        TM.NCSNpp(device=DEV, **kw), 9)
     x = image((2, 3, 16, 16), 10)
     aug = np.random.default_rng(11).standard_normal((2, 9)).astype(np.float32)
     extra = {"augment_labels": aug} if precond == "edm" and model_type == "ncsn" else {}
     with torch.no_grad():
         got = port(torch.from_numpy(x), torch.from_numpy(SIGMAS),
                    **{k: torch.from_numpy(v) for k, v in extra.items()}).numpy()
-    want = ref(jnp.asarray(x), jnp.asarray(SIGMAS), **{k: jnp.asarray(v) for k, v in extra.items()})
+    want = jrun(ref, jnp.asarray(x), jnp.asarray(SIGMAS),
+                **{k: jnp.asarray(v) for k, v in extra.items()})
     assert rel(got, want) <= BOUND
 
 
@@ -148,7 +152,8 @@ def test_ncsnpp_pretrained_matches_jax(tmp_path):
     ``enc.16x16_block0.affine.weight``, ``map_noise.freqs``) and read by both
     ``pretrained=``: the [-1, 1] convention and pixel_std 0.5 in both, the
     same output as its source."""
-    ref, src = crossed(JM.NCSNpp(key=jax.random.key(15), **NCSN), TM.NCSNpp(device=DEV, **NCSN), 16)
+    ref, src = crossed(jax_built(JM.NCSNpp, key=jax.random.key(15), **NCSN),
+                       TM.NCSNpp(device=DEV, **NCSN), 16)
     sd = upstream_state_dict(src, ncsnpp_names(src))
     assert {"map_layer0.weight", "enc.16x16_block0.affine.weight", "map_noise.freqs",
             "dec.16x16_aux_conv.weight"} <= set(sd)
@@ -161,7 +166,7 @@ def test_ncsnpp_pretrained_matches_jax(tmp_path):
     x = image((1, 3, 16, 16), 17)
     want = run(src, x, 0.2)
     assert np.array_equal(run(port, x, 0.2), want)
-    assert rel(jref(jnp.asarray(x), 0.2), want) <= BOUND
+    assert rel(jrun(jref, jnp.asarray(x), 0.2), want) <= BOUND
 
 
 # -- the samplers over the backbones ----------------------------------------------
@@ -209,7 +214,8 @@ def test_posterior_diffusion_over_ncsnpp_matches_jax():
     DPSDataFidelity and an NCSN++ at 16² on inpainting: the prior draw, then
     one draw a step; the weights get no gradient."""
     kw = dict(NCSN, in_channels=1, out_channels=1)
-    jden, tden = crossed(JM.NCSNpp(key=jax.random.key(19), **kw), TM.NCSNpp(device=DEV, **kw), 20)
+    jden, tden = crossed(jax_built(JM.NCSNpp, key=jax.random.key(19), **kw),
+                         TM.NCSNpp(device=DEV, **kw), 20)
     rng = np.random.default_rng(21)
     x = rng.random((1, 1, 16, 16)).astype(np.float32)
     mask = (rng.random((1, 1, 16, 16)) < 0.7).astype(np.float32)

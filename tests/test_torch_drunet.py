@@ -5,6 +5,9 @@ The JAX weights cross by tree path (``load_jax_params``). Scale 0 is kept at
 take ``resblock_chain`` (its plain version on the CPU), f32 ones the blocks.
 """
 
+import contextlib
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,49 @@ from deepinv_tpu_torch.models import DRUNet, autocast, load_jax_params
 # the port runs on the CUDA device by default; these tests run on the CPU
 DEV = "cpu"
 NC = (64, 32, 32, 32)
+
+# Each pytest-xdist worker collects (imports) every test file, this one
+# included, and is a process of its own on the shared cores, where
+# PyTorch's intra-op pool takes every core: six workers on 8 cores
+# oversubscribed the host and ran a 3 s TV-PGD test in 95 s. A worker takes
+# its share of the cores.
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
+
+@contextlib.contextmanager
+def numpy_draws(seed: int = 0):
+    """Inside the block ``jax.random.normal`` and ``uniform`` and the JAX
+    layers' He init draw by numpy: eager ``jax.random`` compiles a draw for
+    every new shape, most of a full-width JAX model's build on the CPU (58 s
+    of RAM's, 170 s of ADMUNet's). For modules whose weights the test redraws
+    or carries to the port as they are: the values differ from JAX's own
+    draws, their laws do not."""
+    import deepinv_tpu.models.layers as jlayers
+
+    rng = np.random.default_rng(seed)
+
+    def normal(key, shape=(), dtype=jnp.float32):
+        return jnp.asarray(rng.standard_normal(shape), dtype)
+
+    def uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+        return jnp.asarray(rng.uniform(np.asarray(minval), np.asarray(maxval), shape), dtype)
+
+    def he_init(key, shape, fan_in, dtype=jnp.float32):
+        return jnp.asarray(rng.standard_normal(shape) * np.sqrt(2.0 / fan_in), dtype)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "normal", normal)
+        mp.setattr(jax.random, "uniform", uniform)
+        mp.setattr(jlayers, "he_init", he_init)
+        yield
+
+
+def jax_built(cls, *args, **kwargs):
+    """``cls(*args, **kwargs)``, a JAX module, built by numpy's draws
+    (``numpy_draws``)."""
+    with numpy_draws():
+        return cls(*args, **kwargs)
 
 
 def jax_params(module) -> dict:

@@ -167,7 +167,8 @@ def test_espirit_matches_jax():
                        img_size=(size, size))
     y = np.asarray(jp.A(jnp.asarray(_phantom(1, size, 4))))
     kw = dict(calib_size=16, kernel_size=4)
-    want = np.asarray(JMultiCoilMRI.estimate_coil_maps(jnp.asarray(y), **kw))
+    want = np.asarray(jax.jit(lambda v: JMultiCoilMRI.estimate_coil_maps(v, **kw))(
+        jnp.asarray(y)))
     got = MultiCoilMRI.estimate_coil_maps(_t(y), **kw).numpy()
     keep_j, keep_t = np.abs(want).sum(1) > 0, np.abs(got).sum(1) > 0
     assert (keep_j != keep_t).mean() <= 0.02 and keep_t.mean() > 0.2
@@ -217,12 +218,13 @@ def test_tiled_blur_and_tiling_match_jax(mode):
     assert K == jb.num_filters((H, W), 16, 8)
     h = rng.random((2, 2, K, 5, 4)).astype(np.float32)
     h /= h.sum((-2, -1), keepdims=True)
-    yj = jb.A(jnp.asarray(x), filters=jnp.asarray(h))
+    # the JAX operator through jax.jit: eager JAX compiles every op
+    yj = jax.jit(lambda u, f: jb.A(u, filters=f))(jnp.asarray(x), jnp.asarray(h))
     yt = tb.A(_t(x), filters=_t(h))
     assert yt.shape == yj.shape and _rel(yt.numpy(), yj) <= 1e-5
     v = rng.standard_normal(yj.shape).astype(np.float32)
-    assert _rel(tb.A_adjoint(_t(v), filters=_t(h)).numpy(),
-                jb.A_adjoint(jnp.asarray(v), filters=jnp.asarray(h))) <= 1e-5
+    assert _rel(tb.A_adjoint(_t(v), filters=_t(h)).numpy(), jax.jit(
+        lambda u, f: jb.A_adjoint(u, filters=f))(jnp.asarray(v), jnp.asarray(h))) <= 1e-5
     for f in ("get_needed_pad", "get_compatible_img_size", "get_num_patches"):
         assert getattr(tb, f)((H, W)) == getattr(jb, f)((H, W))
     for pad in ((0, 0, 0, 0), (1, 2, 3, 0)):

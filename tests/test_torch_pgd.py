@@ -49,7 +49,9 @@ def _problem(kind, seed=0):
 
 
 def _run_both(kind, bf16=False, seed=0, iterator="PGD", prior=None, params=PARAMS,
-              max_iter=8):
+              max_iter=8, jax_side=True):
+    """Both packages' recon (the port's alone without ``jax_side``: ``want``
+    is then None)."""
     x, y, ref_phys, port_phys = _problem(kind, seed)
     if prior is None:
         ref_den, port_den = _pair(x.shape[1], 20, seed=seed)
@@ -60,7 +62,8 @@ def _run_both(kind, bf16=False, seed=0, iterator="PGD", prior=None, params=PARAM
         if iterator == "PGD-g_first" else (iterator, iterator)
     ref = jax_optim_builder(it[0], data_fidelity=JaxL2(), prior=prior[0], params_algo=params,
                             max_iter=max_iter)
-    want = np.asarray(jax.jit(lambda m, v, p: m(v, p))(ref, jnp.asarray(y), ref_phys))
+    want = (np.asarray(jax.jit(lambda m, v, p: m(v, p))(ref, jnp.asarray(y), ref_phys))
+            if jax_side else None)
     port = optim_builder(it[1], data_fidelity=L2(), prior=prior[1], params_algo=params,
                          max_iter=max_iter, device=DEV)
     with torch.no_grad():
@@ -93,7 +96,7 @@ def test_pgd_bf16_psnr_matches_jax(kind):
     and of the port's own f32 run (the repo's bf16 policy,
     tests/test_models.py::test_autocast_bf16_parity)."""
     x, got, want, *_ = _run_both(kind, bf16=True, seed=1)
-    _, got32, _, _, _, _ = _run_both(kind, seed=1)
+    _, got32, _, _, _, _ = _run_both(kind, seed=1, jax_side=False)
     assert got.dtype == np.float32 and np.isfinite(got).all()
     assert abs(_psnr(got, x) - _psnr(want, x)) <= 0.1
     assert abs(_psnr(got, x) - _psnr(got32, x)) <= 0.1

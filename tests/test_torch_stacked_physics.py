@@ -92,10 +92,11 @@ def test_compose_matches_jax():
     assert _rel(tc.A(_t(x)).numpy(), y) <= 1e-5
     assert _rel((td * tb).A(_t(x)).numpy(), y) <= 1e-5
     assert _rel(tc.A_adjoint(_t(y)).numpy(), jc.A_adjoint(jnp.asarray(y))) <= 1e-5
-    assert _rel(tc.A_dagger(_t(y)).numpy(), jc.A_dagger(jnp.asarray(y))) <= 1e-4
+    # the JAX Krylov solves through jax.jit: eager JAX compiles every op
+    assert _rel(tc.A_dagger(_t(y)).numpy(), jax.jit(jc.A_dagger)(jnp.asarray(y))) <= 1e-4
     z = _x(2)
-    assert _rel(tc.prox_l2(_t(z), _t(y), 0.8).numpy(),
-                jc.prox_l2(jnp.asarray(z), jnp.asarray(y), 0.8)) <= 1e-4
+    assert _rel(tc.prox_l2(_t(z), _t(y), 0.8).numpy(), jax.jit(
+        lambda a, b: jc.prox_l2(a, b, 0.8))(jnp.asarray(z), jnp.asarray(y))) <= 1e-4
     sq = Physics(A=lambda v: v ** 2)
     tn = compose(tb, sq)
     assert isinstance(tn, ComposedPhysics) and not isinstance(tn, ComposedLinearPhysics)
@@ -142,7 +143,7 @@ def test_stacked_prox_implicit_gradient_matches_jax():
     def loss(yv, zv):
         return jnp.sum(js.prox_l2(zv, yv, 1.5, tol=1e-7, max_iter=100) * jnp.asarray(w))
 
-    gy, gz = jax.grad(loss, argnums=(0, 1))(jy, jnp.asarray(z))
+    gy, gz = jax.jit(jax.grad(loss, argnums=(0, 1)))(jy, jnp.asarray(z))
     ty = TensorList([_t(v).requires_grad_(True) for v in jy])
     tz = _t(z).requires_grad_(True)
     (ts.prox_l2(tz, ty, 1.5, tol=1e-7, max_iter=100) * _t(w)).sum().backward()

@@ -330,6 +330,30 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    bf16 finite-difference divergences against f32, the warps timed, and a
    checkpoint saved and restored on the card (the same bits, a resumed epoch
    equal). Timed: steps/s of both configurations and idle shares.
+21. serving, the parallel layer and the data pipeline (``serving_phase``):
+   ``InferenceServer`` on loopback in this process, with a bearer key,
+   hosting phase 4's PnP-HQS (bf16 DRUNet, ``fused="down"``) under
+   ``"BlurFFT"`` and phase 5's PnP-PGD on MRI (bf16 DnCNN) under ``"MRI"``;
+   the port's ``Client`` posts SERVE_REQUESTS requests of each, each with
+   its own ``y``, from 1 and from 4 client threads: each ``x_hat`` within
+   SERVE_RTOL of the same recon in-process on its ``y`` (0 expected), K1 and
+   K5 MAX_ITER launches a request and no K6 (grad mode off in the handler
+   threads), 401 on a bad key, 500 with its message on an unregistered
+   physics; requests/s, p50 and p99 latency and
+   the recon's own CUDA-event time. ``DistributedProcessing`` of that DRUNet
+   in 2 bands over ``[card] * 2`` (K1 once a band, within DENOISER_RTOL of
+   the tiling on K1's plain version); ``distribute`` of SERVE_MRI_OPS MRI
+   operators inside PnP-PGD (K5 MAX_ITER a recon, within RECON_RTOL of the
+   ``StackedLinearPhysics`` recon); ``PipelineParallel`` over ``[card] * 4``
+   of 4 stages of PIPE_ITERS PnP-PGD iterations, 4 microbatches of 2 (K5
+   once a stage's iteration and microbatch, within RECON_RTOL of the stages
+   in sequence); ``RandomPatchSampler`` patches of .npy volumes through the
+   ``DataLoader`` into phase 9's Trainer (``fused_chains=True``: K6 once and
+   the stash backward L + 2 a step), its steps/s and idle share beside
+   in-memory batches; the Trainer's ``data_parallel`` over ``[card] * 2``
+   (SGD, the update within DENOISER_RTOL of one device's; K6 and the stash
+   backward once a chunk). HDF5 and ``ImageFolder`` are held by the CPU tests
+   only (the card's host has no h5py or PIL).
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -778,6 +802,19 @@ SSL_LAUNCHES = {"splitting": (2, 0, 1), "R2R": (2, 0, 1), "Neighbor2Neighbor": (
 # loss is held to the layers', its gradient and its gap to f32 printed
 SSL_FD_CASES = ("SURE-PG",)
 
+
+# phase 21: the inference server, the parallel layer and the data pipeline
+SERVE_KEY = "chip-smoke"
+SERVE_REQUESTS = 16             # requests of each model from each client-thread count
+SERVE_THREADS = (1, 4)
+SERVE_MRI_OPS = 4               # single-coil MRI operators distributed over [card] * 2
+# a served x_hat against the same recon in-process on its own y: the same
+# code on the same card, so the same bits are expected (relative L2)
+SERVE_RTOL = 1e-6
+PIPE_ITERS = 2                  # unrolled PnP-PGD iterations a pipeline stage
+DATA_VOLUME = 512               # the .npy volumes' side
+DATA_PATCH = 256                # RandomPatchSampler's patch side
+DATA_STEPS = 4                  # train steps of the data-fed Trainer
 
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
@@ -5414,6 +5451,384 @@ def ssl_checkpoint(label, t, make, dev, tmp, out):
     out["checkpoint"] = {"same_bits": same, "resumed_rel_max": max(errs)}
 
 
+class _Cycle:
+    """``reads`` items of ``dataset``, item ``i`` reading ``dataset[i % len]``
+    (a :class:`RandomPatchSampler` draws a fresh patch at every read)."""
+
+    def __init__(self, dataset, reads: int):
+        self.dataset, self.reads = dataset, reads
+
+    def __len__(self):
+        return self.reads
+
+    def __getitem__(self, i):
+        return self.dataset[i % len(self.dataset)]
+
+
+def percentile(vals, q: float) -> float:
+    """The ``q`` quantile of ``vals`` (linear between order statistics)."""
+    import numpy as np
+
+    return float(np.percentile(np.asarray(vals, np.float64), q * 100))
+
+
+def serving_phase(dev, card: str, size: int = 256, nc=(64, 128, 256, 512), nb: int = R_MAIN,
+                  depth: int = 20, requests: int = SERVE_REQUESTS, threads=SERVE_THREADS,
+                  batch: int = TRAIN_BATCHES[-1], patch: int = DATA_PATCH,
+                  volume: int = DATA_VOLUME, steps: int = DATA_STEPS) -> dict:
+    """Phase 21: the inference server, the parallel layer and the data
+    pipeline, through their entry points with the default device.
+
+    (a) ``InferenceServer`` on loopback, in this process, with a bearer key,
+    hosts phase 4's PnP-HQS deblurring of 1x3x``size``² under ``"BlurFFT"``
+    (bf16 DRUNet ``nc``/``nb``, ``fused="down"``, MAX_ITER iterations) and
+    phase 5's PnP-PGD on 1x2x``size``² MRI under ``"MRI"`` (the bf16 DnCNN of
+    ``depth``, its residual layer scaled by DNCNN_RESIDUAL_SCALE). The port's
+    ``Client`` posts ``requests`` requests of each, each with its own ``y``,
+    from each of ``threads`` client threads: every ``x_hat`` within
+    SERVE_RTOL of the same recon called in-process on its ``y`` (the gap
+    printed; 0 expected), K1 and
+    K5 MAX_ITER launches a request, no K6 launch (grad mode is off in the
+    handler threads); a bad key gets 401, an unregistered physics 500 with
+    its message. Timed: requests/s, p50 and p99 latency and the recon's own
+    CUDA-event time.
+
+    (b) ``DistributedProcessing`` of the HQS DRUNet on 1x3x``size``², overlap
+    8, over ``DistributedContext(("sp",), devices=[dev] * 2)``: K1 once a
+    band, within DENOISER_RTOL of the same tiling on K1's plain version, its
+    gap to the whole-image call printed. ``distribute`` of SERVE_MRI_OPS
+    single-coil MRI operators (phase 5's mask law, one seed each) over
+    ``[dev] * 2`` inside PnP-PGD with phase 5's DnCNN (stepsize 1 /
+    SERVE_MRI_OPS, the summed operator's norm): within RECON_RTOL of the
+    ``StackedLinearPhysics`` recon, K5 MAX_ITER launches a recon.
+    ``PipelineParallel`` over ``[dev] * 4``: 4 stages of PIPE_ITERS unrolled
+    PnP-PGD iterations on MRI with that DnCNN, 4 microbatches of 2: within
+    RECON_RTOL of the stages run in sequence, K5 once a stage's iteration and
+    microbatch.
+
+    (c) 8 ``.npy`` volumes of ``volume``² random discs in a temporary
+    directory; ``RandomPatchSampler`` (``patch``²) and the port's
+    ``DataLoader`` feed ``batch`` patches a step to phase 9's Trainer (the
+    bf16 DnCNN(1, 1), ``fused_chains=True``) for ``steps`` steps: K6 once and
+    the stash backward L + 2 times a step. Timed: steps/s and the idle share
+    beside the same Trainer on in-memory batches. The Trainer's
+    ``data_parallel`` over ``[dev] * 2`` takes ``steps`` SGD steps on the
+    in-memory batches: the weights' update within DENOISER_RTOL of one
+    device's, K6 once and the stash backward L + 2 times a chunk. HDF5 and
+    ``ImageFolder`` are not driven here: the card's host has no h5py and no
+    PIL and may lack libpng's headers, so the CPU tests
+    (tests/test_torch_data_pipeline.py) hold them.
+
+    On the CPU, at small sizes, it rehearses the checks (K6 and the stash
+    backward counted on the card only) and skips the times."""
+    import os
+    import shutil
+    import tempfile
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    import deepinv_tpu_torch.models.drunet as drunet_mod
+    from deepinv_tpu_torch.datasets import ArrayDataset, DataLoader, RandomPatchSampler
+    from deepinv_tpu_torch.models import ArtifactRemoval, Client, DnCNN, DRUNet, autocast
+    from deepinv_tpu_torch.ops import gaussian_blur
+    from deepinv_tpu_torch.ops.kernels.conv_chain import conv_chain_stash, stash_backward
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import resblock_chain_plain
+    from deepinv_tpu_torch.optim import L2, PnP, optim_builder
+    from deepinv_tpu_torch.parallel import (DistributedContext, DistributedProcessing,
+                                            PipelineParallel, distribute)
+    from deepinv_tpu_torch.physics import MRI, BlurFFT, Denoising, GaussianNoise, stack
+    from deepinv_tpu_torch.serve import InferenceServer
+    from deepinv_tpu_torch.training import Trainer
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    g = torch.Generator().manual_seed(SEED + 240)
+    out = {"launches": {"K1": {}, "K5": {}, "K6": {}, "stash_backward": {}}, "rates": {}}
+
+    def zero():
+        drunet_mod.resblock_chain.launches = dncnn_mod.conv_chain.launches = 0
+        conv_chain_stash.launches = stash_backward.launches = 0
+
+    def counts():
+        return {"K1": drunet_mod.resblock_chain.launches, "K5": dncnn_mod.conv_chain.launches,
+                "K6": conv_chain_stash.launches, "stash_backward": stash_backward.launches}
+
+    # (a) the two served problems, built as phases 4 and 5 build them
+    blur = BlurFFT((3, size, size), filter=gaussian_blur(sigma=1.5),
+                   noise_model=GaussianNoise(0.01))
+    x_hqs = torch.rand((1, 3, size, size), generator=g).to(dev)
+    y_hqs = blur(x_hqs, generator=gen_on(dev, SEED + 241))
+    drunet = autocast(DRUNet(nc=nc, nb=nb, generator=g))
+    hqs = optim_builder("HQS", data_fidelity=L2(), prior=PnP(drunet),
+                        params_algo={"stepsize": 2.0, "g_param": 0.02}, max_iter=MAX_ITER)
+    mask = (np.random.default_rng(0).random((size, size)) < 0.3).astype(np.float32)
+    mri = MRI(mask=mask, img_size=(size, size))
+    net = DnCNN(2, 2, depth=depth, nf=64, generator=g)
+    with torch.no_grad():
+        net.out_conv.weight.mul_(DNCNN_RESIDUAL_SCALE)
+    dncnn = autocast(net)
+    pgd = optim_builder("PGD", data_fidelity=L2(), prior=PnP(dncnn), params_algo=PGD_PARAMS,
+                        max_iter=MAX_ITER)
+    x_mri = torch.randn((1, 2, size, size), generator=g).to(dev)
+    y_mri = mri.A(x_mri)
+    served = {"BlurFFT": (hqs, blur, y_hqs, "K1"), "MRI": (pgd, mri, y_mri, "K5")}
+    # each request its own measurement, each held to its own in-process recon
+    ys = {"BlurFFT": [blur(torch.rand((1, 3, size, size), generator=g).to(dev),
+                           generator=gen_on(dev, SEED + 300 + k)) for k in range(requests)],
+          "MRI": [mri.A(torch.randn((1, 2, size, size), generator=g).to(dev))
+                  for _ in range(requests)]}
+    direct = {}
+    for name, (m, p, _, _) in served.items():
+        with torch.no_grad():
+            direct[name] = [m(y, p) for y in ys[name]]
+        sync(dev)
+    server = InferenceServer(api_key=SERVE_KEY)
+    for name, (m, p, _, _) in served.items():
+        server.register(name, m, p)
+    with server.running() as url:
+        client = Client(url, api_key=SERVE_KEY, timeout=600)
+
+        def post(name, k):
+            p = served[name][1]
+            t0 = time.perf_counter()
+            x_hat = client(ys[name][k], p)
+            return name, (time.perf_counter() - t0) * 1e3, rel_l2(x_hat.to(dev), direct[name][k])
+
+        for name in served:   # one request each first: the first calls' set-up
+            post(name, 0)
+        for n_threads in threads:
+            zero()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(n_threads) as pool:
+                futs = [pool.submit(post, name, k) for k in range(requests) for name in served]
+                results = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            got = counts()
+            for name, (_, _, _, k) in served.items():
+                out["launches"][k][f"serving {name} threads={n_threads}"] = got[k]
+            print(f"serving {n_threads} client thread(s), {requests} requests a model: "
+                  f"launches {got}", flush=True)
+            check(got["K1"] == got["K5"] == requests * MAX_ITER,
+                  f"serving threads={n_threads}: K1 {got['K1']} and K5 {got['K5']} launches, not "
+                  f"{MAX_ITER} a request")
+            check(not cuda or got["K6"] == got["stash_backward"] == 0,
+                  f"serving threads={n_threads}: a training kernel launched ({got}): grad mode "
+                  "is on in the handler threads")
+            for name in served:
+                gaps = [gap for n, _, gap in results if n == name]
+                lat = [ms for n, ms, _ in results if n == name]
+                print(f"serving {name} threads={n_threads}: relative L2 gap of each request's "
+                      f"x_hat to the in-process recon of its own y max {max(gaps)} (bound "
+                      f"{SERVE_RTOL}); latency p50 {percentile(lat, 0.5):.3f} ms, p99 "
+                      f"{percentile(lat, 0.99):.3f} ms", flush=True)
+                check(max(gaps) <= SERVE_RTOL, f"serving {name}: x_hat differs from the "
+                      "in-process recon of its y")
+                if cuda:
+                    out["rates"][f"serving {name} threads={n_threads}"] = {
+                        "p50_ms": percentile(lat, 0.5), "p99_ms": percentile(lat, 0.99)}
+            if cuda:
+                rps = len(results) / wall
+                out["rates"][f"serving threads={n_threads}"] = {"requests_per_s": rps}
+                print(f"rate: serving {n_threads} client thread(s) {size}² {rps:.3f} requests/s "
+                      f"(both models; {card})", flush=True)
+        for key, physics_name, want in (("wrong", "MRI", 401), (SERVE_KEY, "Nope", 500)):
+            body = {"y": Client.serialize(y_mri), "physics": physics_name, "kwargs": {}}
+            req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                         headers={"Authorization": f"Bearer {key}"})
+            try:
+                urllib.request.urlopen(req, timeout=60)
+                code, msg = 200, {}
+            except urllib.error.HTTPError as e:
+                code, msg = e.code, json.loads(e.read())
+            print(f"serving: key {key!r}, physics {physics_name!r}: HTTP {code} {msg}", flush=True)
+            check(code == want, f"serving: expected HTTP {want}, got {code}")
+            check(want != 500 or "no model registered" in msg.get("error", ""),
+                  f"serving: the 500 lacks its message: {msg}")
+    if cuda:
+        for name, (m, p, y, _) in served.items():
+            with torch.no_grad():
+                ms = cuda_ms(lambda: m(y, p), 5, warmup=1)
+            out["rates"][f"serving {name} recon"] = {"cuda_ms": ms}
+            print(f"time serving {name}: the recon alone {ms:.3f} ms (CUDA events; {card})",
+                  flush=True)
+
+    # (b) the parallel layer on one card, the mesh repeating it
+    def plain_k1():
+        return swapped(drunet_mod, "resblock_chain",
+                       lambda h, w1s, w2s, packed=None: resblock_chain_plain(h, w1s, w2s))
+
+    tiled = DistributedProcessing(drunet, DistributedContext(("sp",), devices=[dev] * 2),
+                                  overlap=8)
+    zero()
+    with torch.no_grad():
+        t_k = tiled(x_hqs, 0.02)
+        sync(dev)
+        n_k1 = drunet_mod.resblock_chain.launches
+        with plain_k1():
+            t_p = tiled(x_hqs, 0.02)
+        whole = drunet(x_hqs, 0.02)
+    out["launches"]["K1"]["tiled DRUNet"] = n_k1
+    err, gap = rel_max(t_k, t_p), rel_l2(t_k, whole)
+    print(f"parallel: DRUNet in 2 bands (overlap 8): K1 launches {n_k1}; vs the same tiling on "
+          f"K1's plain version: relative max error {err} (bound {DENOISER_RTOL}); vs the "
+          f"whole-image call: relative L2 {gap}", flush=True)
+    check(n_k1 == 2, f"parallel: expected one K1 launch a band, got {n_k1}")
+    check(err <= DENOISER_RTOL, "parallel: tiled DRUNet disagrees with its plain version")
+
+    ops = [MRI(mask=(np.random.default_rng(s).random((size, size)) < 0.3).astype(np.float32),
+               img_size=(size, size)) for s in range(SERVE_MRI_OPS)]
+    op_ctx = DistributedContext(("op",), devices=[dev] * 2)
+    dphys, serial = distribute(ops, op_ctx), stack(*ops)
+    params = {"stepsize": 1.0 / SERVE_MRI_OPS, "g_param": PGD_PARAMS["g_param"]}
+
+    def pgd_with(fid):
+        return optim_builder("PGD", data_fidelity=fid, prior=PnP(dncnn), params_algo=params,
+                             max_iter=MAX_ITER)
+
+    zero()
+    with torch.no_grad():
+        r_d = pgd_with(distribute(L2(), op_ctx))(dphys.A(x_mri), dphys)
+        sync(dev)
+        n_k5 = dncnn_mod.conv_chain.launches
+        r_s = pgd_with(L2())(serial.A(x_mri), serial)
+    out["launches"]["K5"]["distributed MRI PGD"] = n_k5
+    err = rel_l2(r_d, r_s)
+    print(f"parallel: PnP-PGD over {SERVE_MRI_OPS} distributed MRI operators: K5 launches {n_k5}; "
+          f"vs the StackedLinearPhysics recon relative L2 {err} (bound {RECON_RTOL})", flush=True)
+    check(n_k5 == MAX_ITER, f"parallel: expected {MAX_ITER} K5 launches a recon, got {n_k5}")
+    check(err <= RECON_RTOL, "parallel: the distributed recon disagrees with the stacked one")
+
+    def stage(step, carry):
+        x, y = carry
+        for _ in range(PIPE_ITERS):
+            x = dncnn(x - step[0] * mri.A_adjoint(mri.A(x) - y), PGD_PARAMS["g_param"])
+        return (x, y)
+
+    S, M = 4, 4
+    steps_pp = torch.full((S, 1), PGD_PARAMS["stepsize"], device=dev)
+    xb = torch.randn((M * 2, 2, size, size), generator=g).to(dev)
+    yb = mri.A(xb)
+    pp = PipelineParallel(steps_pp, stage, DistributedContext(("pp",), devices=[dev] * S),
+                          n_microbatches=M)
+    zero()
+    with torch.no_grad():
+        got = pp((mri.A_adjoint(yb), yb))[0]
+        sync(dev)
+        n_pp = dncnn_mod.conv_chain.launches
+        seq = []
+        for m in range(M):
+            c = (mri.A_adjoint(yb[2 * m:2 * m + 2]), yb[2 * m:2 * m + 2])
+            for s in range(S):
+                c = stage(steps_pp[s], c)
+            seq.append(c[0])
+        seq = torch.cat(seq)
+    out["launches"]["K5"]["pipeline"] = n_pp
+    err = rel_l2(got, seq)
+    print(f"parallel: pipeline of {S} stages x {PIPE_ITERS} PnP-PGD iterations, {M} microbatches "
+          f"of 2: K5 launches {n_pp}; vs the stages in sequence relative L2 {err} (bound "
+          f"{RECON_RTOL})", flush=True)
+    check(n_pp == S * PIPE_ITERS * M, f"parallel: expected {S * PIPE_ITERS * M} K5 launches, "
+          f"got {n_pp}")
+    check(err <= RECON_RTOL, "parallel: the pipeline disagrees with the stages in sequence")
+
+    # (c) patches read from .npy volumes into phase 9's Trainer
+    tmp = tempfile.mkdtemp()
+    try:
+        rng = np.random.default_rng(SEED + 242)
+        for i in range(8):
+            np.save(os.path.join(tmp, f"vol{i}.npy"), discs(rng, 1, volume)[0])
+        sampler = RandomPatchSampler(x_dir=tmp, patch_size=patch, seed=SEED)
+        train_net = DnCNN(1, 1, depth=depth, nf=64,
+                          generator=torch.Generator().manual_seed(SEED + 12))
+        physics = Denoising(GaussianNoise(0.1))
+
+        def trainer_on(loader):
+            model = ArtifactRemoval(autocast(copy.deepcopy(train_net)))
+            return Trainer(model, physics, optimizer=torch.optim.Adam(model.parameters(), lr=1e-4),
+                           train_dataloader=loader, epochs=1, online_measurements=True,
+                           verbose=False, fused_chains=True, seed=SEED)
+
+        fed = trainer_on(DataLoader(_Cycle(sampler, batch * steps), batch_size=batch))
+        xs = np.stack([sampler[i % 8] for i in range(batch * steps)])
+        mem = trainer_on(DataLoader(ArrayDataset(xs), batch_size=batch))
+        zero()
+        train_epoch(fed, 0, dev)
+        got = counts()
+        L = depth - 2
+        out["launches"]["K6"]["data-fed train"] = got["K6"]
+        out["launches"]["stash_backward"]["data-fed train"] = got["stash_backward"]
+        losses = fed.logs_total_loss_train.vals
+        print(f"data: {steps} steps at B={batch} of {patch}² patches from {volume}² .npy volumes: "
+              f"launches {got}; losses {losses}", flush=True)
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+              "data: non-finite or missing loss")
+        check(not cuda or (got["K6"], got["stash_backward"], got["K5"]) == (
+            steps, steps * (L + 2), 0), f"data: launches {got}, expected K6 {steps}, stash "
+            f"backward {steps * (L + 2)}, K5 0")
+
+        # the Trainer's data_parallel over [card] * 2 against one device, by
+        # SGD so that an update is linear in its gradient
+        def sgd_trainer(**kw):
+            model = ArtifactRemoval(autocast(copy.deepcopy(train_net)))
+            return Trainer(model, physics, optimizer=torch.optim.SGD(model.parameters(), lr=1e-3),
+                           train_dataloader=DataLoader(ArrayDataset(xs), batch_size=batch),
+                           epochs=1, online_measurements=True, verbose=False, fused_chains=True,
+                           seed=SEED, **kw)
+
+        def vec(params):
+            return torch.cat([q.detach().reshape(-1) for q in params])
+
+        w0 = vec(train_net.parameters())
+        single = sgd_trainer()
+        split = sgd_trainer(data_parallel=DistributedContext(("dp",), devices=[dev] * 2))
+        train_epoch(single, 0, dev)
+        zero()
+        train_epoch(split, 0, dev)
+        got = counts()
+        out["launches"]["K6"]["data_parallel train"] = got["K6"]
+        out["launches"]["stash_backward"]["data_parallel train"] = got["stash_backward"]
+        err = rel_l2(vec(split.model.parameters()) - w0, vec(single.model.parameters()) - w0)
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(split.logs_total_loss_train.vals,
+                                                       single.logs_total_loss_train.vals))
+        print(f"data_parallel: {steps} SGD steps at B={batch} split over [card] * 2: launches "
+              f"{got}; the weights' update relative L2 {err} from one device's (bound "
+              f"{DENOISER_RTOL}), losses relative {lerr} (bound {DENOISER_RTOL})", flush=True)
+        check(len(split.logs_total_loss_train.vals) == steps and err <= DENOISER_RTOL
+              and lerr <= DENOISER_RTOL, "data_parallel: the split step differs from one device's")
+        check(not cuda or (got["K6"], got["stash_backward"]) == (2 * steps, 2 * steps * (L + 2)),
+              f"data_parallel: launches {got}, expected K6 {2 * steps} (one a chunk), stash "
+              f"backward {2 * steps * (L + 2)}")
+        if cuda:
+            times, epoch = {"loader": [], "memory": []}, {"loader": 1, "memory": 1}
+            runs = {"loader": fed, "memory": mem}
+            train_epoch(mem, 0, dev)
+            for k in ("loader", "memory", "memory", "loader"):
+                times[k].append(train_epoch(runs[k], epoch[k], dev))
+                epoch[k] += 1
+            for k, t in runs.items():
+                def run(t=t, k=k):
+                    train_epoch(t, epoch[k], dev)
+                    epoch[k] += 1
+                prof = device_profile(f"data-fed train {k} B={batch} epoch", run, 2, top=6)
+                idle = None if prof is None else 1 - prof[4] / prof[0]
+                rate = steps * len(times[k]) / sum(times[k])
+                out["rates"][f"train {k} B={batch}"] = {"steps_per_s": rate, "idle_share": idle}
+                print(f"rate: train from {'RandomPatchSampler' if k == 'loader' else 'memory'} "
+                      f"{patch}² B={batch} {rate:.3f} steps/s fused_chains=True, epochs "
+                      f"{times[k]} s; idle share {idle} ({card})", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    print(f"serving phase: {secs:.1f} s ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6201,6 +6616,11 @@ def main() -> int:
     # checkpoint round trip
     ssl20 = selfsup_phase(dev, card)
 
+    # 21. the inference server (PnP-HQS over K1, PnP-PGD over K5), the
+    # parallel layer (a tiled DRUNet, distributed MRI operators, a pipeline)
+    # and RandomPatchSampler patches into the Trainer (K6, the stash backward)
+    srv21 = serving_phase(dev, card)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -6285,6 +6705,11 @@ def main() -> int:
         "dps_grad_rel_l2": smp["grad_err"],
         "dps_grad_rel_l2_tf32_off": smp["grad_err_tf32_off"],
         "sampling_rates": smp["rates"],
+        # phase 21: K1's launches in the served HQS requests (MAX_ITER a
+        # request, 1 and 4 client threads) and in the DRUNet tiled in two
+        # bands (one a band); requests/s, latencies and the recons' times
+        "launches_serving": srv21["launches"]["K1"],
+        "serving_rates": srv21["rates"],
     }, {
         "name": "conv_chain",
         "route": "cuda",
@@ -6353,6 +6778,10 @@ def main() -> int:
         # their evaluation (SSL_EVAL_SAMPLES a splitting or R2R batch, one a
         # Neighbor2Neighbor batch)
         "launches_selfsup": ssl20["launches"]["K5"],
+        # phase 21: K5's launches in the served MRI PGD requests (MAX_ITER a
+        # request), PnP-PGD over distributed MRI operators (MAX_ITER a recon)
+        # and the pipeline (one a stage's iteration and microbatch)
+        "launches_serving": srv21["launches"]["K5"],
     }, {
         "name": "tv_prox",
         "route": "cuda",
@@ -6481,6 +6910,9 @@ def main() -> int:
         "launches_selfsup": ssl20["launches"]["K6"],
         "selfsup_rates": ssl20["rates"],
         "selfsup_warp_ms": ssl20["ms"],
+        # phase 21: K6's launches in the Trainer fed by RandomPatchSampler
+        # (one a step)
+        "launches_data": srv21["launches"]["K6"],
     }, {
         "name": "stash_backward",
         "route": "cuda",
@@ -6519,6 +6951,9 @@ def main() -> int:
         # phase 20: the launches in the self-supervised train steps (L + 2 a
         # backward; four backwards a SURE-PG step, two an EI or MOEI step)
         "launches_selfsup": ssl20["launches"]["stash_backward"],
+        # phase 21: the launches in the Trainer fed by RandomPatchSampler
+        # (L + 2 a step)
+        "launches_data": srv21["launches"]["stash_backward"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

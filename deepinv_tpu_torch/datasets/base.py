@@ -13,7 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["ImageDataset", "ArrayDataset", "TensorDataset", "DataLoader", "check_dataset"]
+from ..core.tensorlist import TensorList
+from ..utils.mixins import TiledMixin2d
+
+__all__ = ["ImageDataset", "ArrayDataset", "TensorDataset", "DataLoader", "PatchDataset",
+           "RandomPatchSampler", "random_split", "check_dataset"]
 
 
 class ImageDataset:
@@ -113,9 +117,149 @@ class TensorDataset(ImageDataset):
         return tuple(out) if len(out) > 1 else out[0]
 
 
+class RandomPatchSampler(ImageDataset):
+    """One random patch a volume each time an item is read (base.py:129): a
+    directory of ``.npy`` nD volumes (or any ``loader``), channel-first
+    patches, patch axes of size 1 squeezed (slices). The coordinates come
+    from numpy's ``default_rng(seed)`` in the JAX package's order, so both
+    give the same patches.
+
+    :param x_dir: directory of ground truths, or None.
+    :param y_dir: directory of measurements, or None (either or both; with
+        both, the files the two share, each cut at the same place).
+    :param patch_size: an int or one size a spatial axis.
+    :param ch_axis: None (a channel axis is added), 0 (channel-first) or -1
+        (channel-last, moved first).
+    :param seed: the seed of the coordinates' generator.
+    """
+
+    def __init__(self, x_dir=None, y_dir=None, patch_size=32, file_format: str = ".npy",
+                 ch_axis=None, loader=None, seed=0):
+        import os
+
+        if x_dir is None and y_dir is None:
+            raise ValueError("provide x_dir and/or y_dir")
+        self.loader = loader if loader is not None else np.load
+        self.ch_axis = ch_axis
+        self.patch_size = patch_size
+        self.rng = np.random.default_rng(seed)
+
+        def listdir(d):
+            return sorted(f for f in os.listdir(d) if f.endswith(file_format))
+
+        if x_dir is not None and y_dir is not None:
+            common = sorted(set(listdir(x_dir)) & set(listdir(y_dir)))
+            self.files = [(os.path.join(x_dir, f), os.path.join(y_dir, f)) for f in common]
+        elif x_dir is not None:
+            self.files = [(os.path.join(x_dir, f), None) for f in listdir(x_dir)]
+        else:
+            self.files = [(None, os.path.join(y_dir, f)) for f in listdir(y_dir)]
+        if not self.files:
+            raise FileNotFoundError("no volumes found")
+
+    def _to_chw(self, a):
+        a = np.asarray(a, np.float32)
+        if self.ch_axis is None:
+            return a[None]
+        if self.ch_axis == -1:
+            return np.moveaxis(a, -1, 0)
+        return a
+
+    def __len__(self):
+        return len(self.files)
+
+    def load(self, f, start_coords, patch_size=None):
+        """The patch of file ``f`` starting at ``start_coords`` (base.py:178);
+        a None size keeps the whole axis."""
+        ps = self.patch_size if patch_size is None else patch_size
+        vol = self._to_chw(self.loader(f))
+        if isinstance(ps, int):
+            ps = (ps,) * (vol.ndim - 1)
+        sl = (slice(None),) + tuple(slice(o, o + p) if p is not None else slice(None)
+                                    for o, p in zip(start_coords, ps))
+        return vol[sl]
+
+    def __getitem__(self, i):
+        xf, yf = self.files[i]
+        vol = self._to_chw(self.loader(xf if xf is not None else yf))
+        sp = vol.shape[1:]
+        ps = self.patch_size
+        if isinstance(ps, int):
+            ps = (ps,) * len(sp)
+        ps = tuple(min(p, s) for p, s in zip(ps, sp))
+        start = tuple(self.rng.integers(0, s - p + 1) for p, s in zip(ps, sp))
+        sl = (slice(None),) + tuple(slice(o, o + p) for o, p in zip(start, ps))
+        flat = tuple(ax + 1 for ax, p in enumerate(ps) if p == 1)
+
+        def cut(v):
+            return np.squeeze(v[sl], axis=flat) if flat else v[sl]
+
+        patch = cut(vol)
+        if xf is not None and yf is not None:
+            return patch, cut(self._to_chw(self.loader(yf)))
+        return patch
+
+
+class PatchDataset(TiledMixin2d, ImageDataset):
+    """Patches on a regular grid of a stack of images (base.py:220), with the
+    patch geometry of :class:`~deepinv_tpu_torch.utils.TiledMixin2d`
+    (``image_to_patches``, ``patches_to_image``, ``get_num_patches``, ...).
+
+    :param imgs: ``(N, C, H, W)`` numpy array or tensor.
+    :param patch_size: patch side (or ``(ph, pw)``).
+    :param stride: grid step (or ``(sh, sw)``).
+    :param transforms: callable applied to each patch.
+    """
+
+    def __init__(self, imgs, patch_size: int = 8, stride: int = 4, transforms=None):
+        super().__init__(patch_size=patch_size, stride=stride)
+        self.imgs = _as_array(imgs)
+        self.transforms = transforms
+        N, C, H, W = self.imgs.shape
+        ph, pw = self.patch_size
+        sh, sw = self.stride
+        self.per_row = (H - ph) // sh + 1
+        self.per_col = (W - pw) // sw + 1
+        self.per_img = self.per_row * self.per_col
+
+    def __len__(self):
+        return len(self.imgs) * self.per_img
+
+    def __getitem__(self, idx):
+        n, r = divmod(idx, self.per_img)
+        i, j = divmod(r, self.per_col)
+        ph, pw = self.patch_size
+        sh, sw = self.stride
+        patch = self.imgs[n, :, i * sh:i * sh + ph, j * sw:j * sw + pw]
+        return self.transforms(patch) if self.transforms is not None else patch
+
+
+def random_split(dataset, lengths, seed: int = 0):
+    """Random non-overlapping subsets of the given lengths (base.py:255), the
+    permutation of ``RandomState(seed)`` as in the JAX package."""
+    idx = np.random.RandomState(seed).permutation(len(dataset))
+    out, o = [], 0
+    for n in lengths:
+        out.append(_Subset(dataset, idx[o:o + n]))
+        o += n
+    return out
+
+
+class _Subset:
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[int(self.indices[i])]
+
+
 def _collate(items):
     """Stack per-sample items into a batch, recursing through tuples, lists
-    and dicts (base.py:278)."""
+    and dicts; TensorLists stack part by part (base.py:278)."""
     first = items[0]
     if isinstance(first, (tuple, list)):
         return tuple(_collate([it[k] for it in items]) for k in range(len(first)))
@@ -123,6 +267,8 @@ def _collate(items):
         return {k: _collate([it[k] for it in items]) for k in first}
     if isinstance(first, torch.Tensor):
         return torch.stack(items)
+    if isinstance(first, TensorList):
+        return TensorList([torch.stack([it.x[k] for it in items]) for k in range(len(first.x))])
     return np.stack(items)
 
 

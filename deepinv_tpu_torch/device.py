@@ -10,9 +10,11 @@ either device.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "module_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -26,3 +28,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError('deepinv_tpu_torch runs on the CUDA device by default and none is '
                            'available: pass device="cpu" to run on the CPU')
     return torch.device("cuda")
+
+
+def module_device(*modules) -> torch.device:
+    """The device of the first parameter or buffer of ``modules`` (each an
+    ``nn.Module`` or anything else, which is skipped), else
+    :func:`resolve_device` of None."""
+    for m in modules:
+        if isinstance(m, torch.nn.Module):
+            t = next(itertools.chain(m.parameters(), m.buffers()), None)
+            if t is not None:
+                return t.device
+    return resolve_device(None)

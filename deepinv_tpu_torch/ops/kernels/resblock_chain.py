@@ -33,7 +33,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-__all__ = ["resblock_chain", "resblock_chain_plain", "resblocks_f32", "pack_weights",
+__all__ = ["resblock_chain", "resblock_chain_plain", "resblocks_f32", "resblock_chain_cost",
+           "pack_weights",
            "pack_weights_transposed", "check_activations", "check_packed", "int_array", "C"]
 
 C = 64  # channel width the kernel is built for
@@ -233,6 +234,16 @@ class _ResblockChain(torch.autograd.Function):
         return (*first_order_only("resblock_chain", results, (g, *saved)), None, None)
 
 
+def resblock_chain_cost(B: int, H: int, W: int, R: int):
+    """Analytic (flops, HBM bytes) of R blocks on ``(B, 64, H, W)``: B times
+    the JAX package's count of one W-folded image (resblock_chain.py:176-180,
+    219-221), which its batched call records B times (:190-193)."""
+    G = W // 2
+    flops = R * 2 * (2 * H * (2 * G) * C * C * 9)
+    nbytes = ((H + 2) * (G + 2) + H * G) * 128 * 2 + 2 * R * 3 * 2 * 128 * 128 * 2
+    return B * flops, B * nbytes
+
+
 def resblock_chain(h, w1s, w2s, packed=None):
     """R residual blocks at C = 64: ``h + conv2(relu(conv1(h)))`` applied R
     times, bf16 in and out.
@@ -245,6 +256,9 @@ def resblock_chain(h, w1s, w2s, packed=None):
     :return: ``(B, 64, H, W)`` bf16. From the kernel it is an NCHW view of
         channels_last memory.
     """
+    from ...utils.profiling import record_pallas_cost
+
+    record_pallas_cost(*resblock_chain_cost(h.shape[0], h.shape[2], h.shape[3], w1s.shape[0]))
     if packed is None:
         packed = ((pack_weights(w1s), pack_weights(w2s)) if h.is_cuda
                   else (None, None))

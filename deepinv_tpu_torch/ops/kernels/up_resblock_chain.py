@@ -144,6 +144,16 @@ class _UpResblockChain(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+def up_resblock_chain_cost(B: int, H2: int, W2: int, R: int):
+    """Analytic (flops, HBM bytes) of the op on ``(B, Ci, H2, W2)``: B times
+    the JAX package's count of one image in its default variant, the
+    projection in XLA (resblock_chain.py:359-361)."""
+    H, G = 2 * H2, W2
+    flops = R * 2 * (2 * H * (2 * G) * C * C * 9)
+    nbytes = 2 * (H2 * (G + 2) + H * G // 2) * 128 * 2 + 2 * R * 3 * 2 * 128 * 128 * 2
+    return B * flops, B * nbytes
+
+
 def up_resblock_chain(v, w_up, w1s, w2s, packed=None):
     """Transposed-conv upsample (2x2, stride 2, Ci -> 64) and R residual
     blocks at C = 64, bf16 in and out.
@@ -158,6 +168,9 @@ def up_resblock_chain(v, w_up, w1s, w2s, packed=None):
     :return: ``(B, 64, H, W)`` bf16. From the kernel it is an NCHW view of
         channels_last memory.
     """
+    from ...utils.profiling import record_pallas_cost
+
+    record_pallas_cost(*up_resblock_chain_cost(v.shape[0], v.shape[2], v.shape[3], w1s.shape[0]))
     if packed is None:
         packed = pack_up_chain(w_up, w1s, w2s) if v.is_cuda else (None,) * 3
     return _UpResblockChain.apply(v, w_up, w1s, w2s, *packed)

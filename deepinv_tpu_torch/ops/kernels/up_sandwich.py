@@ -217,6 +217,19 @@ class _UpSandwich(torch.autograd.Function):
         return (*grads, *([None] * 7))
 
 
+def up_sandwich_cost(B: int, H0: int, W0: int, Ci2: int, R1: int, R0: int):
+    """Analytic (flops, HBM bytes) of the op with scale-0 output ``(B, 64,
+    H0, W0)``: B times the JAX package's ``sandwich_cost`` of one image
+    (resblock_chain.py:564-575, recorded at :608-610)."""
+    G, H1 = W0 // 2, H0 // 2
+    proj = 2 * H1 * G * 128 * Ci2 + 2 * (2 * H1 * G * 128 * 128 * 2)
+    flops = (proj + R1 * 2 * (2 * H1 * G * 128 * 128 * 9)
+             + R0 * 2 * (2 * H0 * (2 * G) * C * C * 9))
+    nbytes = (((H1 // 2) * (G // 2) * Ci2 + 2 * H0 * G * 128) * 2
+              + (4 * Ci2 * 128 + (R1 + R0) * 2 * 9 * 128 * 128 + 4 * 128 * 128) * 2)
+    return B * flops, B * nbytes
+
+
 def up_sandwich(s2, d0, w_up2, w1s1, w2s1, w_down, w_up1, w1s, w2s, packed=None):
     """DRUNet's up tail below scale 2 as one op, bf16 in and out.
 
@@ -235,6 +248,10 @@ def up_sandwich(s2, d0, w_up2, w1s1, w2s1, w_down, w_up1, w1s, w2s, packed=None)
     :return: ``(B, 64, H, W)`` bf16, before DRUNet's tail skip. From the kernel
         it is an NCHW view of channels_last memory.
     """
+    from ...utils.profiling import record_pallas_cost
+
+    record_pallas_cost(*up_sandwich_cost(d0.shape[0], d0.shape[2], d0.shape[3], s2.shape[1],
+                                         w1s1.shape[0], w1s.shape[0]))
     weights = (w_up2, w1s1, w2s1, w_down, w_up1, w1s, w2s)
     if packed is None:
         packed = pack_sandwich(*weights) if s2.is_cuda else (None,) * 7

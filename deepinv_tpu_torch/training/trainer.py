@@ -38,17 +38,22 @@ gates stay open, so a bf16 DnCNN's hidden chain trains on the stash kernel
 (K6) and its stash backward, which is what ``jax.grad`` of a fused DnCNN
 does in the JAX package.
 
-Batches go to the model's device. Adversarial training is
-``training/adversarial.py``. Waiting (ROADMAP queue 1): wandb/mlflow,
-``data_parallel`` and plotting.
+Batches go to the model's device. ``data_parallel`` splits each train
+batch over the devices of a :class:`~deepinv_tpu_torch.parallel.DistributedContext`
+(trainer.py:143, 190-200, 521-524): the same step, with the network's
+calls split over the devices. Adversarial training is
+``training/adversarial.py``. Waiting (ROADMAP queue 1): wandb/mlflow and
+plotting.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import itertools
 import os
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -67,6 +72,27 @@ def _to_list(v):
     if v is None:
         return []
     return list(v) if isinstance(v, (list, tuple)) else [v]
+
+
+def _batch_rows(module, n: int, ndim: int, start: int, stop: int):
+    """``module`` with its per-sample tensors cut to the rows ``start:stop``.
+    A buffer or tensor attribute, here or in a submodule, is per-sample when
+    it has the measurement's rank ``ndim`` and the batch's ``n`` as its
+    leading size: a split's mask, a generator's per-sample mask or filter.
+    A module without one comes back as it is; one with some comes back as a
+    shallow copy (:func:`~deepinv_tpu_torch.physics.base.replace`)."""
+    from ..physics.base import replace
+
+    changes = {}
+    for k, v in itertools.chain(module._buffers.items(), vars(module).items()):
+        if isinstance(v, torch.Tensor) and v.ndim == ndim and v.shape[0] == n:
+            changes[k] = v[start:stop]
+    for k, m in module._modules.items():
+        if m is not None:
+            cut = _batch_rows(m, n, ndim, start, stop)
+            if cut is not m:
+                changes[k] = cut
+    return replace(module, **changes) if changes else module
 
 
 class Trainer:
@@ -101,6 +127,22 @@ class Trainer:
         ``save_path/orbax``, written in the background).
     :param fused_chains: leave the kernel gates open in the train step (see
         the module docstring); default False, the reference's configuration.
+    :param data_parallel: False (default), True (every CUDA device) or a
+        :class:`~deepinv_tpu_torch.parallel.DistributedContext` whose first
+        axis the train batches split over. The step is the single-device
+        step, as the JAX Trainer's is one jitted whole-batch step on sharded
+        inputs: the measurements, the losses and every draw (a split's mask,
+        R2R's noise, EI's transform) are made for the whole batch on the
+        model's device with the same generators, and only the network's
+        calls split. The network is the model given, under any
+        ``train_aware`` wrapper (``SplittingModel``, ``R2RModel``, ...); a
+        call of it runs its batch in chunks on one replica a device
+        (:meth:`_split_call`), autograd sums the chunks' gradients, and each
+        replica's are added to the network's parameters in device order
+        before the one optimizer step. A physics given to the network goes
+        to each replica's device cut to the chunk's rows (:func:`_batch_rows`).
+        Evaluation does not split. A mesh of one device trains as without
+        it, as the JAX Trainer's ``len(jax.devices()) > 1`` gate.
 
     Two-epoch supervised training of a small DnCNN on the CPU::
 
@@ -127,12 +169,17 @@ class Trainer:
                  compute_train_metrics: bool = True, check_grad: bool = False,
                  eval_interval: int = 1, save_path: Optional[str] = None, ckpt_interval: int = 1,
                  ckpt_backend: str = "pickle", compare_no_learning: bool = False, no_learning_method="A_adjoint",
-                 verbose: bool = True, seed: int = 0, fused_chains: bool = False):
+                 verbose: bool = True, seed: int = 0, fused_chains: bool = False,
+                 data_parallel=False):
         self.model = model
         self.physics = _to_list(physics)
         self.losses = _to_list(losses) if losses is not None else [SupLoss()]
         for l in self.losses:
             self.model = l.adapt_model(self.model)
+        net = model
+        while getattr(net, "train_aware", False) and isinstance(getattr(net, "model", None),
+                                                                 torch.nn.Module):
+            net = net.model
         params = list(self.model.parameters())
         if optimizer is None and params:
             optimizer = torch.optim.Adam(params, lr=1e-3)
@@ -164,6 +211,16 @@ class Trainer:
         self.verbose = verbose
         self.seed = seed
         self.fused_chains = fused_chains
+        self._dp = None         # the batch's placement over the mesh's first axis
+        self._dp_net = net      # the network whose calls data_parallel splits
+        self._replicas = None
+        self._physics_copies = weakref.WeakKeyDictionary()
+        if data_parallel is not False:
+            from ..parallel import DistributedContext
+
+            ctx = DistributedContext() if data_parallel is True else data_parallel
+            if ctx.axis_size() > 1:
+                self._dp = ctx.sharding(ctx.axis_names[0])
         self.epoch_start = 0
         self.epochs_run = 0
         self.loss_history = []
@@ -273,6 +330,76 @@ class Trainer:
         total, x_net = self.compute_loss(self.model, x, y, physics, self.generator(*path, 1))
         return total, x_net, {"TotalLoss": total}
 
+    @contextlib.contextmanager
+    def _data_parallel(self):
+        """Within it every call of the network splits its batch over the
+        replicas (:meth:`_split_call`); on exit the replicas' gradients are
+        summed onto the network's parameters in device order. The replicas
+        are made at the first step and take the network's weights at every
+        step, so that a loaded checkpoint reaches them too."""
+        net = self._dp_net
+        if self._replicas is None:
+            self._replicas = [net] + [copy.deepcopy(net).to(d)
+                                      for d in self._dp.ctx.axis_devices()[1:]]
+        with torch.no_grad():
+            src = list(net.parameters()) + list(net.buffers())
+            for rep in self._replicas[1:]:
+                for p, q in zip(src, list(rep.parameters()) + list(rep.buffers())):
+                    q.copy_(p)
+        net.forward = functools.partial(self._split_call, type(net).forward.__get__(net))
+        try:
+            yield
+        finally:
+            del net.forward
+        for rep in self._replicas[1:]:
+            for p, q in zip(net.parameters(), rep.parameters()):
+                if q.grad is not None:
+                    g = q.grad.to(p.device)
+                    p.grad = g if p.grad is None else p.grad + g
+                    q.grad = None
+
+    def _split_call(self, forward, y, *args, **kwargs):
+        """The network's call on ``y`` split over the mesh's first axis
+        (``torch.tensor_split``, in device order): chunk ``c`` runs on replica
+        ``c`` with each physics argument on that replica's device (a copy
+        kept while the physics lives) and cut to the chunk's rows
+        (:func:`_batch_rows`); the outputs are gathered on ``y``'s device.
+        Autograd carries the gradient back through the ``.to()`` copies."""
+        if not isinstance(y, torch.Tensor):
+            raise ValueError(f"data_parallel splits tensor measurements, not {type(y).__name__}")
+        if kwargs.get("generator") is not None:
+            raise ValueError("data_parallel splits a network that draws nothing: its draws "
+                             "would repeat in every chunk")
+        n, outs, start = y.shape[0], [], 0
+        for rep, (dev, yc) in zip(self._replicas, self._dp.split(y)):
+            stop = start + yc.shape[0]
+            if stop == start:
+                continue
+            cut = lambda a: (_batch_rows(self._physics_on(a, dev), n, y.ndim, start, stop)
+                             if isinstance(a, torch.nn.Module) else a)
+            args_c = [cut(a) for a in args]
+            kwargs_c = {k: cut(v) for k, v in kwargs.items()}
+            out = (forward if rep is self._dp_net else rep)(yc, *args_c, **kwargs_c)
+            if not isinstance(out, torch.Tensor):
+                raise ValueError("data_parallel gathers a tensor output, not "
+                                 f"{type(out).__name__}")
+            outs.append(out.to(y.device))
+            start = stop
+        return torch.cat(outs)
+
+    def _physics_on(self, physics, device):
+        """``physics`` on ``device``: itself where it is there already, else
+        a copy made once and kept for as long as ``physics`` lives."""
+        from ..parallel.context import replica
+
+        copies = self._physics_copies.get(physics)
+        if copies is not None and device in copies:
+            return copies[device]
+        rep = replica(physics, device)
+        if rep is not physics:
+            self._physics_copies.setdefault(physics, {})[device] = rep
+        return rep
+
     def _metric_value(self, m, x_net, x) -> float:
         return float(m(x_net, x).mean())
 
@@ -367,7 +494,8 @@ class Trainer:
             if train:
                 if not multi:
                     self.optimizer.zero_grad(set_to_none=True)
-                with self._chains():
+                dp = self._data_parallel() if self._dp is not None else contextlib.nullcontext()
+                with self._chains(), dp:
                     loss, x_net, terms = self._differentiable_loss(x, y, physics, path)
                     if loss.requires_grad:
                         loss.backward()

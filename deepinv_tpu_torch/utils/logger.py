@@ -1,10 +1,14 @@
-"""Running meters (port of deepinv_tpu/utils/logger.py)."""
+"""Running meters, the progress printer and the CSV logger (port of
+deepinv_tpu/utils/logger.py)."""
 
 from __future__ import annotations
 
+import csv
+import os
+
 import numpy as np
 
-__all__ = ["AverageMeter"]
+__all__ = ["AverageMeter", "ProgressMeter", "CSVLogger"]
 
 
 class AverageMeter:
@@ -46,3 +50,41 @@ class AverageMeter:
 
     def __str__(self):
         return f"{self.name} {self.val:.4g} (avg {self.avg:.4g})"
+
+
+class ProgressMeter:
+    """Prints ``prefix[batch/num_batches]`` and each meter (logger.py:55)."""
+
+    def __init__(self, num_batches: int, meters, prefix: str = ""):
+        self.num_batches = num_batches
+        self.meters = meters
+        self.prefix = prefix
+
+    def display(self, batch: int):
+        entries = [f"{self.prefix}[{batch}/{self.num_batches}]"] + [str(m) for m in self.meters]
+        print("  ".join(entries))
+
+
+class CSVLogger:
+    """Append-mode CSV logger with a header row in a new file (logger.py:69).
+
+    :param path: the CSV file (its directory is made).
+    :param fieldnames: the columns.
+    """
+
+    def __init__(self, path: str, fieldnames):
+        self.path = path
+        self.fieldnames = list(fieldnames)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        new = not os.path.exists(path)
+        self._fh = open(path, "a", newline="")
+        self._writer = csv.DictWriter(self._fh, fieldnames=self.fieldnames)
+        if new:
+            self._writer.writeheader()
+
+    def log(self, **row):
+        self._writer.writerow(row)
+        self._fh.flush()
+
+    def close(self):
+        self._fh.close()

@@ -354,6 +354,16 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    (SGD, the update within DENOISER_RTOL of one device's; K6 and the stash
    backward once a chunk). HDF5 and ``ImageFolder`` are held by the CPU tests
    only (the card's host has no h5py or PIL).
+22. the named datasets (``datasets_phase``): LIDC-IDRI's layout written to a
+   temporary directory (``metadata.csv`` over LIDC_SUBJECTS CT subjects of
+   LIDC_SLICES 512² int16 DICOM slices, RescaleIntercept -1024, a seeded
+   phantom in HU) and read by ``LidcIdriSliceDataset(hounsfield_units=True)``
+   (each item equal to ``utils.load_dicom`` of its file), windowed to [0, 1]
+   and pooled to 256², batched by the port's ``DataLoader`` (B=8) into phase
+   5's CT PnP-PGD: each fed recon bit-identical to the recon of the same batch
+   built in memory, K5 MAX_ITER launches a recon; ``utils.get_device()`` the
+   card, ``utils.randn_like`` on the card by seed. Timed: fed and in-memory
+   recons/s and the host's read ms a batch.
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -815,6 +825,16 @@ PIPE_ITERS = 2                  # unrolled PnP-PGD iterations a pipeline stage
 DATA_VOLUME = 512               # the .npy volumes' side
 DATA_PATCH = 256                # RandomPatchSampler's patch side
 DATA_STEPS = 4                  # train steps of the data-fed Trainer
+# phase 22: LIDC-IDRI's layout in a temporary directory: LIDC_SUBJECTS CT
+# subjects of LIDC_SLICES slices each, LIDC_SIDE² int16 with RescaleSlope 1 and
+# RescaleIntercept -1024, as LIDC-IDRI's CT slices are; the HU window mapped to
+# [0, 1] before the 2x2 average pool to phase 5's 256²; LIDC_REPS timed passes
+# over the slices, fed and in memory in turns
+LIDC_SUBJECTS = 2
+LIDC_SLICES = 8
+LIDC_SIDE = 512
+LIDC_WINDOW = (-1000.0, 1000.0)
+LIDC_REPS = 3
 
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
@@ -5829,6 +5849,228 @@ def serving_phase(dev, card: str, size: int = 256, nc=(64, 128, 256, 512), nb: i
     return out
 
 
+def write_dicom(path: str, raw, slope: float = 1.0, intercept: float = 0.0) -> None:
+    """An explicit-VR little-endian DICOM part-10 file of a signed int16 slice
+    ``raw`` with its rescale tags (the writer of tests/test_io_battery.py)."""
+    import os
+    import struct
+
+    def elem(group, el, vr, value):
+        head = struct.pack("<HH", group, el) + vr
+        if vr in (b"OB", b"OW"):
+            return head + b"\x00\x00" + struct.pack("<I", len(value)) + value
+        return head + struct.pack("<H", len(value)) + value
+
+    def ds_value(x):
+        v = f"{x:g}".encode()
+        return v + b" " if len(v) % 2 else v
+
+    rows, cols = raw.shape
+    body = (elem(0x0028, 0x0010, b"US", struct.pack("<H", rows))
+            + elem(0x0028, 0x0011, b"US", struct.pack("<H", cols))
+            + elem(0x0028, 0x0100, b"US", struct.pack("<H", 16))
+            + elem(0x0028, 0x0103, b"US", struct.pack("<H", 1))
+            + elem(0x0028, 0x1052, b"DS", ds_value(intercept))
+            + elem(0x0028, 0x1053, b"DS", ds_value(slope))
+            + elem(0x7FE0, 0x0010, b"OW", raw.astype("<i2").tobytes()))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"\x00" * 128 + b"DICM" + body)
+
+
+def ct_phantom_hu(rng, n: int):
+    """An ``n``² thorax-like CT slice in Hounsfield units, int16: air, a body
+    of soft tissue, two lungs, a spine and a few random nodules, with noise."""
+    import numpy as np
+
+    yy, xx = np.mgrid[-1:1:n * 1j, -1:1:n * 1j]
+    hu = np.full((n, n), -1000.0)
+    body = (xx / 0.85) ** 2 + (yy / 0.7) ** 2 < 1
+    hu[body] = 40.0
+    for sx in (-0.4, 0.4):
+        hu[((xx - sx) / 0.28) ** 2 + ((yy + 0.05) / 0.45) ** 2 < 1] = -850.0
+    hu[(xx / 0.08) ** 2 + ((yy - 0.5) / 0.08) ** 2 < 1] = 700.0
+    for _ in range(int(rng.integers(3, 7))):
+        cx, cy = rng.uniform(-0.6, 0.6, 2)
+        r = rng.uniform(0.02, 0.08)
+        hu[((xx - cx) ** 2 + (yy - cy) ** 2 < r * r) & body] = rng.uniform(-100.0, 200.0)
+    hu += rng.normal(0.0, 10.0, (n, n))
+    return np.clip(np.round(hu), -1024, 3071).astype(np.int16)
+
+
+def datasets_phase(dev, card: str, model, physics, subjects: int = LIDC_SUBJECTS,
+                   slices: int = LIDC_SLICES, side: int = LIDC_SIDE, batch: int = HQS_BATCH,
+                   reps: int = LIDC_REPS) -> dict:
+    """Phase 22: LIDC-IDRI slices through the port's dataset and DataLoader
+    into phase 5's CT PnP-PGD (``model`` on ``physics``: the bf16 DnCNN(1, 1)
+    of depth 20 over K5, MAX_ITER iterations).
+
+    A temporary directory gets LIDC-IDRI's layout: ``metadata.csv`` (``Subject
+    ID``, ``Modality``, ``File Location``, with a non-CT row) over
+    ``subjects`` CT subjects of ``slices`` DICOM slices each, ``side``² int16
+    with RescaleSlope 1 and RescaleIntercept -1024, of a seeded phantom in HU
+    (:func:`ct_phantom_hu`), written by this script's own DICOM writer.
+    ``LidcIdriSliceDataset(hounsfield_units=True)`` reads them; its transform
+    maps LIDC_WINDOW to [0, 1] and average-pools 2x2 to ``side // 2``²; the
+    port's ``DataLoader`` makes batches of ``batch``. Held: each item (without
+    the transform) equals ``utils.load_dicom(path, apply_rescale=True)`` and
+    the phantom; each fed batch and its recon equal, bit for bit, the same
+    batch built in memory from the phantoms and its recon (with PyTorch's
+    deterministic algorithms on: the CT adjoint's ``index_add_`` otherwise
+    sums in a varying order, and the default mode's gap is held to
+    RECON_RTOL); K5 MAX_ITER launches a recon (counted from 0 around each fed
+    recon); finite recons of
+    the batch's shape; ``utils.get_device()`` is the card; ``utils.randn_like``
+    of a card tensor is on the card and the same for one seed. Timed: fed
+    recons/s (the loader's read, the copy to the card, ``A`` and the recon)
+    and the host's read ms a batch, beside the in-memory recons/s (``A`` and
+    the recon), in turns. Returns the launches and rates.
+
+    On the CPU, at small sizes, it rehearses the checks (K5 counted on the
+    card only) and skips the times."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import deepinv_tpu_torch.models.dncnn as dncnn_mod
+    from deepinv_tpu_torch import utils
+    from deepinv_tpu_torch.datasets import DataLoader, LidcIdriSliceDataset
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    out = {"launches": {}, "rates": {}}
+    lo, hi = LIDC_WINDOW
+    half = side // 2
+
+    def window_pool(hu):
+        """HU to [0, 1] over the window, 2x2 average pool, a channel axis."""
+        v = np.clip((hu - lo) / (hi - lo), 0.0, 1.0).astype(np.float32)
+        return v.reshape(half, 2, half, 2).mean(axis=(1, 3), dtype=np.float32)[None]
+
+    tmp = tempfile.mkdtemp()
+    try:
+        rng = np.random.default_rng(SEED + 2200)
+        phantoms, rows = [], []
+        # listed out of order: the dataset sorts by subject
+        for s_i in reversed(range(subjects)):
+            subject = f"LIDC-IDRI-{s_i + 1:04d}"
+            scan = os.path.join("LIDC-IDRI", subject, "01-01-2000-CT", "1.000000-scan")
+            hus = [ct_phantom_hu(rng, side) for _ in range(slices)]
+            for k, hu in enumerate(hus):
+                write_dicom(os.path.join(tmp, scan, f"1-{k + 1:03d}.dcm"),
+                            (hu.astype(np.int32) + 1024).astype(np.int16), 1.0, -1024.0)
+            phantoms.append((subject, hus))
+            rows.append(f"{subject},CT,.\\{scan.replace(os.sep, chr(92))}")
+        rows.append("LIDC-IDRI-0099,DX,.\\nowhere")
+        with open(os.path.join(tmp, "metadata.csv"), "w") as f:
+            f.write("Subject ID,Modality,File Location\n" + "\n".join(rows) + "\n")
+        hus = [hu for _, h in sorted(phantoms) for hu in h]  # the dataset's order
+
+        raw = LidcIdriSliceDataset(tmp, hounsfield_units=True)
+        check(len(raw) == subjects * slices, f"LIDC: {len(raw)} slices, expected "
+              f"{subjects * slices}")
+        for i in range(len(raw)):
+            fname, folder, _ = raw.sample_identifiers[i]
+            item = raw[i]
+            check(item.dtype == np.float32 and np.array_equal(
+                item, utils.load_dicom(os.path.join(folder, fname), apply_rescale=True))
+                  and np.array_equal(item, hus[i].astype(np.float32)),
+                  f"LIDC: slice {i} differs from load_dicom of its file or from its phantom")
+        ds = LidcIdriSliceDataset(tmp, transform=window_pool, hounsfield_units=True)
+        loader = DataLoader(ds, batch_size=batch)
+        mem = [torch.from_numpy(np.stack([window_pool(h.astype(np.float32))
+                                          for h in hus[o:o + batch]])).to(dev)
+               for o in range(0, len(hus) - batch + 1, batch)]
+        check(len(loader) == len(mem) > 0, "LIDC: the loader's batch count")
+
+        def recon(x):
+            with torch.no_grad():
+                return model(physics.A(x), physics)
+
+        # the slice CT's adjoint spreads with index_add_, whose atomic adds on
+        # the card sum in an order that varies from run to run: the recons are
+        # held bit for bit with PyTorch's deterministic algorithms on (its
+        # index_add_ then accumulates in a fixed order), and in the default
+        # mode within RECON_RTOL
+        launches, gaps = [], []
+        was_det = torch.are_deterministic_algorithms_enabled()
+        for b_i, xb in enumerate(loader):
+            x = torch.as_tensor(xb).to(dev)
+            check(torch.equal(x, mem[b_i]), f"LIDC: fed batch {b_i} differs from the batch "
+                  "built in memory")
+            torch.use_deterministic_algorithms(True)
+            try:
+                dncnn_mod.conv_chain.launches = 0
+                r = recon(x)
+                sync(dev)
+                launches.append(dncnn_mod.conv_chain.launches)
+                r_mem = recon(mem[b_i])
+            finally:
+                torch.use_deterministic_algorithms(was_det)
+            check(tuple(r.shape) == (batch, 1, half, half) and bool(torch.isfinite(r).all()),
+                  f"LIDC: recon of batch {b_i} not finite or of shape {tuple(r.shape)}")
+            check(torch.equal(r, r_mem), f"LIDC: the fed recon of batch {b_i} differs from the "
+                  f"in-memory one by {float((r - r_mem).abs().max())}")
+            gaps.append(rel_l2(recon(x), recon(mem[b_i])))
+        out["launches"]["LIDC-fed CT PGD"] = launches
+        print(f"LIDC: {len(ds)} slices of {side}² int16 from {subjects} subjects, read as HU, "
+              f"windowed {LIDC_WINDOW} and pooled to {half}²; {len(launches)} fed recons at "
+              f"B={batch}, each bit-identical to the in-memory recon (deterministic "
+              f"algorithms); default mode: relative L2 gaps {gaps} (bound {RECON_RTOL}); K5 "
+              f"launches a recon {launches}", flush=True)
+        check(max(gaps) <= RECON_RTOL, f"LIDC: fed and in-memory recons {gaps} apart")
+        check(not cuda or launches == [MAX_ITER] * len(launches),
+              f"LIDC: K5 launches {launches}, expected {MAX_ITER} a recon")
+
+        # the functional helpers on the card
+        if cuda:
+            check(utils.get_device() == torch.device("cuda"), "utils.get_device() is not the card")
+            v = torch.zeros((batch, 1, half, half), device=dev)
+            a, b, c = (utils.randn_like(v, seed=k) for k in (7, 7, 8))
+            check(a.device == v.device and torch.equal(a, b) and not torch.equal(a, c)
+                  and abs(float(a.std()) - 1) < 0.01, "utils.randn_like on the card")
+            print(f"utils: get_device() {utils.get_device()}; randn_like on {a.device}, the same "
+                  f"draw for one seed, std {float(a.std())}", flush=True)
+
+            times = {"fed": [], "memory": []}
+            reads = []
+            for k in ("fed", "memory", "memory", "fed") * reps:
+                sync(dev)
+                t0 = time.perf_counter()
+                if k == "fed":
+                    it = iter(loader)
+                    for _ in range(len(loader)):
+                        t1 = time.perf_counter()
+                        xb = next(it)
+                        reads.append(time.perf_counter() - t1)
+                        recon(torch.as_tensor(xb).to(dev))
+                else:
+                    for x in mem:
+                        recon(x)
+                sync(dev)
+                times[k].append(time.perf_counter() - t0)
+            n_img = len(mem) * batch
+            for k, ts in times.items():
+                rate = n_img * len(ts) / sum(ts)
+                out["rates"][f"LIDC CT PGD {k} B={batch}"] = {"recons_per_s": rate}
+                src = "fed by LidcIdriSliceDataset" if k == "fed" else "from memory"
+                print(f"rate: CT PnP-PGD {half}² B={batch} {src} {rate:.3f} recons/s, passes "
+                      f"{ts} s ({card})", flush=True)
+            read_ms = 1e3 * sum(reads) / len(reads)
+            out["rates"][f"LIDC read B={batch}"] = {"host_read_ms": read_ms}
+            print(f"rate: LIDC host read {read_ms:.3f} ms a batch of {batch} {side}² slices "
+                  f"(warm page cache) ({card})", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    print(f"datasets phase: {secs:.1f} s ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6621,6 +6863,11 @@ def main() -> int:
     # and RandomPatchSampler patches into the Trainer (K6, the stash backward)
     srv21 = serving_phase(dev, card)
 
+    # 22. LIDC-IDRI slices read by the port's dataset and DataLoader into phase
+    # 5's CT PnP-PGD (K5), against the same batches built in memory
+    ct_model, _, ct_physics = pgd_models["CT"]
+    ds22 = datasets_phase(dev, card, ct_model, ct_physics)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -6782,6 +7029,10 @@ def main() -> int:
         # request), PnP-PGD over distributed MRI operators (MAX_ITER a recon)
         # and the pipeline (one a stage's iteration and microbatch)
         "launches_serving": srv21["launches"]["K5"],
+        # phase 22: K5's launches in each CT PnP-PGD recon fed LIDC-IDRI slices by
+        # the DataLoader (MAX_ITER a recon at B=8), the fed and in-memory rates
+        "launches_datasets": ds22["launches"]["LIDC-fed CT PGD"],
+        "datasets_rates": ds22["rates"],
     }, {
         "name": "tv_prox",
         "route": "cuda",

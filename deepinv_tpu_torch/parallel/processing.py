@@ -111,7 +111,8 @@ class DistributedProcessing(nn.Module):
             x = x.transpose(-1, -2)
         H = x.shape[-2]
         if H % n:
-            raise ValueError(f"{H} rows do not split into {n} bands")
+            lines = "columns" if self.tile_axis == -1 else "rows"
+            raise ValueError(f"{H} {lines} do not split into {n} bands")
         S, ov = H // n, self.overlap
         if ov > S:
             raise ValueError(f"overlap {ov} exceeds the band height {S}")

@@ -42,8 +42,13 @@ Batches go to the model's device. ``data_parallel`` splits each train
 batch over the devices of a :class:`~deepinv_tpu_torch.parallel.DistributedContext`
 (trainer.py:143, 190-200, 521-524): the same step, with the network's
 calls split over the devices. Adversarial training is
-``training/adversarial.py``. Waiting (ROADMAP queue 1): wandb/mlflow and
-plotting.
+``training/adversarial.py``.
+
+At the last batch of each epoch the Trainer plots or saves the ground truth,
+the measurement and the reconstruction (``plot_images``, ``save_folder_im``;
+:meth:`plot`, with matplotlib imported only then) and logs the epoch's
+metrics to wandb or mlflow where they are asked for and installed
+(:meth:`log_metrics_mlops`, trainer.py:212-229, 573-578).
 """
 
 from __future__ import annotations
@@ -120,11 +125,21 @@ class Trainer:
         loss of all loaders (default), else one step per loader batch.
     :param check_grad: record each step's pre-clip gradient norm in
         ``check_grad_val``.
+    :param plot_images: show the ground truth, the measurement and the
+        reconstruction of the last batch every ``plot_interval`` epochs.
+    :param save_folder_im: save that figure as
+        ``save_folder_im/Training/epoch_{e}.png`` (``Eval`` in evaluation).
     :param save_path: checkpoint directory.
     :param ckpt_backend: ``"pickle"`` (one ``torch.save`` file an epoch) or
         ``"orbax"`` (the numbered steps of an
         :class:`~deepinv_tpu_torch.training.OrbaxCheckpointer` under
         ``save_path/orbax``, written in the background).
+    :param show_progress_bar: the JAX Trainer's progress bar switch; it
+        silences the per-epoch line of ``verbose``, as there.
+    :param wandb_vis: log the metrics to wandb (``wandb.init(**wandb_setup)``);
+        without wandb a message says so and logging is off.
+    :param mlflow_vis: log the metrics to mlflow
+        (``mlflow.start_run(**mlflow_setup)``), likewise.
     :param fused_chains: leave the kernel gates open in the train step (see
         the module docstring); default False, the reference's configuration.
     :param data_parallel: False (default), True (every CUDA device) or a
@@ -167,9 +182,13 @@ class Trainer:
                  loop_random_online_physics: bool = False, grad_clip: Optional[float] = None,
                  early_stop=False, patience: int = 5, optimizer_step_multi_dataset: bool = True,
                  compute_train_metrics: bool = True, check_grad: bool = False,
-                 eval_interval: int = 1, save_path: Optional[str] = None, ckpt_interval: int = 1,
-                 ckpt_backend: str = "pickle", compare_no_learning: bool = False, no_learning_method="A_adjoint",
-                 verbose: bool = True, seed: int = 0, fused_chains: bool = False,
+                 eval_interval: int = 1, plot_images: bool = False, plot_interval: int = 1,
+                 save_folder_im: Optional[str] = None, save_path: Optional[str] = None,
+                 ckpt_interval: int = 1, ckpt_backend: str = "pickle",
+                 compare_no_learning: bool = False, no_learning_method="A_adjoint",
+                 verbose: bool = True, show_progress_bar: bool = False, wandb_vis: bool = False,
+                 wandb_setup: Optional[dict] = None, mlflow_vis: bool = False,
+                 mlflow_setup: Optional[dict] = None, seed: int = 0, fused_chains: bool = False,
                  data_parallel=False):
         self.model = model
         self.physics = _to_list(physics)
@@ -200,6 +219,9 @@ class Trainer:
         self.compute_train_metrics = compute_train_metrics
         self.check_grad = check_grad
         self.eval_interval = eval_interval
+        self.plot_images = plot_images
+        self.plot_interval = plot_interval
+        self.save_folder_im = save_folder_im
         self.save_path = save_path
         self.ckpt_interval = ckpt_interval
         if ckpt_backend not in ("pickle", "orbax"):
@@ -209,8 +231,27 @@ class Trainer:
         self.compare_no_learning = compare_no_learning
         self.no_learning_method = no_learning_method
         self.verbose = verbose
+        self.show_progress_bar = show_progress_bar
         self.seed = seed
         self.fused_chains = fused_chains
+        # wandb and mlflow where asked for and installed (trainer.py:212-229)
+        self._wandb = self._mlflow = None
+        if wandb_vis:
+            try:
+                import wandb
+
+                self._wandb = wandb
+                wandb.init(**(wandb_setup or {}))
+            except ImportError:
+                print("wandb not available; disabling wandb logging")
+        if mlflow_vis:
+            try:
+                import mlflow
+
+                self._mlflow = mlflow
+                mlflow.start_run(**(mlflow_setup or {}))
+            except ImportError:
+                print("mlflow not available; disabling mlflow logging")
         self._dp = None         # the batch's placement over the mesh's first axis
         self._dp_net = net      # the network whose calls data_parallel splits
         self._replicas = None
@@ -273,6 +314,7 @@ class Trainer:
 
     def reset_metrics(self):
         """Reset every running meter (trainer.py:298)."""
+        self.img_counter = 0
         self.logs_total_loss_train = AverageMeter("loss")
         self.logs_losses_train = [AverageMeter(type(l).__name__) for l in self.losses]
         self.logs_metrics_train = [AverageMeter(type(m).__name__) for m in self.metrics]
@@ -521,10 +563,39 @@ class Trainer:
         if multi:
             self._optimizer_step()
         self._ite_in_epoch += 1
-        if last_batch and self.verbose:
-            body = ", ".join(f"{k}={round(v, 5)}" for k, v in logs.items())
-            print(f"{'Train' if train else 'Eval'} epoch {epoch}: {body}")
+        if last_batch:
+            if self.verbose and not self.show_progress_bar:
+                body = ", ".join(f"{k}={round(v, 5)}" for k, v in logs.items())
+                print(f"{'Train' if train else 'Eval'} epoch {epoch}: {body}")
+            self.log_metrics_mlops(dict(logs, step=epoch), step=epoch)
+            self.plot(epoch, physics, x, y, x_net, train=train)
         return logs
+
+    def plot(self, epoch, physics, x, y, x_net, train: bool = True):
+        """Show or save the ground truth, the measurement (where it has the
+        image's rank) and the reconstruction (trainer.py:593): shown with
+        ``plot_images`` every ``plot_interval`` epochs, saved under
+        ``save_folder_im`` as ``Training/epoch_{epoch}.png`` (``Eval`` in
+        evaluation)."""
+        do_plot = self.plot_images and ((epoch + 1) % self.plot_interval == 0)
+        do_save = self.save_folder_im is not None
+        if not (do_plot or do_save) or x is None or x_net is None:
+            return
+        from ..utils.plotting import plot
+
+        imgs, titles = [x], ["Ground truth"]
+        if y is not None and getattr(y, "ndim", 0) == getattr(x, "ndim", 0):
+            imgs.append(y)
+            titles.append("Measurement")
+        imgs.append(x_net)
+        titles.append("Reconstruction")
+        save_fn = None
+        if do_save:
+            folder = os.path.join(self.save_folder_im, "Training" if train else "Eval")
+            os.makedirs(folder, exist_ok=True)
+            save_fn = os.path.join(folder, f"epoch_{epoch}.png")
+            self.img_counter += 1
+        plot(imgs, titles=titles, show=do_plot and not do_save, save_fn=save_fn)
 
     # -- training loop (trainer.py:620) ----------------------------------
     def train(self):
@@ -627,6 +698,15 @@ class Trainer:
         if m == "y":
             return y
         raise ValueError(f"no-learning method {m!r} not recognized")
+
+    def log_metrics_mlops(self, metrics: dict, step: int = 0):
+        """Send ``metrics`` to wandb and mlflow where they are on
+        (trainer.py:762)."""
+        if self._wandb is not None:
+            self._wandb.log(metrics, step=step)
+        if self._mlflow is not None:
+            for k, v in metrics.items():
+                self._mlflow.log_metric(k, v, step=step)
 
     # -- checkpoints (trainer.py:781-850) --------------------------------
     def _orbax_mgr(self, path):

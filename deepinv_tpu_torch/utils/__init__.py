@@ -4,18 +4,40 @@ The names the JAX package takes from other subpackages (``load_image``, the
 phantom datasets, ``MRIMixin``, ``patch_extractor``) resolve at first use, so
 that those subpackages may import ``deepinv_tpu_torch.utils`` modules
 (utils/__init__.py:27-50). Helpers that need the network refuse, as the JAX
-package's do.
+package's do. Importing the package needs none of matplotlib, h5py, PIL or
+pydicom: the readers and the plots import them where a file is read or a
+figure made.
 """
 
 from ..core.tensorlist import TensorList
+from .decorators import (deprecate_attribute, deprecated_alias, deprecated_argument,
+                         deprecated_class, deprecated_func, deprecated_func_replaced_by)
+from .functional import (complex_abs, devices_equal, dirac, dirac_comb, dirac_comb_like,
+                         dirac_like, get_device, get_timestamp, normalize_signal, ones_like,
+                         rand_like, randn_like, resize_pad_square_tensor, zeros_like)
+from .io import (DownloadError, get_cache_home, get_data_home, load_dicom, load_example,
+                 load_ismrmd, load_mat, load_nifti, load_np, load_raster, load_tiff, load_url)
 from .logger import AverageMeter, CSVLogger, ProgressMeter
 from .mixins import (TiledMixin2d, TimeMixin, image_to_patches, patches_to_image, patchify,
                      tiled_apply)
+from .plotting import (plot, plot_curves, plot_inset, plot_ortho3D, plot_parameters,
+                       plot_videos, prepare_images, preprocess_img, rescale_img, save_videos,
+                       scatter_plot)
 from .profiling import compiled_cost, timeit, trace
 
 __all__ = ["AverageMeter", "ProgressMeter", "CSVLogger", "TimeMixin", "TiledMixin2d",
            "tiled_apply", "image_to_patches", "patches_to_image", "patchify", "trace",
-           "compiled_cost", "timeit", "TensorList", "SheppLoganDataset", "RandomPhantomDataset",
+           "compiled_cost", "timeit", "deprecated_alias", "deprecated_argument",
+           "deprecated_func", "deprecated_class", "deprecated_func_replaced_by",
+           "deprecate_attribute", "complex_abs", "dirac", "dirac_like", "dirac_comb",
+           "dirac_comb_like", "ones_like", "zeros_like", "rand_like", "randn_like",
+           "get_timestamp", "get_device", "devices_equal", "normalize_signal",
+           "resize_pad_square_tensor", "DownloadError", "load_np", "load_mat", "load_tiff",
+           "load_url", "load_example", "load_dicom", "load_nifti", "load_ismrmd", "load_raster",
+           "get_cache_home", "get_data_home", "plot", "plot_curves", "plot_parameters",
+           "plot_inset", "scatter_plot", "rescale_img", "preprocess_img", "prepare_images",
+           "plot_videos", "save_videos", "plot_ortho3D", "TensorList", "SheppLoganDataset",
+           "RandomPhantomDataset",
            "MRIMixin", "patch_extractor", "load_image", "download_example", "load_url_image",
            "load_np_url", "load_torch_url", "load_dataset", "load_degradation", "get_image_url",
            "get_degradation_url", "get_freer_gpu", "load_torch", "enable_tex", "disable_tex",

@@ -3,9 +3,10 @@ package's, on the CPU: HDF5 files crossing both ways, the patch samplers and
 the split, ``ImageFolder`` on PNG and JPEG files the test writes (the native
 decoder the same bits as JAX's, PIL too), the native prefetcher, the CSV
 logger and the progress printer, and the K1-K4 costs ``compiled_cost``
-records against JAX's record sites. Also the names: the new modules import no
-JAX, and what the port's ``datasets`` and ``utils`` still lack is exactly the
-next slice's.
+records against JAX's record sites. Also the names: the port imports no JAX
+and none of the optional packages at import time, and it exports every
+public name of the JAX package's ``parallel``, ``datasets``, ``utils`` and
+top level.
 """
 
 import os
@@ -225,18 +226,21 @@ def test_profiling_trace_and_timeit(tmp_path):
 
 
 def test_new_modules_import_no_jax():
-    """Importing serve, parallel, the datasets, native and the utilities
-    loads no JAX module, nothing of the JAX package, and neither h5py nor
-    PIL."""
+    """Importing the port's top level, serve, parallel, the datasets, native,
+    the utilities and the trainer loads no JAX module, nothing of the JAX
+    package and none of the optional packages the readers, the plots and the
+    MLOps logging import where they are used."""
+    optional = ("jax", "jaxlib", "deepinv_tpu", "h5py", "PIL", "matplotlib", "tifffile",
+                "rasterio", "mat73", "nibabel", "pydicom", "wandb", "mlflow")
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
+        "import deepinv_tpu_torch, deepinv_tpu_torch.datasets, deepinv_tpu_torch.utils\n"
+        "import deepinv_tpu_torch.training\n"
         "import deepinv_tpu_torch.serve, deepinv_tpu_torch.parallel, deepinv_tpu_torch.native\n"
-        "import deepinv_tpu_torch.datasets, deepinv_tpu_torch.utils.profiling\n"
-        "import deepinv_tpu_torch.training.trainer\n"
+        "import deepinv_tpu_torch.utils.profiling, deepinv_tpu_torch.training.trainer\n"
         "new = set(sys.modules) - before\n"
-        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'deepinv_tpu', "
-        "'h5py', 'PIL'))\n"
+        f"bad = sorted(m for m in new if m.split('.')[0] in {optional!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -244,29 +248,56 @@ def test_new_modules_import_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_no_port_file_imports_jax():
+    """No file of the port, and not chip_smoke.py, imports jax or anything of
+    the JAX package, at its top or inside a function."""
+    import ast
+
+    root = Path(__file__).parents[1]
+    files = sorted((root / "deepinv_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [f"{f.relative_to(root)}:{node.lineno} {m}" for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "deepinv_tpu")]
+    assert len(files) > 100 and not bad, bad
+
+
 def _names(mod) -> set:
     return {n for n in dir(mod) if not n.startswith("_")
             and not isinstance(getattr(mod, n), types.ModuleType) and n != "annotations"}
 
 
-def test_what_the_next_slice_still_lacks():
-    """``parallel`` exports every JAX name; ``datasets`` lacks exactly the
-    nine named datasets of the next slice; ``utils`` lacks exactly the names
-    of the JAX package's io, dicom, functional, decorators and plotting."""
+def test_exports_every_jax_name():
+    """``parallel``, ``datasets``, ``utils`` and the top level export every
+    public name of their JAX counterparts (at the top level the lazy ones
+    and the ``serve`` module too); of ``core`` only ``Module`` and its pytree
+    and key helpers stay out, as they do at the top level."""
+    import deepinv_tpu as jtop
+    import deepinv_tpu.core as jcore
     import deepinv_tpu.parallel as jpar
+    import deepinv_tpu_torch as ttop
+    import deepinv_tpu_torch.core as tcore
     import deepinv_tpu_torch.parallel as tpar
 
-    assert _names(jpar) <= _names(tpar)
-    assert _names(jds) - _names(tds) == {
-        "FastMRISliceDataset", "SimpleFastMRISliceDataset", "MRISliceTransform",
-        "CMRxReconSliceDataset", "SKMTEASliceDataset", "FMD", "Kohler",
-        "LidcIdriSliceDataset", "NBUDataset"}
-    later = {f"deepinv_tpu.utils.{m}" for m in ("io", "dicom", "functional", "decorators",
-                                                  "plotting")}
-    lacking = _names(jutils) - _names(tutils)
-    assert lacking and all(getattr(jutils, n).__module__ in later for n in lacking)
-    assert not {n for n in _names(jutils) - lacking
-                if getattr(getattr(jutils, n), "__module__", "") in later}
+    for j, t in ((jpar, tpar), (jds, tds), (jutils, tutils)):
+        assert _names(j) <= _names(t), sorted(_names(j) - _names(t))
+    public = lambda m: {n for n in dir(m) if not n.startswith("_")}
+    assert public(jtop) - public(ttop) == {"Module"}
+    for n in ("Trainer", "train", "test", "metric", "unfolded", "parallel", "native", "serve",
+              "TensorList", "dtype"):
+        assert getattr(ttop, n) is not None
+    assert ttop.dtype is torch.float32 and ttop.metric is __import__(
+        "deepinv_tpu_torch.loss.metric", fromlist=["metric"])
+    assert _names(jcore) - _names(tcore) == {
+        "Module", "combine", "partition_arrays", "is_array", "split_like", "update",
+        "ensure_key", "epoch_key", "transpose_primal"}
 
 
 def test_dataset_file_helpers_match_jax(tmp_path):

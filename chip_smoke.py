@@ -2,6 +2,7 @@
 """Run the PyTorch/CUDA port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gallery    # phases 1, 2 and 23 alone
 
 Phases (each one raises, and the script exits non-zero, if it fails):
 
@@ -364,6 +365,16 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    built in memory, K5 MAX_ITER launches a recon; ``utils.get_device()`` the
    card, ``utils.randn_like`` on the card by seed. Timed: fed and in-memory
    recons/s and the host's read ms a batch.
+23. the gallery (``gallery_phase``): the 30 demos of the basics,
+   plug-and-play, optimization, unfolded and sampling categories
+   (``deepinv_tpu_torch/examples``), each ``main(device="cuda")`` at its full
+   size (GALLERY_FAST names those run at their fast size to keep the phase
+   within GALLERY_BUDGET_S), each held to its JAX demo's claim
+   (GALLERY_CLAIMS); K7 counted around each demo, and launched by each of
+   GALLERY_K7, whose reconstructions on the card lie within TV_RTOL
+   (relative L2), and whose PSNRs within GALLERY_CPU_DB, of the same demo's
+   on the CPU (the plain prox) at the same size, from the same CPU draws. ``demo_custom_dataset`` writes HDF5 and runs where the host
+   has h5py. Timed: each demo's seconds.
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -835,6 +846,92 @@ LIDC_SLICES = 8
 LIDC_SIDE = 512
 LIDC_WINDOW = (-1000.0, 1000.0)
 LIDC_REPS = 3
+# phase 23: the gallery's demos (deepinv_tpu_torch/examples GALLERY)
+GALLERY_BUDGET_S = 60.0
+# the demos that run at their fast size on the card, to keep the phase
+# within GALLERY_BUDGET_S (PERF.md §6): DIP's 800 Adam steps took 8.4-13.8
+# s alone, and inside the whole smoke, where every demo ran ~1.5x slower, the
+# phase took 66.0 s with DIP alone at its fast size; the three training demos
+# whose claims hold at their fast sizes (fewer steps, the same problem) follow
+GALLERY_FAST = ("dip", "vanilla_unfolded", "custom_prior_unfolded", "unfolded_constrained_lista")
+# the demos whose TV prox reaches K7 (TVPrior's or TVDenoiser's prox): each
+# must launch it; demo_custom_prior's exact TV is driven by gradient descent
+# through TVPrior.grad, autograd of the TV cost, and launches none
+GALLERY_K7 = ("basics", "pnp_dpir_deblur", "wavelet_prior", "tv_minimisation",
+              "ct_fbp_unfolded")
+# the K7 demos on the card against the same demo on the CPU (the plain
+# prox), at the size the phase runs them, from the same CPU draws: each
+# reconstruction within TV_RTOL (relative L2; 4.1e-8 to 9.8e-7 seen on the H100),
+# each PSNR within GALLERY_CPU_DB (0 to 3.8e-6 dB seen, one or two float32
+# steps of a PSNR near 25 dB)
+GALLERY_CPU_DB = 2e-5
+# each demo's claim, as its JAX demo prints or asserts it, at its full size
+GALLERY_CLAIMS = {
+    "quickstart": ("PnP-PGD beats y", lambda o: o["psnr_xhat"] > o["psnr_y"]),
+    "basics": ("TV-PGD and PnP-HQS beat y",
+               lambda o: min(o["psnr_tv"], o["psnr_pnp"]) > o["psnr_y"]),
+    "custom_physics": ("adjointness < 1e-4, A A_dagger A = A within 1e-3",
+                       lambda o: o["adjointness_error"] < 1e-4 and o["dagger_residual"] < 1e-3),
+    "custom_optim": ("heavy ball > PGD > y",
+                     lambda o: o["psnr_heavy_ball"] > o["psnr_pgd"] > o["psnr_y"]),
+    "custom_dataset": ("32/8 HDF5 pairs, the loss falls",
+                       lambda o: (o["n_train"], o["n_test"]) == (32, 8)
+                       and o["loss_history"][-1] < o["loss_history"][0]),
+    "pnp_dpir_deblur": ("DPIR beats y", lambda o: o["psnr_xhat"] > o["psnr_y"]),
+    "vanilla_pnp": ("PnP beats y", lambda o: o["psnr_xhat"] > o["psnr_y"]),
+    "pnp_mirror_descent": ("PnP-MD beats y", lambda o: o["psnr_xhat"] > o["psnr_y"]),
+    "red_sr": ("RED beats the zero fill", lambda o: o["psnr_xhat"] > o["psnr_naive"]),
+    "pnp_multiscale": ("coarse to fine beats single scale",
+                       lambda o: o["psnr_c2f"] > o["psnr_fine"]),
+    "wavelet_prior": ("each prior beats the masked input",
+                      lambda o: min(o["psnr_db4"], o["psnr_haar"], o["psnr_tv"])
+                      > o["psnr_masked"]),
+    "tv_minimisation": ("PGD, ADMM, CP > y - 0.5 dB",
+                        lambda o: min(o["psnr_pgd"], o["psnr_admm"], o["psnr_cp"])
+                        > o["psnr_y"] - 0.5),
+    "custom_prior": ("exact and Huber TV beat y",
+                     lambda o: min(o["psnr_tv"], o["psnr_huber_tv"]) > o["psnr_y"]),
+    "patch_priors": ("EPLL beats y", lambda o: o["psnr_xhat"] > o["psnr_y"]),
+    "poisson_mlem": ("MLEM beats the FBP", lambda o: o["psnr_mlem"] > o["psnr_fbp"]),
+    "dip": ("DIP beats y", lambda o: o["psnr_xhat"] > o["psnr_y"]),
+    "3d_denoising": ("dictionary > 3D > 2D > noisy",
+                     lambda o: o["psnr_dict"] > o["psnr_3d"] > o["psnr_2d"] > o["psnr_noisy"]),
+    "ct_fbp_unfolded": ("unfolded PGD-TV beats the FBP", lambda o: o["psnr_xhat"] > o["psnr_fbp"]),
+    "unfolded_mri": ("the loss falls, the PSNR rises",
+                     lambda o: o["loss_history"][-1] < o["loss_history"][0]
+                     and o["psnr_after"] > o["psnr_before"]),
+    "deq": ("the loss falls, the DEQ beats y",
+            lambda o: o["losses"][-1] < o["losses"][0] and o["psnr_xhat"] > o["psnr_y"]),
+    "lista": ("the loss falls", lambda o: o["losses"][-1] < o["losses"][0]),
+    # the JAX demo asserts an absolute 1e-4 on gradients of ~1e5 (its random
+    # network grows over 24 iterations): the same bits on the CPU, rounding
+    # on the card, where cuDNN's recompute sums in its own order
+    "unfolded_constant_memory": ("gradients within 1e-4 of the largest, less peak memory "
+                                 "with remat",
+                                 lambda o: o["max_grad_rel_difference"] < 1e-4
+                                 and (not o["peak_bytes"]  # measured on a card only
+                                      or o["peak_bytes"]["True"] < o["peak_bytes"]["False"])),
+    "learned_primal_dual": ("learned PD beats the FBP", lambda o: o["psnr_xhat"] > o["psnr_fbp"]),
+    "vanilla_unfolded": ("the test PSNR rises", lambda o: o["psnr_final"] > o["psnr_initial"]),
+    "custom_prior_unfolded": ("the test PSNR rises",
+                              lambda o: o["psnr_after"] > o["psnr_before"]),
+    "unfolded_constrained_lista": ("CP beats the zero fill",
+                                   lambda o: o["psnr_xhat"] > o["psnr_zero_fill"]),
+    "diffusion_sampling": ("DDRM, DiffPIR beat the adjoint; DPS's mean within 0.05 of the prior's",
+                           lambda o: min(o["psnr_ddrm"], o["psnr_diffpir"]) > o["psnr_adjoint"]
+                           and abs(o["dps_sample_mean"] - o["prior_mean"]) < 0.05),
+    "sde_sampling": ("each sample mean within 0.3 of 0.5",
+                     lambda o: all(abs(o[k] - 0.5) < 0.3 for k in (
+                         "ve_euler_mean", "vp_euler_mean", "ve_heun_mean",
+                         "flow_matching_mean"))),
+    # SKRock: the JAX demo's 0.2 is a max over 256 pixels of a ~100-sample
+    # mean, which either package's chain passes or not by its seed (JAX
+    # 0.155-0.239 over keys 0-5, the port 0.165-0.254 over seeds 0-5 on the CPU)
+    "mcmc_sampling": ("ULA's mean error < 0.2, SKRock's < 0.3",
+                      lambda o: o["ula_mean_error"] < 0.2 and o["skrock_mean_error"] < 0.3),
+    "custom_mcmc_kernel": ("mean error < 0.15, variance error < 50%",
+                           lambda o: o["mean_error"] < 0.15 and o["var_rel_error"] < 0.5),
+}
 
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
@@ -6071,6 +6168,106 @@ def datasets_phase(dev, card: str, model, physics, subjects: int = LIDC_SUBJECTS
     return out
 
 
+def gallery_on_cpu(names, fast_names) -> dict:
+    """``main(device="cpu")`` of each demo of ``names`` (at its fast size
+    where ``fast_names`` names it), in a worker process of 4 threads beside
+    the card's runs: the references of phase 23's K7 check."""
+    import importlib
+
+    import torch
+
+    torch.set_num_threads(4)
+    out = {}
+    for name in names:
+        mod = importlib.import_module(f"deepinv_tpu_torch.examples.demo_{name}")
+        with contextlib.redirect_stdout(sys.stderr):
+            out[name] = mod.main(device="cpu", fast=name in fast_names)
+    return out
+
+
+def gallery_phase(dev, card: str) -> dict:
+    """Phase 23: the 30 demos of the gallery's basics, plug-and-play,
+    optimization, unfolded and sampling categories, each ``main(device=...)``
+    of ``deepinv_tpu_torch/examples/demo_<name>.py`` at its full size (at its
+    fast size where GALLERY_FAST names it) on the card, each held to its JAX
+    demo's claim (GALLERY_CLAIMS). K7's counts are set to 0 just before each
+    demo and read just after; the demos of GALLERY_K7 must launch it. Those
+    demos also run on the CPU (the plain prox) at the same size, from the
+    same CPU draws, in a worker process while the card's demos run
+    (:func:`gallery_on_cpu`): each reconstruction of the card's run lies
+    within TV_RTOL (relative L2) of the CPU's, and each PSNR within
+    GALLERY_CPU_DB. A demo that needs h5py runs where the host has it."""
+    import concurrent.futures
+    import importlib
+    import multiprocessing
+
+    from deepinv_tpu_torch.examples import GALLERY
+    from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox
+
+    t_phase = time.perf_counter()
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    out = {"seconds_by_demo": {}, "launches": {}, "by_variant": {}, "fast": list(GALLERY_FAST),
+           "not_run": [], "cpu_gap_db": {}, "cpu_rel": {}}
+    card_runs = {}
+
+    def k7_counted(run):
+        chambolle_prox.launches = 0
+        chambolle_prox.launches_by_variant = {"resident": 0, "global": 0}
+        res = run()
+        return res, chambolle_prox.launches, dict(chambolle_prox.launches_by_variant)
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        on_cpu_future = pool.submit(gallery_on_cpu, GALLERY_K7, GALLERY_FAST)
+        for name in GALLERY:
+            if name == "custom_dataset" and not has_h5py:
+                out["not_run"].append(name)
+                print(f"gallery: demo_{name} not run: the host has no h5py ({card})", flush=True)
+                continue
+            mod = importlib.import_module(f"deepinv_tpu_torch.examples.demo_{name}")
+            fast = name in GALLERY_FAST
+            sync(dev)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                res, n7, by7 = k7_counted(lambda: mod.main(device=dev, fast=fast))
+            sync(dev)
+            secs = time.perf_counter() - t0
+            out["seconds_by_demo"][name] = secs
+            out["launches"][name], out["by_variant"][name] = n7, by7
+            what, claim = GALLERY_CLAIMS[name]
+            nums = {k: v for k, v in res.items() if isinstance(v, float)}
+            print(f"gallery: demo_{name}{' (fast size)' if fast else ''} {secs:.2f} s, K7 {n7} "
+                  f"{by7}, {nums} ({card})", flush=True)
+            check(claim(res), f"demo_{name}: its claim fails ({what}): {res}")
+            if name in GALLERY_K7:
+                check(n7 > 0, f"demo_{name} launched K7 no time")
+                card_runs[name] = res
+        cpu_runs = on_cpu_future.result()
+    finally:
+        pool.shutdown(cancel_futures=True)
+    for name in GALLERY_K7:
+        on_cpu, on_card = cpu_runs[name], card_runs[name]
+        gaps = {k: abs(on_card[k] - on_cpu[k]) for k in on_cpu
+                if k.startswith("psnr") and isinstance(on_cpu[k], float)}
+        rel = {k: float((v.detach().cpu().double() - on_cpu["x_hat"][k].double()).norm()
+                        / on_cpu["x_hat"][k].double().norm()) for k, v in on_card["x_hat"].items()}
+        out["cpu_gap_db"][name], out["cpu_rel"][name] = max(gaps.values()), max(rel.values())
+        print(f"gallery: demo_{name}, card against CPU: x_hat relative L2 {rel}, PSNR gaps "
+              f"{gaps} dB ({card})", flush=True)
+        check(out["cpu_rel"][name] <= TV_RTOL,
+              f"demo_{name}: the card's reconstructions lie {rel} (relative L2) from the CPU's")
+        check(out["cpu_gap_db"][name] <= GALLERY_CPU_DB,
+              f"demo_{name}: the card's PSNRs lie {gaps} dB from the CPU's")
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    ran = sum(out["seconds_by_demo"].values())
+    print(f"gallery phase: {secs:.1f} s, the demos {ran:.1f} s of it (budget "
+          f"{GALLERY_BUDGET_S:.0f} s); at the fast size: {list(GALLERY_FAST) or 'none'}; "
+          f"not run: {out['not_run'] or 'none'} ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6125,6 +6322,11 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
     sass_tile_check(build.cuda_tool("cuobjdump"), build.library_path())
+    if sys.argv[1:] == ["--gallery"]:
+        gal = gallery_phase(dev, card)
+        print(json.dumps({k: gal[k] for k in ("seconds", "seconds_by_demo", "launches",
+                                              "cpu_rel", "cpu_gap_db")}), flush=True)
+        return 0
 
     # 3. each kernel vs its plain version on the card
     g = torch.Generator().manual_seed(SEED)
@@ -6868,6 +7070,11 @@ def main() -> int:
     ct_model, _, ct_physics = pgd_models["CT"]
     ds22 = datasets_phase(dev, card, ct_model, ct_physics)
 
+    # 23. the gallery's basics, plug-and-play, optimization, unfolded and
+    # sampling demos on the card, each held to its claim; the TV demos over K7,
+    # against their CPU runs
+    gal23 = gallery_phase(dev, card)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -7065,6 +7272,11 @@ def main() -> int:
         "operators_rates": {k: v for k, v in ops15["rates"].items() if "radio" in k
                             or "pansharpening" in k},
         "layout_ms_512": ops15["k7_512_ms"],
+        # phase 23: K7's launches in each gallery demo (resident and global),
+        # and the K7 demos' PSNR gaps to their CPU runs (dB)
+        "launches_gallery": gal23["launches"],
+        "gallery_by_variant": {k: v for k, v in gal23["by_variant"].items() if any(v.values())},
+        "gallery_cpu_gap_db": gal23["cpu_gap_db"],
     }, {
         "name": "up_resblock_chain",
         "route": "cuda",

@@ -219,6 +219,27 @@ class ICNN(nn.Module):
 
         return autograd_grad(self.fn, x)
 
+    @torch.no_grad()
+    def initialize_weights(self, min_val: float = 0.0, max_val: float = 0.001, generator=None):
+        """Redraw the convex path's raw weights (each ``w_z`` and ``final``)
+        uniformly in ``[min_val, max_val]`` from ``generator`` (a CPU
+        ``torch.Generator``, seed 0 by default; wrappers_models.py:182).
+        Returns the module."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for conv in list(self.w_z) + [self.final]:
+            u = torch.rand(conv.weight.shape, generator=generator)
+            conv.weight.copy_(min_val + (max_val - min_val) * u)
+        return self
+
+    @torch.no_grad()
+    def zero_clip_weights(self):
+        """Clamp the convex path's raw weights at 0 from below
+        (wrappers_models.py:197). Returns the module."""
+        for conv in list(self.w_z) + [self.final]:
+            conv.weight.clamp_(min=0.0)
+        return self
+
 
 class MMSE(Reconstructor):
     r"""The exact posterior mean over a finite set of signals under Gaussian

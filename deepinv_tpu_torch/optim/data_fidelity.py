@@ -41,6 +41,10 @@ class DataFidelity(Potential):
     def d_grad(self, u, y):
         return self.d.grad(u, y)
 
+    def grad_d(self, u, y, *args, **kwargs):
+        """The distance's gradient in its first argument (data_fidelity.py:63)."""
+        return self.d.grad(u, y, *args, **kwargs)
+
     def d_prox(self, u, y, gamma=1.0):
         """``prox_{gamma d(., y)}(u)``, the distance's prox."""
         return self.d.prox(u, y, gamma=gamma)

@@ -100,8 +100,12 @@ class GaussianMixtureModel(nn.Module):
             r = torch.exp(lp - lse)                                    # (K, N)
             nk = r.sum(1) + 1e-8
             mu = (r @ x) / nk[:, None]
-            diff = x[None] - mu[:, None]
-            cov = torch.einsum("kn,knd,kne->kde", r, diff, diff) / nk[:, None, None] + 1e-5 * eye
+            diff = (x[None] - mu[:, None]).double()
+            # the weighted Gram matrix in float64: in float32 its null directions
+            # (patches of piecewise-constant images span few) fall below the
+            # 1e-5 jitter on the card, and the Cholesky of the next step fails
+            cov = (torch.einsum("kn,knd,kne->kde", r.double(), diff, diff)
+                   / nk[:, None, None].double()).to(x.dtype) + 1e-5 * eye
             w = nk / nk.sum()
             ll = float(lse.mean())
             if verbose:

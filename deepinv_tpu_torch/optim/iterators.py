@@ -44,6 +44,8 @@ class OptimIterator(nn.Module):
     def relaxation(self, u, v, beta):
         return beta * u + (1 - beta) * v
 
+    relaxation_step = relaxation
+
     def forward(self, X, data_fidelity, prior, params, y, physics):
         raise NotImplementedError
 

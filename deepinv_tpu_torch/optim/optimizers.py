@@ -48,13 +48,15 @@ _DEFAULT_PARAMS = {
 }
 
 
-def create_iterator(iteration, g_first: bool = False, K=None, K_adjoint=None,
+def create_iterator(iteration, *, g_first: bool = False, K=None, K_adjoint=None,
                     bregman_potential=None, lamb: float = 10.0,
                     preprocessing=None) -> OptimIterator:
     """Map an iteration name to an iterator (optimizers.py:89). ``K`` and
     ``K_adjoint`` are Chambolle-Pock's explicit splitting operator
     (:107-114), ``bregman_potential`` the geometry of MD and PMD (:98-99),
-    ``lamb`` and ``preprocessing`` the spectral method's (:100-105)."""
+    ``lamb`` and ``preprocessing`` the spectral method's (:100-105). They
+    are keywords: JAX's positional ``prior`` and ``cost_fn``, which it does
+    not use, are not taken, so a JAX positional call raises here."""
     if isinstance(iteration, OptimIterator):
         return iteration
     name = str(iteration).upper()
@@ -100,11 +102,11 @@ class BaseOptim(Reconstructor):
     """
 
     def __init__(self, iterator, data_fidelity=None, prior=None, params_algo: dict = None,
-                 max_iter: int = 100, custom_init: Optional[Callable] = None,
-                 g_first: bool = False, early_stop: bool = False, crit_conv: str = "residual",
-                 thres_conv: float = 1e-5, anderson_acceleration: bool = False,
-                 history_size: int = 5, backtracking: bool = False, remat: bool = False,
-                 unfold: bool = False, verbose: bool = False, device=None, **kwargs):
+                 max_iter: int = 100, early_stop: bool = False, crit_conv: str = "residual",
+                 thres_conv: float = 1e-5, custom_init: Optional[Callable] = None,
+                 anderson_acceleration: bool = False, history_size: int = 5,
+                 g_first: bool = False, unfold: bool = False, remat: bool = False,
+                 backtracking: bool = False, verbose: bool = False, device=None, **kwargs):
         device = resolve_device(device)
         super().__init__()
         self.verbose = verbose
@@ -168,15 +170,36 @@ class BaseOptim(Reconstructor):
                                  physics)
         return self.iterator.get_output(X)
 
+    def objective(self, x, y, physics):
+        """The objective ``F(x)`` per sample at the last iteration's
+        parameters (optimizers.py:215)."""
+        return objective_function(x, self.data_fidelity, self.prior, self.update_params_fn(-1),
+                                  y, physics)
+
     def update_params_fn(self, it: int) -> dict:
         """The parameters of iteration ``it`` (optimizers.py:222)."""
         return {k: v[it] for k, v in self.params_algo.items()}
 
+    def update_prior_fn(self, it: int):
+        """The prior of iteration ``it``: a list of priors cycles
+        (optimizers.py:227)."""
+        p = self.prior
+        return p[it % len(p)] if isinstance(p, (list, tuple, nn.ModuleList)) else p
+
+    def update_data_fidelity_fn(self, it: int):
+        """The data fidelity of iteration ``it``: a list cycles
+        (optimizers.py:233)."""
+        d = self.data_fidelity
+        return d[it % len(d)] if isinstance(d, (list, tuple, nn.ModuleList)) else d
+
     def DEQ_additional_step(self, X, y, physics, **kwargs):
         """One more iteration at the last iteration's parameters
         (optimizers.py:307), the step a DEQ differentiates at its
-        equilibrium."""
-        return self.fixed_point.single_iteration(X, self.data_fidelity, self.prior,
+        equilibrium; a list of priors or data fidelities gives that
+        iteration's."""
+        it = self.max_iter - 1
+        return self.fixed_point.single_iteration(X, self.update_data_fidelity_fn(it),
+                                                 self.update_prior_fn(it),
                                                  self.update_params_fn(-1), y, physics, **kwargs)
 
     def check_conv_fn(self, it: int, X_prev, X) -> bool:

@@ -29,6 +29,13 @@ class Prior(Potential):
     def __init__(self, g=None):
         super().__init__(fn=g)
 
+    def grad(self, x, sigma_denoiser=None, *args, **kwargs):
+        """``grad_x g(x, sigma_denoiser, ...)`` by autograd (prior.py:51);
+        ``g(x)`` alone where ``sigma_denoiser`` is None and nothing follows."""
+        if sigma_denoiser is not None or args:
+            args = (sigma_denoiser,) + args
+        return super().grad(x, *args, **kwargs)
+
 
 class Zero(Prior):
     r"""``g(x) = 0`` (prior.py:55)."""

@@ -108,6 +108,29 @@ class Physics(nn.Module):
                 new = replace(new, noise_model=nm2)
         return new
 
+    def update_parameters(self, **params) -> "Physics":
+        """The JAX package's name for :meth:`update` (base.py:178); returns a
+        new physics."""
+        return self.update(**params)
+
+    def set_noise_model(self, noise_model) -> "Physics":
+        """A copy with another noise model (base.py:184)."""
+        return replace(self, noise_model=noise_model)
+
+    def set_ls_solver(self, solver: str, max_iter: int = None, tol: float = None) -> "Physics":
+        """A copy with other least-squares solver defaults (base.py:189);
+        ``None`` keeps the current ``max_iter`` or ``tol``."""
+        changes = {"solver": solver}
+        if max_iter is not None:
+            changes["max_iter"] = max_iter
+        if tol is not None:
+            changes["tol"] = tol
+        return replace(self, **changes)
+
+    def clone(self) -> "Physics":
+        """A deep copy, its buffers and parameters copied too (base.py:200)."""
+        return copy.deepcopy(self)
+
     def A_dagger(self, y, x_init=None, check_every: int = CHECK_EVERY, **params):
         """Pseudo-inverse of a nonlinear ``A`` by gradient descent on
         ``1/2 ||A(x) - y||^2`` at step 0.1 from ``A_adjoint(y)`` (or ``y``),
@@ -174,20 +197,32 @@ def adjoint_function(A: Callable, input_shape, dtype=torch.float32) -> Callable:
 
 
 class LinearPhysics(Physics):
-    """Linear operator with an adjoint (deepinv_tpu/physics/base.py:243)."""
+    """Linear operator with an adjoint (deepinv_tpu/physics/base.py:243).
+
+    :param A_adjoint: the adjoint; without it, and with ``img_shape`` (the
+        input's shape, its batch size replaced by that of ``y``), the adjoint
+        is autograd's transpose of ``A`` (base.py:264-300).
+    """
 
     def __init__(self, A: Optional[Callable] = None, A_adjoint: Optional[Callable] = None,
                  noise_model=None, sensor_model=None, solver: str = "CG", max_iter: int = 50,
-                 tol: float = 1e-4):
+                 tol: float = 1e-4, img_shape: Optional[tuple] = None):
         super().__init__(A=A, noise_model=noise_model, sensor_model=sensor_model, solver=solver,
                          max_iter=max_iter, tol=tol)
         self.adj_fn = A_adjoint
+        self.img_shape = img_shape
 
     def A_adjoint(self, y, **params):
         phys = self.update(**params) if params else self
-        if phys.adj_fn is None:
-            raise NotImplementedError(f"{type(self).__name__} defines no A_adjoint")
-        return phys.adj_fn(y)
+        if phys.adj_fn is not None:
+            return phys.adj_fn(y)
+        if phys.img_shape is not None:
+            shape = tuple(phys.img_shape)
+            if y.dim() >= 1:
+                shape = (y.shape[0],) + shape[1:]
+            return adjoint_function(phys.A, shape, dtype=y.dtype)(y)
+        raise NotImplementedError(
+            f"{type(self).__name__} defines no A_adjoint; pass A_adjoint= or img_shape=.")
 
     def A_vjp(self, x, v):
         """``v^T (dA/dx)``: ``A_adjoint(v)`` for linear A (base.py:303)."""
@@ -222,6 +257,8 @@ class LinearPhysics(Physics):
         """Squared operator norm ``||A||_2^2`` by power iteration on ``A^T A``
         (base.py:314)."""
         return power_method(self.A_adjoint_A, x0, max_iter=max_iter, tol=tol)
+
+    compute_sqnorm = compute_norm
 
     def condition_number(self, x0, max_iter: int = 500, tol: float = 1e-8):
         """``sqrt(lambda_max / lambda_min)`` of ``A^T A``, the smallest
@@ -279,28 +316,30 @@ def _add_inv_gamma(m2, gamma):
 
 class DecomposablePhysics(LinearPhysics):
     """SVD-form operator ``A = U diag(mask) V^*`` with closed-form prox
-    (deepinv_tpu/physics/base.py:395). Subclasses override ``U``,
-    ``U_adjoint``, ``V``, ``V_adjoint`` (identity by default); ``mask`` is a
-    float or a tensor (kept as a buffer)."""
+    (deepinv_tpu/physics/base.py:395). ``U``, ``U_adjoint``, ``V`` and
+    ``V_adjoint`` are callables given to the constructor, or methods a
+    subclass overrides (identity by default); ``mask`` is a float or a tensor
+    (kept as a buffer)."""
 
-    def __init__(self, mask=1.0, **kwargs):
+    def __init__(self, U=None, U_adjoint=None, V=None, V_adjoint=None, mask=1.0, **kwargs):
         super().__init__(**kwargs)
+        self.U_fn, self.U_adj_fn, self.V_fn, self.V_adj_fn = U, U_adjoint, V, V_adjoint
         if isinstance(mask, torch.Tensor):
             self.register_buffer("mask", mask)
         else:
             self.mask = mask
 
     def U(self, x):
-        return x
+        return self.U_fn(x) if self.U_fn is not None else x
 
     def U_adjoint(self, y):
-        return y
+        return self.U_adj_fn(y) if self.U_adj_fn is not None else y
 
     def V(self, x):
-        return x
+        return self.V_fn(x) if self.V_fn is not None else x
 
     def V_adjoint(self, x):
-        return x
+        return self.V_adj_fn(x) if self.V_adj_fn is not None else x
 
     def A(self, x, **params):
         phys = self.update(**params) if params else self

@@ -140,6 +140,19 @@ class BlurFFT(DecomposablePhysics):
             return new.update(**params) if params else new
         return super().update(**params)
 
+    def get_filter_parameters(self, img_size=None, filter=None, **kwargs) -> dict:
+        """``{"filter", "mask"}`` of a PSF on ``img_size`` (the physics' own by
+        default; blur.py:132): the PSF as :func:`_resolve_filter` reads it and
+        its full-spectrum complex transfer function; both ``None`` without a
+        PSF."""
+        if filter is None:
+            return {"filter": None, "mask": None}
+        f = _resolve_filter(filter)
+        if self.filter is not None:
+            f = f.to(self.filter.device)
+        size = tuple(img_size) if img_size is not None else self.img_size
+        return {"filter": f, "mask": filter_fft_2d(f, size, real_fft=False)}
+
     def V_adjoint(self, x):
         return torch.fft.fft2(_fft_input(x), norm="ortho")
 

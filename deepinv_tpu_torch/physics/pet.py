@@ -127,6 +127,36 @@ class PET(LinearPhysics):
             with torch.no_grad():
                 self.operator_norm = torch.sqrt(self._norm_unnormalized(x0))
 
+    def plot_geometry(self, n_lors: int = 64, show: bool = True):
+        """3D plot of the scanner (pet.py:216): the crystal rings, of radius
+        ``scanner_radius`` if the physics keeps one, else the image width, and
+        every k-th michelogram line of response, about ``n_lors`` of them.
+        Returns the matplotlib figure."""
+        from ..utils.plotting import _mpl
+
+        plt = _mpl()
+        fig = plt.figure(figsize=(16, 8))
+        ax = fig.add_subplot(1, 1, 1, projection="3d")
+        R = getattr(self, "scanner_radius", float(self.img_width))
+        phi = np.linspace(0, 2 * np.pi, 181)
+        D = self.depth or 1
+        for z in (np.arange(D) - (D - 1) / 2.0) * self.ring_spacing:
+            ax.plot(R * np.cos(phi), R * np.sin(phi), np.full_like(phi, z), color="0.6", lw=0.8)
+        if self._lor_p0 is not None:
+            p0 = self._lor_p0.detach().cpu().numpy().reshape(-1, 3)
+            p1 = self._lor_p1.detach().cpu().numpy().reshape(-1, 3)
+            keep = np.linalg.norm(p1 - p0, axis=-1) > 0
+            p0, p1 = p0[keep], p1[keep]
+            step = max(1, len(p0) // n_lors)
+            for a, b in zip(p0[::step], p1[::step]):
+                ax.plot([a[0], b[0]], [a[1], b[1]], [a[2], b[2]], color="C0", lw=0.5, alpha=0.5)
+        for set_label in (ax.set_xlabel, ax.set_ylabel, ax.set_zlabel):
+            set_label("mm")
+        fig.tight_layout()
+        if show:
+            fig.show()
+        return fig
+
     # -- the projector -----------------------------------------------------------
 
     def _build_lors(self, scanner_radius, n_radial):

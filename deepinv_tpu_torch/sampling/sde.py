@@ -197,6 +197,12 @@ class DiffusionSDE(BaseSDE):
         self.sigma_deriv = sigma_deriv
         self.alpha = alpha if callable(alpha) else (lambda t, a=alpha: a)
 
+    def sigma_t(self, t):
+        """The noise schedule ``sigma(t)`` (sde.py:169): the protocol's
+        declaration, replaced in each instance by the constructor's
+        ``sigma_t``."""
+        raise NotImplementedError
+
     def sample_init(self, shape, generator=None, seed: int = 0, device=None, draws=None):
         """A draw from the prior at the first (largest-noise) time (sde.py:164)."""
         return self.prior_sample(shape, generator=generator, seed=seed, device=device,

@@ -95,10 +95,15 @@ class AdversarialTrainer(Trainer):
         self.logs_total_loss_d = AverageMeter("loss_D")
         self.check_grad_val_D = AverageMeter("grad_norm_D")
 
-    def check_clip_grad_D(self):
+    def check_clip_grad_D(self, grad_norm=None):
         """Record ``D``'s gradient norm before its update in
         ``check_grad_val_D`` when ``check_grad`` is set; nothing is clipped
-        (adversarial.py:74). Returns the norm, or None."""
+        (adversarial.py:74). Returns the norm, or None. A ``grad_norm``
+        given is recorded in place of the one computed here."""
+        if grad_norm is not None:
+            if self.check_grad:
+                self.check_grad_val_D.update(float(grad_norm))
+            return grad_norm
         if not self.check_grad:
             return None
         grads = [p.grad for p in self.D.parameters() if p.grad is not None]
@@ -142,12 +147,14 @@ class AdversarialTrainer(Trainer):
         self.optimizer_d.step()
         return loss.detach()
 
-    def step(self, epoch, train_ite=None, train: bool = True, last_batch: bool = False):
+    def step(self, epoch, progress_bar=None, train_ite=None, train: bool = True,
+             last_batch: bool = False):
         """One generator and one discriminator update per loader batch, the
         loaders in a random order (adversarial.py:128); eval batches take
         :meth:`Trainer.step`."""
         if not train:
-            return super().step(epoch, train_ite=train_ite, train=False, last_batch=last_batch)
+            return super().step(epoch, progress_bar, train_ite=train_ite, train=False,
+                                last_batch=last_batch)
         iterators = self.current_train_iterators
         logs = {}
         for g in np.random.permutation(self.G):

@@ -188,8 +188,8 @@ class Trainer:
                  compare_no_learning: bool = False, no_learning_method="A_adjoint",
                  verbose: bool = True, show_progress_bar: bool = False, wandb_vis: bool = False,
                  wandb_setup: Optional[dict] = None, mlflow_vis: bool = False,
-                 mlflow_setup: Optional[dict] = None, seed: int = 0, fused_chains: bool = False,
-                 data_parallel=False):
+                 mlflow_setup: Optional[dict] = None, data_parallel=False, seed: int = 0,
+                 fused_chains: bool = False):
         self.model = model
         self.physics = _to_list(physics)
         self.losses = _to_list(losses) if losses is not None else [SupLoss()]
@@ -276,6 +276,15 @@ class Trainer:
         self.reset_metrics()
 
     @property
+    def losses(self) -> list:
+        """The training losses, a list (trainer.py:254-260)."""
+        return self._losses
+
+    @losses.setter
+    def losses(self, v):
+        self._losses = _to_list(v)
+
+    @property
     def device(self) -> torch.device:
         """The model's device, where every batch goes: that of its first
         parameter or buffer, else the default device of the entry points."""
@@ -285,7 +294,10 @@ class Trainer:
     def generator(self, *path) -> torch.Generator:
         """A generator on the model's device seeded from ``(seed, *path)``:
         the counterpart of ``fold_in`` of the JAX key."""
-        s = int(np.random.SeedSequence([self.seed, *path]).generate_state(1)[0])
+        return self._seeded(self.seed, *path)
+
+    def _seeded(self, *path) -> torch.Generator:
+        s = int(np.random.SeedSequence(list(path)).generate_state(1)[0])
         return torch.Generator(device=self.device).manual_seed(s)
 
     def _chains(self):
@@ -463,15 +475,20 @@ class Trainer:
                 logs[f"{type(m).__name__} no learning"] = self.logs_metrics_no_learning[i].avg
         return x_net, logs
 
-    def check_clip_grad(self):
+    def check_clip_grad(self, grad_norm=None):
         """Clip the gradient's global norm to ``grad_clip`` and record the
         pre-clip norm in ``check_grad_val`` when ``check_grad`` is set
-        (trainer.py:387). Returns the norm, or None if neither is set."""
-        if self.grad_clip is None and not self.check_grad:
-            return None
-        max_norm = self.grad_clip if self.grad_clip is not None else float("inf")
-        gnorm = torch.nn.utils.clip_grad_norm_(self.model.parameters(), max_norm)
-        if self.check_grad:
+        (trainer.py:387). Returns the norm, or None if neither is set. A
+        ``grad_norm`` given, as the JAX Trainer's jitted step hands it its
+        norm, is the one recorded and returned; ``grad_clip`` clips all the
+        same, as JAX's optax chain does whatever this hook is given."""
+        gnorm = None
+        if self.grad_clip is not None or (self.check_grad and grad_norm is None):
+            max_norm = self.grad_clip if self.grad_clip is not None else float("inf")
+            gnorm = torch.nn.utils.clip_grad_norm_(self.model.parameters(), max_norm)
+        if grad_norm is not None:
+            gnorm = grad_norm
+        if self.check_grad and gnorm is not None:
             self.check_grad_val.update(float(gnorm))
         return gnorm
 
@@ -515,11 +532,13 @@ class Trainer:
                                        if self.physics_generator is not None else None)
 
     # -- one train or eval iteration (trainer.py:491) --------------------
-    def step(self, epoch, train_ite=None, train: bool = True, last_batch: bool = False):
+    def step(self, epoch, progress_bar=None, train_ite=None, train: bool = True,
+             last_batch: bool = False):
         """One batch from each loader, in a random order (trainer.py:491).
         With ``optimizer_step_multi_dataset`` the gradients of all loaders
         add up in ``.grad`` and one optimizer step follows; otherwise each
-        loader batch takes its own step."""
+        loader batch takes its own step. ``progress_bar`` stands second, as
+        in the JAX package, which does not use it either."""
         iterators = self.current_train_iterators if train else self.current_eval_iterators
         G_perm = np.random.permutation(self.G if train else len(iterators))
         logs = {}
@@ -650,12 +669,23 @@ class Trainer:
         return stop
 
     # -- evaluation (trainer.py:696) -------------------------------------
-    def test(self, dataloaders=None, train: bool = False):
+    def test(self, dataloaders=None, train: bool = False, generator=None):
         """Average each metric over the loaders (trainer.py:696); returns
         ``{name: mean, name_std: deviation}`` (and the no-learning baseline's
         means with ``compare_no_learning``). Online measurements draw from
         the generator of ``(10000, step)`` (``fold_in`` of the key of
-        ``seed + 10000``, trainer.py:702, 718)."""
+        ``seed + 10000``, trainer.py:702, 718); a ``generator`` given takes
+        the place of that key, as a ``key`` does in JAX: the draws then come
+        from ``(generator.initial_seed(), step)``."""
+        if generator is not None:
+            root = int(generator.initial_seed())
+            seeded = lambda *path: self._seeded(root, *path)
+            sample = lambda step: (seeded(step), seeded(step, 1)
+                                   if self.physics_generator is not None else None)
+            aware = lambda: seeded() if getattr(self.model, "train_aware", False) else None
+        else:
+            sample = lambda step: self._sample_generators(10_000, step)
+            aware = lambda: self._aware_generator(10_000)
         loaders = _to_list(dataloaders) if dataloaders is not None else self.eval_dataloader
         meters = {type(m).__name__: AverageMeter() for m in self.metrics}
         nl_meters = {type(m).__name__: AverageMeter() for m in self.metrics}
@@ -663,9 +693,10 @@ class Trainer:
             for g, dl in enumerate(loaders):
                 physics = self.physics[g % len(self.physics)]
                 for step, batch in enumerate(dl):
-                    x, y, cur = self.get_samples(batch, physics,
-                                                 *self._sample_generators(10_000, step))
-                    x_net = self.model_inference(y, cur, generator=self._aware_generator(10_000))
+                    x, y, cur = self.get_samples(batch, physics, *sample(step))
+                    # a new generator a batch: each batch draws the same splits, as
+                    # JAX's one key does at every batch (trainer.py:707-710)
+                    x_net = self.model_inference(y, cur, generator=aware())
                     for m in self.metrics:
                         meters[type(m).__name__].update(self._metric_value(m, x_net, x),
                                                         n=x.shape[0])

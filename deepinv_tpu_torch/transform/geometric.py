@@ -135,13 +135,17 @@ class Rotate(Transform):
     """Rotation by a multiple of ``multiples`` degrees below ``limits``
     (geometric.py:76). Where both are multiples of 90 the exact ``rot90``
     subgroup is used (``jnp.rot90``'s direction); any other angle warps
-    bilinearly about the image centre, 0 outside (:func:`_warp_affine`)."""
+    bilinearly about the image centre, 0 outside (:func:`_warp_affine`).
+    ``interpolation`` is the warp's: only ``"bilinear"`` is implemented, and
+    another raises where the warp runs (the JAX package warps bilinearly
+    whatever it is given, geometric.py:93, 118)."""
 
-    def __init__(self, multiples: float = 90.0, limits: float = 360.0, n_trans: int = 1,
-                 seed: int = 0):
+    def __init__(self, multiples: float = 90.0, limits: float = 360.0,
+                 interpolation: str = "bilinear", n_trans: int = 1, seed: int = 0):
         super().__init__(n_trans, seed)
         self.multiples = multiples
         self.limits = limits
+        self.interpolation = interpolation
 
     def get_params(self, x, generator=None):
         """``theta`` in degrees, one per output sample (geometric.py:99)."""
@@ -157,6 +161,8 @@ class Rotate(Transform):
             k = (theta / 90.0).long() % 4
             rots = torch.stack([torch.rot90(x, i, dims=(-2, -1)) for i in range(4)], 1)
             return rots[torch.arange(x.shape[0], device=x.device), k]
+        if self.interpolation != "bilinear":
+            raise NotImplementedError(f"Rotate warps bilinearly only, not {self.interpolation!r}")
         th = torch.deg2rad(theta)
         c, s = torch.cos(th), torch.sin(th)
         z = torch.zeros_like(c)

@@ -82,6 +82,25 @@ def test_gmm_em_fit_from_the_same_start_matches_jax():
     assert abs(float(own.weights.sum()) - 1.0) < 1e-5 and torch.isfinite(own.cov).all()
 
 
+def test_gmm_fit_keeps_rank_deficient_covariances_positive_definite():
+    """Points spanning 3 of 36 dimensions, as patches of piecewise-constant
+    images do: the EM's covariances stay positive definite and the fit
+    finite. The
+    Gram matrix is summed in float64: summed in float32 it fell below 0 (on
+    the card at demo_patch_priors' patches, here at 3x their scale), and the
+    next step's Cholesky raised. The JAX package, in float32, gives NaN on
+    these points."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((6000, 3)) * 3).astype(np.float32) @ rng.standard_normal(
+        (3, 36)).astype(np.float32)
+    jg = J.GaussianMixtureModel(2, 36, seed=0).fit(jnp.asarray(x), max_iters=3)
+    assert not np.isfinite(np.asarray(jg.cov)).all()
+    tg = T.GaussianMixtureModel(2, 36, device=DEV).fit(torch.from_numpy(x), max_iters=3,
+                                                        draws=[np.arange(2)])
+    assert torch.isfinite(tg.mu).all() and torch.isfinite(tg.cov).all()
+    assert float(torch.linalg.eigvalsh(tg.cov.double()).min()) > 0
+
+
 def test_epll_matches_jax():
     """EPLL denoising and its negative log-likelihood with JAX's fitted
     mixture crossed into the port."""

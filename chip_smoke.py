@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --gallery    # phases 1, 2 and 23 alone
+    python3 chip_smoke.py --gallery    # phases 1, 2, 23 and 24 alone
 
 Phases (each one raises, and the script exits non-zero, if it fails):
 
@@ -374,7 +374,15 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    GALLERY_K7, whose reconstructions on the card lie within TV_RTOL
    (relative L2), and whose PSNRs within GALLERY_CPU_DB, of the same demo's
    on the CPU (the plain prox) at the same size, from the same CPU draws. ``demo_custom_dataset`` writes HDF5 and runs where the host
-   has h5py. Timed: each demo's seconds.
+   has h5py. Timed: each demo's seconds. Every kernel's launches are counted
+   around each demo and printed on its line;
+24. the gallery's other 32 demos (``gallery_phase(..., 24)``): physics,
+   blind, transforms, metrics, models, remote sensing and performance, as
+   phase 23 runs its own (GALLERY24_FAST, GALLERY24_CLAIMS); the demos of
+   GALLERY24_K7 launch K7 and lie within TV_RTOL and GALLERY_CPU_DB of their
+   CPU runs (run in the worker groups of GALLERY_CPU_GROUPS, started before
+   phase 23); batched_throughput's images/s at
+   B=8 above B=1. Timed: each demo's seconds.
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -931,6 +939,119 @@ GALLERY_CLAIMS = {
                       lambda o: o["ula_mean_error"] < 0.2 and o["skrock_mean_error"] < 0.3),
     "custom_mcmc_kernel": ("mean error < 0.15, variance error < 50%",
                            lambda o: o["mean_error"] < 0.15 and o["var_rel_error"] < 0.5),
+}
+
+# phase 24: the gallery's physics, blind, transforms, metrics, models,
+# remote-sensing and performance demos (deepinv_tpu_torch/examples
+# CATEGORIES), within GALLERY_BUDGET_S as phase 23's; phase 23 runs the rest
+GALLERY_23 = ("basics", "plug-and-play", "optimization", "unfolded", "sampling")
+# the demos of phase 24 that run at their fast size on the card: none
+GALLERY24_FAST = ()
+# the phase-24 demos whose TV prox reaches K7 (TVPrior's or TVDenoiser's)
+GALLERY24_K7 = ("mri_tour", "ct_projectors", "radio_interferometry", "anscombe",
+                "pansharpening", "classic_denoisers", "denoiser_tour")
+# the PSNRs of the K7 demos that are not held to the CPU's within
+# GALLERY_CPU_DB: BM3D aggregates with index_add_ (atomic adds on the card),
+# and EPLL's GMM is fitted on the card by float32 EM
+GALLERY24_CPU_DB_SKIP = {"classic_denoisers": ("psnr[BM3D]",),
+                         "denoiser_tour": ("psnr[BM3D]", "psnr[EPLL (fitted GMM)]")}
+# the CPU runs of the gallery phases' K7 demos: (demos, threads), one worker
+# process a group, started before phase 23 and run beside both phases' card
+# demos. CT's three backends at 128² take an autograd adjoint on the CPU and
+# go alone: started with phase 24 on 3 threads, they held it to 106.6 s
+# against 36.7 s of card demos (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md §6)
+GALLERY_CPU_GROUPS = {23: ((GALLERY_K7, 2),),
+                      24: ((("ct_projectors",), 4),
+                           (("mri_tour", "radio_interferometry", "anscombe", "pansharpening",
+                             "classic_denoisers", "denoiser_tour"), 1))}
+GALLERY24_CLAIMS = {
+    "mri_tour": ("TV-PGD beats the zero fill, dynamic adjointness < 1e-3",
+                 lambda o: o["psnr_tv"] > o["psnr_zero_filled"]
+                 and o["dynamic_adjointness"] < 1e-3),
+    "ct_projectors": ("TV-PGD beats the FBP on each backend",
+                      lambda o: all(o[f"psnr_tv_{m}"] > o[f"psnr_fbp_{m}"]
+                                    for m in ("interp", "fourier", "slice"))),
+    # the order the JAX demo prints at its fast size (its CG did not finish
+    # on the CPU at this size, where it prints FDK 20.59 dB)
+    "conebeam_fdk": ("FDK beats CG, CG the zero volume by 3 dB",
+                     lambda o: o["psnr_fdk"] > o["psnr_cg"] > o["psnr_zero"] + 3),
+    "radio_interferometry": ("PnP-FISTA beats the dirty image",
+                             lambda o: o["psnr_xhat"] > o["psnr_dirty"]),
+    "physics_tour": ("adjointness < 1e-3, dagger residual < 0.5",
+                     lambda o: o["max_adjointness"] < 1e-3 and o["max_dagger_residual"] < 0.5),
+    "phase_retrieval": ("refined cosine > spectral, > 0.9",
+                        lambda o: o["cosine_refined"] > max(o["cosine_spectral"], 0.9)),
+    # the JAX demo asserts 1e-2 and fails it itself (1.75e-01, cosine
+    # 0.98491): the card's run is held to JAX's numbers, within rounding
+    # over 1500 steps
+    "ptychography": ("JAX's result: relative error 0.175, cosine 0.98491",
+                     lambda o: abs(o["rel_error"] - 0.175) < 5e-3
+                     and abs(o["cosine"] - 0.98491) < 5e-4),
+    "scattering": ("Born < 0.1 of the full model, inversion < 0.6, more at strong contrast",
+                   lambda o: o["born_error"] < 0.1 and o["inversion_error"] < 0.6
+                   and o["strong_born_error"] > o["born_error"]),
+    "blur_tour": ("space-varying adjointness < 1e-4", lambda o: o["svb_adjointness"] < 1e-4),
+    "lidar": ("depth MAE < 1.5 bins, reflectivity < 0.3",
+              lambda o: o["depth_mae"] < 1.5 and o["reflectivity_rel_error"] < 0.3),
+    "spatial_unwrapping": ("> 20% wrapped, Itoh < 1e-4, noisy < 0.1",
+                           lambda o: o["wrapped_share"] > 0.2 and o["max_error"] < 1e-4
+                           and o["noisy_rel_error"] < 0.1),
+    "anscombe": ("std in (0.7, 1.3), round trip < 1e-2, +3 dB",
+                 lambda o: 0.7 < o["stabilized_std"] < 1.3 and o["round_trip_error"] < 1e-2
+                 and o["psnr_xhat"] > o["psnr_y"] + 3.0),
+    "pet": ("MLEM beats the backprojection, 3-D adjointness < 1e-4",
+            lambda o: o["psnr_mlem"] > o["psnr_backprojection"] and o["adjointness_3d"] < 1e-4),
+    "single_pixel": ("PnP beats the dagger, sequency the worst ordering",
+                     lambda o: o["psnr_pnp"] > o["psnr_dagger"]
+                     and o["psnr_dagger_sequency"] < min(
+                         o[f"psnr_dagger_{k}"] for k in ("cake_cutting", "zig_zag", "xy"))),
+    "liu_jia_padding": ("Liu-Jia padding beats no padding, Wiener and inverse",
+                        lambda o: all(o[f"psnr_{k}_liu_jia"] > o[f"psnr_{k}_no_pad"]
+                                      for k in ("wiener", "inverse"))),
+    "microscopy_3d": ("adjointness < 1e-4, PGD beats the widefield image",
+                      lambda o: o["adjointness"] < 1e-4 and o["psnr_xhat"] > o["psnr_y"]),
+    "blind_deblur": ("4 33x33 kernels and multipliers, a finite recon",
+                     lambda o: o["filters_shape"] == [1, 1, 4, 33, 33]
+                     and o["multipliers_shape"] == [1, 1, 4, 64, 64] and o["xhat_finite"]),
+    "blind_denoising": ("each estimate within 35%, +2 dB",
+                        lambda o: max(o["rel_error"].values()) < 0.35
+                        and o["psnr_xhat"] > o["psnr_y"] + 2.0),
+    "optimize_physics_parameter": ("kernel error below half its start",
+                                   lambda o: o["kernel_error"] < 0.5 * o["kernel_error_start"]),
+    "transforms": ("shift round trip < 1e-5", lambda o: o["shift_round_trip"] < 1e-5),
+    "ei_projective": ("each EI training lowers its loss",
+                      lambda o: all(h[-1] < h[0] for h in o["loss_history"].values())),
+    "metrics": ("LPIPS ranks the mild noise below the heavy",
+                lambda o: o["LPIPS_mild"] < o["LPIPS_heavy"]),
+    "custom_niqe": ("NIQE scores the clean image below the noisy",
+                    lambda o: o["niqe"]["clean"] < o["niqe"]["noisy"]),
+    "classic_denoisers": ("noisy < median < db4 < TV < BM3D",
+                          lambda o: o["psnr_y"] < o["psnr"]["median 3x3"]
+                          < o["psnr"]["wavelet db4"] < o["psnr"]["TV (Chambolle)"]
+                          < o["psnr"]["BM3D"]),
+    "denoiser_tour": ("each beats the noisy input, TV the best",
+                      lambda o: min(o["psnr"].values()) > o["psnr_y"]
+                      and max(o["psnr"], key=o["psnr"].get) == "TV"),
+    "deal_reconstruction": ("denoised in [0, 1], a finite recon",
+                            lambda o: 0.0 <= o["denoised_min"] <= o["denoised_max"] <= 1.0
+                            and o["xhat_finite"]),
+    "training": ("the resumed test PSNR within 1e-3, the loss falls",
+                 lambda o: abs(o["psnr_resumed"] - o["psnr"]) < 1e-3
+                 and o["loss_history"][-1] < o["loss_history"][0]),
+    "foundation_model": ("three finite outputs of their inputs' shapes",
+                         lambda o: all(o["shape_ok"].values()) and all(o["finite"].values())),
+    "super_resolution": ("dagger >= adjoint, PnP-HQS beats the dagger",
+                         lambda o: all(o[f"psnr_dagger_{k}"] >= o[f"psnr_adjoint_{k}"] - 1e-4
+                                       for k in ("gaussian", "bicubic", "none"))
+                         and o["psnr_xhat"] > o["psnr_dagger"]),
+    "3d_cnn_denoisers": ("inflation within 1e-5, fine-tuned 3-D > slice-wise 2-D > noisy",
+                         lambda o: o["inflation_max_diff"] < 1e-5
+                         and o["psnr_3d_finetuned"] > o["psnr_2d"] > o["psnr_noisy"]),
+    "batched_throughput": ("images/s at B=8 above B=1, the first image batch-independent",
+                           lambda o: o["images_per_s"][max(o["images_per_s"], key=int)]
+                           > o["images_per_s"]["1"] and o["first_image_rel_diff"] < 1e-5),
+    "pansharpening": ("PnP-TV beats the Brovey fusion",
+                      lambda o: o["psnr_xhat"] > o["psnr_brovey"]),
 }
 
 PEAK_BF16 = 989e12
@@ -6168,15 +6289,16 @@ def datasets_phase(dev, card: str, model, physics, subjects: int = LIDC_SUBJECTS
     return out
 
 
-def gallery_on_cpu(names, fast_names) -> dict:
+def gallery_on_cpu(names, fast_names, threads: int) -> dict:
     """``main(device="cpu")`` of each demo of ``names`` (at its fast size
-    where ``fast_names`` names it), in a worker process of 4 threads beside
-    the card's runs: the references of phase 23's K7 check."""
+    where ``fast_names`` names it), in a worker process of ``threads``
+    threads beside the card's runs: the references of a gallery phase's K7
+    check."""
     import importlib
 
     import torch
 
-    torch.set_num_threads(4)
+    torch.set_num_threads(threads)
     out = {}
     for name in names:
         mod = importlib.import_module(f"deepinv_tpu_torch.examples.demo_{name}")
@@ -6185,75 +6307,140 @@ def gallery_on_cpu(names, fast_names) -> dict:
     return out
 
 
-def gallery_phase(dev, card: str) -> dict:
-    """Phase 23: the 30 demos of the gallery's basics, plug-and-play,
-    optimization, unfolded and sampling categories, each ``main(device=...)``
-    of ``deepinv_tpu_torch/examples/demo_<name>.py`` at its full size (at its
-    fast size where GALLERY_FAST names it) on the card, each held to its JAX
-    demo's claim (GALLERY_CLAIMS). K7's counts are set to 0 just before each
-    demo and read just after; the demos of GALLERY_K7 must launch it. Those
-    demos also run on the CPU (the plain prox) at the same size, from the
-    same CPU draws, in a worker process while the card's demos run
-    (:func:`gallery_on_cpu`): each reconstruction of the card's run lies
-    within TV_RTOL (relative L2) of the CPU's, and each PSNR within
-    GALLERY_CPU_DB. A demo that needs h5py runs where the host has it."""
+def kernel_ops() -> dict:
+    """The port's kernel wrappers by name, each counting its launches."""
+    from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain, conv_chain_stash,
+                                                          stash_backward)
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import resblock_chain
+    from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox
+    from deepinv_tpu_torch.ops.kernels.up_resblock_chain import up_resblock_chain
+    from deepinv_tpu_torch.ops.kernels.up_sandwich import up_sandwich
+
+    return {"resblock_chain": resblock_chain, "up_resblock_chain": up_resblock_chain,
+            "up_sandwich": up_sandwich, "conv_chain": conv_chain,
+            "conv_chain_stash": conv_chain_stash, "stash_backward": stash_backward,
+            "chambolle_prox": chambolle_prox}
+
+
+def kernels_counted(run):
+    """``run()`` with every kernel's launch count set to 0 just before it:
+    its result, the counts just after, and K7's by variant."""
+    ops = kernel_ops()
+    for op in ops.values():
+        op.launches = 0
+    ops["chambolle_prox"].launches_by_variant = {"resident": 0, "global": 0}
+    res = run()
+    return (res, {k: op.launches for k, op in ops.items()},
+            dict(ops["chambolle_prox"].launches_by_variant))
+
+
+def gallery_cpu_runs(phase: int):
+    """Start the CPU runs of gallery phase ``phase``'s K7 demos
+    (GALLERY_CPU_GROUPS, at the fast size where the phase's fast tuple names
+    a demo), one spawned worker process a group: the pool and the futures,
+    whose results :func:`gallery_phase` reads and whose pool it shuts
+    down."""
     import concurrent.futures
-    import importlib
     import multiprocessing
 
-    from deepinv_tpu_torch.examples import GALLERY
-    from deepinv_tpu_torch.ops.kernels.tv import chambolle_prox
+    fast_names = GALLERY_FAST if phase == 23 else GALLERY24_FAST
+    groups = GALLERY_CPU_GROUPS[phase]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(groups), mp_context=multiprocessing.get_context("spawn"))
+    return pool, [pool.submit(gallery_on_cpu, g, fast_names, threads) for g, threads in groups]
 
+
+def gallery_phase(dev, card: str, phase: int = 23, cpu_runs=None) -> dict:
+    """Phase 23 or 24: the gallery's demos, each ``main(device=...)`` of
+    ``deepinv_tpu_torch/examples/demo_<name>.py`` at its full size (at its
+    fast size where the phase's fast tuple names it) on the card, each held to
+    its JAX demo's claim. Phase 23 runs the 30 demos of the basics,
+    plug-and-play, optimization, unfolded and sampling categories
+    (GALLERY_23; GALLERY_FAST, GALLERY_K7, GALLERY_CLAIMS), phase 24 the 32 of
+    the others (GALLERY24_FAST, GALLERY24_K7, GALLERY24_CLAIMS). Every
+    kernel's launch count is set to 0 just before each demo and read just
+    after (:func:`kernels_counted`), and printed on the demo's line; the K7
+    demos must launch K7. Those demos also run on the CPU (the plain prox)
+    at the same size, from the same CPU draws, in worker processes while the
+    card's demos run (``cpu_runs``, from :func:`gallery_cpu_runs`, started
+    here where None): each reconstruction of the card's run lies within
+    TV_RTOL (relative L2) of the CPU's, and each PSNR within GALLERY_CPU_DB
+    (GALLERY24_CPU_DB_SKIP names the PSNRs that the CPU's need not match). A
+    demo that needs h5py runs where the host has it."""
+    import importlib
+
+    from deepinv_tpu_torch.examples import CATEGORIES
+
+    pool, futures = gallery_cpu_runs(phase) if cpu_runs is None else cpu_runs
+    if phase == 23:
+        names = tuple(n for c in GALLERY_23 for n in CATEGORIES[c])
+        fast_names, k7, claims, label = GALLERY_FAST, GALLERY_K7, GALLERY_CLAIMS, "gallery"
+        db_skip = {}
+    else:
+        names = tuple(n for c, ns in CATEGORIES.items() if c not in GALLERY_23 for n in ns)
+        fast_names, k7, claims, label = (GALLERY24_FAST, GALLERY24_K7, GALLERY24_CLAIMS,
+                                         "gallery 24")
+        db_skip = GALLERY24_CPU_DB_SKIP
+    check(set(claims) == set(names) and set(k7) <= set(names)
+          and sorted(n for g, _ in GALLERY_CPU_GROUPS[phase] for n in g) == sorted(k7),
+          f"{label}: the claims, K7 demos and CPU groups do not cover the phase's demos")
     t_phase = time.perf_counter()
     has_h5py = importlib.util.find_spec("h5py") is not None
-    out = {"seconds_by_demo": {}, "launches": {}, "by_variant": {}, "fast": list(GALLERY_FAST),
-           "not_run": [], "cpu_gap_db": {}, "cpu_rel": {}}
+    out = {"seconds_by_demo": {}, "launches": {}, "by_variant": {}, "kernels": {},
+           "fast": list(fast_names), "not_run": [], "cpu_gap_db": {}, "cpu_rel": {}}
     card_runs = {}
 
-    def k7_counted(run):
-        chambolle_prox.launches = 0
-        chambolle_prox.launches_by_variant = {"resident": 0, "global": 0}
-        res = run()
-        return res, chambolle_prox.launches, dict(chambolle_prox.launches_by_variant)
+    def on_card(mod, name):
+        return mod.main(device=dev, fast=name in fast_names)
 
-    pool = concurrent.futures.ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"))
     try:
-        on_cpu_future = pool.submit(gallery_on_cpu, GALLERY_K7, GALLERY_FAST)
-        for name in GALLERY:
+        for name in names:
             if name == "custom_dataset" and not has_h5py:
                 out["not_run"].append(name)
-                print(f"gallery: demo_{name} not run: the host has no h5py ({card})", flush=True)
+                print(f"{label}: demo_{name} not run: the host has no h5py ({card})", flush=True)
                 continue
             mod = importlib.import_module(f"deepinv_tpu_torch.examples.demo_{name}")
-            fast = name in GALLERY_FAST
+            fast = name in fast_names
             sync(dev)
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(sys.stderr):
-                res, n7, by7 = k7_counted(lambda: mod.main(device=dev, fast=fast))
+                res, counts, by7 = kernels_counted(lambda: on_card(mod, name))
             sync(dev)
             secs = time.perf_counter() - t0
+            n7 = counts["chambolle_prox"]
             out["seconds_by_demo"][name] = secs
             out["launches"][name], out["by_variant"][name] = n7, by7
-            what, claim = GALLERY_CLAIMS[name]
-            nums = {k: v for k, v in res.items() if isinstance(v, float)}
-            print(f"gallery: demo_{name}{' (fast size)' if fast else ''} {secs:.2f} s, K7 {n7} "
-                  f"{by7}, {nums} ({card})", flush=True)
+            out["kernels"][name] = {k: v for k, v in counts.items() if v}
+            what, claim = claims[name]
+            nums = {k: v for k, v in res.items() if isinstance(v, float) or (
+                isinstance(v, dict) and v and all(isinstance(u, float) for u in v.values()))}
+            print(f"{label}: demo_{name}{' (fast size)' if fast else ''} {secs:.2f} s, K7 {n7} "
+                  f"{by7}, kernels launched {out['kernels'][name] or 'none'}, {nums} ({card})",
+                  flush=True)
             check(claim(res), f"demo_{name}: its claim fails ({what}): {res}")
-            if name in GALLERY_K7:
+            if name in k7:
                 check(n7 > 0, f"demo_{name} launched K7 no time")
                 card_runs[name] = res
-        cpu_runs = on_cpu_future.result()
+        t_wait = time.perf_counter()
+        cpu_runs = {k: v for f in futures for k, v in f.result().items()}
+        out["cpu_wait_s"] = time.perf_counter() - t_wait
     finally:
         pool.shutdown(cancel_futures=True)
-    for name in GALLERY_K7:
-        on_cpu, on_card = cpu_runs[name], card_runs[name]
-        gaps = {k: abs(on_card[k] - on_cpu[k]) for k in on_cpu
+
+    def gaps_to_cpu(name, on_card_run, on_cpu):
+        gaps = {k: abs(on_card_run[k] - on_cpu[k]) for k in on_cpu
                 if k.startswith("psnr") and isinstance(on_cpu[k], float)}
-        rel = {k: float((v.detach().cpu().double() - on_cpu["x_hat"][k].double()).norm()
-                        / on_cpu["x_hat"][k].double().norm()) for k, v in on_card["x_hat"].items()}
+        gaps.update({f"{k}[{d}]": abs(on_card_run[k][d] - v[d]) for k, v in on_cpu.items()
+                     if k.startswith("psnr") and isinstance(v, dict) for d in v})
+        gaps = {k: v for k, v in gaps.items() if k not in db_skip.get(name, ())}
+        rel = {k: rel_l2(v.detach().cpu().double(), on_cpu["x_hat"][k].double())
+               for k, v in on_card_run["x_hat"].items()}
+        return gaps, rel
+
+    for name in k7:
+        gaps, rel = gaps_to_cpu(name, card_runs[name], cpu_runs[name])
         out["cpu_gap_db"][name], out["cpu_rel"][name] = max(gaps.values()), max(rel.values())
-        print(f"gallery: demo_{name}, card against CPU: x_hat relative L2 {rel}, PSNR gaps "
+        print(f"{label}: demo_{name}, card against CPU: x_hat relative L2 {rel}, PSNR gaps "
               f"{gaps} dB ({card})", flush=True)
         check(out["cpu_rel"][name] <= TV_RTOL,
               f"demo_{name}: the card's reconstructions lie {rel} (relative L2) from the CPU's")
@@ -6262,8 +6449,9 @@ def gallery_phase(dev, card: str) -> dict:
     secs = time.perf_counter() - t_phase
     out["seconds"] = secs
     ran = sum(out["seconds_by_demo"].values())
-    print(f"gallery phase: {secs:.1f} s, the demos {ran:.1f} s of it (budget "
-          f"{GALLERY_BUDGET_S:.0f} s); at the fast size: {list(GALLERY_FAST) or 'none'}; "
+    print(f"{label} phase: {secs:.1f} s, the demos {ran:.1f} s of it, the wait for the CPU "
+          f"runs {out['cpu_wait_s']:.1f} s (budget {GALLERY_BUDGET_S:.0f} s); at the fast size: "
+          f"{list(fast_names) or 'none'}; "
           f"not run: {out['not_run'] or 'none'} ({card})", flush=True)
     return out
 
@@ -6323,9 +6511,16 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}", flush=True)
     sass_tile_check(build.cuda_tool("cuobjdump"), build.library_path())
     if sys.argv[1:] == ["--gallery"]:
-        gal = gallery_phase(dev, card)
-        print(json.dumps({k: gal[k] for k in ("seconds", "seconds_by_demo", "launches",
-                                              "cpu_rel", "cpu_gap_db")}), flush=True)
+        runs24 = gallery_cpu_runs(24)  # beside both phases' card demos
+        for phase in (23, 24):
+            try:
+                gal = gallery_phase(dev, card, phase, runs24 if phase == 24 else None)
+            except BaseException:
+                runs24[0].shutdown(wait=False, cancel_futures=True)
+                raise
+            print(json.dumps({k: gal[k] for k in ("seconds", "seconds_by_demo", "launches",
+                                                  "kernels", "cpu_rel", "cpu_gap_db")}),
+                  flush=True)
         return 0
 
     # 3. each kernel vs its plain version on the card
@@ -7073,7 +7268,18 @@ def main() -> int:
     # 23. the gallery's basics, plug-and-play, optimization, unfolded and
     # sampling demos on the card, each held to its claim; the TV demos over K7,
     # against their CPU runs
-    gal23 = gallery_phase(dev, card)
+    # (phase 24's CPU runs start here, beside both phases' card demos)
+    runs24 = gallery_cpu_runs(24)
+    try:
+        gal23 = gallery_phase(dev, card, 23)
+    except BaseException:
+        runs24[0].shutdown(wait=False, cancel_futures=True)
+        raise
+
+    # 24. the gallery's physics, blind, transforms, metrics, models,
+    # remote-sensing and performance demos on the card, each held to its
+    # claim; the TV demos over K7, against their CPU runs
+    gal24 = gallery_phase(dev, card, 24, runs24)
 
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
@@ -7277,6 +7483,13 @@ def main() -> int:
         "launches_gallery": gal23["launches"],
         "gallery_by_variant": {k: v for k, v in gal23["by_variant"].items() if any(v.values())},
         "gallery_cpu_gap_db": gal23["cpu_gap_db"],
+        # phase 24: the same for the physics, models and other demos, with the
+        # K7 demos' reconstructions' gaps to their CPU runs (relative L2)
+        "launches_gallery_24": gal24["launches"],
+        "gallery_24_by_variant": {k: v for k, v in gal24["by_variant"].items()
+                                  if any(v.values())},
+        "gallery_24_cpu_gap_db": gal24["cpu_gap_db"],
+        "gallery_24_cpu_rel": gal24["cpu_rel"],
     }, {
         "name": "up_resblock_chain",
         "route": "cuda",

@@ -1,16 +1,35 @@
-"""The demo gallery on the port: the basics, plug-and-play, optimization,
-unfolded and sampling demos of ``examples/``, each a module with
+"""The demo gallery on the port: the basics, physics, plug-and-play,
+optimization, unfolded, sampling, blind, transforms, metrics, models,
+remote-sensing and performance demos of ``examples/``, each a module with
 ``main(device=None, fast=False, ...)`` that returns its headline numbers.
 
 Run one as ``python -m deepinv_tpu_torch.examples.demo_quickstart`` (the
 CUDA device) or with ``--device cpu --fast`` on a machine without one.
 """
 
-# the demos, in the order of examples/README.md's table
-GALLERY = ("quickstart", "basics", "custom_physics", "custom_optim", "custom_dataset",
-           "pnp_dpir_deblur", "vanilla_pnp", "pnp_mirror_descent", "red_sr", "pnp_multiscale",
-           "wavelet_prior", "tv_minimisation", "custom_prior", "patch_priors", "poisson_mlem",
-           "dip", "3d_denoising", "ct_fbp_unfolded", "unfolded_mri", "deq", "lista",
-           "unfolded_constant_memory", "learned_primal_dual", "vanilla_unfolded",
-           "custom_prior_unfolded", "unfolded_constrained_lista", "diffusion_sampling",
-           "sde_sampling", "mcmc_sampling", "custom_mcmc_kernel")
+# the demos by category, in the order of examples/README.md's table
+CATEGORIES = {
+    "basics": ("quickstart", "basics", "custom_physics", "custom_optim", "custom_dataset"),
+    "physics": ("mri_tour", "ct_projectors", "conebeam_fdk", "radio_interferometry",
+                "physics_tour", "phase_retrieval", "ptychography", "scattering", "blur_tour",
+                "lidar", "spatial_unwrapping", "anscombe", "pet", "single_pixel",
+                "liu_jia_padding", "microscopy_3d"),
+    "plug-and-play": ("pnp_dpir_deblur", "vanilla_pnp", "pnp_mirror_descent", "red_sr",
+                      "pnp_multiscale", "wavelet_prior"),
+    "optimization": ("tv_minimisation", "custom_prior", "patch_priors", "poisson_mlem", "dip",
+                     "3d_denoising"),
+    "unfolded": ("ct_fbp_unfolded", "unfolded_mri", "deq", "lista", "unfolded_constant_memory",
+                 "learned_primal_dual", "vanilla_unfolded", "custom_prior_unfolded",
+                 "unfolded_constrained_lista"),
+    "sampling": ("diffusion_sampling", "sde_sampling", "mcmc_sampling", "custom_mcmc_kernel"),
+    "blind-inverse-problems": ("blind_deblur", "blind_denoising", "optimize_physics_parameter"),
+    "transforms-equivariance": ("transforms", "ei_projective"),
+    "metrics": ("metrics", "custom_niqe"),
+    # the table's models, then the volumetric CNNs, which it does not list
+    "models": ("classic_denoisers", "denoiser_tour", "deal_reconstruction", "training",
+               "foundation_model", "super_resolution", "3d_cnn_denoisers"),
+    "remote sensing": ("pansharpening",),
+    "performance": ("batched_throughput",),
+}
+
+GALLERY = tuple(name for names in CATEGORIES.values() for name in names)

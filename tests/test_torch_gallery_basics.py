@@ -35,9 +35,10 @@ def demo(name):
 
 
 def test_the_gallery_is_there_and_cites_its_jax_demos():
-    """The 30 demos of the basics, plug-and-play, optimization, unfolded and
-    sampling categories exist, each beside the JAX demo it ports, which its
-    docstring names."""
+    """The 62 demos of the gallery's categories on the port (``CATEGORIES``:
+    basics, physics, plug-and-play, optimization, unfolded, sampling, blind,
+    transforms, metrics, models, remote sensing, performance) exist, each
+    beside the JAX demo it ports, which its docstring names."""
     for name in GALLERY:
         assert (ROOT / "examples" / f"demo_{name}.py").exists()
         assert f"examples/demo_{name}.py" in " ".join(demo(name).__doc__.split())

@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --gallery    # phases 1, 2, 23 and 24 alone
+    python3 chip_smoke.py --gallery    # phases 1, 2, 23, 24 and 25 alone
 
 Phases (each one raises, and the script exits non-zero, if it fails):
 
@@ -354,7 +354,7 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    in-memory batches; the Trainer's ``data_parallel`` over ``[card] * 2``
    (SGD, the update within DENOISER_RTOL of one device's; K6 and the stash
    backward once a chunk). HDF5 and ``ImageFolder`` are held by the CPU tests
-   only (the card's host has no h5py or PIL).
+   only (the card's host has no h5py, and no libpng for the native decoder).
 22. the named datasets (``datasets_phase``): LIDC-IDRI's layout written to a
    temporary directory (``metadata.csv`` over LIDC_SUBJECTS CT subjects of
    LIDC_SLICES 512² int16 DICOM slices, RescaleIntercept -1024, a seeded
@@ -382,7 +382,18 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    GALLERY24_K7 launch K7 and lie within TV_RTOL and GALLERY_CPU_DB of their
    CPU runs (run in the worker groups of GALLERY_CPU_GROUPS, started before
    phase 23); batched_throughput's images/s at
-   B=8 above B=1. Timed: each demo's seconds.
+   B=8 above B=1. Timed: each demo's seconds;
+25. the gallery's last 21 demos (``gallery_phase(..., 25)``): the
+   self-supervised, adversarial, distributed and datasets categories, as
+   phase 23 runs its own (GALLERY25_FAST, GALLERY25_CLAIMS), none of them on
+   a kernel (their DnCNNs are f32 of 8 or 16 features, the fused chains'
+   gate asks for bf16 at 64): every kernel's launches are counted around each
+   demo and summed on the phase's line. The distributed demos run on 8 mesh
+   entries on the card (``devices=[card] * 8``, as the JAX demos run on 8
+   virtual CPU devices). A demo that needs a package the host lacks
+   (GALLERY_PACKAGES: PIL, h5py or scipy) or the native image decoder
+   (GALLERY_NATIVE, where libpng or libjpeg is missing) is not run, and the
+   phase names it and what is missing. Timed: each demo's seconds.
 
 Phase 3 also holds K6 (the stash forward, on the wgmma tile) to its plain
 version at the chain shapes, at the train batch (16x64x256², L=18) and at
@@ -1052,6 +1063,104 @@ GALLERY24_CLAIMS = {
                            > o["images_per_s"]["1"] and o["first_image_rel_diff"] < 1e-5),
     "pansharpening": ("PnP-TV beats the Brovey fusion",
                       lambda o: o["psnr_xhat"] > o["psnr_brovey"]),
+}
+
+# phase 25: the gallery's self-supervised, adversarial, distributed and
+# datasets demos (deepinv_tpu_torch/examples CATEGORIES), within
+# GALLERY_BUDGET_S as phases 23 and 24; none reaches a kernel
+GALLERY_24 = ("physics", "blind-inverse-problems", "transforms-equivariance", "metrics",
+              "models", "remote sensing", "performance")
+GALLERY_25 = ("self-supervised-learning", "adversarial-learning", "distributed", "datasets")
+# the demos of phase 25 that run at their fast size on the card: none
+GALLERY25_FAST = ()
+# the packages beyond the port's own that a gallery demo imports where it
+# runs: a demo whose package the host lacks is not run, and its phase says so
+GALLERY_PACKAGES = {"custom_dataset": ("h5py",), "microscopy_denoising": ("PIL",),
+                    "native_dataloader": ("PIL",), "io": ("PIL", "h5py", "scipy"),
+                    "hdf5_convention": ("h5py",)}
+# the demos that need the port's native image decoder (g++, libpng and
+# libjpeg on the host): ``ImageFolder.batches`` has no other path
+GALLERY_NATIVE = ("native_dataloader",)
+# the JAX demo's K-weight range (WeightedSplittingLoss, demo_scan_specific),
+# and how far the port's may lie from its top: both are Monte-Carlo means of
+# 2000 mask draws, and the top, ~(0.4 P)^-1/2, comes from the least sampled
+# column, whose density P ~ 0.07 such a mean knows to ~8%, so the top to ~4%
+# (5.87 on the port's seeded draws, 1.9% from JAX's)
+SCAN_K_WEIGHT = (1.00, 5.76)
+SCAN_K_WEIGHT_RTOL = 0.05
+
+
+def _falls_and_rises(o):
+    """A Trainer demo's claim: the last epoch's loss below the first's and
+    its train PSNR above the first's."""
+    return (o["loss_history"][-1] < o["loss_history"][0]
+            and o["psnr_history"][-1] > o["psnr_history"][0])
+
+
+GALLERY25_CLAIMS = {
+    "selfsup_ei": ("the loss falls, the train PSNR rises", _falls_and_rises),
+    "splitting_loss": ("the loss falls, the train PSNR rises, a finite test PSNR",
+                       lambda o: _falls_and_rises(o) and math.isfinite(o["psnr_test"])),
+    "sure_denoising": ("mean SURE within 0.01 of the mean MSE",
+                       lambda o: abs(o["sure_mean"] - o["true_mse_mean"]) < 0.01
+                       and math.isfinite(o["sure_poisson_mean"])),
+    "r2r_denoising": ("the loss falls, the train PSNR rises", _falls_and_rises),
+    "n2n_denoising": ("the loss falls, the train PSNR rises", _falls_and_rises),
+    "multioperator_imaging": ("3 operators, the loss falls, the train PSNR rises",
+                              lambda o: o["operators"] == 3 and _falls_and_rises(o)),
+    "artifact2artifact": ("the loss falls", lambda o: o["losses"][-1] < o["losses"][0]),
+    "unsure": ("the closest sigma nearer 0.1 than the start",
+               lambda o: abs(o["sigma_closest"] - o["sigma_true"])
+               < abs(o["sigmas"][0] - o["sigma_true"])),
+    "equivariant_splitting": ("the loss falls, the train PSNR rises, a finite test PSNR",
+                              lambda o: _falls_and_rises(o) and math.isfinite(o["psnr_test"])),
+    "poisson2sparse": ("Poisson2Sparse and Anscombe + median beat y",
+                       lambda o: min(o["psnr_poisson2sparse"], o["psnr_anscombe_median"])
+                       > o["psnr_y"]),
+    "scan_specific": ("the MoDL loss falls, the K-weight range JAX's [1.00, 5.76]",
+                      lambda o: o["finetune_losses"][-1] < o["finetune_losses"][0]
+                      and abs(o["k_weight_min"] - SCAN_K_WEIGHT[0]) < 1e-3
+                      and abs(o["k_weight_max"] / SCAN_K_WEIGHT[1] - 1) < SCAN_K_WEIGHT_RTOL),
+    "microscopy_denoising": ("8 frames, denoised beats noisy",
+                             lambda o: o["n_frames"] == 8
+                             and o["psnr_denoised"] > o["psnr_noisy"]),
+    "lowfieldmri": ("R2R beats one repetition and the 3-average",
+                    lambda o: o["psnr_r2r"] > max(o["psnr_single"], o["psnr_average"])),
+    "adversarial_training": ("a finite loss an epoch, the last below the first",
+                             lambda o: len(o["loss_history"]) == o["epochs"]
+                             and all(math.isfinite(v) for v in o["loss_history"])
+                             and o["loss_history"][-1] < o["loss_history"][0]),
+    "csgm": ("residual < 0.25 residual_0",
+             lambda o: o["residual"] < 0.25 * o["residual_start"]),
+    "distributed_pnp": ("8 entries, mse < 0.5 mse_0",
+                        lambda o: o["mesh"] == 8 and o["mse"] < 0.5 * o["mse_zero"]),
+    "physics_distributed": ("8 entries, adjointness < 1e-4, A_dagger rel < 0.5",
+                            lambda o: o["mesh"] == 8 and o["adjointness_gap"] < 1e-4
+                            and o["rel"] < 0.5),
+    "denoiser_distributed": ("halo < 1e-5 < basic, micro-batched < 1e-5",
+                             lambda o: o["err_halo"] < 1e-5 < o["err_basic"]
+                             and o["err_microbatch"] < 1e-5),
+    "native_dataloader": ("4 batches of (8, 3, 64, 64)",
+                          lambda o: o["batch_shapes"] == [[8, 3, 64, 64]] * 4
+                          and o["item_shape"] == [3, 64, 64]),
+    "io": ("the four readers' shapes, the errors within the printed",
+           lambda o: o["npy_maxerr"] == 0.0 and o["mat_keys"] == ["img", "pixel_size"]
+           and o["tiff_dtype"] == "uint16" and o["tiff_maxerr"] < 1e-5
+           and o["h5_shape"] == [1, 1, 64, 64] and o["img_shape"] == [1, 1, 64, 64]),
+    "hdf5_convention": ("the members, the NaN ground truth, the transform on x only",
+                        lambda o: o["members"] == ["sigma_test", "sigma_train", "x_test",
+                                                   "x_train", "y_test", "y_train"]
+                        and o["deploy_x_nan"] and o["stacked_parts"] == [[1, o["H"], o["H"]]] * 2
+                        and o["transform"] == {"x": [1, o["H"] // 2, o["H"] // 2],
+                                               "y": [1, o["H"], o["H"]]}),
+}
+# each gallery phase: its categories, its fast demos, its K7 demos, its
+# claims, its label and the PSNRs its K7 demos need not match on the CPU
+GALLERY_PHASES = {
+    23: (GALLERY_23, GALLERY_FAST, GALLERY_K7, GALLERY_CLAIMS, "gallery", {}),
+    24: (GALLERY_24, GALLERY24_FAST, GALLERY24_K7, GALLERY24_CLAIMS, "gallery 24",
+         GALLERY24_CPU_DB_SKIP),
+    25: (GALLERY_25, GALLERY25_FAST, (), GALLERY25_CLAIMS, "gallery 25", {}),
 }
 
 PEAK_BF16 = 989e12
@@ -5753,8 +5862,8 @@ def serving_phase(dev, card: str, size: int = 256, nc=(64, 128, 256, 512), nb: i
     ``data_parallel`` over ``[dev] * 2`` takes ``steps`` SGD steps on the
     in-memory batches: the weights' update within DENOISER_RTOL of one
     device's, K6 once and the stash backward L + 2 times a chunk. HDF5 and
-    ``ImageFolder`` are not driven here: the card's host has no h5py and no
-    PIL and may lack libpng's headers, so the CPU tests
+    ``ImageFolder`` are not driven here: the card's host has no h5py, and
+    no libpng for the native decoder (``libpng16.so.16``), so the CPU tests
     (tests/test_torch_data_pipeline.py) hold them.
 
     On the CPU, at small sizes, it rehearses the checks (K6 and the stash
@@ -6334,58 +6443,81 @@ def kernels_counted(run):
             dict(ops["chambolle_prox"].launches_by_variant))
 
 
+def gallery_names(phase: int) -> tuple:
+    """The demos of gallery phase ``phase``: those of its categories
+    (GALLERY_PHASES), in ``CATEGORIES``' order."""
+    from deepinv_tpu_torch.examples import CATEGORIES
+
+    return tuple(n for c in GALLERY_PHASES[phase][0] for n in CATEGORIES[c])
+
+
+def gallery_missing(name: str) -> list:
+    """What demo ``name`` needs and the host lacks: the packages of
+    GALLERY_PACKAGES that ``importlib.util.find_spec`` does not find, and the
+    native image decoder for the demos of GALLERY_NATIVE where it did not
+    build."""
+    import importlib.util
+
+    missing = [p for p in GALLERY_PACKAGES.get(name, ()) if importlib.util.find_spec(p) is None]
+    if name in GALLERY_NATIVE and not missing:
+        from deepinv_tpu_torch.native import _state, native_available
+
+        if not native_available():
+            why = (str(_state["error"]).strip().splitlines() or [""])[0][:120]
+            missing.append(f"native image decoder ({why})")
+    return missing
+
+
 def gallery_cpu_runs(phase: int):
     """Start the CPU runs of gallery phase ``phase``'s K7 demos
     (GALLERY_CPU_GROUPS, at the fast size where the phase's fast tuple names
     a demo), one spawned worker process a group: the pool and the futures,
     whose results :func:`gallery_phase` reads and whose pool it shuts
-    down."""
+    down. A phase without K7 demos starts no pool: ``(None, [])``."""
     import concurrent.futures
     import multiprocessing
 
-    fast_names = GALLERY_FAST if phase == 23 else GALLERY24_FAST
-    groups = GALLERY_CPU_GROUPS[phase]
+    fast_names = GALLERY_PHASES[phase][1]
+    groups = GALLERY_CPU_GROUPS.get(phase, ())
+    if not groups:
+        return None, []
     pool = concurrent.futures.ProcessPoolExecutor(
         len(groups), mp_context=multiprocessing.get_context("spawn"))
     return pool, [pool.submit(gallery_on_cpu, g, fast_names, threads) for g, threads in groups]
 
 
 def gallery_phase(dev, card: str, phase: int = 23, cpu_runs=None) -> dict:
-    """Phase 23 or 24: the gallery's demos, each ``main(device=...)`` of
+    """Phase 23, 24 or 25: the gallery's demos, each ``main(device=...)`` of
     ``deepinv_tpu_torch/examples/demo_<name>.py`` at its full size (at its
     fast size where the phase's fast tuple names it) on the card, each held to
     its JAX demo's claim. Phase 23 runs the 30 demos of the basics,
     plug-and-play, optimization, unfolded and sampling categories
     (GALLERY_23; GALLERY_FAST, GALLERY_K7, GALLERY_CLAIMS), phase 24 the 32 of
-    the others (GALLERY24_FAST, GALLERY24_K7, GALLERY24_CLAIMS). Every
+    the physics, blind, transforms, metrics, models, remote-sensing and
+    performance ones (GALLERY_24; GALLERY24_FAST, GALLERY24_K7,
+    GALLERY24_CLAIMS), phase 25 the 21 of the self-supervised, adversarial,
+    distributed and datasets ones (GALLERY_25; GALLERY25_FAST,
+    GALLERY25_CLAIMS), none of which reaches K7. Every
     kernel's launch count is set to 0 just before each demo and read just
-    after (:func:`kernels_counted`), and printed on the demo's line; the K7
-    demos must launch K7. Those demos also run on the CPU (the plain prox)
+    after (:func:`kernels_counted`), printed on the demo's line and summed
+    on the phase's; the K7 demos must launch K7. Those demos also run on the CPU (the plain prox)
     at the same size, from the same CPU draws, in worker processes while the
     card's demos run (``cpu_runs``, from :func:`gallery_cpu_runs`, started
     here where None): each reconstruction of the card's run lies within
     TV_RTOL (relative L2) of the CPU's, and each PSNR within GALLERY_CPU_DB
     (GALLERY24_CPU_DB_SKIP names the PSNRs that the CPU's need not match). A
-    demo that needs h5py runs where the host has it."""
-    import importlib
+    demo that needs a package (GALLERY_PACKAGES) or the native decoder
+    (GALLERY_NATIVE) runs where the host has it, and is named as not run,
+    with what the host lacks, where it has not (:func:`gallery_missing`)."""
+    import importlib.util
 
-    from deepinv_tpu_torch.examples import CATEGORIES
-
-    pool, futures = gallery_cpu_runs(phase) if cpu_runs is None else cpu_runs
-    if phase == 23:
-        names = tuple(n for c in GALLERY_23 for n in CATEGORIES[c])
-        fast_names, k7, claims, label = GALLERY_FAST, GALLERY_K7, GALLERY_CLAIMS, "gallery"
-        db_skip = {}
-    else:
-        names = tuple(n for c, ns in CATEGORIES.items() if c not in GALLERY_23 for n in ns)
-        fast_names, k7, claims, label = (GALLERY24_FAST, GALLERY24_K7, GALLERY24_CLAIMS,
-                                         "gallery 24")
-        db_skip = GALLERY24_CPU_DB_SKIP
+    _, fast_names, k7, claims, label, db_skip = GALLERY_PHASES[phase]
+    names = gallery_names(phase)
     check(set(claims) == set(names) and set(k7) <= set(names)
-          and sorted(n for g, _ in GALLERY_CPU_GROUPS[phase] for n in g) == sorted(k7),
+          and sorted(n for g, _ in GALLERY_CPU_GROUPS.get(phase, ()) for n in g) == sorted(k7),
           f"{label}: the claims, K7 demos and CPU groups do not cover the phase's demos")
+    pool, futures = gallery_cpu_runs(phase) if cpu_runs is None else cpu_runs
     t_phase = time.perf_counter()
-    has_h5py = importlib.util.find_spec("h5py") is not None
     out = {"seconds_by_demo": {}, "launches": {}, "by_variant": {}, "kernels": {},
            "fast": list(fast_names), "not_run": [], "cpu_gap_db": {}, "cpu_rel": {}}
     card_runs = {}
@@ -6395,9 +6527,11 @@ def gallery_phase(dev, card: str, phase: int = 23, cpu_runs=None) -> dict:
 
     try:
         for name in names:
-            if name == "custom_dataset" and not has_h5py:
+            missing = gallery_missing(name)
+            if missing:
                 out["not_run"].append(name)
-                print(f"{label}: demo_{name} not run: the host has no h5py ({card})", flush=True)
+                print(f"{label}: demo_{name} not run: the host has no {', '.join(missing)} "
+                      f"({card})", flush=True)
                 continue
             mod = importlib.import_module(f"deepinv_tpu_torch.examples.demo_{name}")
             fast = name in fast_names
@@ -6414,6 +6548,9 @@ def gallery_phase(dev, card: str, phase: int = 23, cpu_runs=None) -> dict:
             what, claim = claims[name]
             nums = {k: v for k, v in res.items() if isinstance(v, float) or (
                 isinstance(v, dict) and v and all(isinstance(u, float) for u in v.values()))}
+            # a history (a loss an epoch or a step) by its first and last entries
+            nums.update({f"{k}[0, -1]": [v[0], v[-1]] for k, v in res.items()
+                         if isinstance(v, list) and v and all(isinstance(u, float) for u in v)})
             print(f"{label}: demo_{name}{' (fast size)' if fast else ''} {secs:.2f} s, K7 {n7} "
                   f"{by7}, kernels launched {out['kernels'][name] or 'none'}, {nums} ({card})",
                   flush=True)
@@ -6425,7 +6562,8 @@ def gallery_phase(dev, card: str, phase: int = 23, cpu_runs=None) -> dict:
         cpu_runs = {k: v for f in futures for k, v in f.result().items()}
         out["cpu_wait_s"] = time.perf_counter() - t_wait
     finally:
-        pool.shutdown(cancel_futures=True)
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
 
     def gaps_to_cpu(name, on_card_run, on_cpu):
         gaps = {k: abs(on_card_run[k] - on_cpu[k]) for k in on_cpu
@@ -6449,9 +6587,13 @@ def gallery_phase(dev, card: str, phase: int = 23, cpu_runs=None) -> dict:
     secs = time.perf_counter() - t_phase
     out["seconds"] = secs
     ran = sum(out["seconds_by_demo"].values())
+    out["kernels_total"] = {k: sum(c.get(k, 0) for c in out["kernels"].values())
+                            for k in kernel_ops()}
+    launched = {k: v for k, v in out["kernels_total"].items() if v}
     print(f"{label} phase: {secs:.1f} s, the demos {ran:.1f} s of it, the wait for the CPU "
-          f"runs {out['cpu_wait_s']:.1f} s (budget {GALLERY_BUDGET_S:.0f} s); at the fast size: "
-          f"{list(fast_names) or 'none'}; "
+          f"runs {out['cpu_wait_s']:.1f} s (budget {GALLERY_BUDGET_S:.0f} s); "
+          f"{len(out['seconds_by_demo'])} demos run; kernels launched {launched or 'none'}; "
+          f"at the fast size: {list(fast_names) or 'none'}; "
           f"not run: {out['not_run'] or 'none'} ({card})", flush=True)
     return out
 
@@ -6512,14 +6654,15 @@ def main() -> int:
     sass_tile_check(build.cuda_tool("cuobjdump"), build.library_path())
     if sys.argv[1:] == ["--gallery"]:
         runs24 = gallery_cpu_runs(24)  # beside both phases' card demos
-        for phase in (23, 24):
+        for phase in (23, 24, 25):
             try:
                 gal = gallery_phase(dev, card, phase, runs24 if phase == 24 else None)
             except BaseException:
                 runs24[0].shutdown(wait=False, cancel_futures=True)
                 raise
             print(json.dumps({k: gal[k] for k in ("seconds", "seconds_by_demo", "launches",
-                                                  "kernels", "cpu_rel", "cpu_gap_db")}),
+                                                  "kernels", "kernels_total", "not_run",
+                                                  "cpu_rel", "cpu_gap_db")}),
                   flush=True)
         return 0
 
@@ -7281,6 +7424,11 @@ def main() -> int:
     # claim; the TV demos over K7, against their CPU runs
     gal24 = gallery_phase(dev, card, 24, runs24)
 
+    # 25. the gallery's self-supervised, adversarial, distributed and datasets
+    # demos on the card, each held to its claim, every kernel counted around
+    # each (none expected); those whose package the host lacks named
+    gal25 = gallery_phase(dev, card, 25)
+
     # bounds of the timed calls: (1, 64, 256, 256) bf16 in and out, bf16 weights
     act_bytes = 2 * 2 * math.prod(KERNEL_SHAPES[0][0])
     w_bytes = 9 * 64 * 64 * 2
@@ -7490,6 +7638,10 @@ def main() -> int:
                                   if any(v.values())},
         "gallery_24_cpu_gap_db": gal24["cpu_gap_db"],
         "gallery_24_cpu_rel": gal24["cpu_rel"],
+        # phase 25: the same for the self-supervised, adversarial, distributed
+        # and datasets demos (none expected), and those not run for a package
+        "launches_gallery_25": gal25["launches"],
+        "gallery_25_not_run": gal25["not_run"],
     }, {
         "name": "up_resblock_chain",
         "route": "cuda",

@@ -1,6 +1,7 @@
-"""The demo gallery on the port: the basics, physics, plug-and-play,
-optimization, unfolded, sampling, blind, transforms, metrics, models,
-remote-sensing and performance demos of ``examples/``, each a module with
+"""The demo gallery on the port: every demo of ``examples/`` (the basics,
+physics, plug-and-play, optimization, unfolded, sampling, self-supervised,
+adversarial, blind, transforms, metrics, models, remote-sensing,
+performance, distributed and datasets demos), each a module with
 ``main(device=None, fast=False, ...)`` that returns its headline numbers.
 
 Run one as ``python -m deepinv_tpu_torch.examples.demo_quickstart`` (the
@@ -22,6 +23,12 @@ CATEGORIES = {
                  "learned_primal_dual", "vanilla_unfolded", "custom_prior_unfolded",
                  "unfolded_constrained_lista"),
     "sampling": ("diffusion_sampling", "sde_sampling", "mcmc_sampling", "custom_mcmc_kernel"),
+    "self-supervised-learning": ("selfsup_ei", "splitting_loss", "sure_denoising",
+                                 "r2r_denoising", "n2n_denoising", "multioperator_imaging",
+                                 "artifact2artifact", "unsure", "equivariant_splitting",
+                                 "poisson2sparse", "scan_specific", "microscopy_denoising",
+                                 "lowfieldmri"),
+    "adversarial-learning": ("adversarial_training", "csgm"),
     "blind-inverse-problems": ("blind_deblur", "blind_denoising", "optimize_physics_parameter"),
     "transforms-equivariance": ("transforms", "ei_projective"),
     "metrics": ("metrics", "custom_niqe"),
@@ -30,6 +37,8 @@ CATEGORIES = {
                "foundation_model", "super_resolution", "3d_cnn_denoisers"),
     "remote sensing": ("pansharpening",),
     "performance": ("batched_throughput",),
+    "distributed": ("distributed_pnp", "physics_distributed", "denoiser_distributed"),
+    "datasets": ("native_dataloader", "io", "hdf5_convention"),
 }
 
 GALLERY = tuple(name for names in CATEGORIES.values() for name in names)

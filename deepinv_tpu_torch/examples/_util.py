@@ -42,6 +42,39 @@ def generator(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+def train_logged(trainer) -> list:
+    """``trainer.train()``, returning each epoch's train logs: its running
+    ``TotalLoss`` and metrics after its last batch, the numbers of the line
+    that the trainer's ``verbose`` prints at the epoch's end."""
+    logs, step = [], trainer.step
+
+    def logged(epoch, *args, **kwargs):
+        out = step(epoch, *args, **kwargs)
+        if kwargs.get("last_batch") and kwargs.get("train", True):
+            logs.append({k: float(v) for k, v in out.items()})
+        return out
+
+    trainer.step = logged
+    try:
+        trainer.train()
+    finally:
+        del trainer.step
+    return logs
+
+
+def train_history(trainer, label: str) -> dict:
+    """:func:`train_logged`, as ``loss_history`` (each epoch's mean
+    ``TotalLoss``, the trainer's own ``loss_history``) and ``psnr_history``
+    (each epoch's mean train PSNR), printed first to last under ``label``."""
+    logs = train_logged(trainer)
+    out = {"loss_history": [float(l) for l in trainer.loss_history],
+           "psnr_history": [l["PSNR"] for l in logs]}
+    print(f"{label}: TotalLoss {out['loss_history'][0]:.5f} -> {out['loss_history'][-1]:.5f}, "
+          f"train PSNR {out['psnr_history'][0]:.2f} -> {out['psnr_history'][-1]:.2f} dB over "
+          f"{len(logs)} epochs")
+    return out
+
+
 def cli(main, doc: str = None) -> dict:
     """Run ``main`` with the command line's ``--device`` and ``--fast``,
     print its numbers as one JSON line (less the reconstructions some demos

@@ -137,16 +137,16 @@ class InferenceServer:
 
             def do_POST(self):
                 try:
+                    # the body is read before any reply: closing a socket
+                    # with request bytes unread resets the connection, and
+                    # the client then loses the reply (a 401's among them)
+                    body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
                     if server_self.api_key:
                         auth = self.headers.get("Authorization", "")
                         if auth != f"Bearer {server_self.api_key}":
-                            self.send_response(401)
-                            self.end_headers()
-                            self.wfile.write(b'{"error": "unauthorized"}')
+                            self._reply(401, {"error": "unauthorized"})
                             return
-                    length = int(self.headers.get("Content-Length", 0))
-                    payload = json.loads(self.rfile.read(length))
-                    self._reply(200, server_self._infer(payload))
+                    self._reply(200, server_self._infer(json.loads(body)))
                 except Exception as e:  # noqa: BLE001 — reported to the client
                     self._reply(500, {"error": str(e)})
 

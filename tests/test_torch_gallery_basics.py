@@ -35,13 +35,19 @@ def demo(name):
 
 
 def test_the_gallery_is_there_and_cites_its_jax_demos():
-    """The 62 demos of the gallery's categories on the port (``CATEGORIES``:
-    basics, physics, plug-and-play, optimization, unfolded, sampling, blind,
-    transforms, metrics, models, remote sensing, performance) exist, each
-    beside the JAX demo it ports, which its docstring names."""
+    """The 83 demos of the gallery's categories on the port (``CATEGORIES``:
+    basics, physics, plug-and-play, optimization, unfolded, sampling,
+    self-supervised, adversarial, blind, transforms, metrics, models, remote
+    sensing, performance, distributed, datasets) exist, each beside the JAX
+    demo it ports, which its docstring names; and they are every demo of
+    ``examples/``, the port's counterpart of
+    ``tests/test_examples.py::test_gallery_is_complete``."""
     for name in GALLERY:
         assert (ROOT / "examples" / f"demo_{name}.py").exists()
         assert f"examples/demo_{name}.py" in " ".join(demo(name).__doc__.split())
+    jax_demos = {p.stem[len("demo_"):] for p in (ROOT / "examples").glob("demo_*.py")}
+    assert len(GALLERY) == len(set(GALLERY)) == len(jax_demos) == 83
+    assert set(GALLERY) == jax_demos
 
 
 def test_the_gallery_imports_no_jax():

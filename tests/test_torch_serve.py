@@ -139,6 +139,18 @@ def test_errors_as_jax(hosted):
     assert "no model registered for physics 'Nope'" in got["port"][1]["error"]
 
 
+def test_a_large_unauthorised_request_gets_its_401(hosted):
+    """A bad key on an 8 MB body still gets its 401 and message: the server
+    reads the body before it replies, so closing the connection does not
+    reset it under the client (a reply over unread bytes lost 19 of 20 such
+    requests at 1 MB)."""
+    urls = hosted[-1]
+    body = {"y": Client.serialize(torch.zeros(1, 1, 1448, 1448)), "physics": "Nope",
+            "kwargs": {}}
+    for _ in range(5):
+        assert _raw(urls["port"], body, "wrong") == (401, {"error": "unauthorized"})
+
+
 class _Probe(torch.nn.Module):
     """A recon that records grad mode and how many calls overlap, with a
     read-modify-write that a second thread inside it would break."""

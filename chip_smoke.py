@@ -63,10 +63,10 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    iterations) and on CT (256², 90 angles, normalized, 30 iterations from the
    FBP); PnP-HQS with ``TVDenoiser(50)`` on the deblurring problem, 10
    iterations. Each must be finite, launch K7 once per iteration on its
-   resident variant (``chambolle_prox.launches_by_variant``), agree with
-   the same run on the plain prox (``use_pallas=False``) and be no worse than
-   the naive estimate (``y``, the zero-filled ``A^T y``, the FBP) by more than
-   0.5 dB of PSNR;
+   resident variant (the count ``kernel.chambolle_prox.launches.resident``),
+   agree with the same run on the plain prox (``use_pallas=False``) and be no
+   worse than the naive estimate (``y``, the zero-filled ``A^T y``, the FBP)
+   by more than 0.5 dB of PSNR;
 7. times, with CUDA events after warm-up, in turns: each kernel against its
    plain version (K1, K5, K2/K3, K4: and against the same stage as cuDNN
    bf16 layers; K1 and K5 on the wgmma tile, on the mma.sync tile and as
@@ -1169,6 +1169,47 @@ PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 
+def kernel_launches(op) -> int:
+    """The launches of kernel op ``op`` (a function of ``ops/kernels/``) in
+    the library's counter registry."""
+    from deepinv_tpu_torch.utils.profiling import counters
+
+    return counters[f"kernel.{op.__name__}.launches"]
+
+
+def kernel_launches_by_variant(op) -> dict:
+    """K7's launches by variant, ``{"resident": n, "global": n}``."""
+    from deepinv_tpu_torch.utils.profiling import counters
+
+    return {v: counters[f"kernel.{op.__name__}.launches.{v}"] for v in ("resident", "global")}
+
+
+def reset_kernel_launches(*ops) -> None:
+    """Set the launches of the kernel ops ``ops``, by variant too, to 0."""
+    from deepinv_tpu_torch.utils.profiling import counters
+
+    counters.reset(*(k for k in list(counters) for op in ops
+                     if k.startswith(f"kernel.{op.__name__}.launches")))
+
+
+def loop_count(name: str) -> int:
+    """A count of the device loops (``device_while``) in the library's counter
+    registry: ``loops``, ``host_reads`` or ``bodies``."""
+    from deepinv_tpu_torch.utils.profiling import counters
+
+    return counters[f"loop.{name}"]
+
+
+def reset_loops() -> None:
+    """Set the device loops' counts to 0: the registry's and the moved
+    iterations that ``loop_stats`` sums on the device."""
+    from deepinv_tpu_torch.core import loop_stats
+    from deepinv_tpu_torch.utils.profiling import counters
+
+    loop_stats.reset()
+    counters.reset("loop.loops", "loop.host_reads", "loop.bodies")
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
@@ -1423,13 +1464,13 @@ def kernel_vs_plain(label: str, run, plain, x, bound: float, by_range: bool = Fa
 
 def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain=None,
           residual_of=None, iters: int = MAX_ITER):
-    """One reconstruction on the kernel path (the ``launches`` of ``op``, one
+    """One reconstruction on the kernel path (the launches of ``op``, one
     kernel op or a tuple of them, set to 0 just before it and read just
-    after), checked: finite output of ``shape``, one launch of each op and one
-    denoiser call per iteration, each call of ``net`` against the same call
-    on the plain chain, and the whole run against the plain chain's run, of
-    ``iters`` iterations. Returns ``(out, out_plain, launches)``, the
-    launches of the first op.
+    after: :func:`kernel_launches`), checked: finite output of ``shape``,
+    one launch of each op and one denoiser call per iteration, each call of
+    ``net`` against the same call on the plain chain, and the whole run
+    against the plain chain's run, of ``iters`` iterations. Returns
+    ``(out, out_plain, launches)``, the launches of the first op.
 
     With ``exact_chain`` (a context that runs the chain in f32 with no
     rounding inside it; DnCNN), each call's residual is held too, and the
@@ -1448,13 +1489,13 @@ def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     for o in ops:
-        o.launches = 0
+        reset_kernel_launches(o)
     t0 = time.perf_counter()
     with torch.no_grad():
         out = model(y, physics)
     sync(y.device)
     first_s = time.perf_counter() - t0
-    counts = [o.launches for o in ops]
+    counts = [kernel_launches(o) for o in ops]
     launches = counts[0]
     hook.remove()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
@@ -1488,11 +1529,12 @@ def drive(name: str, model, y, physics, net, op, plain_chain, shape, exact_chain
         check(ok, f"{name}: denoiser call {i} disagrees with the plain chain")
     if res_hook is not None:
         res_hook.remove()
-    launches_after = [o.launches for o in ops]
+    launches_after = [kernel_launches(o) for o in ops]
     with plain_chain(), torch.no_grad():
         out_plain = model(y, physics)
     sync(y.device)
-    check([o.launches for o in ops] == launches_after, f"{name}: the plain run launched a kernel")
+    check([kernel_launches(o) for o in ops] == launches_after,
+          f"{name}: the plain run launched a kernel")
     rerr = float((out - out_plain).norm() / out_plain.norm())
     print(f"{name} kernel vs plain chain: relative L2 error {rerr} (bound {RECON_RTOL}), "
           f"max_abs_err {float((out - out_plain).abs().max())}, output max "
@@ -1638,7 +1680,7 @@ def stash_vs_plain(label: str, h, ws, bs, cot, tile: str = "wgmma"):
     launch per call, every stash slot within KERNEL_RTOL of its max. On the
     default tile also the stash backward on its kernels from the card's
     stash (cotangent ``cot``), for f32 and bf16 weights: L + 2 launches a
-    call (``stash_backward.launches`` set to 0 just before), db the same bits
+    call (``kernel.stash_backward.launches`` set to 0 just before), db the same bits
     in a second call, and dh, dW, db within STASH_BWD_RTOL of the plain
     backward. Returns the max abs error over the stash and the backward's
     max abs errors by output (bf16 weights; None on the mma.sync tile)."""
@@ -1648,12 +1690,12 @@ def stash_vs_plain(label: str, h, ws, bs, cot, tile: str = "wgmma"):
         _launch_stash, conv_chain, conv_chain_stash, conv_chain_stash_plain, pack_bias,
         pack_weights, stash_backward)
 
-    conv_chain.launches = conv_chain_stash.launches = 0
+    reset_kernel_launches(conv_chain, conv_chain_stash)
     with torch.no_grad():
         got = (conv_chain_stash(h, ws, bs) if tile == "wgmma"
                else _launch_stash(h, pack_weights(ws), pack_bias(bs), tile))
         torch.cuda.synchronize()
-        launches = (conv_chain_stash.launches, conv_chain.launches)
+        launches = (kernel_launches(conv_chain_stash), kernel_launches(conv_chain))
         want = conv_chain_stash_plain(h, ws, bs)
     check(launches == (1, 0), f"{label}: expected one K6 launch and no K5 launch, got {launches}")
     check(bool(torch.isfinite(got.float()).all()), f"non-finite stash: {label}")
@@ -1671,10 +1713,10 @@ def stash_vs_plain(label: str, h, ws, bs, cot, tile: str = "wgmma"):
     # autocast: dW as a bf16 cuDNN wgrad)
     for wdt in (torch.float32, torch.bfloat16):
         w = ws.to(wdt)
-        stash_backward.launches = 0
+        reset_kernel_launches(stash_backward)
         k = stash_backward(h, w, got, cot)
         torch.cuda.synchronize()
-        n = stash_backward.launches
+        n = kernel_launches(stash_backward)
         check(n == L + 2, f"{label}: stash backward launched {n} kernels, not L + 2 = {L + 2}")
         again = stash_backward(h, w, got, cot)[2]
         check(torch.equal(again, k[2]), f"{label}: db differs between two runs on the same inputs")
@@ -1759,7 +1801,7 @@ def planted_fault(fault):
     """Inside the block, the chain's autograd backward gets
     ``fault(dX, dW, db)`` of the stash backward's result: a mutation check of
     the checks, in this process only (the module's function is restored on
-    exit; launches inside count on the wrapper, not on the kernel's count)."""
+    exit)."""
     import deepinv_tpu_torch.ops.kernels.conv_chain as ck
 
     real = ck.stash_backward
@@ -1767,7 +1809,6 @@ def planted_fault(fault):
     def faulty(*args, **kwargs):
         return fault(*real(*args, **kwargs))
 
-    faulty.launches = 0
     ck.stash_backward = faulty
     try:
         yield
@@ -1867,23 +1908,21 @@ def plain_tv(priors):
 
 
 def tv_drive(name: str, model, y, physics, priors, x, naive, iters: int, op) -> int:
-    """One TV reconstruction on the kernel path (``op.launches`` and
-    ``op.launches_by_variant`` set to 0 just before it and read just after),
+    """One TV reconstruction on the kernel path (``op``'s launches and
+    launches by variant set to 0 just before it and read just after),
     checked: finite output shaped like ``x``, one prox launch per iteration,
     each on the resident variant, within TV_RECON_RTOL of the same run on the
     plain prox, and no worse than ``naive`` by more than TV_PSNR_SLACK_DB.
     Returns the launches."""
     import torch
 
-    op.launches = 0
-    for v in op.launches_by_variant:
-        op.launches_by_variant[v] = 0
+    reset_kernel_launches(op)
     t0 = time.perf_counter()
     with torch.no_grad():
         out = model(y, physics)
     sync(x.device)
     first_s = time.perf_counter() - t0
-    launches, by_variant = op.launches, dict(op.launches_by_variant)
+    launches, by_variant = kernel_launches(op), kernel_launches_by_variant(op)
     print(f"{name} {iters} it: first run {first_s:.3f} s, prox launches {launches} "
           f"{by_variant}", flush=True)
     check(launches == iters, f"{name}: expected {iters} prox launches, got {launches}")
@@ -1895,7 +1934,7 @@ def tv_drive(name: str, model, y, physics, priors, x, naive, iters: int, op) -> 
     with plain_tv(priors), torch.no_grad():
         out_plain = model(y, physics)
     sync(x.device)
-    check(op.launches == launches, f"{name}: the plain run launched the kernel")
+    check(kernel_launches(op) == launches, f"{name}: the plain run launched the kernel")
     rerr = float((out - out_plain).norm() / out_plain.norm())
     p_k, p_p, p_n = psnr(out, x), psnr(out_plain, x), psnr(naive, x)
     print(f"{name}: kernel vs plain prox relative L2 error {rerr} (bound {TV_RECON_RTOL}); "
@@ -1987,9 +2026,10 @@ def train_phase(dev, net, gen, size: int = 256, batches=TRAIN_BATCHES, steps: in
         check(gerr <= GRAD_RTOL, f"train B={B}: first-step gradients disagree")
         losses = {}
         for f, t in trainers.items():
-            conv_chain.launches = conv_chain_stash.launches = stash_backward.launches = 0
+            reset_kernel_launches(conv_chain, conv_chain_stash, stash_backward)
             secs = train_epoch(t, 0, dev)
-            n6, n5, nb = conv_chain_stash.launches, conv_chain.launches, stash_backward.launches
+            n6, n5, nb = (kernel_launches(conv_chain_stash), kernel_launches(conv_chain),
+                          kernel_launches(stash_backward))
             losses[f] = t.logs_total_loss_train.vals
             print(f"train B={B} fused_chains={f}: {steps} steps in {secs:.3f} s (first epoch), "
                   f"K6 launches {n6}, K5 launches {n5}, stash backward launches {nb}, losses "
@@ -2048,16 +2088,16 @@ def ssl_phase(dev, net, gen, size: int = 256, batches=TRAIN_BATCHES, steps: int 
         xs = torch.rand((B * steps, 1, size, size), generator=gen).to(dev)
         t = make_trainer(net, physics, xs, B, False,
                          losses=[SureGaussianLoss(0.1), EILoss(Rotate())])
-        conv_chain.launches = conv_chain_stash.launches = 0
+        reset_kernel_launches(conv_chain, conv_chain_stash)
         secs = train_epoch(t, 0, dev)
         vals = t.logs_total_loss_train.vals
         terms = [m.vals for m in t.logs_losses_train]
         print(f"EI+SURE B={B}: {steps} steps in {secs:.3f} s (first epoch), losses {vals}, "
-              f"SURE {terms[0]}, EI {terms[1]}, launches K6 {conv_chain_stash.launches} "
-              f"K5 {conv_chain.launches}", flush=True)
+              f"SURE {terms[0]}, EI {terms[1]}, launches K6 {kernel_launches(conv_chain_stash)} "
+              f"K5 {kernel_launches(conv_chain)}", flush=True)
         check(len(vals) == steps and all(math.isfinite(v) for v in vals + terms[0] + terms[1]),
               f"EI+SURE B={B}: non-finite loss")
-        check(conv_chain.launches == conv_chain_stash.launches == 0,
+        check(kernel_launches(conv_chain) == kernel_launches(conv_chain_stash) == 0,
               f"EI+SURE B={B}: a kernel ran with the gates closed")
         times = [train_epoch(t, e, dev) for e in (1, 2)]
         print(f"EI+SURE B={B}: epochs of {steps} steps {times} s; "
@@ -2116,13 +2156,13 @@ def sample_drive(name: str, run, net, calls: int, dev):
             kept.append((args[0].detach().clone(), args[1]))
 
     hook = net.register_forward_pre_hook(keep)
-    resblock_chain.launches = 0
+    reset_kernel_launches(resblock_chain)
     t0 = time.perf_counter()
     with torch.no_grad():
         out = run()
     sync(dev)
     first_s = time.perf_counter() - t0
-    launches = resblock_chain.launches
+    launches = kernel_launches(resblock_chain)
     hook.remove()
     print(f"{name}: first run {first_s:.3f} s, K1 launches {launches}, denoiser calls "
           f"{len(seen)} (expected {calls})", flush=True)
@@ -2138,10 +2178,10 @@ def sample_drive(name: str, run, net, calls: int, dev):
         print(f"{name} denoiser call {i}: kernel vs plain max_abs_err {err} (scale {scale}, "
               f"rel {err / scale}, bound {DENOISER_RTOL})", flush=True)
         check(err <= DENOISER_RTOL * scale, f"{name}: denoiser call {i} disagrees with plain")
-    resblock_chain.launches = 0
+    reset_kernel_launches(resblock_chain)
     with torch.no_grad(), plain_k1():
         out_plain = run()
-    check(resblock_chain.launches == 0, f"{name}: the plain run launched K1")
+    check(kernel_launches(resblock_chain) == 0, f"{name}: the plain run launched K1")
     rerr = rel_l2(out, out_plain)
     print(f"{name} kernel vs plain: relative L2 error {rerr} (bound {RECON_RTOL}), max |x| "
           f"{float(out.abs().max())}, plain {float(out_plain.abs().max())}", flush=True)
@@ -2252,10 +2292,10 @@ def sampling_phase(dev, card: str, size: int = 256, nc=(64, 128, 256, 512)) -> d
     f32_chain = rc_mod.resblocks_f32
     with swapped(rc_mod, "resblocks_f32",
                  lambda *a: asked.append([v.requires_grad for v in a]) or f32_chain(*a)):
-        resblock_chain.launches = 0
+        reset_kernel_launches(resblock_chain)
         g_k, _, _ = m.guidance(xg, ys, sr, at)
         sync(dev)
-    check(resblock_chain.launches == 1, "DPS guidance: K1 not launched once")
+    check(kernel_launches(resblock_chain) == 1, "DPS guidance: K1 not launched once")
     check(asked == [[True, False, False]], f"DPS guidance: K1's backward asked for {asked}")
     check(all(p.grad is None and p.requires_grad for p in den.parameters()),
           "DPS guidance: a weight got a gradient, or its flag was not restored")
@@ -2344,8 +2384,8 @@ def sampling_phase(dev, card: str, size: int = 256, nc=(64, 128, 256, 512)) -> d
 
 
 def tv_option_drive(name: str, model, y, physics, prior, x, naive, op, expect: str) -> dict:
-    """One TV reconstruction with a loop option on K7 (``op.launches`` and
-    ``op.launches_by_variant`` set to 0 just before it and read just after),
+    """One TV reconstruction with a loop option on K7 (``op``'s launches and
+    launches by variant set to 0 just before it and read just after),
     against the same run on the plain prox: finite output shaped like ``x``,
     every prox on the resident variant, within TV_RECON_RTOL of the plain
     run, the same iterations (early stop) and retries (backtracking), and no
@@ -2356,22 +2396,19 @@ def tv_option_drive(name: str, model, y, physics, prior, x, naive, op, expect: s
     iteration and one a retry. Returns the run's numbers."""
     import torch
 
-    from deepinv_tpu_torch.core import loop_stats
-
     fp = model.fixed_point
-    op.launches = 0
-    for v in op.launches_by_variant:
-        op.launches_by_variant[v] = 0
-    loop_stats.reset()
+    reset_kernel_launches(op)
+    reset_loops()
     with torch.no_grad():
         out = model(y, physics)
     sync(y.device)
-    launches, by_variant = op.launches, dict(op.launches_by_variant)
-    its, retries, bodies = int(fp.last_run["iterations"]), fp.last_run["retries"], loop_stats.bodies
+    launches, by_variant = kernel_launches(op), kernel_launches_by_variant(op)
+    its, retries = int(fp.last_run["iterations"]), fp.last_run["retries"]
+    bodies = loop_count("bodies")
     want = fp.max_iter + retries if expect == "retries" else (bodies if fp.early_stop else
                                                               fp.max_iter)
     print(f"{name}: {its} iterations (of {fp.max_iter}), {retries} retries, {bodies} loop bodies, "
-          f"{loop_stats.host_reads} host reads; prox launches {launches} {by_variant} "
+          f"{loop_count('host_reads')} host reads; prox launches {launches} {by_variant} "
           f"(expected {want})", flush=True)
     check(launches == want and by_variant == {"resident": want, "global": 0},
           f"{name}: {launches} prox launches {by_variant}, expected {want} resident")
@@ -2382,7 +2419,7 @@ def tv_option_drive(name: str, model, y, physics, prior, x, naive, op, expect: s
     with plain_tv([prior]), torch.no_grad():
         out_plain = model(y, physics)
     sync(y.device)
-    check(op.launches == launches, f"{name}: the plain run launched the kernel")
+    check(kernel_launches(op) == launches, f"{name}: the plain run launched the kernel")
     its_p, retries_p = int(fp.last_run["iterations"]), fp.last_run["retries"]
     rerr = rel_l2(out, out_plain)
     p_k, p_p, p_n = psnr(out, x), psnr(out_plain, x), psnr(naive, x)
@@ -2454,13 +2491,13 @@ def krylov_phase(dev, card: str, size: int = 256, depth: int = 20, batch: int = 
                                  tol=KRYLOV_TOL)}
     out["solvers"] = {}
     for name, run in runs.items():
-        loop_stats.reset()
+        reset_loops()
         x_hat = run()
         sync(dev)
         err = rel_l2(x_hat, exact_ls if name == "LSQR" else exact)
         its = loop_stats.iterations
         print(f"{name} on {B} systems of {N} unknowns, tol {KRYLOV_TOL}: relative L2 error vs "
-              f"float64 {err} (bound {KRYLOV_RTOL}), {its} iterations, {loop_stats.host_reads} "
+              f"float64 {err} (bound {KRYLOV_RTOL}), {its} iterations, {loop_count('host_reads')} "
               f"host reads", flush=True)
         check(bool(torch.isfinite(x_hat).all()) and err <= KRYLOV_RTOL,
               f"{name} disagrees with the float64 solve")
@@ -2476,11 +2513,11 @@ def krylov_phase(dev, card: str, size: int = 256, depth: int = 20, batch: int = 
         for gamma in (1.0, torch.linspace(0.5, 4.0, nb).to(dev)):
             label = f"Tomography.prox_l2 {nb}x1x{size}², gamma " + (
                 f"{gamma}" if isinstance(gamma, float) else "per sample")
-            loop_stats.reset()
+            reset_loops()
             with torch.no_grad():
                 xp = ct.prox_l2(z, y, gamma)
             sync(dev)
-            its, reads = loop_stats.iterations, loop_stats.host_reads
+            its, reads = loop_stats.iterations, loop_count("host_reads")
             with torch.no_grad():
                 gb = gamma if isinstance(gamma, float) else gamma[:, None, None, None]
                 rhs = gb * ct.A_adjoint(y) + z
@@ -2569,19 +2606,19 @@ def krylov_phase(dev, card: str, size: int = 256, depth: int = 20, batch: int = 
         res, res_plain, n = drive(label, models[name], y, ct, net, op, plain_conv_chain,
                                   tuple(x.shape), exact_conv_chain)
         out["launches"]["K5"][label] = n
-        loop_stats.reset()
+        reset_loops()
         with torch.no_grad():
             models[name](y, ct)
         sync(dev)
         its = loop_stats.iterations
         print(f"{label}: PSNR vs x kernel {psnr(res, x):.4f} dB, plain {psnr(res_plain, x):.4f} "
-              f"dB, FBP {psnr(ct.A_dagger(y), x):.4f} dB; data steps {loop_stats.loops}, CG "
+              f"dB, FBP {psnr(ct.A_dagger(y), x):.4f} dB; data steps {loop_count('loops')}, CG "
               f"iterations {its} ({its / MAX_ITER:.2f} a prox), host reads "
-              f"{loop_stats.host_reads} ({loop_stats.host_reads / MAX_ITER:.2f} a prox), loop "
-              f"bodies {loop_stats.bodies}", flush=True)
-        check(loop_stats.loops == MAX_ITER, f"{label}: {loop_stats.loops} Krylov solves")
+              f"{loop_count('host_reads')} ({loop_count('host_reads') / MAX_ITER:.2f} a prox), loop "
+              f"bodies {loop_count('bodies')}", flush=True)
+        check(loop_count("loops") == MAX_ITER, f"{label}: {loop_count('loops')} Krylov solves")
         out["recon"][label] = {"cg_iterations_per_prox": its / MAX_ITER,
-                               "host_reads_per_prox": loop_stats.host_reads / MAX_ITER,
+                               "host_reads_per_prox": loop_count("host_reads") / MAX_ITER,
                                "rel_l2_plain": rel_l2(res, res_plain)}
 
     # 12.6 the loop options on K7
@@ -3377,9 +3414,10 @@ def mri_multicoil_phase(dev, card: str, size: int = MC_SIZE, coils: int = MC_COI
               f"generator train B={B}: first-step gradients disagree")
         losses = {}
         for f, t in trainers.items():
-            conv_chain.launches = conv_chain_stash.launches = stash_backward.launches = 0
+            reset_kernel_launches(conv_chain, conv_chain_stash, stash_backward)
             secs = train_epoch(t, 0, dev)
-            n6, n5, nb = conv_chain_stash.launches, conv_chain.launches, stash_backward.launches
+            n6, n5, nb = (kernel_launches(conv_chain_stash), kernel_launches(conv_chain),
+                          kernel_launches(stash_backward))
             losses[f] = t.logs_total_loss_train.vals
             print(f"generator train B={B} fused_chains={f}: {steps} steps in {secs:.3f} s (first "
                   f"epoch), K6 launches {n6}, K5 {n5}, stash backward {nb}, losses {losses[f]}",
@@ -3925,11 +3963,11 @@ def train_in_both(label: str, trainers: dict, steps: int, iters: int, L: int, de
                      grads_of(trainers[False], x0, y0, p0, fused_chains_disabled()))
     secs = {}
     for f, t in trainers.items():
-        dncnn_mod.conv_chain.launches = conv_chain_stash.launches = 0
-        stash_backward.launches = 0
+        reset_kernel_launches(dncnn_mod.conv_chain, conv_chain_stash)
+        reset_kernel_launches(stash_backward)
         secs[f] = [train_epoch(t, 0, dev)]
-        n5, n6, nb_ = (dncnn_mod.conv_chain.launches, conv_chain_stash.launches,
-                       stash_backward.launches)
+        n5, n6, nb_ = (kernel_launches(dncnn_mod.conv_chain), kernel_launches(conv_chain_stash),
+                       kernel_launches(stash_backward))
         losses = t.logs_total_loss_train.vals
         print(f"{label} fused_chains={f}: {steps} steps, K6 launches {n6}, K5 {n5}, stash "
               f"backward {nb_}, losses {losses}", flush=True)
@@ -4159,10 +4197,10 @@ def optim_breadth_phase(dev, card: str, size: int = 256, depth: int = 20, batch:
         label = f"DEQ train B={B}"
         gaps = grad_gaps(label, grads_of(t_deq, x0, y0, p0, contextlib.nullcontext()),
                          grads_of(t_deq, x0, y0, p0, fused_chains_disabled()))
-        dncnn_mod.conv_chain.launches = conv_chain_stash.launches = stash_backward.launches = 0
+        reset_kernel_launches(dncnn_mod.conv_chain, conv_chain_stash, stash_backward)
         secs = train_epoch(t_deq, 0, dev)
-        n5, n6, nb_ = (dncnn_mod.conv_chain.launches, conv_chain_stash.launches,
-                       stash_backward.launches)
+        n5, n6, nb_ = (kernel_launches(dncnn_mod.conv_chain), kernel_launches(conv_chain_stash),
+                       kernel_launches(stash_backward))
         st = model.last_run
         fwd, bwd = int(st["forward_iterations"]), int(st["backward_iterations"])
         print(f"{label}: forward {fwd} maps of {deq_iters} ({st['forward_maps']} evaluated), "
@@ -4264,7 +4302,7 @@ def models_phase(dev, card: str, size: int = MODL_SIZE, batch: int = HQS_BATCH,
                   up_resblock_chain, up_sandwich, chambolle_prox)
 
     def launched():
-        return sum(o.launches for o in kernel_ops)
+        return sum(kernel_launches(o) for o in kernel_ops)
 
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
@@ -4388,9 +4426,9 @@ def models_phase(dev, card: str, size: int = MODL_SIZE, batch: int = HQS_BATCH,
                                                            rebuilt.state_dict().values()))
             with torch.no_grad(), cudnn():
                 a = call(autocast(src))
-                op.launches = 0
+                reset_kernel_launches(op)
                 b = call(autocast(rebuilt))
-                n = op.launches
+                n = kernel_launches(op)
                 # another model's weights loaded after the rebuilt one's first call
                 other = make(None)
                 port(rebuilt, upstream_state_dict(other, names(other)))
@@ -4487,7 +4525,7 @@ def backbone_drive(name: str, run, net, calls: int, kernel_ops, dev, at_network=
 
     hook = net.register_forward_pre_hook(keep, with_kwargs=True)
     for op in kernel_ops:
-        op.launches = 0
+        reset_kernel_launches(op)
     t0 = time.perf_counter()
     try:
         with torch.no_grad():
@@ -4496,7 +4534,7 @@ def backbone_drive(name: str, run, net, calls: int, kernel_ops, dev, at_network=
     finally:
         hook.remove()
     first_s = time.perf_counter() - t0
-    launches = sum(op.launches for op in kernel_ops)
+    launches = sum(kernel_launches(op) for op in kernel_ops)
     big = float(out.abs().max())
     print(f"{name}: first run {first_s:.3f} s, kernel launches {launches}, network calls "
           f"{len(seen)} (expected {calls}), max |x| {big}", flush=True)
@@ -4614,7 +4652,7 @@ def backbones_phase(dev, card: str, size: int = 256, batch: int = SAMPLE_BATCH,
     kernel_ops = (conv_chain, conv_chain_stash, stash_backward, resblock_chain,
                   up_resblock_chain, up_sandwich, chambolle_prox)
     for op in kernel_ops:
-        op.launches = 0
+        reset_kernel_launches(op)
     out = {"rates": {}, "bf16": {}, "ms": {}}
     tmp = tempfile.mkdtemp()
 
@@ -4777,7 +4815,7 @@ def backbones_phase(dev, card: str, size: int = 256, batch: int = SAMPLE_BATCH,
             bound = BB_BF16_RTOL.get(name, (DENOISER_RTOL, ""))
             for B in (1, batch):
                 x = torch.rand((B, 3, size, size), generator=g).to(dev)
-                before = sum(op.launches for op in kernel_ops)
+                before = sum(kernel_launches(op) for op in kernel_ops)
                 with torch.no_grad():
                     f32 = model(x, 0.1)
                     bf16 = autocast(model)(x, 0.1)
@@ -4785,7 +4823,7 @@ def backbones_phase(dev, card: str, size: int = 256, batch: int = SAMPLE_BATCH,
                 print(f"{name} B={B} {size}²: bf16 vs f32 relative max error {err} (bound "
                       f"{bound[0]}{bound[1]}), output max {float(f32.abs().max())}; "
                       f"{woken} zero-initialized tensors redrawn", flush=True)
-                check(sum(op.launches for op in kernel_ops) == before,
+                check(sum(kernel_launches(op) for op in kernel_ops) == before,
                       f"{name}: a K1-K8 kernel was launched")
                 check(tuple(f32.shape) == tuple(x.shape) and bool(torch.isfinite(f32).all())
                       and bool(torch.isfinite(bf16).all()), f"{name} B={B}: bad output")
@@ -4836,7 +4874,7 @@ def backbones_phase(dev, card: str, size: int = 256, batch: int = SAMPLE_BATCH,
             for B in (1, batch):
                 x = torch.rand((B,) + rshape, generator=g).to(dev)
                 y = phys(x, generator=gen(SEED + 214))
-                before = sum(op.launches for op in kernel_ops)
+                before = sum(kernel_launches(op) for op in kernel_ops)
                 with torch.no_grad():
                     f32 = rnet(y, phys)
                     with torch.autocast(dev.type, dtype=torch.bfloat16):
@@ -4845,7 +4883,7 @@ def backbones_phase(dev, card: str, size: int = 256, batch: int = SAMPLE_BATCH,
                 print(f"RAM {task} B={B} {size}²: bf16 vs f32 relative max error {err} (bound "
                       f"{DENOISER_RTOL}), PSNR {psnr(f32[:1], x[:1]):.4f} dB (random weights)",
                       flush=True)
-                check(sum(op.launches for op in kernel_ops) == before,
+                check(sum(kernel_launches(op) for op in kernel_ops) == before,
                       "RAM: a K1-K8 kernel was launched")
                 check(tuple(f32.shape) == tuple(x.shape) and bool(torch.isfinite(f32).all()),
                       f"RAM {task} B={B}: bad output")
@@ -4863,7 +4901,7 @@ def backbones_phase(dev, card: str, size: int = 256, batch: int = SAMPLE_BATCH,
                         lambda m: m(yr, tasks["Denoising"]), tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    total = sum(op.launches for op in kernel_ops)
+    total = sum(kernel_launches(op) for op in kernel_ops)
     check(total == 0, f"phase 18 launched K1-K8 kernels ({total})")
     out["s"] = time.perf_counter() - t_phase
     print(f"phase 18: {out['s']:.3f} s, no K1-K8 launch ({card})", flush=True)
@@ -4998,7 +5036,7 @@ def generative_phase(dev, card: str, size: int = 256, batches=TRAIN_BATCHES,
     L = depth - 2
     others = (resblock_chain, up_resblock_chain, up_sandwich, chambolle_prox)
     for op in others:
-        op.launches = 0
+        reset_kernel_launches(op)
     out = {"launches": {"K5": {}, "K6": {}, "stash_backward": {}}, "rates": {}, "ms": {},
            "cpu": {}}
     tmp = tempfile.mkdtemp()
@@ -5010,11 +5048,11 @@ def generative_phase(dev, card: str, size: int = 256, batches=TRAIN_BATCHES,
         return torch.Generator().manual_seed(seed)
 
     def counts():
-        return (conv_chain_stash.launches, stash_backward.launches,
-                dncnn_mod.conv_chain.launches)
+        return (kernel_launches(conv_chain_stash), kernel_launches(stash_backward),
+                kernel_launches(dncnn_mod.conv_chain))
 
     def zero_counts():
-        conv_chain_stash.launches = stash_backward.launches = dncnn_mod.conv_chain.launches = 0
+        reset_kernel_launches(conv_chain_stash, stash_backward, dncnn_mod.conv_chain)
 
     def timed(label, fn, reps=3):
         """ms a call of ``fn`` on the card (CUDA events), kept in out["ms"]."""
@@ -5322,15 +5360,15 @@ def generative_phase(dev, card: str, size: int = 256, batches=TRAIN_BATCHES,
                 (f"DEAL denoise {small}²", lambda m, d: m(ym.to(d), 0.1), True),
                 (f"DEAL inpainting {small}²", lambda m, d: m((xm * mask_s).to(d), inp_s[d]),
                  True)):
-            loop_stats.reset()
+            reset_loops()
             sync(dev)
             t0 = time.perf_counter()
             got = call(deal, dev)
             sync(dev)
             s = time.perf_counter() - t0
-            print(f"{lbl}: {s:.3f} s, loops {loop_stats.loops}, iterations "
-                  f"{loop_stats.iterations}, bodies {loop_stats.bodies}, host reads "
-                  f"{loop_stats.host_reads} ({card})", flush=True)
+            print(f"{lbl}: {s:.3f} s, loops {loop_count('loops')}, iterations "
+                  f"{loop_stats.iterations}, bodies {loop_count('bodies')}, host reads "
+                  f"{loop_count('host_reads')} ({card})", flush=True)
             check(bool(torch.isfinite(got).all()), f"{lbl}: non-finite output")
             out["ms"][lbl] = s * 1e3
             if on_cpu:
@@ -5399,7 +5437,7 @@ def generative_phase(dev, card: str, size: int = 256, batches=TRAIN_BATCHES,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    n_other = sum(op.launches for op in others)
+    n_other = sum(kernel_launches(op) for op in others)
     print(f"phase 19: K1-K4 and K7 launches {n_other}", flush=True)
     check(n_other == 0, "phase 19: a K1-K4 or K7 kernel was launched")
     out["s"] = time.perf_counter() - t_phase
@@ -5511,16 +5549,16 @@ def selfsup_phase(dev, card: str, size: int = 256, batches=TRAIN_BATCHES,
     L = depth - 2
     others = (resblock_chain, up_resblock_chain, up_sandwich, chambolle_prox)
     for op in others:
-        op.launches = 0
+        reset_kernel_launches(op)
     out = {"launches": {"K5": {}, "K6": {}, "stash_backward": {}}, "rates": {}, "ms": {}}
     tmp = tempfile.mkdtemp()
 
     def counts():
-        return (conv_chain_stash.launches, dncnn_mod.conv_chain.launches,
-                stash_backward.launches)
+        return (kernel_launches(conv_chain_stash), kernel_launches(dncnn_mod.conv_chain),
+                kernel_launches(stash_backward))
 
     def zero_counts():
-        conv_chain_stash.launches = stash_backward.launches = dncnn_mod.conv_chain.launches = 0
+        reset_kernel_launches(conv_chain_stash, stash_backward, dncnn_mod.conv_chain)
 
     net1 = DnCNN(1, 1, depth=depth, nf=nf, generator=g)
     net2 = DnCNN(2, 2, depth=depth, nf=nf, generator=g)
@@ -5634,7 +5672,7 @@ def selfsup_phase(dev, card: str, size: int = 256, batches=TRAIN_BATCHES,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    n_other = sum(op.launches for op in others)
+    n_other = sum(kernel_launches(op) for op in others)
     print(f"phase 20: K1-K4 and K7 launches {n_other}", flush=True)
     check(n_other == 0, "phase 20: a K1-K4 or K7 kernel was launched")
     out["s"] = time.perf_counter() - t_phase
@@ -5898,12 +5936,14 @@ def serving_phase(dev, card: str, size: int = 256, nc=(64, 128, 256, 512), nb: i
     out = {"launches": {"K1": {}, "K5": {}, "K6": {}, "stash_backward": {}}, "rates": {}}
 
     def zero():
-        drunet_mod.resblock_chain.launches = dncnn_mod.conv_chain.launches = 0
-        conv_chain_stash.launches = stash_backward.launches = 0
+        reset_kernel_launches(drunet_mod.resblock_chain, dncnn_mod.conv_chain)
+        reset_kernel_launches(conv_chain_stash, stash_backward)
 
     def counts():
-        return {"K1": drunet_mod.resblock_chain.launches, "K5": dncnn_mod.conv_chain.launches,
-                "K6": conv_chain_stash.launches, "stash_backward": stash_backward.launches}
+        return {"K1": kernel_launches(drunet_mod.resblock_chain),
+                "K5": kernel_launches(dncnn_mod.conv_chain),
+                "K6": kernel_launches(conv_chain_stash),
+                "stash_backward": kernel_launches(stash_backward)}
 
     # (a) the two served problems, built as phases 4 and 5 build them
     blur = BlurFFT((3, size, size), filter=gaussian_blur(sigma=1.5),
@@ -6015,7 +6055,7 @@ def serving_phase(dev, card: str, size: int = 256, nc=(64, 128, 256, 512), nb: i
     with torch.no_grad():
         t_k = tiled(x_hqs, 0.02)
         sync(dev)
-        n_k1 = drunet_mod.resblock_chain.launches
+        n_k1 = kernel_launches(drunet_mod.resblock_chain)
         with plain_k1():
             t_p = tiled(x_hqs, 0.02)
         whole = drunet(x_hqs, 0.02)
@@ -6041,7 +6081,7 @@ def serving_phase(dev, card: str, size: int = 256, nc=(64, 128, 256, 512), nb: i
     with torch.no_grad():
         r_d = pgd_with(distribute(L2(), op_ctx))(dphys.A(x_mri), dphys)
         sync(dev)
-        n_k5 = dncnn_mod.conv_chain.launches
+        n_k5 = kernel_launches(dncnn_mod.conv_chain)
         r_s = pgd_with(L2())(serial.A(x_mri), serial)
     out["launches"]["K5"]["distributed MRI PGD"] = n_k5
     err = rel_l2(r_d, r_s)
@@ -6066,7 +6106,7 @@ def serving_phase(dev, card: str, size: int = 256, nc=(64, 128, 256, 512), nb: i
     with torch.no_grad():
         got = pp((mri.A_adjoint(yb), yb))[0]
         sync(dev)
-        n_pp = dncnn_mod.conv_chain.launches
+        n_pp = kernel_launches(dncnn_mod.conv_chain)
         seq = []
         for m in range(M):
             c = (mri.A_adjoint(yb[2 * m:2 * m + 2]), yb[2 * m:2 * m + 2])
@@ -6330,10 +6370,10 @@ def datasets_phase(dev, card: str, model, physics, subjects: int = LIDC_SUBJECTS
                   "built in memory")
             torch.use_deterministic_algorithms(True)
             try:
-                dncnn_mod.conv_chain.launches = 0
+                reset_kernel_launches(dncnn_mod.conv_chain)
                 r = recon(x)
                 sync(dev)
-                launches.append(dncnn_mod.conv_chain.launches)
+                launches.append(kernel_launches(dncnn_mod.conv_chain))
                 r_mem = recon(mem[b_i])
             finally:
                 torch.use_deterministic_algorithms(was_det)
@@ -6436,11 +6476,10 @@ def kernels_counted(run):
     its result, the counts just after, and K7's by variant."""
     ops = kernel_ops()
     for op in ops.values():
-        op.launches = 0
-    ops["chambolle_prox"].launches_by_variant = {"resident": 0, "global": 0}
+        reset_kernel_launches(op)
     res = run()
-    return (res, {k: op.launches for k, op in ops.items()},
-            dict(ops["chambolle_prox"].launches_by_variant))
+    return (res, {k: kernel_launches(op) for k, op in ops.items()},
+            kernel_launches_by_variant(ops["chambolle_prox"]))
 
 
 def gallery_names(phase: int) -> tuple:
@@ -6736,7 +6775,7 @@ def main() -> int:
                      for _, var, cl in TV_LAYOUTS]
             runs += [(plan, None, None, 0), (plan, None, None, 1)]
         for lay, var, cl, n in runs:
-            before = dict(chambolle_prox.launches_by_variant)
+            before = kernel_launches_by_variant(chambolle_prox)
             err = kernel_vs_plain(
                 f"tv_prox vs plain {shape} gamma={gammas} n_iter={n}, {lay.variant} variant"
                 + (f", cluster {lay.cluster}" if lay.variant == "resident" else ""),
@@ -6744,7 +6783,7 @@ def main() -> int:
                 (lambda t: tv_launch(t, gam, n, var, cl)),
                 lambda t: chambolle_prox_plain(t, gam, n),
                 xt, TV_RTOL, by_range=True)
-            ran = {k: chambolle_prox.launches_by_variant[k] - before[k] for k in before}
+            ran = {k: kernel_launches_by_variant(chambolle_prox)[k] - before[k] for k in before}
             check(ran[lay.variant] == 1 and sum(ran.values()) == 1,
                   f"tv_prox {shape}: expected one {lay.variant} launch, got {ran}")
             if lay.variant == "resident" and n == TV_ITERS:

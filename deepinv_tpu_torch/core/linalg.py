@@ -22,6 +22,7 @@ import contextlib
 
 import torch
 
+from ..utils.profiling import counters
 from .tensorlist import TensorList
 
 __all__ = ["tree_map", "tree_add", "tree_sub", "tree_scale", "tree_axpy", "tree_vdot",
@@ -96,23 +97,20 @@ def tree_where(done, old, new):
 
 
 class LoopStats:
-    """What the loops of :func:`device_while` did since :meth:`reset`: the
-    loops run, the host reads of their stop flag, the bodies evaluated
-    (frozen ones included) and, read from the device only when asked, the
-    iterations that moved the state (:attr:`iterations`)."""
+    """The iterations that moved the state in the loops of
+    :func:`device_while` since :meth:`reset`, summed on the device and read
+    only when asked (:attr:`iterations`). The loops' host-side counts are in
+    ``profiling.counters``: ``loop.loops`` (loops run), ``loop.host_reads``
+    (reads of their stop flag) and ``loop.bodies`` (bodies evaluated, frozen
+    ones included)."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
-        self.loops = 0
-        self.host_reads = 0
-        self.bodies = 0
         self._iterations = None
 
-    def _record(self, count, bodies: int):
-        self.loops += 1
-        self.bodies += bodies
+    def _record(self, count):
         self._iterations = count if self._iterations is None else (
             self._iterations + count.to(self._iterations.device))
 
@@ -123,8 +121,7 @@ class LoopStats:
         return 0 if self._iterations is None else int(self._iterations)
 
 
-# the counts of every device_while loop in the process, as the kernel ops
-# count their launches
+# the moved iterations of every device_while loop in the process
 loop_stats = LoopStats()
 
 
@@ -143,18 +140,18 @@ def device_while(cond, body, state, max_iter: int, check_every: int = CHECK_EVER
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     done = ~cond(state)
     count = torch.zeros((), dtype=torch.int32, device=done.device)
-    bodies = 0
+    counters["loop.loops"] += 1
     for i in range(max_iter):
         if i and i % check_every == 0:
-            loop_stats.host_reads += 1
+            counters["loop.host_reads"] += 1
             if bool(done):
                 break
         new = body(state)
-        bodies += 1
+        counters["loop.bodies"] += 1
         count = count + ~done
         state = tree_where(done, state, new)
         done = done | ~cond(state)
-    loop_stats._record(count, bodies)
+    loop_stats._record(count)
     return state, count
 
 

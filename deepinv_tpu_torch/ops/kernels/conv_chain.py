@@ -32,11 +32,14 @@ rounding per layer — the contract of ``fused_conv3x3_relu_chain``
 (conv_chain.py:208-224): inside it every kernel gate of the port (DnCNN's
 hidden chain, DRUNet's K1, K2/K3 and K4 stages) takes the layers instead.
 
-``conv_chain.launches`` counts K5 launches and ``conv_chain_stash.launches``
-K6 launches (one per call that reaches the kernel), and
-``stash_backward.launches`` the backward's kernel launches (L + 2 a call: the
-head, L dX layers, the fold), so a run can show that its main path went
-through the kernels.
+``profiling.counters`` counts K5 launches under
+``kernel.conv_chain.launches`` and K6 launches under
+``kernel.conv_chain_stash.launches`` (one per call that reaches the kernel),
+and the backward's kernel launches under ``kernel.stash_backward.launches``
+(L + 2 a call: the head, L dX layers, the fold), so a run can show that its
+main path went through the kernels. Each op opens its ``dinv.kernel.<op>``
+span with its analytic cost (:func:`conv_chain_cost`,
+:func:`conv_chain_stash_cost`, :func:`stash_backward_cost`).
 """
 
 from __future__ import annotations
@@ -47,11 +50,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiling import counters, kernel_span
 from .resblock_chain import (C, _tf32_convs, check_activations, first_order_only, pack_weights,
                              pack_weights_transposed, tile_args)
 
 __all__ = ["conv_chain", "conv_chain_plain", "conv_chain_stash", "conv_chain_stash_plain",
-           "stash_backward", "chain_f32", "pack_weights", "pack_weights_transposed", "pack_bias",
+           "stash_backward", "conv_chain_cost", "conv_chain_stash_cost", "stash_backward_cost",
+           "chain_f32", "pack_weights", "pack_weights_transposed", "pack_bias",
            "C", "fused_chains_disabled", "fused_disabled"]
 
 _FUSED_DISABLED = False
@@ -161,7 +166,7 @@ def _launch(h, wp, bp, tile: str = "wgmma"):
     a = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=h.device)
     t = torch.empty_like(a)
     _run(f"deepinv_conv_chain{suffix}_bf16", h, wp, bp, (a, t), plan)
-    conv_chain.launches += 1
+    counters["kernel.conv_chain.launches"] += 1
     return (a if wp.shape[0] % 2 else t).permute(0, 3, 1, 2)
 
 
@@ -174,7 +179,7 @@ def _launch_stash(h, wp, bp, tile: str = "wgmma"):
     B, _, H, W = h.shape
     acts = torch.empty((wp.shape[0], B, H, W, C), dtype=torch.bfloat16, device=h.device)
     _run(f"deepinv_conv_chain_stash{suffix}_bf16", h, wp, bp, (acts,), plan)
-    conv_chain_stash.launches += 1
+    counters["kernel.conv_chain_stash.launches"] += 1
     return acts
 
 
@@ -190,10 +195,12 @@ def conv_chain_stash(h, ws, bs, packed=None):
     :param packed: ``(pack_weights(ws), pack_bias(bs))`` if the caller keeps
         them; packed here otherwise (CUDA only).
     """
-    if not h.is_cuda:
-        return conv_chain_stash_plain(h, ws, bs)
-    wp, bp = packed if packed is not None else (pack_weights(ws), pack_bias(bs))
-    return _launch_stash(h, wp, bp)
+    with kernel_span("conv_chain_stash", *conv_chain_stash_cost(
+            h.shape[0], h.shape[2], h.shape[3], ws.shape[0])):
+        if not h.is_cuda:
+            return conv_chain_stash_plain(h, ws, bs)
+        wp, bp = packed if packed is not None else (pack_weights(ws), pack_bias(bs))
+        return _launch_stash(h, wp, bp)
 
 
 def _wgrad(x_in, d, shape, bf16_dw: bool, plain: bool):
@@ -253,11 +260,19 @@ def stash_backward(h, ws, acts, g, plain=None, route: str = "kernels"):
     """
     if route not in ("kernels", "cudnn"):
         raise ValueError(f"route must be 'kernels' or 'cudnn', got {route!r}")
+    with kernel_span("stash_backward", *stash_backward_cost(
+            h.shape[0], h.shape[2], h.shape[3], ws.shape[0])):
+        plain = not g.is_cuda if plain is None else plain
+        bf16_dw = not plain and ws.dtype == torch.bfloat16
+        if not plain and route == "kernels":
+            return _backward_kernels(h, ws, acts, g, bf16_dw)
+        return _backward_layers(h, ws, acts, g, bf16_dw, plain)
+
+
+def _backward_layers(h, ws, acts, g, bf16_dw: bool, plain: bool):
+    """:func:`stash_backward` as layers: the CPU's plain version, or the
+    card's cuDNN route."""
     L = ws.shape[0]
-    plain = not g.is_cuda if plain is None else plain
-    bf16_dw = not plain and ws.dtype == torch.bfloat16
-    if not plain and route == "kernels":
-        return _backward_kernels(h, ws, acts, g, bf16_dw)
     wb = ws.detach().to(torch.bfloat16)
     d = g.to(torch.bfloat16)
     dws, dbs = [None] * L, [None] * L
@@ -277,7 +292,8 @@ def stash_backward(h, ws, acts, g, plain=None, route: str = "kernels"):
 def _backward_kernels(h, ws, acts, g, bf16_dw: bool):
     """:func:`stash_backward` on the card's kernels: the head, L dX layers on
     the wgmma tile (a cuDNN wgrad before each) and the fold, each counted in
-    ``stash_backward.launches``; raises on what the kernels do not take."""
+    ``kernel.stash_backward.launches``; raises on what the kernels do not
+    take."""
     from .build import load_library
 
     L = ws.shape[0]
@@ -314,7 +330,7 @@ def _backward_kernels(h, ws, acts, g, bf16_dw: bool):
         if rc != 0:
             msg = lib.deepinv_cuda_error_string(rc).decode()
             raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc} ({msg})")
-        stash_backward.launches += 1
+        counters["kernel.stash_backward.launches"] += 1
 
     dws = [None] * L
     with torch.cuda.device(dev):
@@ -378,9 +394,44 @@ def conv_chain(h, ws, bs, packed=None):
     stash = torch.is_grad_enabled() and any(t.requires_grad for t in (h, ws, bs))
     if packed is None:
         packed = (pack_weights(ws), pack_bias(bs)) if h.is_cuda else (None, None)
-    return _ConvChain.apply(h, ws, bs, *packed, stash)
+    if stash:   # the stash op's span and cost, and the backward's
+        return _ConvChain.apply(h, ws, bs, *packed, stash)
+    with kernel_span("conv_chain", *conv_chain_cost(h.shape[0], h.shape[2], h.shape[3],
+                                                    ws.shape[0])):
+        return _ConvChain.apply(h, ws, bs, *packed, stash)
 
 
-conv_chain.launches = 0
-conv_chain_stash.launches = 0
-stash_backward.launches = 0
+def conv_chain_cost(B: int, H: int, W: int, L: int):
+    """Analytic (flops, HBM bytes) of K5's L layers on ``(B, 64, H, W)``: B
+    times the JAX package's count of one image (conv_chain.py:299-301), which
+    its batched call records B times (:267-270). The JAX kernel fuses an even
+    prefix of the layers and leaves an odd last one to XLA; the port's runs
+    every layer, and counts every layer."""
+    G = W // 2
+    flops = L * 2 * H * W * C * C * 9
+    nbytes = ((H + 2) * (G + 2) + H * G) * 128 * 2 + L * 3 * 2 * 128 * 128 * 2 + L * 128 * 4
+    return B * flops, B * nbytes
+
+
+def conv_chain_stash_cost(B: int, H: int, W: int, L: int):
+    """Analytic (flops, HBM bytes) of K6 on ``(B, 64, H, W)``: B times the JAX
+    package's count of one image (conv_chain.py:344-346), the stash's L
+    slots written besides the output, every layer counted as for
+    :func:`conv_chain_cost`."""
+    G = W // 2
+    Gp = -(-(G + 2) // 8) * 8
+    flops = L * 2 * H * W * C * C * 9
+    nbytes = (((H + 2) * Gp * (L + 1) + H * G) * 128 * 2 + L * 3 * 2 * 128 * 128 * 2
+              + L * 128 * 4)
+    return B * flops, B * nbytes
+
+
+def stash_backward_cost(B: int, H: int, W: int, L: int):
+    """Analytic (flops, HBM bytes) of :func:`stash_backward` on ``(B, 64, H,
+    W)``: the L dX and L dW convs; the input, the cotangent and the L stash
+    slots read and dh written, in bf16, the bf16 weights read and dW
+    written, db written in f32. The JAX package's backward is XLA's, which
+    records nothing."""
+    flops = 2 * B * L * 2 * H * W * C * C * 9
+    nbytes = 2 * B * H * W * C * (3 + L) + L * (2 * 9 * C * C * 2 + C * 4)
+    return flops, nbytes

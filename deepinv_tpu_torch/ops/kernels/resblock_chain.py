@@ -20,8 +20,11 @@ activations, f32 accumulation and one bf16 rounding per conv — the contract of
   JAX ``custom_vjp`` backward (resblock_chain.py:246-250), for the inputs
   that need one (``ctx.needs_input_grad``).
 
-``resblock_chain.launches`` counts kernel launches (one per call that reaches
-the kernel), so a run can show that its main path went through the kernel.
+``profiling.counters["kernel.resblock_chain.launches"]`` counts kernel
+launches (one per call that reaches the kernel), so a run can show that its
+main path went through the kernel; each call opens the span
+``dinv.kernel.resblock_chain`` with its analytic cost
+(:func:`resblock_chain_cost`).
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from ...utils.profiling import counters, kernel_span
 
 __all__ = ["resblock_chain", "resblock_chain_plain", "resblocks_f32", "resblock_chain_cost",
            "pack_weights",
@@ -191,7 +196,7 @@ def _launch(h, w1p, w2p, tile: str = "wgmma"):
     if rc != 0:
         msg = lib.deepinv_cuda_error_string(rc).decode()
         raise RuntimeError(f"resblock_chain kernel launch failed: CUDA error {rc} ({msg})")
-    resblock_chain.launches += 1
+    counters["kernel.resblock_chain.launches"] += 1
     return a.permute(0, 3, 1, 2)
 
 
@@ -256,13 +261,9 @@ def resblock_chain(h, w1s, w2s, packed=None):
     :return: ``(B, 64, H, W)`` bf16. From the kernel it is an NCHW view of
         channels_last memory.
     """
-    from ...utils.profiling import record_pallas_cost
-
-    record_pallas_cost(*resblock_chain_cost(h.shape[0], h.shape[2], h.shape[3], w1s.shape[0]))
-    if packed is None:
-        packed = ((pack_weights(w1s), pack_weights(w2s)) if h.is_cuda
-                  else (None, None))
-    return _ResblockChain.apply(h, w1s, w2s, *packed)
-
-
-resblock_chain.launches = 0
+    with kernel_span("resblock_chain", *resblock_chain_cost(h.shape[0], h.shape[2],
+                                                            h.shape[3], w1s.shape[0])):
+        if packed is None:
+            packed = ((pack_weights(w1s), pack_weights(w2s)) if h.is_cuda
+                      else (None, None))
+        return _ResblockChain.apply(h, w1s, w2s, *packed)

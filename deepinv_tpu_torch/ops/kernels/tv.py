@@ -29,24 +29,29 @@ the contract of the Pallas kernel ``_kernel`` (tv.py:53, launched by
   version, as the JAX ``custom_vjp`` backward re-runs ``_xla_impl``
   (tv.py:124-132).
 
-``chambolle_prox.launches`` counts the calls that reach the kernel (one C
-call each), and ``chambolle_prox.launches_by_variant`` the same calls by
-variant, so a run can show that its main path went through the kernel, and
-through which.
+``profiling.counters["kernel.chambolle_prox.launches"]`` counts the calls
+that reach the kernel (one C call each), and
+``kernel.chambolle_prox.launches.<variant>`` the same calls by variant
+(``resident``, ``global``), so a run can show that its main path went
+through the kernel, and through which. Each call opens the span
+``dinv.kernel.chambolle_prox`` with its analytic cost
+(:func:`chambolle_prox_cost`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 
 import torch
 
+from ...utils.profiling import counters, kernel_span
 from .resblock_chain import first_order_only
 
-__all__ = ["chambolle_prox", "chambolle_prox_plain", "grad_op", "div_op", "fwd_diff_nd",
-           "fwd_diff_nd_adjoint", "TAU", "TVPlan", "tv_plan"]
+__all__ = ["chambolle_prox", "chambolle_prox_plain", "chambolle_prox_cost", "grad_op", "div_op",
+           "fwd_diff_nd", "fwd_diff_nd_adjoint", "TAU", "TVPlan", "tv_plan"]
 
 TAU = 0.25  # 1 / (2 * dim), Chambolle's stability bound (tv.py:30)
 
@@ -291,8 +296,8 @@ def _launch(x: torch.Tensor, g: torch.Tensor, n_iter: int, variant: str | None =
         msg = lib.deepinv_cuda_error_string(rc).decode()
         raise RuntimeError(f"chambolle_prox kernel launch failed ({plan.variant} variant): "
                            f"CUDA error {rc} ({msg})")
-    chambolle_prox.launches += 1
-    chambolle_prox.launches_by_variant[plan.variant] += 1
+    counters["kernel.chambolle_prox.launches"] += 1
+    counters[f"kernel.chambolle_prox.launches.{plan.variant}"] += 1
     return out
 
 
@@ -327,8 +332,15 @@ def chambolle_prox(x: torch.Tensor, gamma, n_iter: int = 100) -> torch.Tensor:
     :param n_iter: dual iterations.
     :return: a tensor shaped like ``x``.
     """
-    return _ChambolleProx.apply(x, _gamma_tensor(gamma, x), int(n_iter))
+    with kernel_span("chambolle_prox", *chambolle_prox_cost(x.shape, n_iter)):
+        return _ChambolleProx.apply(x, _gamma_tensor(gamma, x), int(n_iter))
 
 
-chambolle_prox.launches = 0
-chambolle_prox.launches_by_variant = {"resident": 0, "global": 0}
+def chambolle_prox_cost(shape, n_iter: int):
+    """Analytic (flops, HBM bytes) of the prox on ``shape`` ``(..., H, W)``:
+    18 operations a pixel a dual step (the gradient, the norm, the dual
+    update, the divergence) and 5 for the output; the images read and the
+    result written once in f32, one gamma a plane."""
+    pixels = math.prod(shape)
+    planes = pixels // (shape[-2] * shape[-1])
+    return pixels * (18 * int(n_iter) + 5), 2 * pixels * 4 + planes * 4

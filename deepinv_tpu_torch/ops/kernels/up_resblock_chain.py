@@ -25,8 +25,10 @@ rounding per conv. The skip add ``v + x2`` is the caller's, already rounded.
 - The gradient is autodiff of the f32 reference :func:`up_resblocks_f32`, like
   the JAX ``custom_vjp`` backward (resblock_chain.py:394-399).
 
-``up_resblock_chain.launches`` counts kernel launches (one per call that
-reaches the kernel).
+``profiling.counters["kernel.up_resblock_chain.launches"]`` counts kernel
+launches (one per call that reaches the kernel); each call opens the span
+``dinv.kernel.up_resblock_chain`` with its analytic cost
+(:func:`up_resblock_chain_cost`).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiling import counters, kernel_span
 from .resblock_chain import (C, _sms, check_activations, check_packed, first_order_only,
                              int_array, pack_weights, resblock_chain_plain, resblocks_f32)
 
@@ -119,7 +122,7 @@ def _launch(v, wup, w1p, w2p, tile: str = "wgmma"):
     if rc != 0:
         msg = lib.deepinv_cuda_error_string(rc).decode()
         raise RuntimeError(f"up_resblock_chain kernel launch failed: CUDA error {rc} ({msg})")
-    up_resblock_chain.launches += 1
+    counters["kernel.up_resblock_chain.launches"] += 1
     return a.permute(0, 3, 1, 2)
 
 
@@ -168,12 +171,8 @@ def up_resblock_chain(v, w_up, w1s, w2s, packed=None):
     :return: ``(B, 64, H, W)`` bf16. From the kernel it is an NCHW view of
         channels_last memory.
     """
-    from ...utils.profiling import record_pallas_cost
-
-    record_pallas_cost(*up_resblock_chain_cost(v.shape[0], v.shape[2], v.shape[3], w1s.shape[0]))
-    if packed is None:
-        packed = pack_up_chain(w_up, w1s, w2s) if v.is_cuda else (None,) * 3
-    return _UpResblockChain.apply(v, w_up, w1s, w2s, *packed)
-
-
-up_resblock_chain.launches = 0
+    with kernel_span("up_resblock_chain", *up_resblock_chain_cost(
+            v.shape[0], v.shape[2], v.shape[3], w1s.shape[0])):
+        if packed is None:
+            packed = pack_up_chain(w_up, w1s, w2s) if v.is_cuda else (None,) * 3
+        return _UpResblockChain.apply(v, w_up, w1s, w2s, *packed)

@@ -30,8 +30,9 @@ the TPU kernel ``_sandwich_kernel`` (:442), f32 accumulation throughout:
 - The gradient is autodiff of the f32 reference :func:`sandwich_f32`, like the
   JAX ``custom_vjp`` backward (resblock_chain.py:647-654).
 
-``up_sandwich.launches`` counts kernel launches (one per call that reaches
-the kernel).
+``profiling.counters["kernel.up_sandwich.launches"]`` counts kernel launches
+(one per call that reaches the kernel); each call opens the span
+``dinv.kernel.up_sandwich`` with its analytic cost (:func:`up_sandwich_cost`).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiling import counters, kernel_span
 from .resblock_chain import (C, _sms, check_activations, check_packed, first_order_only,
                              int_array, pack_weights, resblock_chain_plain, resblocks_f32)
 from .up_resblock_chain import pack_up_weights, up_plain
@@ -164,7 +166,7 @@ def _launch(s2, d0, packed, tile: str = "wgmma"):
     if rc != 0:
         msg = lib.deepinv_cuda_error_string(rc).decode()
         raise RuntimeError(f"up_sandwich kernel launch failed: CUDA error {rc} ({msg})")
-    up_sandwich.launches += 1
+    counters["kernel.up_sandwich.launches"] += 1
     return a0.permute(0, 3, 1, 2)
 
 
@@ -248,14 +250,9 @@ def up_sandwich(s2, d0, w_up2, w1s1, w2s1, w_down, w_up1, w1s, w2s, packed=None)
     :return: ``(B, 64, H, W)`` bf16, before DRUNet's tail skip. From the kernel
         it is an NCHW view of channels_last memory.
     """
-    from ...utils.profiling import record_pallas_cost
-
-    record_pallas_cost(*up_sandwich_cost(d0.shape[0], d0.shape[2], d0.shape[3], s2.shape[1],
-                                         w1s1.shape[0], w1s.shape[0]))
     weights = (w_up2, w1s1, w2s1, w_down, w_up1, w1s, w2s)
-    if packed is None:
-        packed = pack_sandwich(*weights) if s2.is_cuda else (None,) * 7
-    return _UpSandwich.apply(s2, d0, *weights, *packed)
-
-
-up_sandwich.launches = 0
+    with kernel_span("up_sandwich", *up_sandwich_cost(
+            d0.shape[0], d0.shape[2], d0.shape[3], s2.shape[1], w1s1.shape[0], w1s.shape[0])):
+        if packed is None:
+            packed = pack_sandwich(*weights) if s2.is_cuda else (None,) * 7
+        return _UpSandwich.apply(s2, d0, *weights, *packed)

@@ -14,6 +14,7 @@ import torch
 
 from ..core import TensorList
 from ..ops.kernels.tv import fwd_diff_nd, fwd_diff_nd_adjoint
+from ..utils.profiling import DATA_FIDELITY
 from .distance import (AmplitudeLossDistance, IndicatorL2Distance, L1Distance, L2Distance,
                        LogPoissonLikelihoodDistance, PoissonLikelihoodDistance, ZeroDistance)
 from .potential import Potential
@@ -30,6 +31,8 @@ class DataFidelity(Potential):
     :param d: the distance, :class:`~deepinv_tpu_torch.optim.distance.L2Distance`
         by default (:46).
     """
+
+    span_name = DATA_FIDELITY
 
     def __init__(self, d=None):
         super().__init__()

@@ -16,6 +16,11 @@ Three runs, as in the JAX package (fixed_point.py:97-111):
 
 ``remat`` recomputes each iteration in the backward
 (``torch.utils.checkpoint``), the JAX package's ``jax.checkpoint``.
+
+Each iteration runs in a ``dinv.iteration`` span (``k`` its index); a
+backtracking retry is a second span of the same ``k`` with ``retry=1``, and
+under early stop every body the loop evaluates has one, frozen ones
+included.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import CHECK_EVERY, TensorList, device_while
 from ..core.linalg import exact_f32, leaves
+from ..utils.profiling import ITERATION, span
 from .iterators import objective_function
 
 __all__ = ["FixedPoint"]
@@ -114,16 +120,21 @@ class FixedPoint(nn.Module):
         for k in range(self.max_iter):
             cur = {name: v[k] for name, v in params_iter.items()}
             if not self.backtracking:
-                X = self._step(X, cur, data_fidelity, prior, y, physics)
+                with span(ITERATION, k=k):
+                    X = self._step(X, cur, data_fidelity, prior, y, physics)
                 continue
             cur["stepsize"] = cur["stepsize"] * scale
-            X_new = self._step(X, cur, data_fidelity, prior, y, physics)
-            F_old = objective_function(X["est"][0], data_fidelity, prior, cur, y, physics).sum()
-            F_new = objective_function(X_new["est"][0], data_fidelity, prior, cur, y,
-                                       physics).sum()
-            if bool(F_new > F_old):
-                cur["stepsize"] = cur["stepsize"] * self.backtracking_eta
+            with span(ITERATION, k=k):
                 X_new = self._step(X, cur, data_fidelity, prior, y, physics)
+                F_old = objective_function(X["est"][0], data_fidelity, prior, cur, y,
+                                           physics).sum()
+                F_new = objective_function(X_new["est"][0], data_fidelity, prior, cur, y,
+                                           physics).sum()
+                retry = bool(F_new > F_old)
+            if retry:
+                cur["stepsize"] = cur["stepsize"] * self.backtracking_eta
+                with span(ITERATION, k=k, retry=1):
+                    X_new = self._step(X, cur, data_fidelity, prior, y, physics)
                 scale *= self.backtracking_eta
                 retries += 1
             X = X_new
@@ -137,11 +148,12 @@ class FixedPoint(nn.Module):
 
         def body(s):
             nonlocal k
-            cur = {name: v[k] for name, v in params_iter.items()}
-            X_new = self._step({**X0, "est": s[0], "it": k}, cur, data_fidelity, prior, y,
-                               physics)
-            k += 1
-            return X_new["est"], _residual(X_new["est"][0], s[0][0]) < self.thres_conv
+            with span(ITERATION, k=k):
+                cur = {name: v[k] for name, v in params_iter.items()}
+                X_new = self._step({**X0, "est": s[0], "it": k}, cur, data_fidelity, prior, y,
+                                   physics)
+                k += 1
+                return X_new["est"], _residual(X_new["est"][0], s[0][0]) < self.thres_conv
 
         converged = torch.zeros((), dtype=torch.bool, device=leaves(X0["est"][0])[0].device)
         (est, _), n = device_while(lambda s: ~s[1], body, (X0["est"], converged), self.max_iter,
@@ -204,11 +216,12 @@ class FixedPoint(nn.Module):
         X_hist, F_hist = self.init_anderson_acceleration(x0)
         X = X0
         for k in range(self.max_iter):
-            cur = {name: v[k] for name, v in params_iter.items()}
-            x_prev = to_flat(X["est"][0])
-            X_new = self._step(X, cur, data_fidelity, prior, y, physics)
-            x_acc, X_hist, F_hist = self.anderson_acceleration_step(
-                X["it"], x_prev, to_flat(X_new["est"][0]), X_hist, F_hist)
-            X = {**X_new, "est": (from_flat(x_acc),) + tuple(X_new["est"][1:])}
+            with span(ITERATION, k=k):
+                cur = {name: v[k] for name, v in params_iter.items()}
+                x_prev = to_flat(X["est"][0])
+                X_new = self._step(X, cur, data_fidelity, prior, y, physics)
+                x_acc, X_hist, F_hist = self.anderson_acceleration_step(
+                    X["it"], x_prev, to_flat(X_new["est"][0]), X_hist, F_hist)
+                X = {**X_new, "est": (from_flat(x_acc),) + tuple(X_new["est"][1:])}
         self.last_run = {"iterations": self.max_iter, "retries": 0}
         return X

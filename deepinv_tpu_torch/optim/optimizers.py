@@ -23,6 +23,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..models.base import Reconstructor
+from ..utils.profiling import RECON, span
 from .data_fidelity import L2
 from .fixed_point import FixedPoint
 from .iterators import (ADMMIteration, CPIteration, DRSIteration, FISTAIteration, GDIteration,
@@ -162,13 +163,15 @@ class BaseOptim(Reconstructor):
         return y
 
     def forward(self, y, physics, x_init=None, **kwargs):
-        # A^T y is computed once for the whole reconstruction (the initial
-        # iterate and every gradient step share it)
-        with self.data_fidelity.fixed_measurement(y, physics):
-            x0 = self.init_iterate(y, physics, x_init)
-            X = self.fixed_point(x0, self.data_fidelity, self.prior, self.params_algo, y,
-                                 physics)
-        return self.iterator.get_output(X)
+        with span(RECON, solver=type(self.iterator).__name__.removesuffix("Iteration"),
+                  max_iter=self.max_iter):
+            # A^T y is computed once for the whole reconstruction (the initial
+            # iterate and every gradient step share it)
+            with self.data_fidelity.fixed_measurement(y, physics):
+                x0 = self.init_iterate(y, physics, x_init)
+                X = self.fixed_point(x0, self.data_fidelity, self.prior, self.params_algo, y,
+                                     physics)
+            return self.iterator.get_output(X)
 
     def objective(self, x, y, physics):
         """The objective ``F(x)`` per sample at the last iteration's

@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..utils.profiling import traced
+
 __all__ = ["Potential"]
 
 
@@ -49,7 +51,25 @@ class Potential(nn.Module):
     """Anything with ``fn``/``grad``/``prox`` (deepinv_tpu/optim/potential.py:19).
     ``Potential(fn=callable)`` wraps a plain function. ``grad`` defaults to
     autograd of ``fn``; ``prox`` and ``bregman_prox`` to inner gradient
-    descent; ``grad_conj`` to autograd of ``conjugate``."""
+    descent; ``grad_conj`` to autograd of ``conjugate``.
+
+    A subclass that names a layer in ``span_name`` (the data fidelity, the
+    prior) has its ``prox`` and ``grad``, and those of every subclass below
+    it, run in that layer's span (``op`` the method's name), the outermost
+    call only (:func:`~deepinv_tpu_torch.utils.profiling.traced`)."""
+
+    span_name = None
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        if cls.span_name is None:
+            return
+        for op in ("prox", "grad"):
+            fn = cls.__dict__.get(op)
+            if fn is None and "span_name" in cls.__dict__:
+                fn = getattr(cls, op)   # the layer's root spans what it inherits
+            if fn is not None and getattr(fn, "span_name", None) != cls.span_name:
+                setattr(cls, op, traced(cls.span_name, op=op)(fn))
 
     def __init__(self, fn=None):
         super().__init__()

@@ -10,6 +10,7 @@ import torch
 from ..ops.kernels.tv import chambolle_prox, chambolle_prox_plain
 from ..ops.kernels.tv import div_op as _div_op
 from ..ops.kernels.tv import grad_op as _grad_op
+from ..utils.profiling import PRIOR
 from .potential import Potential
 
 __all__ = ["Prior", "Zero", "PnP", "RED", "ScorePrior", "Tikhonov", "L1Prior", "L12Prior",
@@ -25,6 +26,7 @@ class Prior(Potential):
     priors with a cost function; ``Prior(g=callable)`` wraps one."""
 
     explicit_prior = True
+    span_name = PRIOR
 
     def __init__(self, g=None):
         super().__init__(fn=g)

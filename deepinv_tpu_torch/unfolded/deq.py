@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from ..core import CHECK_EVERY, device_while
-from ..core.linalg import loop_stats, tree_norm, tree_sub
+from ..core.linalg import tree_norm, tree_sub
+from ..utils.profiling import counters
 
 __all__ = ["deq_fixed_point"]
 
@@ -46,12 +47,12 @@ def _forward(spec, x0):
     def cond(s):
         return tree_norm(tree_sub(s[0], s[1])) / tree_norm(s[0]).clamp_min(1e-12) > spec.tol
 
-    bodies = loop_stats.bodies
+    bodies = counters["loop.bodies"]
     x1 = T(params, x0)
     (x, _), n = device_while(cond, lambda s: (T(params, s[0]), s[0]), (x1, x0),
                              spec.max_iter - 1, spec.check_every)
     spec.stats["forward_iterations"] = n + 1
-    spec.stats["forward_maps"] = 1 + loop_stats.bodies - bodies
+    spec.stats["forward_maps"] = 1 + counters["loop.bodies"] - bodies
     return x
 
 
@@ -78,13 +79,13 @@ class _DEQ(torch.autograd.Function):
         def cond(s):
             return tree_norm(tree_sub(s[0], s[1])) > spec.backward_tol
 
-        bodies = loop_stats.bodies
+        bodies = counters["loop.bodies"]
         w1 = g + vjp(g)
         (w, _), n = device_while(cond, lambda s: (g + vjp(s[0]), s[0]), (w1, g),
                                  spec.backward_iter - 1, spec.check_every)
         want = [i for i, p in enumerate(spec.params) if p.requires_grad]
         spec.stats["backward_iterations"] = n + 1
-        spec.stats["backward_products"] = 1 + loop_stats.bodies - bodies + bool(want)
+        spec.stats["backward_products"] = 1 + counters["loop.bodies"] - bodies + bool(want)
         grads = [None] * len(spec.params)
         if want:
             got = torch.autograd.grad(Tx, [spec.params[i] for i in want], w, allow_unused=True)

@@ -25,6 +25,7 @@ import torch
 from deepinv_tpu.optim import PnP as JaxPnP
 from deepinv_tpu.optim import ScorePrior as JaxScorePrior
 from deepinv_tpu_torch.core import loop_stats
+from deepinv_tpu_torch.utils.profiling import counters
 from deepinv_tpu_torch.optim import PnP, ScorePrior
 from test_torch_dncnn import _pair
 from test_torch_pgd import PARAMS, _psnr, _run_both
@@ -59,9 +60,10 @@ def _params(algo):
 def test_f32_matches_jax(algo):
     """8 iterations; every data step a CG solve of the Toeplitz system."""
     loop_stats.reset()
+    counters.reset()
     x, got, want, *_ = _run_both("ct", iterator=algo, prior=_priors(algo), params=_params(algo))
     assert got.shape == x.shape and np.isfinite(got).all()
-    assert loop_stats.loops == 8 and 0 < loop_stats.iterations <= 8 * 50
+    assert counters["loop.loops"] == 8 and 0 < loop_stats.iterations <= 8 * 50
     assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
 
 

@@ -32,6 +32,7 @@ from deepinv_tpu_torch.ops.kernels import build
 from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain_stash, pack_weights,
                                                       pack_weights_transposed, stash_backward)
 from deepinv_tpu_torch.ops.kernels.conv_tile import H100_SMS, conv_tile_plan
+from deepinv_tpu_torch.utils.profiling import counters
 from test_torch_conv_tile import _bf16, _rel, band_of
 
 C = 64
@@ -291,9 +292,9 @@ def test_backward_on_cpu_builds_nothing():
     bs = torch.zeros((L, C))
     g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     acts = conv_chain_stash(h, ws, bs)
-    before = stash_backward.launches
+    before = counters["kernel.stash_backward.launches"]
     dh, dw, db = stash_backward(h, ws, acts, g)
-    assert stash_backward.launches == before
+    assert counters["kernel.stash_backward.launches"] == before
     assert build.load_library.cache_info().currsize == 0
     for a, b in zip((dh, dw, db), stash_backward(h, ws, acts, g, route="cudnn")):
         assert torch.equal(a, b)

@@ -20,6 +20,7 @@ from deepinv_tpu_torch.ops.kernels import build
 from deepinv_tpu_torch.ops.kernels.conv_chain import (_check_cuda, chain_f32, conv_chain,
                                                       conv_chain_plain, pack_bias,
                                                       pack_weights)
+from deepinv_tpu_torch.utils.profiling import counters
 
 
 def _inputs(L, seed=0, shape=(1, 64, 16, 16)):
@@ -127,11 +128,11 @@ def test_cpu_tensor_takes_the_plain_version():
     """On a CPU tensor the op runs the plain version: no kernel launch is
     counted and nothing is built."""
     h, ws, bs = _inputs(2, shape=(1, 64, 8, 8))
-    before = conv_chain.launches
+    before = counters["kernel.conv_chain.launches"]
     out = _port(h, ws, bs)
     assert torch.equal(out, conv_chain_plain(torch.from_numpy(h), torch.from_numpy(ws),
                                              torch.from_numpy(bs)))
-    assert conv_chain.launches == before
+    assert counters["kernel.conv_chain.launches"] == before
     assert build.load_library.cache_info().currsize == 0
 
 

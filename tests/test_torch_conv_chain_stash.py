@@ -26,6 +26,7 @@ from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain, conv_chain_pla
                                                       conv_chain_stash, conv_chain_stash_plain,
                                                       fused_chains_disabled, fused_disabled,
                                                       stash_backward)
+from deepinv_tpu_torch.utils.profiling import counters
 from test_torch_conv_chain import _inputs, _rel
 
 
@@ -139,10 +140,10 @@ def test_stash_plain_on_cpu_builds_nothing():
     """On a CPU tensor the stash op runs its plain version: no launch is
     counted and nothing is built."""
     h, ws, bs = _inputs(2, shape=(1, 64, 8, 8))
-    before = conv_chain_stash.launches
+    before = counters["kernel.conv_chain_stash.launches"]
     got = conv_chain_stash(_t(h, torch.bfloat16), _t(ws), _t(bs))
     assert torch.equal(got, conv_chain_stash_plain(_t(h), _t(ws), _t(bs)))
-    assert conv_chain_stash.launches == before
+    assert counters["kernel.conv_chain_stash.launches"] == before
     assert build.load_library.cache_info().currsize == 0
 
 

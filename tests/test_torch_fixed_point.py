@@ -20,12 +20,12 @@ from deepinv_tpu.optim import TVPrior as JaxTVPrior
 from deepinv_tpu.optim import optim_builder as jax_optim_builder
 from deepinv_tpu.physics import BlurFFT as JaxBlurFFT
 from deepinv_tpu.physics import Inpainting as JaxInpainting
-from deepinv_tpu_torch.core import loop_stats
 from deepinv_tpu_torch.ops import gaussian_blur
 from deepinv_tpu_torch.optim import (L2, AndersonAccelerationConfig, BacktrackingConfig,
                                      Tikhonov, TVPrior, check_conv, objective_function,
                                      optim_builder)
 from deepinv_tpu_torch.physics import BlurFFT, Inpainting
+from deepinv_tpu_torch.utils.profiling import counters
 from test_torch_drunet import DEV
 
 IMSIZE = (1, 16, 16)
@@ -108,11 +108,11 @@ def test_early_stop_is_the_same_for_every_host_read_interval(inpainting):
     out, stops, reads = [], [], []
     for k in (1, 8):
         model.fixed_point.check_every = k
-        loop_stats.reset()
+        counters.reset()
         with torch.no_grad():
             out.append(model(torch.from_numpy(y), tp))
         stops.append(int(model.fixed_point.last_run["iterations"]))
-        reads.append(loop_stats.host_reads)
+        reads.append(counters["loop.host_reads"])
     assert torch.equal(*out) and stops[0] == stops[1]
     assert reads[0] == stops[0] and reads[1] == -(-stops[0] // 8)
 

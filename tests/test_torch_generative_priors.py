@@ -29,6 +29,7 @@ import deepinv_tpu_torch.models as TM
 import deepinv_tpu_torch.physics as tphys
 from deepinv_tpu.models.deal import _batched_cg as jax_cg
 from deepinv_tpu_torch.core.linalg import loop_stats
+from deepinv_tpu_torch.utils.profiling import counters
 from deepinv_tpu_torch.models.convert import (deal_names, kernel_network_names, port_deal,
                                               upstream_state_dict)
 from deepinv_tpu_torch.models.deal import _batched_cg as port_cg
@@ -174,9 +175,10 @@ def test_deal_cg_matches_jax():
                       - torch.nn.functional.pad(v, (1, -1, 0, 0))
                       - torch.nn.functional.pad(v, (-1, 1, 0, 0))) * torch.from_numpy(scale)
     loop_stats.reset()
+    counters.reset()
     got = port_cg(tpad, torch.from_numpy(b), torch.zeros(2, 1, 16, 16), 40, 1e-8)
     assert rel(got, want) <= BOUND
-    assert loop_stats.loops == 1 and 0 < loop_stats.iterations < 40
+    assert counters["loop.loops"] == 1 and 0 < loop_stats.iterations < 40
 
 
 @pytest.mark.parametrize("mode", ["denoise", "inpainting"])

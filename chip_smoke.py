@@ -400,7 +400,12 @@ version at the chain shapes, at the train batch (16x64x256², L=18) and at
 TAP_SHAPE (two strips), every stash slot, and on the mma.sync tile at the
 main shape; and the stash backward on its kernels from the card's stash to
 its plain version (STASH_BWD_RTOL) at the same shapes, with L + 2 launches
-a call and db the same bits in two calls. It prints the card line and a JSON line
+a call and db the same bits in two calls; K5, K6 and the stash backward
+also at BALANCED_SHAPES (16x64x320², L=18, and 5x64x50x300, L=3, on the
+balanced schedule with the narrow product on the last strip). Each call's
+launches of K5, K6 and the stash backward's dX chain are counted by the
+tile's plan form (``kernel.conv_tile.launches.banded`` / ``.balanced``): L
+a call, all of the form ``conv_tile_plan`` gives. It prints the card line and a JSON line
 ``{"kernels": [...]}`` before the last line, and ends with ``{"ok": true, "device": {...}}``. It exits non-zero with
 no result when there is no CUDA device. It imports no JAX.
 """
@@ -438,6 +443,11 @@ HQS_BATCH = 8
 L_MAIN = 18                     # DnCNN depth 20: hidden layers in the chain
 CHAIN_SHAPES = [((1, 64, 256, 256), L_MAIN), ((2, 64, 256, 256), L_MAIN),
                 ((1, 64, 40, 56), 3)]
+# K5, K6 and the stash backward on the tile's balanced schedule, with the
+# narrow product on the last strip: the MRI benchmark cell's K5 and a ragged
+# width of three strips, the last of 44 columns (CHAIN_SHAPES take the
+# banded plan)
+BALANCED_SHAPES = [((16, 64, 320, 320), L_MAIN), ((5, 64, 50, 300), 3)]
 # K1 and K5 on the wgmma tile are also held at the HQS batch (R=4, L=18),
 # and each of the tile's nine taps alone at a ragged shape of two strips of
 # 128 columns, the second partly outside the image
@@ -1184,6 +1194,31 @@ def kernel_launches_by_variant(op) -> dict:
     return {v: counters[f"kernel.{op.__name__}.launches.{v}"] for v in ("resident", "global")}
 
 
+def tile_launches_by_form() -> dict:
+    """The 64-channel tile's layer launches by plan form, ``{"banded": n,
+    "balanced": n}``."""
+    from deepinv_tpu_torch.utils.profiling import counters
+
+    return {f: counters[f"kernel.conv_tile.launches.{f}"] for f in ("banded", "balanced")}
+
+
+def tile_form(shape) -> str:
+    """The plan form the 64-channel tile takes for the activation ``shape``
+    (B, 64, H, W) on this card."""
+    from deepinv_tpu_torch.ops.kernels.conv_tile import conv_tile_plan
+    from deepinv_tpu_torch.ops.kernels.resblock_chain import _sms
+
+    return "balanced" if conv_tile_plan(shape[0], *shape[2:], _sms(0)).balanced else "banded"
+
+
+def check_tile_launches(label: str, before: dict, form: str, n: int) -> None:
+    """Since ``before`` (:func:`tile_launches_by_form`), ``n`` layer launches
+    of the tile, all of plan form ``form``."""
+    ran = {k: v - before[k] for k, v in tile_launches_by_form().items()}
+    want = {k: n if k == form else 0 for k in ran}
+    check(ran == want, f"{label}: tile launches by plan form {ran}, expected {want}")
+
+
 def reset_kernel_launches(*ops) -> None:
     """Set the launches of the kernel ops ``ops``, by variant too, to 0."""
     from deepinv_tpu_torch.utils.profiling import counters
@@ -1273,14 +1308,16 @@ def swapped(module, name: str, fn):
 
 
 # the wgmma kernels each source's library code must hold (kernel name ->
-# instances: one an epilogue or a projection mode; wg::resblocks<Tile64>
-# launches two, kRelu and kResidual; conv_chain.cu three: kBiasRelu (K5,
-# K6), kMaskDb and kRound (the stash backward's dX chain))
+# instances: one an epilogue or a projection mode, and the 64-channel tile's
+# epilogues each twice, with and without the narrow product of a ragged last
+# strip, but kMaskDb; wg::resblocks<Tile64> launches kRelu and kResidual;
+# conv_chain.cu kBiasRelu (K5, K6), kMaskDb and kRound (the stash
+# backward's dX chain))
 WGMMA_KERNELS = {
-    "resblock_chain": {"conv3x3_wgmma": 2},                        # K1
-    "conv_chain": {"conv3x3_wgmma": 3},                            # K5, K6, dX
-    "up_resblock_chain": {"conv3x3_wgmma": 2, "proj2x2_wgmma": 1},  # K2/K3
-    "up_sandwich": {"conv3x3_wgmma": 2, "conv3x3_c128_wgmma": 2, "proj2x2_wgmma": 2},  # K4
+    "resblock_chain": {"conv3x3_wgmma": 4},                        # K1
+    "conv_chain": {"conv3x3_wgmma": 5},                            # K5, K6, dX
+    "up_resblock_chain": {"conv3x3_wgmma": 4, "proj2x2_wgmma": 1},  # K2/K3
+    "up_sandwich": {"conv3x3_wgmma": 4, "conv3x3_c128_wgmma": 2, "proj2x2_wgmma": 2},  # K4
 }
 
 
@@ -1691,6 +1728,7 @@ def stash_vs_plain(label: str, h, ws, bs, cot, tile: str = "wgmma"):
         pack_weights, stash_backward)
 
     reset_kernel_launches(conv_chain, conv_chain_stash)
+    L, form, tiles = ws.shape[0], tile_form(h.shape), tile_launches_by_form()
     with torch.no_grad():
         got = (conv_chain_stash(h, ws, bs) if tile == "wgmma"
                else _launch_stash(h, pack_weights(ws), pack_bias(bs), tile))
@@ -1698,6 +1736,7 @@ def stash_vs_plain(label: str, h, ws, bs, cot, tile: str = "wgmma"):
         launches = (kernel_launches(conv_chain_stash), kernel_launches(conv_chain))
         want = conv_chain_stash_plain(h, ws, bs)
     check(launches == (1, 0), f"{label}: expected one K6 launch and no K5 launch, got {launches}")
+    check_tile_launches(f"{label} (K6)", tiles, form, L if tile == "wgmma" else 0)
     check(bool(torch.isfinite(got.float()).all()), f"non-finite stash: {label}")
     diff = (got.float() - want.float()).abs()
     slot_err = diff.amax(dim=(1, 2, 3, 4)) / want.float().abs().amax(dim=(1, 2, 3, 4))
@@ -1708,16 +1747,18 @@ def stash_vs_plain(label: str, h, ws, bs, cot, tile: str = "wgmma"):
     del want, diff
     if tile != "wgmma":
         return err, None
-    L, bwd_err = ws.shape[0], {}
+    bwd_err = {}
     # f32 weights (dW in f32, TF32) and bf16 weights (training under
     # autocast: dW as a bf16 cuDNN wgrad)
     for wdt in (torch.float32, torch.bfloat16):
         w = ws.to(wdt)
         reset_kernel_launches(stash_backward)
+        tiles = tile_launches_by_form()
         k = stash_backward(h, w, got, cot)
         torch.cuda.synchronize()
         n = kernel_launches(stash_backward)
         check(n == L + 2, f"{label}: stash backward launched {n} kernels, not L + 2 = {L + 2}")
+        check_tile_launches(f"{label} stash backward's dX chain", tiles, form, L)
         again = stash_backward(h, w, got, cot)[2]
         check(torch.equal(again, k[2]), f"{label}: db differs between two runs on the same inputs")
         p = stash_backward(h, w, got, cot, plain=True)
@@ -6723,13 +6764,23 @@ def main() -> int:
                             lambda v: resblock_chain_plain(v, w1, w2), h, KERNEL_RTOL)
     he_std = (2.0 / (64 * 9)) ** 0.5           # DnCNN's He-normal init scale
     chain_err = None
-    for shape, L in CHAIN_SHAPES:
-        h = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
-        ws = (torch.randn((L, 64, 64, 3, 3), generator=g) * he_std).to(dev)
-        bs = (torch.randn((L, 64), generator=g) * 0.02).to(dev)
-        err = kernel_vs_plain(f"conv_chain vs plain {shape} L={L}",
+    def k5_vs_plain(shape, L, gen, form):
+        """K5 at ``shape`` (weights and input from ``gen``) against its plain
+        version, its L tile launches all of plan form ``form``."""
+        h = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        ws = (torch.randn((L, 64, 64, 3, 3), generator=gen) * he_std).to(dev)
+        bs = (torch.randn((L, 64), generator=gen) * 0.02).to(dev)
+        check(tile_form(shape) == form, f"conv_chain {shape}: the tile takes the "
+              f"{tile_form(shape)} plan, not the {form} one")
+        tiles = tile_launches_by_form()
+        err = kernel_vs_plain(f"conv_chain vs plain {shape} L={L}, {form} plan",
                               lambda v: conv_chain(v, ws, bs),
                               lambda v: conv_chain_plain(v, ws, bs), h, KERNEL_RTOL)
+        check_tile_launches(f"conv_chain {shape} L={L}", tiles, form, L)
+        return err, h, ws, bs
+
+    for shape, L in CHAIN_SHAPES:
+        err, h, ws, bs = k5_vs_plain(shape, L, g, "banded")
         if chain_err is None:
             chain_err = err
             kernel_vs_plain(f"conv_chain (mma.sync tile) vs plain {shape} L={L}",
@@ -6758,6 +6809,11 @@ def main() -> int:
         kernel_vs_plain(f"conv_chain tap (dy, dx) = {divmod(tap, 3)} alone vs plain {TAP_SHAPE}",
                         lambda v: conv_chain(v, wt, b0), lambda v: conv_chain_plain(v, wt, b0),
                         h, KERNEL_RTOL)
+    # K5 on the balanced schedule, on its own generator (the later phases
+    # draw from g what they drew before)
+    g_bal = torch.Generator().manual_seed(SEED + 21)
+    for shape, L in BALANCED_SHAPES:
+        k5_vs_plain(shape, L, g_bal, "balanced")
     tv_err = None
     # its own generator: the later phases draw from g what they drew before K7
     g_tv = torch.Generator().manual_seed(SEED + 4)
@@ -6888,7 +6944,7 @@ def main() -> int:
     # also on the mma.sync tile at the main shape
     g_k6 = torch.Generator().manual_seed(SEED + 9)
     stash_err = bwd_err = None
-    for shape, L in CHAIN_SHAPES + [(TRAIN_B16_SHAPE, L_MAIN), (TAP_SHAPE, 3)]:
+    for shape, L in CHAIN_SHAPES + [(TRAIN_B16_SHAPE, L_MAIN), (TAP_SHAPE, 3)] + BALANCED_SHAPES:
         h = torch.randn(shape, generator=g_k6).to(dev, torch.bfloat16)
         ws = (torch.randn((L, 64, 64, 3, 3), generator=g_k6) * he_std).to(dev)
         bs = (torch.randn((L, 64), generator=g_k6) * 0.02).to(dev)

@@ -310,7 +310,8 @@ struct Tile {
   }
   template <int EPI>
   static cudaError_t launch(const CUtensorMap& src, const CUtensorMap& out, const CUtensorMap& w,
-                            int layer, int H, int W, const wg::Plan& p, cudaStream_t s) {
+                            int layer, int /*B*/, int H, int W, const wg::Plan& p,
+                            cudaStream_t s) {
     return wg128::launch<EPI>(src, out, w, layer, H, W, p, s);
   }
 };

@@ -21,21 +21,38 @@
 // function of the shared-memory address, so the shifted start reads the
 // right channels (chip_smoke.py holds every tap at a ragged shape).
 //
-// The CTA (2 consumer warpgroups + 1 producer warp, one CTA per SM) owns a
-// band of rows_per_cta output rows of one 128-column strip of one image:
+// The schedule. The layer's output row-runs are numbered column by column,
+// a column being one 128-column strip of one image, rows down it. A CTA
+// (2 consumer warpgroups + 1 producer warp, one CTA per SM) computes one
+// contiguous range of them, in segments of consecutive rows of one column:
+//   - the banded plan (rows_per_cta > 0): a band of rows_per_cta rows of one
+//     column, one segment, one CTA a band;
+//   - the balanced schedule (rows_per_cta = 0): a persistent CTA, at most one
+//     an SM, whose range balances the cost of the CTAs' row-runs (a full
+//     one FULL_COST, a narrow one NARROW_COST) and may cross from one
+//     column into the next (balanced_start). The weights stay resident
+//     across its segments.
+// A narrow row-run (the strip holds at most NPIX / 2 columns of the image:
+// 320 = 128 + 128 + 64) issues wgmma.m64n64k16 on the first 64 pixels
+// instead of computing padding: the same taps and K steps in the same order
+// for each value it keeps, so the same bits. Only a launch whose last strip
+// is that narrow runs the instantiation with the narrow product (RAGGED,
+// narrow_strip); kMaskDb keeps the full product.
 //   - the producer loads the layer's 72 KB of weights once (9 TMA boxes of
-//     64 x 64), then streams the band's input rows y0 - 1 .. y0 + rows
-//     through a ring of DEPTH slots, each a TMA box of 130 pixels x 64
-//     channels from the tensor map over (C, W, H, B). Coordinates -1 and
-//     boxes past the image fill with zeros: the conv's padding;
-//   - consumer warpgroup q takes output rows y0 + q, y0 + q + 2, ...: it
-//     waits for ring rows y - 1, y, y + 1 (mbarriers), issues the 36
-//     products, waits for them, and releases ring rows y - 1 and y, which
-//     its next row does not read (each ring row is released by both
-//     warpgroups; warpgroup 1 first waits for and releases ring row y0 - 1,
-//     standing for the absent row above the band, so that it waits for the
-//     loads of each slot in order: a parity wait two phases ahead would pass
-//     at once);
+//     64 x 64), then streams each segment's input rows y0 - 1 .. y0 + rows
+//     through one ring of DEPTH slots, each a TMA box of 130 pixels x 64
+//     channels from the tensor map over (C, W, H, B), the barrier phases
+//     running on across segments. Coordinates -1 and boxes past the image
+//     fill with zeros: the conv's padding;
+//   - consumer warpgroup q takes the CTA's rows q, q + 2, ... (counted over
+//     its segments): for output row y it waits for ring rows y - 1, y, y + 1
+//     (mbarriers), issues the 36 products, waits for them, and releases ring
+//     rows y - 1 and y, which its next row in the segment does not read.
+//     Each ring row is released by both warpgroups, and each warpgroup waits
+//     for the loads in order: before a row it waits for and releases the
+//     loads it skipped (the absent row above a segment for the warpgroup
+//     that starts on its second row; the last rows of the previous segment),
+//     since a parity wait two phases ahead would pass at once;
 //   - the epilogue works on the f32 accumulator in registers (channel-
 //     major: row = channel, column = pixel), rounds each value to bf16 once
 //     and writes it with stmatrix .trans into the warpgroup's output buffer
@@ -96,6 +113,13 @@ namespace wg {
 
 constexpr int CH = 64;                  // input and output channels
 constexpr int NPIX = 128;               // output pixels of a row-run: the wgmma N
+constexpr int NARROW = NPIX / 2;        // a strip's columns at most: the narrow product's N
+// the balanced schedule's cost of a row-run and of a narrow one: the narrow
+// one's products take half the time, its ring load, barriers and store as
+// long (on an H100 a narrow row-run took 0.61-0.65 of a full one, and K5 at
+// 16 x 64 x 320² took the same time within 1.2% costed 3/4 or 2/3, PERF.md)
+constexpr int FULL_COST = 4;
+constexpr int NARROW_COST = 3;
 constexpr int BOX_W = NPIX + 2;         // haloed input pixels of a ring row
 constexpr int DEPTH = 7;                // ring slots
 constexpr int ROW_BYTES = CH * 2;       // one pixel's (or weight row's) channels
@@ -340,6 +364,40 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// The 36 products of one output row-run whose input rows y - 1, y, y + 1
+// are ring loads i, i + 1, i + 2: D = sum over taps and 16-channel K steps,
+// in that order, of W[tap] x the ring row started dx pixels in. NARROW_: the
+// m64n64k16 products on the first 64 pixels, into a 32-register accumulator
+// that gets what the first 32 registers of the m64n128k16 products get for
+// those pixels (the same fragment positions, and the same sums). One straight
+// pipeline stage, from the fence to the wait, with no branch in it.
+template <bool NARROW_, int N>
+__device__ __forceinline__ void row_products(float (&d)[N], uint32_t s_w, uint32_t s_ring,
+                                             int i) {
+  static_assert(N == (NARROW_ ? 32 : 64), "the product's accumulator");
+  wgmma_fence();
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+    const uint32_t row = s_ring + ((i + dy) % DEPTH) * SLOT_BYTES;
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const uint32_t a0 = s_w + (dy * 3 + dx) * TAP_BYTES;
+      const uint32_t b0 = row + dx * ROW_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (NARROW_)
+          wgmma_m64n64k16(d, sw128_desc(a0 + kk * 32), sw128_desc(b0 + kk * 32),
+                          (dy | dx | kk) != 0);
+        else
+          wgmma_m64n128k16(d, sw128_desc(a0 + kk * 32), sw128_desc(b0 + kk * 32),
+                           (dy | dx | kk) != 0);
+      }
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+}
+
 // ---------------------------------------------------------- thread-block clusters
 
 __device__ __forceinline__ uint32_t cluster_ctarank() {
@@ -395,23 +453,78 @@ __device__ __forceinline__ void named_bar(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// The first row-run of CTA `cta` of `grid` in the balanced schedule (see
+// the header): row-run u is row u % H of column u / H, column c strip
+// c % strips of image c / strips. A row-run costs FULL_COST, a narrow one
+// narrow_cost; CTA i starts at the first row-run whose cost before it
+// reaches floor(total x i / grid), so cta = grid gives the end
+// (conv_tile.py's _balanced_start).
+__device__ __forceinline__ long long balanced_start(int B, int H, int W, int grid, int cta,
+                                                    int narrow_cost) {
+  const int strips = (W + NPIX - 1) / NPIX;
+  const int last = W - (strips - 1) * NPIX <= NARROW ? narrow_cost : FULL_COST;
+  const long long per_image = (long long)H * (FULL_COST * (strips - 1) + last);
+  const long long t = (long long)B * per_image * cta / grid;
+  const long long b = t / per_image, rem = t - b * per_image;
+  const long long s = min(rem / ((long long)FULL_COST * H), (long long)strips - 1);
+  const int c = s == strips - 1 ? last : FULL_COST;
+  return (b * strips + s) * H + (rem - s * FULL_COST * H + c - 1) / c;
+}
+
+// The row-runs [u0, u1) of this CTA (see balanced_start): a band of the
+// banded plan (rows_per_cta > 0), or a range of the balanced schedule
+// whose narrow row-runs cost narrow_cost.
+__device__ __forceinline__ void cta_range(int B, int H, int W, int rows_per_cta, int narrow_cost,
+                                          long long& u0, long long& u1) {
+  if (rows_per_cta > 0) {
+    const int bands = (H + rows_per_cta - 1) / rows_per_cta;
+    const int y0 = (blockIdx.x % bands) * rows_per_cta;
+    u0 = (long long)(blockIdx.x / bands) * H + y0;
+    u1 = u0 + min(rows_per_cta, H - y0);
+  } else {
+    u0 = balanced_start(B, H, W, gridDim.x, blockIdx.x, narrow_cost);
+    u1 = balanced_start(B, H, W, gridDim.x, blockIdx.x + 1, narrow_cost);
+  }
+}
+
+// One segment of a CTA's range: rows y0 .. y0 + n - 1 of image b, columns
+// x0 .. x0 + NPIX - 1; the range's next row-run is u.
+struct Segment {
+  int b, x0, y0, n;
+};
+
+__device__ __forceinline__ Segment next_segment(long long& u, long long u1, int H, int strips) {
+  const long long col = u / H;
+  Segment g;
+  g.y0 = (int)(u - col * H);
+  g.n = (int)min((long long)(H - g.y0), u1 - u);
+  g.b = (int)(col / strips);
+  g.x0 = (int)(col % strips) * NPIX;
+  u += g.n;
+  return g;
+}
+
 // One conv layer over a (B, H, W, 64) bf16 NHWC tensor: src_map (boxes of
 // BOX_W pixels) is the input, out_map (boxes of NPIX pixels) the output, and
 // for kResidual also the residual; aux_map (boxes of NPIX pixels) the mask
 // of kMaskDb. w_map covers the packed weight stack as rows [l][tap][co] of
 // 64 ci; the layer's 576 rows start at w_row0. bias (64 f32) is read by
 // kBiasRelu only; kMaskDb writes 64 f32 at partials + 64 * blockIdx.x. The
-// grid is B * strips * ceil(H / rows_per_cta) CTAs, one band each; image b
-// is batch coordinate b + in_b0 (b + out_b0, b + aux_b0) of src_map
-// (out_map, aux_map).
-template <int EPI>
+// grid is B * strips * ceil(H / rows_per_cta) CTAs, one band each, or, with
+// rows_per_cta 0, any number of CTAs of the balanced schedule; image b is
+// batch coordinate b + in_b0 (b + out_b0, b + aux_b0) of src_map (out_map,
+// aux_map). RAGGED: the launch's last strip holds at most NARROW columns of
+// the image (narrow_strip), which its row-runs compute with the narrow
+// product and the balanced schedule charges NARROW_COST; a launch without
+// one runs the instantiation that has no narrow product's code.
+template <int EPI, bool RAGGED>
 __global__ void __launch_bounds__(NTHREADS, 1)
 conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
               const __grid_constant__ CUtensorMap out_map,
               const __grid_constant__ CUtensorMap aux_map,
               const __grid_constant__ CUtensorMap w_map, int w_row0,
-              const float* __restrict__ bias, float* __restrict__ partials, int H, int strips,
-              int rows_per_cta, int in_b0, int out_b0, int aux_b0) {
+              const float* __restrict__ bias, float* __restrict__ partials, int B, int H,
+              int W, int rows_per_cta, int in_b0, int out_b0, int aux_b0) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // the swizzle atoms need 1024-B alignment
@@ -424,12 +537,9 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
   const uint32_t wbar = bars + 8u * 2 * DEPTH;
   auto rbar = [&](int q) { return bars + 8u * (2 * DEPTH + 1 + q); };
 
-  const int bands = (H + rows_per_cta - 1) / rows_per_cta;
-  const int col = blockIdx.x / bands;
-  const int b = col / strips;
-  const int x0 = (col % strips) * NPIX;
-  const int y0 = (blockIdx.x % bands) * rows_per_cta;
-  const int nrows = min(rows_per_cta, H - y0);
+  const int strips = (W + NPIX - 1) / NPIX;
+  long long u0, u1;
+  cta_range(B, H, W, rows_per_cta, RAGGED ? NARROW_COST : FULL_COST, u0, u1);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -449,17 +559,22 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
   if (tid >= NCONS * 128) {
-    // producer: the weights once, then input rows y0 - 1 .. y0 + nrows
+    // producer: the weights once, then each segment's input rows y0 - 1 ..
+    // y0 + n; i counts the ring's loads over the segments
     if (tid == NCONS * 128) {
       mbar_expect_tx(wbar, W_BYTES);
       for (int t = 0; t < 9; ++t) tma_load_2d(s_w + t * TAP_BYTES, &w_map, 0, w_row0 + t * CH, wbar);
       asm volatile("griddepcontrol.wait;\n" ::: "memory");
-      for (int i = 0; i < nrows + 2; ++i) {
-        const int slot = i % DEPTH;
-        if (i >= DEPTH) mbar_wait(empty(slot), (i / DEPTH - 1) & 1);
-        mbar_expect_tx(full(slot), BOX_BYTES);
-        tma_load_4d(s_ring + slot * SLOT_BYTES, &src_map, 0, x0 - 1, y0 - 1 + i, b + in_b0,
-                    full(slot));
+      int i = 0;
+      for (long long u = u0; u < u1;) {
+        const Segment g = next_segment(u, u1, H, strips);
+        for (int k = 0; k < g.n + 2; ++k, ++i) {
+          const int slot = i % DEPTH;
+          if (i >= DEPTH) mbar_wait(empty(slot), (i / DEPTH - 1) & 1);
+          mbar_expect_tx(full(slot), BOX_BYTES);
+          tma_load_4d(s_ring + slot * SLOT_BYTES, &src_map, 0, g.x0 - 1, g.y0 - 1 + k,
+                      g.b + in_b0, full(slot));
+        }
       }
     }
     return;
@@ -477,71 +592,78 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap src_map,
   mbar_wait(wbar, 0);
 
   float sum[2] = {0.f, 0.f};   // kMaskDb: the written values of the thread's two channels
-  float d[64];
+  // the full and the narrow product's accumulators, apart: sharing d's first
+  // 32 registers, the ragged instantiations' wgmma pipeline was serialized by
+  // ptxas at some costs of the balancer (C7511, register resources)
+  float d[64], dn[32];
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0.f;
-  for (int r = q; r < nrows; r += NCONS) {
-    const int y = y0 + r;
-    // the output buffer is free once this warpgroup's previous store has
-    // read it; the residual (mask) of this row-run is loaded into it meanwhile
-    if (wtid == 0) {
-      tma_store_wait_read();
-      if (EPI == kResidual || EPI == kMaskDb) {
-        mbar_expect_tx(rbar(q), OUT_BYTES);
-        if (EPI == kResidual)
-          tma_load_4d(s_o, &out_map, 0, x0, y, b + out_b0, rbar(q));
-        else
-          tma_load_4d(s_o, &aux_map, 0, x0, y, b + aux_b0, rbar(q));
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dn[i] = 0.f;
+  // rows: the CTA's rows before this segment; loads: its ring loads before
+  // this segment; next: this warpgroup's first load not yet released
+  int rows = 0, loads = 0, next = 0;
+  for (long long u = u0; u < u1;) {
+    const Segment g = next_segment(u, u1, H, strips);
+    const bool narrow = RAGGED && W - g.x0 <= NARROW;
+    for (int r = (q ^ rows) & 1; r < g.n; r += NCONS) {
+      const int y = g.y0 + r;
+      const int i = loads + r;   // input rows y - 1, y, y + 1 are ring loads i, i + 1, i + 2
+      const int k = (rows + r) >> 1;   // this warpgroup's rows before this one
+      // the output buffer is free once this warpgroup's previous store has
+      // read it; the residual (mask) of this row-run is loaded into it meanwhile
+      if (wtid == 0) {
+        tma_store_wait_read();
+        if (EPI == kResidual || EPI == kMaskDb) {
+          mbar_expect_tx(rbar(q), OUT_BYTES);
+          if (EPI == kResidual)
+            tma_load_4d(s_o, &out_map, 0, g.x0, y, g.b + out_b0, rbar(q));
+          else
+            tma_load_4d(s_o, &aux_map, 0, g.x0, y, g.b + aux_b0, rbar(q));
+        }
       }
-    }
-    // input rows y - 1, y, y + 1 are ring loads r, r + 1, r + 2. A parity
-    // wait cannot tell a phase from the one two ahead of it, so each
-    // warpgroup waits for the loads of a slot in order: warpgroup 1 first
-    // waits for load 0 (ring row y0 - 1), which it does not read, and
-    // releases it for the absent row above the band; load DEPTH (slot 0)
-    // cannot land before
-    if (r == 1) {
-      mbar_wait(full(0), 0);
+      // the loads this warpgroup does not read, waited for and released in
+      // order: ring load DEPTH ahead of one cannot land before its release
+      for (; next < i; ++next) {
+        mbar_wait(full(next % DEPTH), (next / DEPTH) & 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(next % DEPTH));
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) mbar_wait(full((i + j) % DEPTH), ((i + j) / DEPTH) & 1);
+      if (narrow) {
+        fence_acc(dn);
+        row_products<true>(dn, s_w, s_ring, i);
+        fence_acc(dn);
+      } else {
+        fence_acc(d);
+        row_products<false>(d, s_w, s_ring, i);
+        fence_acc(d);
+      }
+      // release ring rows y - 1 and y: this warpgroup's next row reads y + 1 on
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty(0));
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) mbar_wait(full((r + k) % DEPTH), ((r + k) / DEPTH) & 1);
-    fence_acc(d);
-    wgmma_fence();
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const uint32_t row = s_ring + ((r + dy) % DEPTH) * SLOT_BYTES;
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const uint32_t a0 = s_w + (dy * 3 + dx) * TAP_BYTES;
-        const uint32_t b0 = row + dx * ROW_BYTES;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_m64n128k16(d, sw128_desc(a0 + kk * 32), sw128_desc(b0 + kk * 32),
-                           (dy | dx | kk) != 0);
+      if (lane == 0) {
+        mbar_arrive(empty(i % DEPTH));
+        mbar_arrive(empty((i + 1) % DEPTH));
       }
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_acc(d);
-    // release ring rows y - 1 and y: this warpgroup's next row reads y + 1 on
-    __syncwarp();
-    if (lane == 0) {
-      mbar_arrive(empty(r % DEPTH));
-      mbar_arrive(empty((r + 1) % DEPTH));
-    }
-    if (EPI == kResidual || EPI == kMaskDb)
-      mbar_wait(rbar(q), (r >> 1) & 1);   // the residual is in (and the store has read)
-    else
-      named_bar(1 + q, 128);              // the previous store has read the buffer
+      next = i + 2;
+      if (EPI == kResidual || EPI == kMaskDb)
+        mbar_wait(rbar(q), k & 1);   // the residual is in (and the store has read)
+      else
+        named_bar(1 + q, 128);       // the previous store has read the buffer
 
-    // epilogue in registers, one bf16 rounding a value, into the buffer by
-    // stmatrix (transposed: a pixel's channels contiguous)
-    store_fragment<EPI>(d, s_o, 1, 0, bv, sum);
-    fence_async_shared();
-    named_bar(1 + q, 128);
-    if (wtid == 0) tma_store_4d(&out_map, s_o, 0, x0, y, b + out_b0);   // clipped at the edge
+      // epilogue in registers, one bf16 rounding a value, into the buffer by
+      // stmatrix (transposed: a pixel's channels contiguous)
+      if (narrow)
+        store_fragment<EPI>(dn, s_o, 1, 0, bv, sum);
+      else
+        store_fragment<EPI>(d, s_o, 1, 0, bv, sum);
+      fence_async_shared();
+      named_bar(1 + q, 128);
+      if (wtid == 0) tma_store_4d(&out_map, s_o, 0, g.x0, y, g.b + out_b0);   // clipped at the edge
+    }
+    rows += g.n;
+    loads += g.n + 2;
   }
   if (wtid == 0) tma_store_wait_all();
   if (EPI == kMaskDb) {
@@ -695,25 +817,30 @@ inline cudaError_t matrix_map(CUtensorMap* map, const void* ptr, int cols, long 
 
 // The launch plan the Python wrapper computes (conv_tile_plan in
 // ops/kernels/conv_tile.py): checked here against the tile's constants and
-// the shape, so that the two cannot drift apart.
+// the shape, so that the two cannot drift apart. rows_per_cta 0: the
+// balanced schedule (the 64-channel tile only).
 struct Plan {
   int strip, depth, smem_bytes, rows_per_cta, grid;
 };
 
 // A conv tile's plan against its constants: strips of npix columns, depth
-// ring slots, smem bytes, a band of rows to each cluster of `cluster` CTAs.
+// ring slots, smem bytes, a band of rows to each cluster of `cluster` CTAs;
+// or, where the tile has it (`balanced`), the balanced schedule
+// (rows_per_cta 0) over 1 to B * strips * H CTAs.
 inline cudaError_t check_tile_plan(const Plan& p, int npix, int depth, int smem, int cluster,
-                                   int B, int H, int W) {
-  if (p.strip != npix || p.depth != depth || p.smem_bytes != smem || p.rows_per_cta < 1 ||
-      B < 1 || H < 1 || W < 1)
+                                   int B, int H, int W, bool balanced = false) {
+  if (p.strip != npix || p.depth != depth || p.smem_bytes != smem || B < 1 || H < 1 || W < 1)
     return cudaErrorInvalidValue;
   const long long strips = (W + npix - 1) / npix;
+  if (balanced && p.rows_per_cta == 0)
+    return p.grid >= 1 && p.grid <= B * strips * H ? cudaSuccess : cudaErrorInvalidValue;
+  if (p.rows_per_cta < 1) return cudaErrorInvalidValue;
   const long long bands = (H + p.rows_per_cta - 1) / p.rows_per_cta;
   return (long long)p.grid == cluster * B * strips * bands ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 inline cudaError_t check_plan(const Plan& p, int B, int H, int W) {
-  return check_tile_plan(p, NPIX, DEPTH, SMEM_BYTES, 1, B, H, W);
+  return check_tile_plan(p, NPIX, DEPTH, SMEM_BYTES, 1, B, H, W, true);
 }
 
 // Allow `Kernel` `bytes` of dynamic shared memory (above the 48 KB default),
@@ -730,9 +857,21 @@ cudaError_t allow_smem_once(int bytes) {
   return err;
 }
 
+// Whether a launch over width W takes the narrow product on its last strip
+// (conv3x3_wgmma's RAGGED): a strip of at most NARROW columns, and not under
+// kMaskDb, which keeps the full product (with both products in its function
+// ptxas serializes the wgmma pipeline: C7511, register resources).
+template <int EPI>
+inline bool narrow_strip(int W) {
+  return EPI != kMaskDb && W % NPIX != 0 && W % NPIX <= NARROW;
+}
+
 template <int EPI>
 cudaError_t allow_smem() {
-  return allow_smem_once<conv3x3_wgmma<EPI>>(SMEM_BYTES);
+  cudaError_t err = allow_smem_once<conv3x3_wgmma<EPI, false>>(SMEM_BYTES);
+  if constexpr (EPI != kMaskDb)
+    if (err == cudaSuccess) err = allow_smem_once<conv3x3_wgmma<EPI, true>>(SMEM_BYTES);
+  return err;
 }
 
 // The configuration of a launch of `grid` CTAs on `s` with programmatic
@@ -764,22 +903,26 @@ struct Batch0 {
 // kMaskDb reads its mask through *aux and writes its sums to partials.
 template <int EPI>
 cudaError_t launch(const CUtensorMap& src, const CUtensorMap& out, const CUtensorMap& w,
-                   int layer, const float* bias, int H, int W, const Plan& p, cudaStream_t s,
+                   int layer, const float* bias, int B, int H, int W, const Plan& p, cudaStream_t s,
                    const Batch0& b0 = Batch0{}, const CUtensorMap* aux = nullptr,
                    float* partials = nullptr) {
   if (EPI == kMaskDb && (aux == nullptr || partials == nullptr)) return cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = pdl_config(p.grid, NTHREADS, SMEM_BYTES, s, attr);
+  auto kernel = conv3x3_wgmma<EPI, false>;
+  if constexpr (EPI != kMaskDb)
+    if (narrow_strip<EPI>(W)) kernel = conv3x3_wgmma<EPI, true>;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, conv3x3_wgmma<EPI>, src, out, aux != nullptr ? *aux : out, w, layer * 9 * CH, bias,
-      partials, H, (W + NPIX - 1) / NPIX, p.rows_per_cta, b0.in, b0.out, b0.aux);
+      &cfg, kernel, src, out, aux != nullptr ? *aux : out, w, layer * 9 * CH, bias, partials, B,
+      H, W, p.rows_per_cta, b0.in, b0.out, b0.aux);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // A conv tile as the chain's host loop drives it (this one, or wg128::Tile
 // for the 128-channel cluster tile): its channels, the box widths of a
 // layer's input and output maps, a layer's rows in the packed weight stack,
-// its plan check, its shared-memory opt-in and its launch of one layer.
+// its plan check, its shared-memory opt-in and its launch of one layer (of a
+// (B, H, W, channels) activation).
 struct Tile64 {
   static constexpr int channels = CH;
   static constexpr int box_in = BOX_W;
@@ -792,8 +935,8 @@ struct Tile64 {
   }
   template <int EPI>
   static cudaError_t launch(const CUtensorMap& src, const CUtensorMap& out, const CUtensorMap& w,
-                            int layer, int H, int W, const Plan& p, cudaStream_t s) {
-    return wg::launch<EPI>(src, out, w, layer, nullptr, H, W, p, s);
+                            int layer, int B, int H, int W, const Plan& p, cudaStream_t s) {
+    return wg::launch<EPI>(src, out, w, layer, nullptr, B, H, W, p, s);
   }
 };
 
@@ -820,9 +963,9 @@ cudaError_t resblocks(void* a, void* t, const void* w1p, const void* w2p, int B,
   if (err == cudaSuccess) err = Tile::template allow<kRelu>();
   if (err == cudaSuccess) err = Tile::template allow<kResidual>();
   for (int r = 0; r < R && err == cudaSuccess; ++r) {
-    err = Tile::template launch<kRelu>(in[0], out[1], map_w1, r, H, W, plan, s);
+    err = Tile::template launch<kRelu>(in[0], out[1], map_w1, r, B, H, W, plan, s);
     if (err == cudaSuccess)   // conv2 reads t, and a as its residual and output
-      err = Tile::template launch<kResidual>(in[1], out[0], map_w2, r, H, W, plan, s);
+      err = Tile::template launch<kResidual>(in[1], out[0], map_w2, r, B, H, W, plan, s);
   }
   return err;
 }

@@ -20,7 +20,8 @@
 // Design. The TPU kernel keeps two whole images in VMEM for the chain; an SM
 // has 227 KB of shared memory, so the entry point deepinv_conv_chain_wgmma_bf16
 // (the default) runs L launches of the wgmma + TMA conv tile of
-// conv3x3_wgmma.cuh (one CTA an SM over a band of 128-pixel row-runs, the
+// conv3x3_wgmma.cuh (one CTA an SM over a band or a balanced range of
+// 128-pixel row-runs, the
 // layer's weights resident, input rows streamed by TMA) with a bias+ReLU
 // epilogue, chained by programmatic dependent launch. Layer 0 reads the
 // caller's input; the layers then alternate between two NHWC buffers `a` and
@@ -211,8 +212,8 @@ int deepinv_conv_chain_wgmma_bf16(const void* src, void* a, void* t, const void*
     // layer l reads src (l = 0) or the buffer layer l - 1 wrote, and writes
     // a (even l) or t (odd l)
     const CUtensorMap& src_l = l == 0 ? in[0] : in[1 + ((l - 1) & 1)];
-    err = wg::launch<wg::kBiasRelu>(src_l, out[1 + (l & 1)], map_w, l, pb + (size_t)l * C, H, W,
-                                    plan, s);
+    err = wg::launch<wg::kBiasRelu>(src_l, out[1 + (l & 1)], map_w, l, pb + (size_t)l * C, B, H,
+                                    W, plan, s);
   }
   return (int)err;
 }
@@ -266,7 +267,7 @@ int deepinv_conv_chain_stash_wgmma_bf16(const void* src, void* acts, const void*
     b0.in = l == 0 ? 0 : (l - 1) * B;   // slot l - 1 (the caller's input for l = 0)
     b0.out = l * B;                      // slot l
     err = wg::launch<wg::kBiasRelu>(l == 0 ? in0 : stash_in, stash_out, map_w, l,
-                                    pb + (size_t)l * C, H, W, plan, s, b0);
+                                    pb + (size_t)l * C, B, H, W, plan, s, b0);
   }
   return (int)err;
 }
@@ -310,7 +311,8 @@ int deepinv_chain_bwd_dx_wgmma_bf16(const void* d_in, void* d_out, const void* a
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (l == 0) {
     err = wg::allow_smem<wg::kRound>();
-    if (err == cudaSuccess) err = wg::launch<wg::kRound>(in, out, map_w, 0, nullptr, H, W, plan, s);
+    if (err == cudaSuccess)
+      err = wg::launch<wg::kRound>(in, out, map_w, 0, nullptr, B, H, W, plan, s);
     return (int)err;
   }
   // the stash's output map (the forward's, so the memo finds it)
@@ -319,7 +321,7 @@ int deepinv_chain_bwd_dx_wgmma_bf16(const void* d_in, void* d_out, const void* a
   if (err == cudaSuccess) {
     wg::Batch0 b0;
     b0.aux = (l - 1) * B;
-    err = wg::launch<wg::kMaskDb>(in, out, map_w, l, nullptr, H, W, plan, s, b0, &mask,
+    err = wg::launch<wg::kMaskDb>(in, out, map_w, l, nullptr, B, H, W, plan, s, b0, &mask,
                                   static_cast<float*>(partials) + (size_t)(l - 1) * grid * C);
   }
   return (int)err;

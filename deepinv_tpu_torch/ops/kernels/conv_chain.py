@@ -37,8 +37,10 @@ hidden chain, DRUNet's K1, K2/K3 and K4 stages) takes the layers instead.
 ``kernel.conv_chain_stash.launches`` (one per call that reaches the kernel),
 and the backward's kernel launches under ``kernel.stash_backward.launches``
 (L + 2 a call: the head, L dX layers, the fold), so a run can show that its
-main path went through the kernels. Each op opens its ``dinv.kernel.<op>``
-span with its analytic cost (:func:`conv_chain_cost`,
+main path went through the kernels; each layer launch of the tile also
+counts under ``kernel.conv_tile.launches.banded`` or ``.balanced``, its
+plan's form (L a K5 or K6 call, L a backward). Each op opens its
+``dinv.kernel.<op>`` span with its analytic cost (:func:`conv_chain_cost`,
 :func:`conv_chain_stash_cost`, :func:`stash_backward_cost`).
 """
 
@@ -51,8 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.profiling import counters, kernel_span
-from .resblock_chain import (C, _tf32_convs, check_activations, first_order_only, pack_weights,
-                             pack_weights_transposed, tile_args)
+from .resblock_chain import (C, _tf32_convs, check_activations, count_tile_launches,
+                             first_order_only, pack_weights, pack_weights_transposed, tile_args)
 
 __all__ = ["conv_chain", "conv_chain_plain", "conv_chain_stash", "conv_chain_stash_plain",
            "stash_backward", "conv_chain_cost", "conv_chain_stash_cost", "stash_backward_cost",
@@ -167,6 +169,7 @@ def _launch(h, wp, bp, tile: str = "wgmma"):
     t = torch.empty_like(a)
     _run(f"deepinv_conv_chain{suffix}_bf16", h, wp, bp, (a, t), plan)
     counters["kernel.conv_chain.launches"] += 1
+    count_tile_launches(plan, int(wp.shape[0]))
     return (a if wp.shape[0] % 2 else t).permute(0, 3, 1, 2)
 
 
@@ -180,6 +183,7 @@ def _launch_stash(h, wp, bp, tile: str = "wgmma"):
     acts = torch.empty((wp.shape[0], B, H, W, C), dtype=torch.bfloat16, device=h.device)
     _run(f"deepinv_conv_chain_stash{suffix}_bf16", h, wp, bp, (acts,), plan)
     counters["kernel.conv_chain_stash.launches"] += 1
+    count_tile_launches(plan, int(wp.shape[0]))
     return acts
 
 
@@ -344,6 +348,7 @@ def _backward_kernels(h, ws, acts, g, bf16_dw: bool):
             call("deepinv_chain_bwd_dx_wgmma_bf16", ptr(d[l % 2].data_ptr()),
                  ptr(out.data_ptr()), ptr(acts.data_ptr()), ptr(wt.data_ptr()),
                  ptr(partials.data_ptr()), B, H, W, L, l, *plan)
+            count_tile_launches(plan, 1)
         call("deepinv_chain_bwd_fold_f32", ptr(partials.data_ptr()), ptr(db.data_ptr()), L, grid)
     return _nchw(dh), torch.stack(dws), db
 

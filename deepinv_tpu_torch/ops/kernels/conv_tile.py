@@ -16,9 +16,14 @@ Each kernel cuts its activation into strips of ``strip`` columns and each
 strip into bands of ``rows_per_cta`` rows: one CTA (or cluster) a band, one
 CTA an SM. A plan picks the band height and gives the numbers the wrapper
 passes to the kernel (``args()``), which checks them against its own
-constants (``check_plan``). Pure Python: the CPU tests check the plans
-(every output pixel and channel covered once, shared memory within an SM,
-TMA boxes within 256) without a card.
+constants (``check_plan``). The 64-channel tile has a second form, the
+balanced schedule (``rows_per_cta`` 0): at most one CTA an SM, each walking
+one contiguous range of the layer's row-runs, balanced by their cost, across
+strip and image boundaries (:func:`tile_runs`); the tile takes it where the
+bands would leave SMs idle or on padding (:func:`useful_share`). Pure
+Python: the CPU tests check the plans (every output pixel and channel
+covered once, shared memory within an SM, TMA boxes within 256) without a
+card.
 """
 
 from __future__ import annotations
@@ -26,16 +31,28 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
-__all__ = ["ConvTilePlan", "conv_tile_plan", "STRIP", "DEPTH", "SMEM_LIMIT", "H100_SMS",
+__all__ = ["ConvTilePlan", "conv_tile_plan", "tile_runs", "useful_share", "STRIP", "NARROW",
+           "FULL_COST", "NARROW_COST", "DEPTH", "SMEM_LIMIT", "H100_SMS", "BALANCE_ABOVE",
            "Conv128TilePlan", "conv128_tile_plan", "ProjPlan", "proj_plan"]
 
 C = 64                    # channels in and out
 STRIP = 128               # output columns of a strip: the wgmma N
+NARROW = 64               # a strip of at most this many columns inside the image takes
+                          # wgmma.m64n64k16: half the products of a row-run
+FULL_COST = 4             # the balanced schedule's cost of a row-run, and of a narrow one
+NARROW_COST = 3           # (its ring load, barriers and store take as long as a full one's:
+                          # 0.61-0.65 of a full one on an H100; the stash backward's kMaskDb
+                          # launches keep the full product and charge FULL_COST)
 DEPTH = 7                 # ring slots of haloed input rows
 SMEM_LIMIT = 232448       # shared memory a block may ask for on sm_90 (227 KB)
 H100_SMS = 132            # SMs of an H100 SXM
 _ROW = 2 * C              # bytes of one pixel's channels
 _NCONS = 2                # consumer warpgroups
+BALANCE_ABOVE = 0.92      # the banded plan stays wherever its useful share reaches this:
+                          # on an H100 the balanced schedule gained K5 0.9% at most and
+                          # lost K1 1-3% at 256² where the bands kept 93.6% and more, and
+                          # gained K5 4-10% (K1 -0.7% to +2.3%) where they kept 90.2% and
+                          # less (PERF.md)
 
 
 def _align(n: int, a: int) -> int:
@@ -45,9 +62,10 @@ def _align(n: int, a: int) -> int:
 class ConvTilePlan(NamedTuple):
     strip: int            # output columns of a strip
     strips: int           # strips across the width
-    rows_per_cta: int     # output rows of a band (the last band of a strip may be shorter)
-    bands: int            # bands down the height
-    grid: int             # CTAs: B * strips * bands
+    rows_per_cta: int     # output rows of a band (the last band of a strip may be shorter);
+                          # 0: the balanced schedule (see tile_runs)
+    bands: int            # bands down the height (0 in the balanced schedule)
+    grid: int             # CTAs: B * strips * bands, or at most one an SM when balanced
     depth: int            # ring slots
     smem_bytes: int       # dynamic shared memory of a CTA
     box: tuple            # TMA box of an input ring row: (C, W, H, B) extents
@@ -66,6 +84,10 @@ class ConvTilePlan(NamedTuple):
         """The plan as the C entry points take it (``wg::Plan``)."""
         return (self.strip, self.depth, self.smem_bytes, self.rows_per_cta, self.grid)
 
+    @property
+    def balanced(self) -> bool:
+        return self.rows_per_cta == 0
+
 
 def _band(cols: int, H: int, slots: int) -> int:
     """The shortest band of rows that keeps ``cols`` columns of bands within
@@ -77,13 +99,71 @@ def _band(cols: int, H: int, slots: int) -> int:
     return rows
 
 
-@functools.lru_cache(maxsize=256)
-def conv_tile_plan(B: int, H: int, W: int, sms: int = H100_SMS) -> ConvTilePlan:
-    """The launch plan for a ``(B, H, W, 64)`` activation on a card with
-    ``sms`` SMs: the shortest band that keeps the grid within one wave (at
-    most ``sms`` CTAs), or whole strips where even those exceed it."""
-    if min(B, H, W) < 1:
-        raise ValueError(f"conv_tile_plan takes B, H, W >= 1, got {(B, H, W)}")
+def _strip_costs(W: int, narrow: bool = True) -> list:
+    """The cost of a row-run in each strip: FULL_COST, or NARROW_COST for a
+    last strip of at most NARROW columns where the launch takes the narrow
+    product (``narrow``; kMaskDb does not)."""
+    strips = -(-W // STRIP)
+    last = NARROW_COST if narrow and W - (strips - 1) * STRIP <= NARROW else FULL_COST
+    return [FULL_COST] * (strips - 1) + [last]
+
+
+def _balanced_start(B: int, H: int, W: int, grid: int, cta: int, narrow: bool) -> int:
+    """The first row-run of CTA ``cta`` in the balanced schedule, as the
+    kernel computes it (``wg::balanced_start``): row-runs are numbered
+    column by column, a column being (image, strip), rows down it; CTA i
+    starts at the first row-run whose cost before it reaches floor(total
+    cost x i / grid), a row-run costing FULL_COST, a narrow one
+    NARROW_COST (FULL_COST unless ``narrow``)."""
+    costs = _strip_costs(W, narrow)
+    strips, per_image = len(costs), H * sum(costs)
+    b, rem = divmod(B * per_image * cta // grid, per_image)
+    s = min(rem // (FULL_COST * H), strips - 1)
+    y = -(-(rem - s * FULL_COST * H) // costs[s])
+    return (b * strips + s) * H + y
+
+
+def tile_runs(plan: ConvTilePlan, B: int, H: int, W: int, cta: int,
+              narrow: bool = True) -> list:
+    """The row-runs CTA ``cta`` computes, as ``(b, x0, y0, rows)`` segments
+    in order: image b, columns x0 .. x0 + strip - 1 (clipped at W), rows y0
+    .. y0 + rows - 1. A band of the banded plan is one segment; a range of
+    the balanced schedule may cross from one column into the next (or
+    several), a segment each. ``narrow``: the launch takes the narrow
+    product on a last strip of at most NARROW columns (all but kMaskDb), which
+    the balanced schedule charges NARROW_COST."""
+    if plan.balanced:
+        u0 = _balanced_start(B, H, W, plan.grid, cta, narrow)
+        u1 = _balanced_start(B, H, W, plan.grid, cta + 1, narrow)
+    else:
+        col, band = divmod(cta, plan.bands)
+        u0 = col * H + band * plan.rows_per_cta
+        u1 = u0 + min(plan.rows_per_cta, H - band * plan.rows_per_cta)
+    runs = []
+    while u0 < u1:
+        col, y0 = divmod(u0, H)
+        n = min(H - y0, u1 - u0)
+        b, s = divmod(col, plan.strips)
+        runs.append((b, s * plan.strip, y0, n))
+        u0 += n
+    return runs
+
+
+def useful_share(plan: ConvTilePlan, B: int, H: int, W: int, sms: int = H100_SMS) -> float:
+    """The share of the card's SM time that computes output pixels: the
+    image's pixels over ``sms`` x the busiest CTA's row-runs (a narrow one
+    counting NARROW_COST / FULL_COST) x the strip's columns, times the waves
+    of CTAs."""
+    costs = _strip_costs(W)
+    busiest = max(sum(n * costs[x0 // plan.strip] for _, x0, _, n in tile_runs(plan, B, H, W, i))
+                  for i in range(plan.grid))
+    waves = -(-plan.grid // sms)
+    return B * H * W / (sms * waves * busiest / FULL_COST * plan.strip)
+
+
+def _banded_plan(B: int, H: int, W: int, sms: int) -> ConvTilePlan:
+    """The banded plan: the shortest band that keeps the grid within one
+    wave (at most ``sms`` CTAs), or whole strips where even those exceed it."""
     strips = -(-W // STRIP)
     cols = B * strips
     rows = _band(cols, H, sms)
@@ -91,6 +171,22 @@ def conv_tile_plan(B: int, H: int, W: int, sms: int = H100_SMS) -> ConvTilePlan:
     plan = ConvTilePlan(STRIP, strips, rows, bands, cols * bands, DEPTH, 0,
                         (C, STRIP + 2, 1, 1), (C, STRIP, 1, 1), (C, C))
     return plan._replace(smem_bytes=sum(plan.smem_parts().values()))
+
+
+@functools.lru_cache(maxsize=256)
+def conv_tile_plan(B: int, H: int, W: int, sms: int = H100_SMS) -> ConvTilePlan:
+    """The launch plan for a ``(B, H, W, 64)`` activation on a card with
+    ``sms`` SMs: the banded plan wherever its :func:`useful_share` reaches
+    BALANCE_ABOVE or the balanced schedule does no better; otherwise the
+    balanced schedule (``rows_per_cta`` 0) over min(sms, row-runs) CTAs."""
+    if min(B, H, W) < 1:
+        raise ValueError(f"conv_tile_plan takes B, H, W >= 1, got {(B, H, W)}")
+    plan = _banded_plan(B, H, W, sms)
+    share = useful_share(plan, B, H, W, sms)
+    if share >= BALANCE_ABOVE:
+        return plan
+    balanced = plan._replace(rows_per_cta=0, bands=0, grid=min(sms, B * plan.strips * H))
+    return balanced if useful_share(balanced, B, H, W, sms) > share else plan
 
 
 # ---------------------------------------------------------------- 128 channels

@@ -22,7 +22,9 @@ activations, f32 accumulation and one bf16 rounding per conv — the contract of
 
 ``profiling.counters["kernel.resblock_chain.launches"]`` counts kernel
 launches (one per call that reaches the kernel), so a run can show that its
-main path went through the kernel; each call opens the span
+main path went through the kernel, and ``kernel.conv_tile.launches.banded``
+or ``.balanced`` each layer launch of the 64-channel tile by its plan's form
+(:func:`count_tile_launches`, for every op on the tile); each call opens the span
 ``dinv.kernel.resblock_chain`` with its analytic cost
 (:func:`resblock_chain_cost`).
 """
@@ -160,8 +162,16 @@ def tile_args(h, tile: str):
     from .conv_tile import conv_tile_plan
 
     B, _, H, W = h.shape
-    plan = conv_tile_plan(B, H, W, _sms(h.device.index))
-    return "_wgmma", (plan.strip, plan.depth, plan.smem_bytes, plan.rows_per_cta, plan.grid)
+    return "_wgmma", conv_tile_plan(B, H, W, _sms(h.device.index)).args()
+
+
+def count_tile_launches(plan, n: int):
+    """Count ``n`` layer launches of the 64-channel tile with the plan
+    arguments ``plan`` (``ConvTilePlan.args()``; empty for the mma.sync tile,
+    which counts nothing) under ``kernel.conv_tile.launches.balanced`` or
+    ``.banded``."""
+    if plan:
+        counters["kernel.conv_tile.launches." + ("balanced" if plan[3] == 0 else "banded")] += n
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,6 +207,7 @@ def _launch(h, w1p, w2p, tile: str = "wgmma"):
         msg = lib.deepinv_cuda_error_string(rc).decode()
         raise RuntimeError(f"resblock_chain kernel launch failed: CUDA error {rc} ({msg})")
     counters["kernel.resblock_chain.launches"] += 1
+    count_tile_launches(plan, 2 * int(w1p.shape[0]))
     return a.permute(0, 3, 1, 2)
 
 

@@ -39,8 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.profiling import counters, kernel_span
-from .resblock_chain import (C, _sms, check_activations, check_packed, first_order_only,
-                             int_array, pack_weights, resblock_chain_plain, resblocks_f32)
+from .resblock_chain import (C, _sms, check_activations, check_packed, count_tile_launches,
+                             first_order_only, int_array, pack_weights, resblock_chain_plain,
+                             resblocks_f32)
 
 __all__ = ["up_resblock_chain", "up_resblock_chain_plain", "up_resblocks_f32",
            "pack_up_weights", "pack_up_chain", "up_plain"]
@@ -115,14 +116,16 @@ def _launch(v, wup, w1p, w2p, tile: str = "wgmma"):
             rc = lib.deepinv_up_resblock_chain_bf16(*ptrs, B, H2, W2, Ci, R, stream)
         else:
             sms = _sms(v.device.index)
-            plans = (proj_plan("up", B, H2, W2, Ci, C, sms).args()
-                     + conv_tile_plan(B, 2 * H2, 2 * W2, sms).args())
+            chain = conv_tile_plan(B, 2 * H2, 2 * W2, sms).args()
+            plans = proj_plan("up", B, H2, W2, Ci, C, sms).args() + chain
             rc = lib.deepinv_up_resblock_chain_wgmma_bf16(*ptrs, B, H2, W2, Ci, R,
                                                           int_array(plans), stream)
     if rc != 0:
         msg = lib.deepinv_cuda_error_string(rc).decode()
         raise RuntimeError(f"up_resblock_chain kernel launch failed: CUDA error {rc} ({msg})")
     counters["kernel.up_resblock_chain.launches"] += 1
+    if tile == "wgmma":
+        count_tile_launches(chain, 2 * R)
     return a.permute(0, 3, 1, 2)
 
 

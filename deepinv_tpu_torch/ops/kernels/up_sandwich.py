@@ -44,8 +44,9 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.profiling import counters, kernel_span
-from .resblock_chain import (C, _sms, check_activations, check_packed, first_order_only,
-                             int_array, pack_weights, resblock_chain_plain, resblocks_f32)
+from .resblock_chain import (C, _sms, check_activations, check_packed, count_tile_launches,
+                             first_order_only, int_array, pack_weights, resblock_chain_plain,
+                             resblocks_f32)
 from .up_resblock_chain import pack_up_weights, up_plain
 
 __all__ = ["up_sandwich", "up_sandwich_plain", "sandwich_f32", "pack_down_weights",
@@ -157,16 +158,18 @@ def _launch(s2, d0, packed, tile: str = "wgmma"):
         else:
             idx = s2.device.index
             sms = _sms(idx)
+            chain0 = conv_tile_plan(B, 2 * H1, 2 * W1, sms).args()
             plans = (proj_plan("up", B, H2, W2, Ci2, C1, sms).args()
                      + conv128_tile_plan(B, H1, W1, _c128_clusters(idx)).args()
                      + proj_plan("down_add", B, H1, W1, 4 * C, C1, sms).args()
-                     + proj_plan("up", B, H1, W1, C1, C, sms).args()
-                     + conv_tile_plan(B, 2 * H1, 2 * W1, sms).args())
+                     + proj_plan("up", B, H1, W1, C1, C, sms).args() + chain0)
             rc = lib.deepinv_up_sandwich_wgmma_bf16(*ptrs, *dims, int_array(plans), stream)
     if rc != 0:
         msg = lib.deepinv_cuda_error_string(rc).decode()
         raise RuntimeError(f"up_sandwich kernel launch failed: CUDA error {rc} ({msg})")
     counters["kernel.up_sandwich.launches"] += 1
+    if tile == "wgmma":
+        count_tile_launches(chain0, 2 * dims[-1])
     return a0.permute(0, 3, 1, 2)
 
 

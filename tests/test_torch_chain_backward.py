@@ -5,10 +5,12 @@ epilogue, the fold).
 
 The CUDA kernels run only on a GPU (``chip_smoke.py`` holds them to their
 plain versions there). Here their arithmetic is emulated in numpy the way
-the kernels cut the work: each CTA's band of 128-pixel row-runs
-(``conv_tile_plan``), the mask row-run read with zeros past the image's
-right edge (TMA's out-of-bounds fill), each CTA's sums of the values it
-writes and their fold in CTA order; the head's runs of pixels. The
+the kernels cut the work: each CTA's 128-pixel row-runs (``conv_tile_plan``:
+a band, or a balanced range whose segments cross columns, with the narrow
+product on a strip of at most 64 columns), the mask row-run read with zeros
+past the image's right edge (TMA's out-of-bounds fill), each CTA's sums of
+the values it writes over all its segments and their fold in CTA order; the
+head's runs of pixels. The
 emulation is held to the JAX package's backward ``_bwd``
 (deepinv_tpu/ops/pallas/conv_chain.py:405) on the interpret-mode Pallas
 stash, and the emulated K6 to ``_lax_chain``. Also: the transposed weight
@@ -31,60 +33,65 @@ from deepinv_tpu.ops.pallas.conv_chain import (_acts_to_nhwc, _bwd, _fused_fwd_s
 from deepinv_tpu_torch.ops.kernels import build
 from deepinv_tpu_torch.ops.kernels.conv_chain import (conv_chain_stash, pack_weights,
                                                       pack_weights_transposed, stash_backward)
-from deepinv_tpu_torch.ops.kernels.conv_tile import H100_SMS, conv_tile_plan
+from deepinv_tpu_torch.ops.kernels.conv_tile import NARROW, H100_SMS, conv_tile_plan
 from deepinv_tpu_torch.utils.profiling import counters
-from test_torch_conv_tile import _bf16, _rel, band_of
+from test_torch_conv_tile import _bf16, _rel, band_of, emu_plan
 
 C = 64
 CSRC = Path(__file__).resolve().parents[1] / "deepinv_tpu_torch" / "csrc"
 
-# (B, H, W, SMs): one image of one strip in bands of one row, and a ragged
+# (B, H, W, SMs, form): one image of one strip in bands of one row; a ragged
 # shape of two strips (the second 24 of 128 columns inside the image) in
-# bands of 3 rows with a last band of 2 (the interpret-mode Pallas stash
-# takes an even H and W / 2)
-SHAPES = [(1, 16, 16, H100_SMS), (1, 8, 152, 6)]
+# bands of 3 rows with a last band of 2; two images of two strips (the
+# second 8 columns: the narrow product) on the balanced schedule, whose
+# ranges cross from one strip and one image into the next (the
+# interpret-mode Pallas stash takes an even H and W / 2)
+SHAPES = [(1, 16, 16, H100_SMS, "chosen"), (1, 8, 152, 6, "banded"), (2, 4, 136, 5, "balanced")]
 
 
 def tile_layer(src, in_b0, wpk, plan, B, out, out_b0, bias=None, aux=None, aux_b0=0):
     """One launch of ``conv3x3_wgmma`` as the tile computes it, over maps
     that may stack several tensors along the batch: image b reads batch
     coordinate b + in_b0 of ``src`` and writes b + out_b0 of ``out`` (NHWC,
-    bf16 values, f32 sums). Per CTA band and row: the haloed ring rows (zero
-    outside the image), D[co, n] = sum over taps of W[tap] @ ring[dy][n +
-    dx]^T for the row-run's 128 pixels, then the epilogue and one bf16
-    rounding. ``bias``: kBiasRelu. ``aux``: kMaskDb, the mask row-run read
-    at b + aux_b0 with zeros past the right edge; the values kept where it is
-    positive, and the CTA's sums of the rounded values over all 128 pixels
-    returned as its row of the ``(grid, 64)`` partials. Neither: kRound. The
-    store keeps the pixels inside the image."""
+    bf16 values, f32 sums). Per CTA segment and row: the haloed ring rows
+    (zero outside the image), D[co, n] = sum over taps of W[tap] @ ring[dy][n
+    + dx]^T for the row-run's 128 pixels (its first 64 where the strip holds
+    at most 64 columns of the image: the narrow product, which kMaskDb does
+    not take), then the epilogue and one bf16 rounding. ``bias``:
+    kBiasRelu. ``aux``: kMaskDb, the mask row-run read at b + aux_b0 with
+    zeros past the right edge; the values kept where it is positive, and the
+    CTA's sums of the rounded values over all 128 pixels of the row-runs of
+    all its segments returned as its row of the ``(grid, 64)`` partials.
+    Neither: kRound. The store keeps the pixels inside the image."""
     _, H, W, _ = src.shape
     partials = np.zeros((plan.grid, C), np.float32)
     for cta in range(plan.grid):
-        b, x0, y0, rows = band_of(plan, H, cta)
-        assert b < B
-        n = min(plan.strip, W - x0)
-        for y in range(y0, y0 + rows):
-            ring = np.zeros((3, plan.strip + 2, C), np.float32)
-            for dy in range(3):
-                yy = y + dy - 1
-                if 0 <= yy < H:
-                    lo, hi = max(x0 - 1, 0), min(x0 + plan.strip + 1, W)
-                    ring[dy, lo - (x0 - 1):hi - (x0 - 1)] = src[b + in_b0, yy, lo:hi]
-            d = np.zeros((C, plan.strip), np.float32)
-            for tap in range(9):
-                dy, dx = divmod(tap, 3)
-                d += wpk[tap] @ ring[dy, dx:dx + plan.strip].T
-            v = d.T
-            if aux is not None:
-                mask = np.zeros((plan.strip, C), np.float32)   # TMA fills zeros past W
-                mask[:n] = aux[b + aux_b0, y, x0:x0 + n]
-                v = _bf16(np.where(mask > 0, v, 0))
-                partials[cta] += v.sum(0, dtype=np.float32)
-            elif bias is not None:
-                v = _bf16(np.maximum(v + bias, 0))
-            else:
-                v = _bf16(v)
-            out[b + out_b0, y, x0:x0 + n] = v[:n]
+        for b, x0, y0, rows in band_of(plan, B, H, W, cta, narrow=aux is None):
+            assert b < B
+            n = min(plan.strip, W - x0)
+            npix = NARROW if n <= NARROW and aux is None else plan.strip
+            for y in range(y0, y0 + rows):
+                ring = np.zeros((3, plan.strip + 2, C), np.float32)
+                for dy in range(3):
+                    yy = y + dy - 1
+                    if 0 <= yy < H:
+                        lo, hi = max(x0 - 1, 0), min(x0 + plan.strip + 1, W)
+                        ring[dy, lo - (x0 - 1):hi - (x0 - 1)] = src[b + in_b0, yy, lo:hi]
+                d = np.zeros((C, npix), np.float32)
+                for tap in range(9):
+                    dy, dx = divmod(tap, 3)
+                    d += wpk[tap] @ ring[dy, dx:dx + npix].T
+                v = d.T
+                if aux is not None:
+                    mask = np.zeros((npix, C), np.float32)   # TMA fills zeros past W
+                    mask[:n] = aux[b + aux_b0, y, x0:x0 + n]
+                    v = _bf16(np.where(mask > 0, v, 0))
+                    partials[cta] += v.sum(0, dtype=np.float32)
+                elif bias is not None:
+                    v = _bf16(np.maximum(v + bias, 0))
+                else:
+                    v = _bf16(v)
+                out[b + out_b0, y, x0:x0 + n] = v[:n]
     return partials
 
 
@@ -148,16 +155,15 @@ def _jax_stash_and_bwd(h, ws, bs, g):
     return np.stack(acts, 1), np.concatenate(dh), dw, db
 
 
-@pytest.mark.parametrize("B,H,W,sms", SHAPES)
-def test_emulated_backward_matches_jax_bwd(B, H, W, sms):
+@pytest.mark.parametrize("B,H,W,sms,form", SHAPES)
+def test_emulated_backward_matches_jax_bwd(B, H, W, sms, form):
     """The kernels' backward (head, kMaskDb tiles with their per-CTA sums
-    and the fold, the last layer on kRound) vs ``_bwd`` on the JAX stash
-    (L = 4): dh within 1e-2 (rounded to bf16 after every layer), db and dW
-    within 1e-3 (relative max error)."""
+    and the fold, the last layer on kRound), on the banded plan and on the
+    balanced schedule, vs ``_bwd`` on the JAX stash (L = 4): dh within 1e-2
+    (rounded to bf16 after every layer), db and dW within 1e-3 (relative
+    max error)."""
     rng = np.random.default_rng(B * 1000 + W)
-    plan = conv_tile_plan(B, H, W, sms=sms)
-    if W > 128:   # the ragged shape: two strips, bands of several rows, a short last band
-        assert plan.strips == 2 and plan.rows_per_cta > 1 and H % plan.rows_per_cta
+    plan = conv_tile_plan(B, H, W, sms=sms) if form == "chosen" else emu_plan(B, H, W, sms, form)
     L = 4
     h = _bf16(rng.standard_normal((B, C, H, W)))
     ws = (rng.standard_normal((L, C, C, 3, 3)) * 0.08).astype(np.float32)
@@ -226,7 +232,7 @@ def test_transposed_weights_give_the_input_gradient():
     assert _rel(out.transpose(0, 3, 1, 2), x.grad.numpy()) <= 1e-2
 
 
-@pytest.mark.parametrize("B,H,W,sms", [(2, 7, 136, 8), (1, 16, 16, H100_SMS)])
+@pytest.mark.parametrize("B,H,W,sms", [(2, 7, 136, 8), (1, 16, 16, H100_SMS), (2, 4, 136, 5)])
 def test_emulated_k6_through_one_stash_map(B, H, W, sms):
     """K6 on the tile through one map over the whole stash, (L * B, H, W,
     64): layer l reads batch offset (l - 1) * B (the caller's input for l =
@@ -263,8 +269,8 @@ def test_plan_and_stash_coordinates_at_the_train_batch():
     plan = conv_tile_plan(B, H, W)
     seen = np.zeros((B, H, W), np.int32)
     for cta in range(plan.grid):
-        b, x0, y0, rows = band_of(plan, H, cta)
-        seen[b, y0:y0 + rows, x0:min(x0 + plan.strip, W)] += 1
+        for b, x0, y0, rows in band_of(plan, B, H, W, cta):
+            seen[b, y0:y0 + rows, x0:min(x0 + plan.strip, W)] += 1
     assert (seen == 1).all() and plan.grid <= H100_SMS
     N = B * H * W
     runs = [(N * i // plan.grid, N * (i + 1) // plan.grid) for i in range(plan.grid)]

@@ -34,7 +34,7 @@ from deepinv_tpu_torch.ops.kernels.conv_tile import (CLUSTER128, DEPTH128, H100_
 from deepinv_tpu_torch.ops.kernels.resblock_chain import pack_weights
 from deepinv_tpu_torch.ops.kernels.up_resblock_chain import pack_up_weights
 from deepinv_tpu_torch.ops.kernels.up_sandwich import pack_down_weights
-from test_torch_conv_tile import replay_ring
+from test_torch_conv_tile import _emulate_conv, replay_ring
 
 CSRC = Path(__file__).resolve().parents[1] / "deepinv_tpu_torch" / "csrc"
 
@@ -304,7 +304,11 @@ def emulate_conv(x, wpk, plan, halves: int, relu: bool, residual=None):
     each CTA rank (its 64 output channels) and each row: the haloed ring row
     as K-blocks of 64 channels (zero outside the image), D[co, n] = sum over
     taps and K-blocks of A[tap, kb] @ ring[dy][kb][n + dx]^T, the epilogue,
-    one bf16 rounding, stored where x < W."""
+    one bf16 rounding, stored where x < W. The 64-channel tile's conv with a
+    ReLU or a residual is ``test_torch_conv_tile``'s emulation, which walks
+    the CTAs of either of its plan forms."""
+    if halves == 1 and (relu or residual is not None):
+        return _emulate_conv(x, wpk, plan, residual=residual)
     B, H, W, C = x.shape
     out = np.full_like(x, np.nan)
     kbs = C // 64
